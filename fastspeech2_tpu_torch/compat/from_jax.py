@@ -10,6 +10,9 @@ Layouts: JAX linear weights are (in, out), torch (out, in); JAX conv weights
 are (k, in, out), torch (out, in, k). Leaf names map ``w`` -> ``weight``,
 ``b`` -> ``bias``, ``g`` -> ``weight`` (norms); the postnet BatchNorm running
 statistics come from ``state["postnet"]["bn"]``.
+
+``load_jax_melgan_params(gen, params)`` does the same for the MelGAN
+generator.
 """
 
 from __future__ import annotations
@@ -77,3 +80,33 @@ def load_jax_params(model: tnn.Module, params, state=None) -> tnn.Module:
                              f"shape {tuple(own[name].shape)}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def load_jax_melgan_params(gen: tnn.Module, params) -> tnn.Module:
+    """Fill a ``vocoder.melgan.MelGANGenerator`` in place from the JAX
+    generator's params tree (``init_melgan`` / ``load_melgan_params``).
+
+    JAX conv weights (k, in, out) become torch Conv1d weights (out, in, k).
+    The JAX ``up`` weights are stored in ``lax.conv_transpose``'s orientation
+    (k, in, out), spatially flipped relative to torch's ConvTranspose1d; the
+    port keeps torch's orientation (in, out, k), so they are flipped back
+    here. Strict: raises on a missing or unexpected key and on any shape
+    mismatch."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _flatten(params):
+        mod_path, _, leaf = path.rpartition(".")
+        if leaf not in ("w", "b"):
+            raise KeyError(f"unexpected JAX leaf {path!r}")
+        module = gen.get_submodule(mod_path)
+        if leaf == "w" and isinstance(module, tnn.ConvTranspose1d):
+            a = a[::-1].transpose(1, 2, 0)
+        elif leaf == "w":
+            a = a.transpose(2, 1, 0)
+        sd[f"{mod_path}.{_LEAF[leaf]}"] = torch.from_numpy(np.array(a, order="C"))
+    own = gen.state_dict()
+    for name, t in sd.items():
+        if name in own and tuple(own[name].shape) != tuple(t.shape):
+            raise ValueError(f"{name}: JAX shape {tuple(t.shape)} != port "
+                             f"shape {tuple(own[name].shape)}")
+    gen.load_state_dict(sd, strict=True)
+    return gen

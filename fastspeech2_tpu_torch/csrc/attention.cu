@@ -3,7 +3,9 @@
 // masked by length; rows at or past the length give LN(x + bo).
 //
 // Replaces fastspeech2_tpu/ops/pallas/attention.py:
-// fused_attention_packed_qkv_res_ln (kernel _attn_kernel_packed_qkv_res_ln).
+// fused_attention_packed_qkv_res_ln (kernel _attn_kernel_packed_qkv_res_ln)
+// and, through the second launch alone with q/k/v given
+// (fs2_attention_res_ln), fused_attention_packed_res_ln.
 //
 // Bound on the H100: at the serving shapes (T <= 2048, D = 256/384, two
 // heads of 128/192) the work is ~8*T*D^2 projection FLOPs plus ~4*T^2*D
@@ -97,15 +99,16 @@ __device__ __forceinline__ void warp_scores(float (&s)[8][4], const bf16* Qw,
 // >= len; row-major [key][d], row stride lk.
 template <int DK>
 __device__ __forceinline__ void load_kv_tile(bf16* Ks, bf16* Vs, int lk,
-                                             const bf16* __restrict__ qkv,
-                                             size_t row0, int N3, int D, int h,
+                                             const bf16* __restrict__ kp,
+                                             const bf16* __restrict__ vp,
+                                             size_t row0, int ld, int h,
                                              int k0, int len) {
   for (int i = threadIdx.x; i < KTILE * (DK / 8); i += blockDim.x) {
     const int r = i / (DK / 8), c = (i % (DK / 8)) * 8;
     const bool ok = k0 + r < len;
-    const bf16* src = ok ? qkv + (row0 + k0 + r) * N3 + D + h * DK + c : qkv;
-    cp_async16(Ks + r * lk + c, src, ok);
-    if (Vs != nullptr) cp_async16(Vs + r * lk + c, ok ? src + D : qkv, ok);
+    const size_t off = ok ? (row0 + k0 + r) * ld + h * DK + c : 0;
+    cp_async16(Ks + r * lk + c, kp + off, ok);
+    if (Vs != nullptr) cp_async16(Vs + r * lk + c, vp + off, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -113,7 +116,8 @@ __device__ __forceinline__ void load_kv_tile(bf16* Ks, bf16* Vs, int lk,
 
 template <int DK>
 __global__ void __launch_bounds__(128)
-attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qkv,
+attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qp,
+                  const bf16* __restrict__ kp, const bf16* __restrict__ vp, int ld,
                   const bf16* __restrict__ wo, const float* __restrict__ bo,
                   const float* __restrict__ gamma, const float* __restrict__ beta,
                   const int* __restrict__ lens, float* __restrict__ out, int T,
@@ -129,7 +133,6 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qkv,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, t4 = lane & 3;
   const size_t row0 = (size_t)b * T;
-  const int N3 = 3 * D;
 
   if (t0 >= len) {  // dead tile: every row is LN(x + bo)
     for (int r = warp; r < QT && t0 + r < T; r += 4) {
@@ -145,7 +148,7 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qkv,
   for (int i = threadIdx.x; i < QT * (D / 8); i += 128) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T) v = *reinterpret_cast<const uint4*>(qkv + (row0 + t0 + r) * N3 + c);
+    if (t0 + r < T) v = *reinterpret_cast<const uint4*>(qp + (row0 + t0 + r) * ld + c);
     *reinterpret_cast<uint4*>(Qs + r * lq + c) = v;
   }
 
@@ -160,7 +163,7 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qkv,
     for (int kt = 0; kt < nkt; ++kt) {
       const int k0 = kt * KTILE;
       __syncthreads();
-      load_kv_tile<DK>(Ks, nullptr, lk, qkv, row0, N3, D, h, k0, len);
+      load_kv_tile<DK>(Ks, nullptr, lk, kp, vp, row0, ld, h, k0, len);
       __syncthreads();
       float s[8][4];
       warp_scores<DK>(s, Qw, lq, Ks, lk, lane);
@@ -211,7 +214,7 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qkv,
     for (int kt = 0; kt < nkt; ++kt) {
       const int k0 = kt * KTILE;
       __syncthreads();
-      load_kv_tile<DK>(Ks, Vs, lk, qkv, row0, N3, D, h, k0, len);
+      load_kv_tile<DK>(Ks, Vs, lk, kp, vp, row0, ld, h, k0, len);
       __syncthreads();
       float s[8][4];
       warp_scores<DK>(s, Qw, lq, Ks, lk, lane);
@@ -298,7 +301,8 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qkv,
 }
 
 template <int DK>
-cudaError_t launch_attn(const float* x, const bf16* qkv, const bf16* wo,
+cudaError_t launch_attn(const float* x, const bf16* qp, const bf16* kp,
+                        const bf16* vp, int ld, const bf16* wo,
                         const float* bo, const float* g, const float* be,
                         const int* lens, float* out, int B, int T, int D, int H,
                         float scale, float eps, cudaStream_t stream) {
@@ -308,8 +312,26 @@ cudaError_t launch_attn(const float* x, const bf16* qkv, const bf16* wo,
   cudaError_t e = set_smem(attn_block_kernel<DK>, smem);
   if (e != cudaSuccess) return e;
   attn_block_kernel<DK><<<dim3((T + QT - 1) / QT, B), 128, smem, stream>>>(
-      x, qkv, wo, bo, g, be, lens, out, T, D, H, scale, eps);
+      x, qp, kp, vp, ld, wo, bo, g, be, lens, out, T, D, H, scale, eps);
   return cudaGetLastError();
+}
+
+// DK is a template parameter: pick the instantiation for D / H.
+cudaError_t launch_attn_any(const float* x, const bf16* qp, const bf16* kp,
+                            const bf16* vp, int ld, const bf16* wo, const float* bo,
+                            const float* g, const float* be, const int* lens,
+                            float* out, int B, int T, int D, int H, float scale,
+                            float eps, cudaStream_t stream) {
+  if (D / H == 128)
+    return launch_attn<128>(x, qp, kp, vp, ld, wo, bo, g, be, lens, out, B, T, D, H,
+                            scale, eps, stream);
+  return launch_attn<192>(x, qp, kp, vp, ld, wo, bo, g, be, lens, out, B, T, D, H,
+                          scale, eps, stream);
+}
+
+bool attn_shape_ok(int D, int H) {
+  const int DK = H > 0 ? D / H : 0;
+  return D % 64 == 0 && DK * H == D && (DK == 128 || DK == 192);
 }
 
 }  // namespace
@@ -324,9 +346,7 @@ FS2_EXPORT int fs2_attention_block(const float* x, const bf16* wqkv,
                                    float* out, int B, int T, int D, int H,
                                    float scale, float eps, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const int DK = D / H;
-  if (D % 64 != 0 || DK * H != D || (DK != 128 && DK != 192))
-    return (int)cudaErrorInvalidValue;
+  if (!attn_shape_ok(D, H)) return (int)cudaErrorInvalidValue;
   using G = TileGemm<2, 2, 2, 8>;
   const size_t smem1 = ((size_t)G::BM * (D + 8) + G::STAGE_ELEMS) * sizeof(bf16);
   cudaError_t e = set_smem(qkv_proj_kernel, smem1);
@@ -335,9 +355,26 @@ FS2_EXPORT int fs2_attention_block(const float* x, const bf16* wqkv,
                     smem1, stream>>>(x, wqkv, bqkv, lens, qkv, T, D);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (DK == 128)
-    e = launch_attn<128>(x, qkv, wo, bo, g, be, lens, out, B, T, D, H, scale, eps, stream);
-  else
-    e = launch_attn<192>(x, qkv, wo, bo, g, be, lens, out, B, T, D, H, scale, eps, stream);
-  return (int)e;
+  return (int)launch_attn_any(x, qkv, qkv + D, qkv + 2 * D, 3 * D, wo, bo, g, be, lens,
+                              out, B, T, D, H, scale, eps, stream);
+}
+
+// The second launch alone, q/k/v given: out = LN(res + MHA(q, k, v) Wo + bo).
+// Replaces fastspeech2_tpu/ops/pallas/attention.py:
+// fused_attention_packed_res_ln (kernel _attn_kernel_packed_res_ln), which the
+// JAX package takes with FS2_FUSED_ATT_QKV=off.
+// res (B,T,D) f32; q, k, v (B,T,D) bf16, each with row stride ld elements
+// (ld >= D, a multiple of 8, 16-byte aligned bases): three separate tensors
+// (ld = D) or three column blocks of one buffer; rows at or past the length
+// are not read. wo (D, D) bf16 (out, in); bo/g/be (D) f32; lens (B) i32;
+// out (B,T,D) f32.
+FS2_EXPORT int fs2_attention_res_ln(const float* res, const bf16* q, const bf16* k,
+                                    const bf16* v, int ld, const bf16* wo,
+                                    const float* bo, const float* g, const float* be,
+                                    const int* lens, float* out, int B, int T, int D,
+                                    int H, float scale, float eps, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (!attn_shape_ok(D, H) || ld < D || ld % 8 != 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_attn_any(res, q, k, v, ld, wo, bo, g, be, lens, out, B, T, D, H,
+                              scale, eps, stream);
 }

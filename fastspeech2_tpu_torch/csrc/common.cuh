@@ -126,16 +126,16 @@ __device__ __forceinline__ void load_b_frag2(uint32_t (&b)[4], const bf16* tile,
 // The block runs WM*WN warps; warp (wm, wn) owns rows [wm*MI*16, +MI*16)
 // and columns [wn*NI*8, +NI*8) of the BM x BN tile.
 // A lives in shared memory as `taps` row-shifted views of one buffer:
-//   A[m][j*KT + c] = As[(m + j) * lda + c],  j < taps, c < KT,
-// so taps == 1 is a plain GEMM and taps == k is a SAME conv over rows whose
-// input rows (with halo) sit in As. W lives in global memory as rows
+//   A[m][j*KT + c] = As[(m + j * tap_step) * lda + c],  j < taps, c < KT,
+// so taps == 1 is a plain GEMM and taps == k is a conv over rows (dilation
+// tap_step) whose input rows (with halo) sit in As. W lives in global memory as rows
 // [n0, n0 + BN) of a row-major [N][taps*KT] matrix (the weight laid out
 // (out, k, in)); rows >= N read as zero. W streams through shared memory in
 // 32-deep slices, STAGES of them in flight (cp.async), so a slice's copy
 // from L2 overlaps the MMAs of the STAGES-1 slices before it; one barrier
 // per slice; fragments come from ldmatrix. KT must be a multiple of 32, lda
-// a multiple of 8, As 16-byte aligned and holding BM + taps - 1 initialised
-// rows; Ws holds STAGE_ELEMS.
+// a multiple of 8, As 16-byte aligned and holding
+// BM + (taps - 1) * tap_step initialised rows; Ws holds STAGE_ELEMS.
 template <int WM, int WN, int MI, int NI, int STAGES = 2>
 struct TileGemm {
   static_assert(NI % 2 == 0, "n-tiles are loaded in pairs");
@@ -151,7 +151,7 @@ struct TileGemm {
 
   __device__ __forceinline__ void run(const bf16* As, int lda, int KT, int taps,
                                       const bf16* __restrict__ W, int N, int n0,
-                                      bf16* Ws) {
+                                      bf16* Ws, int tap_step = 1) {
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -182,7 +182,7 @@ struct TileGemm {
       __syncthreads();  // slice kt landed; slice kt-1's buffer is free
       stage(kt + STAGES - 1);
       const int k0 = kt * BK;
-      const bf16* Ak = As + (k0 / KT) * lda + (k0 % KT) + wm * MI * 16 * lda;
+      const bf16* Ak = As + (k0 / KT) * tap_step * lda + (k0 % KT) + wm * MI * 16 * lda;
       const bf16* Wk = Ws + (kt % STAGES) * BN * WS + wn * NI * 8 * WS;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
@@ -222,6 +222,24 @@ struct TileGemm {
         f(r0, c0 + 1, acc[mi][ni][1]);
         f(r0 + 8, c0, acc[mi][ni][2]);
         f(r0 + 8, c0 + 1, acc[mi][ni][3]);
+      }
+  }
+
+  // f(row, col, v0, v1) for every pair of adjacent accumulators (columns
+  // col and col + 1, col even): lets the caller store two values at once.
+  template <class Fn>
+  __device__ __forceinline__ void epilogue_pairs(Fn f) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wm = warp / WN, wn = warp % WN;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int r0 = wm * MI * 16 + mi * 16 + g;
+        const int c0 = wn * NI * 8 + ni * 8 + 2 * t;
+        f(r0, c0, acc[mi][ni][0], acc[mi][ni][1]);
+        f(r0 + 8, c0, acc[mi][ni][2], acc[mi][ni][3]);
       }
   }
 };

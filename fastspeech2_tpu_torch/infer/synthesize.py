@@ -1,4 +1,5 @@
-"""Serving entry point, mel path (``fastspeech2_tpu/infer/synthesize.py``).
+"""Serving entry point, mel and wav paths
+(``fastspeech2_tpu/infer/synthesize.py``).
 
 A batch of phoneme-id sequences is padded (tokens to a multiple of 32, the
 batch to a power of two with length-1 rows), encoded, and the exact frame
@@ -10,13 +11,19 @@ result is read back: the host does not wait between them.
 With ``demand_sized=False`` (``FS2_DEMAND_SIZED=off``) one call runs on the
 frames-per-token heuristic buffer and re-runs on a doubled buffer while a
 row's demand exceeds it. Rows whose demand exceeds ``max_frames`` are truncated and
-flagged either way. The vocoder, warmup and wav methods are not ported yet.
+flagged either way.
+
+With a MelGAN generator attached (``attach_vocoder``) the wav methods run the
+vocoder and the int16 PCM conversion on the device right after each group's
+decode, assemble mel and wav there, and cross to the host once. A host-level
+vocoder callable (``attach_vocoder_fn``) runs on the finished mels instead.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import time
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -28,8 +35,26 @@ from fastspeech2_tpu_torch.ops import flags, make_non_pad_mask
 from fastspeech2_tpu_torch.ops.length_regulator import frame_demand, scale_durations
 from fastspeech2_tpu_torch.ops.precision import compute_dtype
 from fastspeech2_tpu_torch.text import phonemes_to_sequence
+from fastspeech2_tpu_torch.text.g2p import preprocess_text, process_paragraph
+from fastspeech2_tpu_torch.vocoder.melgan import MEL_FLOOR
 
 log = logging.getLogger("fastspeech2_tpu_torch.synth")
+
+
+def mel_floor_mask(mel: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
+    """Frames at/past each row's length -> the log-mel floor, so a padded
+    buffer vocodes to silence beyond the utterance."""
+    valid = (torch.arange(mel.shape[1], device=mel.device)[None, :, None]
+             < out_lens[:, None, None])
+    return torch.where(valid, mel, torch.full_like(mel, MEL_FLOOR))
+
+
+def pcm16(wav):
+    """float waveform -> int16 PCM, round half to even; a torch tensor or a
+    numpy array, converted where it lies."""
+    if isinstance(wav, torch.Tensor):
+        return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+    return np.round(np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -37,7 +62,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 class Synthesizer:
-    """Holds the model on its device and serves mel batches."""
+    """Holds the model (and an attached vocoder) on its device and serves
+    mel and wav batches."""
 
     def __init__(self, model: FastSpeech2, token_multiple: int = 32,
                  frames_per_token: int = 12, max_frames: int = 2048,
@@ -51,6 +77,36 @@ class Synthesizer:
         self.bf16 = bf16  # speed tier: bf16 matmuls, f32 accum/softmax/LN
         self.demand_sized = (flags.DEMAND_SIZED if demand_sized is None
                              else demand_sized)
+        self._voc = None           # fused text->wav: set by attach_vocoder
+        self._voc_fn = None        # host-level text->wav: attach_vocoder_fn
+        self._voc_fn_hop = 256
+
+    def attach_vocoder(self, gen) -> None:
+        """Enable the fused text->wav path: the acoustic model, the MelGAN
+        generator and the PCM conversion run back to back on the device, so
+        the mel never crosses to the host between them. gen: a
+        ``vocoder.MelGANGenerator`` (its weights move to this device)."""
+        self._voc = gen.to(self.device).eval()
+
+    def attach_vocoder_fn(self, fn, hop_length: Optional[int] = None) -> None:
+        """Enable text->wav via a host-level vocoder callable
+        ``(L, n_mels) log-mel -> (L*hop,) float wav`` (e.g.
+        ``vocoder.load_melgan``), run on each finished mel. A ``batched``
+        attribute ``(mel (B, L, n_mels), out_lens) -> (B, L*hop)`` is used
+        when present. hop_length defaults to the callable's own
+        ``hop_length`` attribute (else 256)."""
+        self._voc_fn = fn
+        self._voc_fn_hop = (hop_length if hop_length is not None
+                            else getattr(fn, "hop_length", 256))
+
+    @property
+    def has_vocoder(self) -> bool:
+        return self._voc is not None or self._voc_fn is not None
+
+    @property
+    def hop_length(self) -> int:
+        return (self._voc.cfg.hop_length if self._voc is not None
+                else self._voc_fn_hop)
 
     @contextlib.contextmanager
     def _cd(self):
@@ -125,27 +181,35 @@ class Synthesizer:
         """Enqueue the encode; returns a zero-arg finisher -> (mel (B, L,
         n_mels) f32, out_lens (B,), truncated (B,) bool) that reads the
         demand, enqueues every decode group, then reads the results."""
+        return self._dispatch(token_seqs, alpha, wav=False)
+
+    def _dispatch(self, token_seqs, alpha, wav: bool):
+        """Enqueue the first device work of a mel (wav=False) or fused wav
+        call and return its finisher."""
         B, t_pad, a_max, xs, ilens, alphas = self._pad_batch(token_seqs, alpha)
         if not self.demand_sized:
-            return self._heuristic(B, t_pad, a_max, xs, ilens, alphas)
+            return self._heuristic(B, t_pad, a_max, xs, ilens, alphas, wav)
         with self._cd():
             hs, d_outs = self.model.encode(xs, ilens)
             demand = frame_demand(scale_durations(d_outs, alphas),
                                   make_non_pad_mask(ilens, t_pad))
 
-        def finish_mel_demand():
+        def finish_demand():
             dem_all = demand.cpu().numpy()
             trunc = self._truncated(dem_all, B, self.max_frames)
             groups = self._decode_groups(dem_all)
             l_max = max(r for _, r in groups)
+            hop = self.hop_length if wav else 0
             with self._cd():
                 # row indices cross before any decode is enqueued (a blocking
-                # copy waits for the stream); the groups' mels are assembled
-                # on the device and cross back in one copy (pinned buffers
-                # per call cost a cudaHostAlloc each while callers hold
-                # earlier results)
+                # copy waits for the stream); the groups' mels (and wavs) are
+                # assembled on the device and cross back in one copy each
+                # (pinned buffers per call cost a cudaHostAlloc each while
+                # callers hold earlier results)
                 idx = [torch.from_numpy(rows).to(self.device) for rows, _ in groups]
                 mel = torch.zeros((len(dem_all), l_max, self.model.odim),
+                                  device=self.device)
+                pcm = torch.zeros((len(dem_all), l_max * hop), dtype=torch.int16,
                                   device=self.device)
                 out_lens = torch.zeros((len(dem_all),), dtype=torch.int32,
                                        device=self.device)
@@ -157,10 +221,22 @@ class Synthesizer:
                         args[0], args[1], args[2], out_maxlen=rung, alpha=args[3])
                     mel[gi, :rung] = mel_g
                     out_lens[gi] = lens_g
-            return (mel[:B].cpu().numpy(), out_lens[:B].cpu().numpy().astype(np.int64),
-                    trunc)
+                    if wav:
+                        pcm[gi, :rung * hop] = self._vocode_pcm(mel_g, lens_g)
+            lens = out_lens[:B].cpu().numpy().astype(np.int64)
+            if wav:
+                return (mel[:B].cpu().numpy(), pcm[:B].cpu().numpy(),
+                        lens * hop, trunc)
+            return mel[:B].cpu().numpy(), lens, trunc
 
-        return finish_mel_demand
+        return finish_demand
+
+    def _vocode_pcm(self, mel: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
+        """Device mel (B, L, n_mels) -> int16 PCM (B, L*hop): floor-masked
+        frames double as the tail-flush frames a standalone vocoder pads in,
+        and L stays a multiple of 256 on the demand-sized rungs, so every
+        MelGAN stage keeps a tileable length."""
+        return pcm16(self._voc(mel_floor_mask(mel, out_lens)))
 
     def _grow_l_pad(self, l_pad: int, demand: int) -> int:
         """Next heuristic buffer after a saturated row: double until the
@@ -170,29 +246,38 @@ class Synthesizer:
             new *= 2
         return min(_round_up(new, 256), self.max_frames)
 
-    def _heuristic(self, B, t_pad, a_max, xs, ilens, alphas):
+    def _heuristic(self, B, t_pad, a_max, xs, ilens, alphas, wav: bool = False):
         """One call on the frames-per-token buffer; while a row's demand
-        exceeds it and max_frames allows, re-run on a grown buffer."""
+        exceeds it and max_frames allows, re-run on a grown buffer (the wav
+        buffer grows with it)."""
+        def run(l_pad):
+            with self._cd():
+                mel, out_lens, d_outs = self.model.inference(
+                    xs, ilens, out_maxlen=l_pad, alpha=alphas)
+                pcm = self._vocode_pcm(mel, out_lens) if wav else None
+            return mel, out_lens, d_outs, pcm
+
         l_pad = self._l_pad(t_pad, a_max)
+        mel, out_lens, d_outs, pcm = run(l_pad)
         with self._cd():
-            mel, out_lens, d_outs = self.model.inference(
-                xs, ilens, out_maxlen=l_pad, alpha=alphas)
             demand = frame_demand(scale_durations(d_outs, alphas),
                                   make_non_pad_mask(ilens, t_pad))
 
-        def finish_mel(mel=mel, out_lens=out_lens, l_pad=l_pad):
+        def finish_heuristic(mel=mel, out_lens=out_lens, pcm=pcm, l_pad=l_pad):
             dem = demand.cpu().numpy()[:B]
             while (dem > l_pad).any() and l_pad < self.max_frames:
                 l_pad = self._grow_l_pad(l_pad, int(dem.max()))
                 log.info("frame demand %d > buffer; re-running at l_pad=%d",
                          int(dem.max()), l_pad)
-                with self._cd():
-                    mel, out_lens, _ = self.model.inference(
-                        xs, ilens, out_maxlen=l_pad, alpha=alphas)
+                mel, out_lens, _, pcm = run(l_pad)
             trunc = self._truncated(dem, B, l_pad)
-            return mel[:B].cpu().numpy(), out_lens[:B].cpu().numpy(), trunc
+            lens = out_lens[:B].cpu().numpy().astype(np.int64)
+            if wav:
+                return (mel[:B].cpu().numpy(), pcm[:B].cpu().numpy(),
+                        lens * self.hop_length, trunc)
+            return mel[:B].cpu().numpy(), lens, trunc
 
-        return finish_mel
+        return finish_heuristic
 
     def mel_from_token_batch(self, token_seqs: Sequence[np.ndarray], alpha=1.0,
                              return_truncated: bool = False):
@@ -204,8 +289,138 @@ class Synthesizer:
             return mel, out_lens, trunc
         return mel, out_lens
 
+    def wav_from_token_batch_async(self, token_seqs: Sequence[np.ndarray],
+                                   alpha=1.0):
+        """Enqueue the text->wav call without waiting for its result;
+        returns a zero-arg finisher -> (mel (B, L, n_mels) f32, wav (B, L*hop)
+        int16 PCM, wav_lens (B,) = out_lens*hop, truncated (B,) bool). A
+        server dispatches batch k+1 before finishing batch k, so the host
+        read of one overlaps the device work of the other."""
+        if self._voc is None and self._voc_fn is not None:
+            # host-level vocoder: the mel path is enqueued now, the vocoder
+            # itself runs at finish time on the finished mels
+            finish_mel = self.mel_from_token_batch_async(token_seqs, alpha)
+
+            def finish_hostvoc():
+                mel, out_lens, trunc = finish_mel()
+                hop = self._voc_fn_hop
+                batched = getattr(self._voc_fn, "batched", None)
+                if batched is not None:
+                    wav16 = pcm16(np.asarray(batched(mel, out_lens)))
+                    tail = (np.arange(wav16.shape[1])[None, :]
+                            >= (out_lens * hop)[:, None])
+                    wav16[tail] = 0
+                else:
+                    wav16 = np.zeros((len(token_seqs), mel.shape[1] * hop),
+                                     np.int16)
+                    for i in range(len(token_seqs)):
+                        w = np.asarray(self._voc_fn(mel[i, : out_lens[i]]))
+                        wav16[i, : w.shape[0]] = pcm16(w)
+                return mel, wav16, out_lens * hop, trunc
+
+            return finish_hostvoc
+        if self._voc is None:
+            raise RuntimeError("no vocoder attached: call attach_vocoder or "
+                               "attach_vocoder_fn first")
+        return self._dispatch(token_seqs, alpha, wav=True)
+
+    def wav_from_token_batch(self, token_seqs: Sequence[np.ndarray], alpha=1.0,
+                             return_truncated: bool = False):
+        """List of id sequences -> (mel (B, L, n_mels) f32, wav (B, L*hop)
+        int16 PCM, wav valid lengths = out_lens*hop). Requires
+        attach_vocoder or attach_vocoder_fn. return_truncated appends a (B,)
+        bool array marking rows capped by max_frames."""
+        out = self.wav_from_token_batch_async(token_seqs, alpha)()
+        return out if return_truncated else out[:3]
+
+    def warmup(self, batch_sizes=(1, 16), token_lens=(32, 96),
+               alpha_max: float = 1.0) -> int:
+        """Run dummy batches through the serving shapes so the first real
+        requests do not pay for first use. There is no compilation per shape
+        here; what a first call does pay for, and this warms, is the build
+        and load of the kernel libraries, the kernel-layout weight packs
+        (``ops/kernels/common.py:cached_pack``), the cuDNN/cuBLAS handles
+        and algorithm choices per shape, and the caching allocator's blocks
+        for every power-of-two batch and decode rung.
+
+        Every power-of-two bucket between min and max of ``batch_sizes`` is
+        walked for each token length, through the wav path when a vocoder is
+        attached, else the mel path; on the demand-sized path every 256-frame
+        rung up to the heuristic ceiling ``_l_pad(t_pad, alpha_max)`` is
+        decoded too (pass the largest alpha the service admits). Returns the
+        number of calls made."""
+        lo, hi = max(min(batch_sizes), 1), max(batch_sizes)
+        sizes, b = [], lo
+        while b < hi:
+            sizes.append(self._b_pad(b))
+            b <<= 1
+        sizes.append(self._b_pad(hi))
+        sizes = sorted(set(sizes))
+        calls = 0
+        for t in token_lens:
+            for b in sizes:
+                seqs = [np.ones((t,), np.int64)] * b
+                if self.has_vocoder:
+                    self.wav_from_token_batch(seqs)
+                else:
+                    self.mel_from_token_batch(seqs)
+                calls += 1
+                if self.demand_sized:
+                    calls += self._warm_dec_rungs(t, b, alpha_max)
+        return calls
+
+    def _warm_dec_rungs(self, t: int, b: int, alpha_max: float = 1.0) -> int:
+        """The rung a real batch lands on depends on its predicted
+        durations, so the dummy warmup batch touches one rung only. Decode
+        zero-filled inputs on every 256-frame rung up to the heuristic
+        ceiling for this token length, at the full batch and at the half
+        batch the 2-way split dispatches."""
+        t_pad = _round_up(t, self.token_multiple)
+        B_pad = self._b_pad(b)
+        dev = self.device
+        sizes = [B_pad] + ([B_pad // 2] if B_pad >= 4 else [])
+        calls = 0
+        for bp in sizes:
+            hs0 = torch.zeros((bp, t_pad, self.model.cfg.model.adim), device=dev)
+            d0 = torch.ones((bp, t_pad), dtype=torch.int32, device=dev)
+            il0 = torch.ones((bp,), dtype=torch.int32, device=dev)
+            al0 = torch.ones((bp,), device=dev)
+            rung, top = 256, self._l_pad(t_pad, alpha_max)
+            while rung <= top:
+                with self._cd():
+                    mel, lens = self.model.decode_frames(hs0, d0, il0,
+                                                         out_maxlen=rung, alpha=al0)
+                    out = self._vocode_pcm(mel, lens) if self._voc is not None else lens
+                out.cpu()  # wait for the rung before the next one
+                calls += 1
+                rung += 256
+        return calls
+
     def synth_phonemes(self, phoneme_str: str, alpha: float = 1.0) -> np.ndarray:
         """Space-joined phoneme string -> (L, n_mels) mel."""
         tokens = np.asarray(phonemes_to_sequence(phoneme_str), np.int64)
         mel, out_lens = self.mel_from_token_batch([tokens], alpha)
         return mel[0, : out_lens[0]]
+
+    def synth_text(self, text: str, alpha: float = 1.0,
+                   g2p=None) -> Tuple[np.ndarray, dict]:
+        """Free text -> (L_total, n_mels) mel (sentence mels concatenated)
+        and timing stats."""
+        t0 = time.perf_counter()
+        sentences = [s for s in process_paragraph(text) if s.strip()]
+        phoneme_strs = [preprocess_text(s, g2p=g2p) for s in sentences]
+        token_seqs = [np.asarray(phonemes_to_sequence(p), np.int64)
+                      for p in phoneme_strs if p]
+        t_frontend = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        mel, out_lens = self.mel_from_token_batch(token_seqs, alpha)
+        mels = [mel[i, : out_lens[i]] for i in range(len(token_seqs))]
+        full = np.concatenate(mels, axis=0)
+        t_model = time.perf_counter() - t0
+        stats = {
+            "frontend_s": t_frontend, "model_s": t_model,
+            "frames": int(full.shape[0]),
+            "msec_per_frame": 1000.0 * t_model / max(full.shape[0], 1),
+        }
+        return full, stats

@@ -10,8 +10,11 @@ Branches follow the JAX engagement rules (``encoder.py:191-219``), so both
 packages take the same path: the attention-half kernel runs only under bf16,
 at d_k >= 128, post-LN, with lengths given; the FFN-half kernel only with a
 conv mask. On the f32 tier the JAX package uses XLA ops and the port uses
-plain PyTorch ops. Branches whose JAX counterpart is a kernel this port does
-not have yet raise NotImplementedError rather than run something else.
+plain PyTorch ops. With ``flags.FUSED_ATT_QKV`` off the post-LN blocks
+project q/k/v with plain ops and take the q/k/v-given attention kernel, as the
+JAX package does. Branches whose JAX counterpart is a kernel this port does
+not have yet (pre-LN, ``concat_after``, ``FUSED_ATT_RES`` off) raise
+NotImplementedError rather than run something else.
 """
 
 from __future__ import annotations
@@ -168,11 +171,10 @@ class Encoder(tnn.Module):
             raise NotImplementedError(
                 "bare fused attention (fastspeech2_tpu/ops/pallas/attention.py:"
                 "fused_attention_packed) is not ported yet")
-        if use_fused_res and (cfg.normalize_before or not flags.FUSED_ATT_QKV):
+        if use_fused_res and cfg.normalize_before:
             raise NotImplementedError(
-                "pre-LN and split-QKV fused attention (attention.py:"
-                "fused_attention_packed_res / fused_attention_packed_res_ln) "
-                "are not ported yet")
+                "pre-LN fused attention (attention.py:"
+                "fused_attention_packed_res) is not ported yet")
         if use_fused_ffn and cfg.normalize_before:
             raise NotImplementedError(
                 "pre-LN fused FFN (ffn.py:fused_ffn_block) is not ported yet")
@@ -187,9 +189,18 @@ class Encoder(tnn.Module):
 
         cd = current_compute_dtype()
         for layer in self.layers:
-            if use_fused_res:
+            if use_fused_res and flags.FUSED_ATT_QKV:
                 x = attn_kernel.attention_block(x, *layer.attn_pack(cd), lengths,
                                                 cfg.attention_heads)
+            elif use_fused_res:
+                # split route: projections as plain ops (the JAX package
+                # leaves them to XLA), then the q/k/v-given kernel
+                a = layer.attn
+                q, k, v = (nn.linear(x, p.weight, p.bias, out_dtype=cd)
+                           for p in (a.q, a.k, a.v))
+                x = attn_kernel.attention_res_ln(
+                    q, k, v, x, *layer.attn_pack(cd)[2:], lengths,
+                    cfg.attention_heads)
             else:
                 residual = x
                 y = (nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)

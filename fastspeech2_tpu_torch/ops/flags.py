@@ -17,8 +17,9 @@ FUSED_ADAPTOR: bool = os.environ.get("FS2_FUSED_ADAPTOR", "on") != "off"
 FUSED_ATT_RES: bool = os.environ.get("FS2_FUSED_ATT_RES", "on") != "off"
 
 #: QKV projections inside the post-LN attention block kernel
-#: (ops/kernels/attention.py). FS2_FUSED_ATT_QKV=off selects the split
-#: [projections -> attention+res+LN] kernel, which is not ported yet.
+#: (ops/kernels/attention.py:attention_block). FS2_FUSED_ATT_QKV=off projects
+#: q/k/v with plain ops and takes the split [attention+res+LN] kernel
+#: (attention_res_ln).
 FUSED_ATT_QKV: bool = os.environ.get("FS2_FUSED_ATT_QKV", "on") != "off"
 
 #: size the decode frame buffer from the exact frame demand read after the

@@ -97,7 +97,8 @@ def variance_adaptor(hs, idx, out_lens, w1, b1, g1, be1, w2, b2, g2, be2, wo,
         hs, idx, out_lens, w1, b1, g1, be1, w2, b2, g2, be2, wo, bo, bins,
         emb_w, emb_b, out, raw)), B, T, L, D, C, NB, LN_EPS,
         common.stream_of(hs))
-    launches += 1
+    with common.count_lock:
+        launches += 1
     return out, raw
 
 

@@ -27,13 +27,17 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-KERNEL_SOURCES = ("attention", "ffn", "adaptor", "postnet")
+KERNEL_SOURCES = ("attention", "ffn", "adaptor", "postnet", "resstack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: guards the wrappers' ``launches`` counters: a server's dispatch and
+#: delivery threads both launch kernels
+count_lock = threading.Lock()
+_pack_lock = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -166,11 +170,12 @@ def cached_pack(owner: torch.nn.Module, sources: Sequence[torch.Tensor],
                 build):
     """Kernel-layout copies of a module's weights, rebuilt only when a source
     tensor is replaced or modified in place (keyed on storage pointer and
-    version counter)."""
+    version counter). Safe to call from several threads."""
     key = tuple((t.data_ptr(), t._version) for t in sources)
-    hit = owner.__dict__.get("_kernel_pack")
-    if hit is None or hit[0] != key:
-        with torch.no_grad():
-            hit = (key, build())
-        owner.__dict__["_kernel_pack"] = hit
+    with _pack_lock:  # two serving threads may ask for the same pack
+        hit = owner.__dict__.get("_kernel_pack")
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = (key, build())
+            owner.__dict__["_kernel_pack"] = hit
     return hit[1]

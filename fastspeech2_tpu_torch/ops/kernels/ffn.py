@@ -67,7 +67,8 @@ def ffn_block(x, w1, b1, w2, b2, g, be, lengths, kernel: int,
                   w2.data_ptr(), b2.data_ptr(), g.data_ptr(), be.data_ptr(),
                   lengths.data_ptr(), hid.data_ptr(), out.data_ptr(), B, T, D, H,
                   kernel, eps, common.stream_of(x))
-    launches += 1
+    with common.count_lock:
+        launches += 1
     return out
 
 

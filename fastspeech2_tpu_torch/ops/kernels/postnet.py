@@ -84,7 +84,8 @@ def postnet(x, w_flat, bn, lengths, n_layers: int, C: int, k: int):
     common.launch(_fn, x.data_ptr(), w_flat.data_ptr(), bn.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), B, L, C0, C, n_layers, k,
                   bn.shape[2], common.stream_of(x))
-    launches += 1
+    with common.count_lock:
+        launches += 1
     return out
 
 

@@ -101,3 +101,113 @@ def test_wrapper_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="dtype"):
         KF.ffn_block(x, w1, torch.zeros(1024, device=dev), w1[:256, :1024], x[0, 0],
                      x[0, 0], x[0, 0], torch.ones(2, dtype=torch.int32, device=dev), 9)
+
+
+def _stage(C, dev, cd, g, scale=1.0):
+    """Kernel-layout weights of one MelGAN stage at width C, from a seed."""
+    from fastspeech2_tpu_torch.ops.precision import round_to
+
+    bound = scale / (3 * C) ** 0.5
+    w1 = ((torch.rand(3, C, 3 * C, generator=g) * 2 - 1) * bound).to(cd)
+    w2 = ((torch.rand(3, C, C, generator=g) * 2 - 1) * scale / C ** 0.5).to(cd)
+    b1, b2 = (round_to((torch.rand(3, C, generator=g) * 2 - 1) * bound, cd)
+              for _ in range(2))
+    return [t.to(dev).contiguous() for t in (w1, b1, w2, b2)]
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 2048, 256), (2, 4096, 128), (3, 2048, 64),
+                                   (2, 6144, 32), (1, 128, 64)])
+def test_resstack_bf16(dev, B, S, C):
+    """bf16 kernel vs its plain version: single-tile and multi-tile lengths,
+    first and last tile (reflection) included. Tolerance relative to the
+    plain output's scale: both sides round at the same points, so they
+    differ by accumulation order only: max < 2^-6 (two bf16 ulps of the
+    largest values), mean < 1e-4."""
+    from fastspeech2_tpu_torch.ops.kernels import resstack as KR
+
+    g = torch.Generator().manual_seed(S + C)
+    ws = _stage(C, dev, torch.bfloat16, g)
+    x = torch.randn(B, S, C, generator=g).to(torch.bfloat16).to(dev)
+    n0 = KR.launches
+    got = KR.resstack(x, *ws)
+    want = KR.resstack_plain(x, *ws)
+    torch.cuda.synchronize()
+    assert KR.launches == n0 + 1 and got.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    assert float(d.max()) < 2.0 ** -6 * scale and float(d.mean()) < 1e-4 * scale, (
+        float(d.max()), float(d.mean()), scale)
+    for sl in (slice(0, 16), slice(S - 16, S)):  # the reflected ends
+        assert float(d[:, sl].max()) < 2.0 ** -6 * scale
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 1024, 64), (1, 256, 256), (2, 128, 32)])
+def test_resstack_f32(dev, B, S, C):
+    """f32 kernel vs its plain version: 1e-5 of the output's scale (f32
+    sums in another order; no TF32, no fused multiply-add)."""
+    from fastspeech2_tpu_torch.ops.kernels import resstack as KR
+
+    g = torch.Generator().manual_seed(S + C)
+    ws = _stage(C, dev, torch.float32, g)
+    x = torch.randn(B, S, C, generator=g).to(dev)
+    got = KR.resstack(x, *ws)
+    want = KR.resstack_plain(x, *ws)
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    assert float(d.max()) < 1e-5 * float(want.abs().max()), float(d.max())
+
+
+def test_resstack_rejects_bad_inputs(dev):
+    from fastspeech2_tpu_torch.ops.kernels import resstack as KR
+
+    g = torch.Generator().manual_seed(0)
+    ws = _stage(64, dev, torch.bfloat16, g)
+    x = torch.zeros(1, 2048, 64, device=dev)  # f32 activation, bf16 weights
+    with pytest.raises(ValueError, match="dtype"):
+        KR.resstack(x, *ws)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="halo"):
+        KR.resstack(xb[:, :13], *ws)
+    with pytest.raises(ValueError, match="multiple"):
+        KR.resstack(xb[:, :2000].contiguous(), *ws)
+    with pytest.raises(ValueError, match="C=48"):
+        KR.resstack(torch.zeros(1, 2048, 48, dtype=torch.bfloat16, device=dev),
+                    *_stage(48, dev, torch.bfloat16, g))
+
+
+@pytest.mark.parametrize("B,T,D", [(3, 96, 256), (2, 160, 384)])
+def test_attention_res_ln(dev, B, T, D):
+    """The q/k/v-given entry vs its plain version and vs the fused-QKV
+    kernel, on separate q/k/v tensors and on column blocks of one buffer
+    (those two bit for bit)."""
+    from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
+    from fastspeech2_tpu_torch.ops import nn
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.precision import compute_dtype
+
+    g = torch.Generator().manual_seed(B * T)
+    torch.manual_seed(D)
+    blk = FFTBlock(EncoderConfig(idim=D, attention_dim=D, linear_units=1024), device=dev)
+    x = torch.randn(B, T, D, generator=g).to(dev)
+    lens = _lengths(B, T, dev, g)
+    with torch.inference_mode(), compute_dtype(torch.bfloat16):
+        ap = blk.attn_pack(torch.bfloat16)
+        q, k, v = (nn.linear(x, p.weight, p.bias, out_dtype=torch.bfloat16)
+                   for p in (blk.attn.q, blk.attn.k, blk.attn.v))
+        n0 = KA.res_ln_launches
+        got = KA.attention_res_ln(q, k, v, x, *ap[2:], lens, 2)
+        _close(got, KA.attention_res_ln_plain(q, k, v, x, *ap[2:], lens, 2))
+        qkv = torch.cat([q, k, v], dim=-1)
+        packed = KA.attention_res_ln(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:],
+                                     x, *ap[2:], lens, 2)
+        fused = KA.attention_block(x, *ap, lens, 2)
+        torch.cuda.synchronize()
+    assert KA.res_ln_launches == n0 + 2
+    assert torch.equal(got, packed)
+    # the projections are a cuBLAS f32 product here and a tensor-core product
+    # in the fused kernel: q/k/v differ by rare one-ulp flips, which reach
+    # many outputs through the softmax and the LayerNorm, so the two kernels
+    # agree within the band but not bit for bit
+    _close(got, fused)
+    with pytest.raises(ValueError, match="bfloat16"):
+        KA.attention_res_ln(q.float(), k, v, x, *ap[2:], lens, 2)

@@ -1,4 +1,4 @@
-"""The plain versions of the port's four kernels (fastspeech2_tpu_torch/ops/
+"""The plain versions of the port's six kernels (fastspeech2_tpu_torch/ops/
 kernels/) against the JAX Pallas kernels they port, run in interpret mode on
 the CPU as tests/test_pallas.py runs them.
 
@@ -18,13 +18,16 @@ import pytest
 import torch
 
 from fastspeech2_tpu.ops.pallas.adaptor import fused_variance_adaptor
-from fastspeech2_tpu.ops.pallas.attention import fused_attention_packed_qkv_res_ln
+from fastspeech2_tpu.ops.pallas.attention import (fused_attention_packed_qkv_res_ln,
+                                                  fused_attention_packed_res_ln)
 from fastspeech2_tpu.ops.pallas.ffn import fused_ffn_block_post
 from fastspeech2_tpu.ops.pallas.postnet import fused_postnet
+from fastspeech2_tpu.ops.pallas.resstack import resstack_fused
 from fastspeech2_tpu_torch.ops.kernels import adaptor as KAd
 from fastspeech2_tpu_torch.ops.kernels import attention as KA
 from fastspeech2_tpu_torch.ops.kernels import ffn as KF
 from fastspeech2_tpu_torch.ops.kernels import postnet as KP
+from fastspeech2_tpu_torch.ops.kernels import resstack as KR
 from fastspeech2_tpu_torch.ops.quantize import linear_bins, log_bins
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -205,3 +208,87 @@ def test_postnet_matches_pallas(tier, rng):
     _close(got, want, tier, (2e-3, 3e-2))
     # row 2 (length 1): blocks from 16 on are past length + halo (6)
     np.testing.assert_allclose(got.numpy()[2, 16:], want[2, 16:], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+def test_attention_res_ln_matches_pallas(tier, rng):
+    """Kernel 5: LN(res + MHA(q, k, v)·Wo + bo) with q/k/v given in the
+    compute dtype and a separate f32 residual; rows past the length give
+    LN(res + bo). bf16 band: mean 2e-3, max 5e-2 (LN output, unit scale)."""
+    B, T, D, H = 3, 32, 64, 2
+    jd, td = JAX_DT[tier], TORCH_DT[tier]
+    q, k, v = (np.asarray(jnp.asarray(rng.normal(size=(B, T, D)), jd).astype(jnp.float32))
+               for _ in range(3))  # values of the compute dtype
+    res = rng.normal(size=(B, T, D)).astype(np.float32)
+    wo = (rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32)
+    bo = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
+    g = (rng.normal(size=(D,)) * 0.2 + 1.0).astype(np.float32)
+    be = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
+    lengths = np.asarray([32, 13, 1], np.int32)
+    want = np.asarray(fused_attention_packed_res_ln(
+        *(jnp.asarray(a, jd) for a in (q, k, v)), jnp.asarray(res), jnp.asarray(wo, jd),
+        jnp.asarray(bo[None]), jnp.asarray(g), jnp.asarray(be), jnp.asarray(lengths), H,
+        interpret=True, block_q=8))
+    got = KA.attention_res_ln(_t(q, td), _t(k, td), _t(v, td), _t(res), _t(wo.T).to(td),
+                              _t(bo), _t(g), _t(be), torch.from_numpy(lengths), H)
+    _close(got, want, tier, (2e-3, 5e-2))
+    np.testing.assert_allclose(got.numpy()[1, 13:], want[1, 13:], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy()[2, 1:], want[2, 1:], rtol=1e-5, atol=1e-5)
+
+
+def _stack_weights(rng, C, n=3):
+    """One MelGAN stage in the JAX layout: w1 (n, 3, C, C), w2 (n, C, C)."""
+    w1 = (rng.normal(size=(n, 3, C, C)) / np.sqrt(3 * C)).astype(np.float32)
+    w2 = (rng.normal(size=(n, C, C)) / np.sqrt(C)).astype(np.float32)
+    b1, b2 = ((rng.normal(size=(n, C)) * 0.1).astype(np.float32) for _ in range(2))
+    return w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,C", [(2, 512, 8), (1, 128, 128), (2, 256, 32)])
+def test_resstack_matches_pallas(tier, rng, B, S, C):
+    """Kernel 13: three dilated residual blocks with per-layer reflection at
+    the sequence ends. (2, 512, 8): four 128-sample tiles of the JAX kernel
+    at C < 128 (channel padding on the JAX side only); (1, 128, 128): a
+    single tile holding both ends; (2, 256, 32): two tiles. f32 1e-5; bf16,
+    where both sides round at the same points and activations grow through
+    the residual adds: 2 bf16 ulps (2^-7) of the output's scale at most, and
+    under 2^-11 of it on average."""
+    jd, td = JAX_DT[tier], TORCH_DT[tier]
+    w1, b1, w2, b2 = _stack_weights(rng, C)
+    x = np.asarray(jnp.asarray(rng.normal(size=(B, S, C)), jd).astype(jnp.float32))
+    want = np.asarray(resstack_fused(
+        jnp.asarray(x, jd), jnp.asarray(w1, jd), jnp.asarray(b1, jd), jnp.asarray(w2, jd),
+        jnp.asarray(b2, jd), interpret=True).astype(jnp.float32))
+    assert KR.resstack_tile(S) > 0
+    # kernel layout: (out, tap, in) and (out, in); biases hold cd values
+    pw1 = _t(w1.transpose(0, 3, 1, 2).reshape(3, C, 3 * C)).to(td)
+    pw2 = _t(w2.transpose(0, 2, 1)).to(td)
+    got = KR.resstack(_t(x), pw1, _t(b1).to(td).float(), pw2, _t(b2).to(td).float())
+    assert got.shape == (B, S, C)
+    if tier == "f32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        d, scale = np.abs(got.numpy() - want), np.abs(want).max()
+        assert d.max() <= scale * 2.0 ** -7 and d.mean() < scale * 2.0 ** -11, (
+            d.max(), d.mean(), scale)
+
+
+def test_resstack_pack_weights_and_tile():
+    """pack_weights lays a stage's torch convs out for the kernel; the
+    tileable lengths are the JAX package's."""
+    from fastspeech2_tpu.ops.pallas.resstack import resstack_tile as j_tile
+    from fastspeech2_tpu_torch.vocoder.melgan import MelGANConfig, MelGANGenerator
+
+    gen = MelGANGenerator(MelGANConfig(base_channels=16), device="cpu", seed=5)
+    stacks = gen.blocks[0].stacks
+    w1, b1, w2, b2 = KR.pack_weights(stacks, torch.bfloat16)
+    assert w1.shape == (3, 8, 24) and w1.dtype == torch.bfloat16
+    assert w2.shape == (3, 8, 8) and b1.dtype == torch.float32
+    np.testing.assert_array_equal(
+        w1[1, :, 8:16].float().numpy(),
+        stacks[1].c1.weight[:, :, 1].to(torch.bfloat16).float().detach().numpy())
+    np.testing.assert_array_equal(
+        b2[2].numpy(), stacks[2].c2.bias.to(torch.bfloat16).float().detach().numpy())
+    for S in (13, 64, 128, 384, 2000, 2048, 6144, 196608):
+        assert KR.resstack_tile(S) == j_tile(S)

@@ -144,6 +144,47 @@ def test_inference_bf16_kernels_match_jax(monkeypatch):
     assert d.mean() < 0.02 and d.max() < 0.2, (d.mean(), d.max())
 
 
+def test_split_qkv_route_matches_jax(monkeypatch):
+    """FS2_FUSED_ATT_QKV=off in both packages: the post-LN blocks project
+    q/k/v with plain ops and take the q/k/v-given attention kernel (JAX:
+    fused_attention_packed_res_ln in interpret mode; the port:
+    attention_res_ln, its plain version on the CPU). Band as above."""
+    from fastspeech2_tpu.ops import flags as jflags
+    from fastspeech2_tpu_torch.ops import flags as tflags
+
+    monkeypatch.setattr(jflags, "FUSED_ATT_QKV", False)
+    monkeypatch.setattr(tflags, "FUSED_ATT_QKV", False)
+    cfg = Config(model=ModelConfig(
+        adim=256, aheads=2, elayers=2, eunits=64, ddim=256, dlayers=1, dunits=64,
+        postnet_layers=2, postnet_chans=32, positionwise_conv_kernel_size=3,
+        duration_predictor_chans=16, fused_attention="on"))
+    jm, params, state, tm = _pair(cfg)
+    xs, ilens = _batch(4, 3, 32, [32, 9, 1])
+
+    def enc(p, x, i):
+        with pltpu.force_tpu_interpret_mode(), jcompute_dtype(jnp.bfloat16):
+            return jm.encode(p, x, i)
+
+    hj, dj = jax.jit(enc)(params, jnp.asarray(xs), jnp.asarray(ilens))
+    calls = []
+    real = attention.attention_res_ln_plain
+    monkeypatch.setattr(attention, "attention_res_ln_plain",
+                        lambda *a, **k: (calls.append(a[0].dtype), real(*a, **k))[1])
+    monkeypatch.setattr(attention, "attention_block_plain",
+                        lambda *a, **k: pytest.fail("the fused-QKV kernel ran"))
+    with tcompute_dtype(torch.bfloat16):
+        ht, dt = tm.encode(torch.from_numpy(xs), torch.from_numpy(ilens))
+    assert calls == [torch.bfloat16, torch.bfloat16]  # one per encoder block
+    d = np.abs(ht.numpy() - np.asarray(hj))
+    assert d.mean() < 0.02 and d.max() < 0.2, (d.mean(), d.max())
+    assert (dt.numpy() == np.asarray(dj)).mean() > 0.9
+    # and the split route agrees with the port's own fused-QKV route
+    monkeypatch.undo()
+    with tcompute_dtype(torch.bfloat16):
+        hf, _ = tm.encode(torch.from_numpy(xs), torch.from_numpy(ilens))
+    np.testing.assert_array_equal(ht.numpy(), hf.numpy())
+
+
 @pytest.mark.parametrize("demand_sized", [True, False])
 def test_synthesizer_mel_matches_jax(small_pair, demand_sized):
     """demand_sized: the 2-way split must engage. Heuristic buffer

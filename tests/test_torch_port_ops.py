@@ -52,7 +52,12 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "fastspeech2_tpu"
        or m.startswith("fastspeech2_tpu.")]
 assert not bad, bad
-assert len(names) >= 20, names
+assert len(names) >= 30, names
+need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
+        "text.cleaners", "text.numbers", "text.cmudict", "text.g2p",
+        "ops.kernels.resstack", "ops.kernels.attention", "compat.from_jax"}
+missing = {pkg.__name__ + "." + n for n in need} - set(names)
+assert not missing, missing
 print(len(names))
 """
     r = subprocess.run([sys.executable, "-c", code, str(ROOT / "chip_smoke.py")],
