@@ -6,16 +6,21 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: refuse to run without CUDA; print the card's name and power limit.
-2. build: compile the five CUDA sources of fastspeech2_tpu_torch/csrc with
+2. build: compile the six CUDA sources of fastspeech2_tpu_torch/csrc with
    nvcc for sm_90a (all sources at once) and print the build seconds and the
    ptxas register/shared-memory report.
-3. kernels: each of the six kernels against its plain PyTorch version on the
-   card, on the same bf16-tier inputs at the serving path's shapes (the
-   FFT-block and decoder kernels with lengths that leave dead tiles, the
-   MelGAN residual stack at the four stage shapes of a B=16, 768-frame rung,
-   at a single-tile length and in f32); max/mean abs error against the stated
-   tolerance; kernel and plain times (CUDA events, median of 25) beside the
-   least time the card could take for the same work.
+3. kernels: each of the eight kernels (attention_block, ffn_block,
+   variance_adaptor, postnet, resstack, attention_res_ln, and the training
+   attention's two entries attention_train_packed and attention_train,
+   forward and backward) against its plain PyTorch version on the card, on
+   the same bf16-tier inputs at the main paths' shapes (the FFT-block and
+   decoder kernels with lengths that leave dead tiles, the MelGAN residual
+   stack at the four stage shapes of a B=16, 768-frame rung, at a single-tile
+   length and in f32, the training attention at the decoder's and the
+   encoder's training shapes with rate 0 and 0.2, and in f32); max/mean abs error
+   against the stated tolerance; kernel and plain times (CUDA events, median
+   of 25) beside the least time the card could take for the same work and,
+   for the training attention, one scaled_dot_product_attention call.
 4. mel path: the default-config model (random weights from seed 0, duration
    bias 1.87 for realistic frame counts) served through
    Synthesizer(bf16=True) on cuda at B=1, 8 and 32 with fixed ARPAbet
@@ -29,7 +34,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    lengths, the mel path's mel, 8 residual-stack launches per split B=32
    call); rows of the B=8 batch against the CPU port's generator (plain
    versions) fed the card's mel; ms per B=32 call, audio-seconds per second,
-   the vocoder's share, a profile.
+   the vocoder's share, the B=32 mel and wav calls with reduced-precision
+   reductions of bf16 GEMMs refused (device.py's setting) and allowed, a
+   profile.
 6. server: infer.server.serve in a thread on 127.0.0.1 with the same
    synthesizer: 16 concurrent /synthesize wav requests (text and phonemes), a
    /stream of a three-sentence paragraph, a mel request, /healthz; RIFF
@@ -37,6 +44,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    clean shutdown.
 7. switch: flags.FUSED_ATT_QKV off: the split attention kernel carries a B=8
    mel batch and its output is held to the fused route's.
+8. one train step, card against CPU: the default-config model (seed 0) takes
+   one bf16 step on the same batch and dropout seeds on the card (training
+   attention kernels) and on the CPU (plain versions); loss and gradient norm
+   within the stated band.
+9. train path: train.loop.train at full width and depth (bf16, batch 16 x
+   accum_grad 4) on a seeded feature store of 160 utterances at real lengths
+   for 10 steps, one periodic save; finite losses, forward and backward
+   launch counts of kernel 11 equal to 8 x micro-batches x steps, the final
+   checkpoint reloads to the same parameters; two more steps from it with
+   flags.FUSED_ATT_TRAIN_PACKED off go through kernel 12; ms per step (CUDA
+   events), mel-frames/s, peak device memory, a profile of one step.
 
 The line before the last is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -390,6 +408,353 @@ def attention_res_ln_phase(torch, results, record):
                    3 * sum(lc) * D * 2 + nbytes(x, x, *ap[2:]), key)
 
 
+def train_kernel_phase(torch, results):
+    """Kernels 11 and 12, forward and backward, against the plain version on
+    the card: the decoder's and the encoder's training shapes, lengths with
+    one full row, one short row and dead tiles, rate 0 and 0.2; padded rows
+    exactly zero; times (CUDA events, median of 25) of forward and backward
+    beside the plain version's, one scaled_dot_product_attention call's
+    (rate 0, boolean mask: the library yardstick, used nowhere in the port)
+    and the bound."""
+    import torch.nn.functional as F
+
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    dev, bf16, H = torch.device("cuda"), torch.bfloat16, 2
+    gen = torch.Generator().manual_seed(11)
+    src = "fastspeech2_tpu_torch/csrc/attention_train.cu"
+    entries = {True: ("attention_train_packed",
+                      "fastspeech2_tpu/ops/pallas/attention_train.py:337"),
+               False: ("attention_train",
+                       "fastspeech2_tpu/ops/pallas/attention_train.py:365")}
+
+    def grads(fn, q, k, v, do):
+        o = fn(q, k, v)
+        return (o, *torch.autograd.grad(o, (q, k, v), do))
+
+    for B, T, D in ((16, 896, 384), (16, 128, 256)):
+        dk = D // H
+        lens = torch.randint(T // 4, T + 1, (B,), generator=gen, dtype=torch.int32)
+        lens[0], lens[1], lens[-1] = T, T // 2 - 3, max(1, T // 5)
+        lc, lens = lens.tolist(), lens.to(dev)
+        pad = (torch.arange(T, device=dev)[None] >= lens[:, None])  # (B, T)
+        for packed in (True, False):
+            name, replaces = entries[packed]
+            shape = (B, T, D) if packed else (B, H, T, dk)
+            key = f"B={B},T={T},D={D}"
+            q, k, v, do = (torch.randn(shape, generator=gen).to(bf16).to(dev)
+                           for _ in range(4))
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            padrows = pad[:, :, None] if packed else pad[:, None, :, None]
+            err = 0.0
+            for rate in (0.0, 0.2):
+                seed = 0xFFFFFFF0 + int(rate * 10)  # past 2^31: the uint32 path
+                if packed:
+                    kern = lambda q, k, v: KT.fused_attention_train_packed(  # noqa: E731
+                        q, k, v, lens, seed, H, rate)
+                    plain = lambda q, k, v: KT.attention_train_plain(  # noqa: E731
+                        q, k, v, lens, seed, rate, H)
+                else:
+                    kern = lambda q, k, v: KT.fused_attention_train(  # noqa: E731
+                        q, k, v, lens, seed, rate)
+                    plain = lambda q, k, v: KT.attention_train_plain(  # noqa: E731
+                        q, k, v, lens, seed, rate)
+                got = grads(kern, q, k, v, do)
+                want = grads(plain, q, k, v, do)
+                torch.cuda.synchronize()
+                log(f"kernel {name} {key} rate={rate}")
+                for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+                    assert g.dtype == bf16 and g.shape == w.shape
+                    dead = float(torch.where(padrows, g.detach().float().abs(), 0).max())
+                    assert dead == 0.0, f"{name} {what}: padded rows not exactly zero"
+                    # both sides round at the same points; the f32 summation
+                    # order differs and flips single bf16 roundings, which the
+                    # later products carry: max < 2^-6 (two bf16 steps at the
+                    # peak) and mean < 1e-4 of the plain result's peak
+                    peak = float(w.detach().float().abs().max())
+                    err = max(err, compare(f"{name}.{what} (peak {peak:.3f}, padded rows 0)",
+                                           g.detach(), w.detach(), 1e-4 * peak, 2.0 ** -6 * peak))
+            # times at rate 0.2, the configured rate
+            o = kern(q, k, v)
+            op = plain(q, k, v)
+            with torch.no_grad():
+                f_ms = cuda_time_ms(lambda: kern(q, k, v))
+                pf_ms = cuda_time_ms(lambda: plain(q, k, v), reps=5)
+            b_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                            retain_graph=True))
+            pb_ms = cuda_time_ms(lambda: torch.autograd.grad(op, (q, k, v), do,
+                                                             retain_graph=True), reps=5)
+            del o, op
+            q4, k4, v4 = ((t if not packed else t.reshape(B, T, H, dk).transpose(1, 2))
+                          for t in (q, k, v))
+            valid = ~pad
+            amask = (valid[:, None, :, None] & valid[:, None, None, :])
+            amask = amask | pad[:, None, :, None]  # padded rows: any key, no NaN
+            sd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=amask, dropout_p=0.0)
+            so = sd()
+            do4 = do if not packed else do.reshape(B, T, H, dk).transpose(1, 2)
+            with torch.no_grad():
+                lf_ms = cuda_time_ms(sd)
+            lb_ms = cuda_time_ms(lambda: torch.autograd.grad(so, (q, k, v), do4,
+                                                             retain_graph=True))
+            del so
+            pairs = sum(l * l for l in lc) * H * dk
+            # bytes the function needs: q, k, v (and dO) by live rows, the
+            # outputs whole (padded rows are written as zeros); the saved row
+            # statistics are the implementation's own and are not counted
+            live, whole = sum(lc) * D * 2, B * T * D * 2
+            fb, fby = bound_ms(4 * pairs, 3 * live + whole)
+            bb, bby = bound_ms(10 * pairs, 4 * live + 3 * whole)
+            log(f"  {name} {key}: forward {f_ms:.4f} ms (plain {pf_ms:.3f}, sdpa "
+                f"{lf_ms:.4f}, bound {fb:.4f} {fby}); backward {b_ms:.4f} ms (plain "
+                f"{pb_ms:.3f}, sdpa {lb_ms:.4f}, bound {bb:.4f} {bby})")
+            r = results.setdefault(name, {
+                "name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "max_abs_err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": {},
+                "bound_by": {}, "library_ms": {}, "bwd": {}})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["ms"][key], r["plain_ms"][key] = f_ms, pf_ms
+            r["bound_ms"][key], r["bound_by"][key], r["library_ms"][key] = fb, fby, lf_ms
+            r["bwd"][key] = {"ms": b_ms, "plain_ms": pb_ms, "bound_ms": bb,
+                             "bound_by": bby, "library_ms": lb_ms}
+
+    # the f32 instantiation (plain multiply-adds, no TF32) at a smaller shape
+    B, T, D, rate, seed = 4, 320, 384, 0.2, 2 ** 32 - 3
+    lens = torch.tensor([T, 200, 65, 7], dtype=torch.int32, device=dev)
+    for packed in (True, False):
+        name = entries[packed][0]
+        shape = (B, T, D) if packed else (B, H, T, D // H)
+        q, k, v = (torch.randn(shape, generator=gen).to(dev).requires_grad_()
+                   for _ in range(3))
+        do = torch.randn(shape, generator=gen).to(dev)
+        if packed:
+            kern = lambda q, k, v: KT.fused_attention_train_packed(  # noqa: E731
+                q, k, v, lens, seed, H, rate)
+            plain = lambda q, k, v: KT.attention_train_plain(  # noqa: E731
+                q, k, v, lens, seed, rate, H)
+        else:
+            kern = lambda q, k, v: KT.fused_attention_train(q, k, v, lens, seed, rate)  # noqa: E731
+            plain = lambda q, k, v: KT.attention_train_plain(q, k, v, lens, seed, rate)  # noqa: E731
+        got, want = grads(kern, q, k, v, do), grads(plain, q, k, v, do)
+        torch.cuda.synchronize()
+        log(f"kernel {name} f32 B={B},T={T},D={D} rate={rate}")
+        err = 0.0
+        for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+            # full f32 on both sides; the summation order and expf differ
+            peak = float(w.detach().abs().max())
+            err = max(err, compare(f"{name}.{what} f32 (peak {peak:.3f})", g.detach(),
+                                   w.detach(), 2e-6 * peak, 2e-5 * peak))
+        o, op = kern(q, k, v), plain(q, k, v)
+        with torch.no_grad():
+            f_ms = cuda_time_ms(lambda: kern(q, k, v))
+            pf_ms = cuda_time_ms(lambda: plain(q, k, v), reps=5)
+        b_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True))
+        pb_ms = cuda_time_ms(lambda: torch.autograd.grad(op, (q, k, v), do,
+                                                         retain_graph=True), reps=5)
+        pairs = sum(l * l for l in lens.tolist()) * D
+        log(f"  {name} f32: forward {f_ms:.4f} ms (plain {pf_ms:.3f}), backward {b_ms:.4f} ms "
+            f"(plain {pb_ms:.3f}); bounds at 67 TFLOP/s f32 "
+            f"{1e3 * 4 * pairs / PEAK_F32_FLOPS:.4f} / {1e3 * 10 * pairs / PEAK_F32_FLOPS:.4f} ms")
+        results[name]["f32"] = {"shape": f"B={B},T={T},D={D}", "ms": f_ms, "plain_ms": pf_ms,
+                                "bwd_ms": b_ms, "bwd_plain_ms": pb_ms, "max_abs_err": err}
+
+
+def train_step_vs_cpu_phase(torch):
+    """One bf16 train step at full width and depth, card (kernels 11) against
+    CPU (plain versions): the same weights, batch and seeds. The batch is cut
+    to 4 rows of at most 384 frames so the CPU side takes seconds."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config
+    from fastspeech2_tpu_torch.models.fastspeech2 import Batch, FastSpeech2
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+    from fastspeech2_tpu_torch.train.optimizer import NoamAdam
+    from fastspeech2_tpu_torch.train.seeds import SeedSchedule
+    from fastspeech2_tpu_torch.train.step import TrainState, make_train_step, trainable
+
+    cfg = Config()
+    g = np.random.default_rng(3)
+    B, T, L = 4, 64, 384
+    ilens = np.asarray([64, 50, 33, 20], np.int32)
+    ds = g.integers(3, 7, (B, T)).astype(np.int32) * (np.arange(T)[None] < ilens[:, None])
+    olens = ds.sum(1).astype(np.int32)
+    m = np.arange(L)[None] < olens[:, None]
+    xs = (g.integers(1, 68, (B, T)) * (ds > 0)).astype(np.int32)
+    b = Batch(xs=xs, ilens=ilens, olens=olens, ds=ds,
+              ys=(g.normal(-5, 2, (B, L, 80)) * m[..., None]).astype(np.float32),
+              es=(g.uniform(0.02, 100, (B, L)) * m).astype(np.float32),
+              ps=(g.uniform(71, 600, (B, L)) * m).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = FastSpeech2(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        opt = NoamAdam(trainable(model), cfg)
+        seeds = [SeedSchedule(model.dropout_sites(), seed=9).draw()]
+        n0 = KT.packed_fwd_launches, KT.packed_bwd_launches
+        t0 = time.perf_counter()
+        _, rep = make_train_step(model, opt, 1, bf16=True)(
+            TrainState(model, opt), Batch(*(torch.from_numpy(a).to(dev) for a in b)), seeds)
+        out[dev] = {k: float(v) for k, v in rep.items()}
+        out[dev]["launches"] = (KT.packed_fwd_launches - n0[0], KT.packed_bwd_launches - n0[1])
+        out[dev]["first_param"] = next(model.parameters()).detach().float().cpu()
+        log(f"one step on {dev}: loss {out[dev]['loss']:.4f} l1 {out[dev]['l1_loss']:.5f} "
+            f"grad_norm {out[dev]['grad_norm']:.4f} launches {out[dev]['launches']} "
+            f"({time.perf_counter() - t0:.1f} s, first call)")
+    c, g_ = out["cpu"], out["cuda"]
+    assert c["launches"] == (0, 0) and g_["launches"] == (8, 8), (c["launches"], g_["launches"])
+    # bf16 band: the two sides round at the same points and sum in another
+    # order (cuBLAS/cuDNN/tensor cores against CPU f32 products)
+    for k, tol in (("loss", 0.01), ("l1_loss", 0.01), ("duration_loss", 0.02),
+                   ("grad_norm", 0.05)):
+        rel = abs(g_[k] - c[k]) / abs(c[k])
+        log(f"  card vs CPU {k}: relative difference {rel:.2e} (tolerance {tol:g})")
+        assert rel < tol, f"one step, card vs CPU: {k} differs by {rel}"
+    d = float((c["first_param"] - g_["first_param"]).abs().max())
+    log(f"  embedding table after the update: max abs difference {d:.2e}")
+    assert d < 1e-6  # lr(1) = 2.5e-7 per unit of Adam's normalised first step
+
+
+def train_path_phase(torch, results):
+    """train() at full width and depth, bf16, batch 16 x accum 4, on a seeded
+    feature store at real lengths; then two more steps with
+    FUSED_ATT_TRAIN_PACKED off; then timed steps and a profile."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config, DataConfig
+    from fastspeech2_tpu_torch.data.batching import BucketBatcher
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset, write_fake_feature_store
+    from fastspeech2_tpu_torch.data.prefetch import batch_to_device
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops import flags
+    from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint
+    from fastspeech2_tpu_torch.train.loop import train
+    from fastspeech2_tpu_torch.train.seeds import SeedSchedule
+    from fastspeech2_tpu_torch.train.step import make_train_step
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fs2_train_", dir=str(ROOT / "build"))
+    try:
+        root = f"{work}/store"
+        t0 = time.perf_counter()
+        fl = write_fake_feature_store(root, n_utts=160, seed=0, min_tokens=80,
+                                      max_tokens=170, min_dur=3, max_dur=7)
+        ds = TTSDataset(root, fl)
+        fr, tk = ds.frame_lengths(), ds.token_lengths()
+        log(f"train path: store of {len(ds)} utterances in {time.perf_counter() - t0:.1f} s, "
+            f"tokens {tk.min()}-{tk.max()}, frames {fr.min()}-{fr.max()} "
+            f"({int((fr > 870).sum())} over 870 are dropped)")
+        assert len(ds) >= 64 and tk.min() >= 60 and fr.min() >= 240
+        cfg = Config()
+        steps, accum, bsz = 10, cfg.train.accum_grad, cfg.train.batch_size
+        assert (accum, bsz) == (4, 16)
+        cfg = dataclasses.replace(
+            cfg, data=DataConfig(data_dir=root, train_filelist=fl, valid_filelist=fl),
+            train=dataclasses.replace(cfg.train, bf16=True, summary_interval=1,
+                                      save_interval=6, validation_step=10 ** 6,
+                                      keep_ckpts=3))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        ts = train(cfg, "smoke", f"{work}/out", max_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs = [json.loads(ln) for ln in open(f"{work}/out/logs/smoke/train_metrics.jsonl")]
+        main = [r for r in recs if "main/loss" in r]
+        assert [r["step"] for r in main] == list(range(1, steps + 1)), main
+        assert all(np.isfinite(r["main/loss"]) and np.isfinite(r["main/grad_norm"])
+                   for r in main), "non-finite loss or gradient norm"
+        assert any("evaluation/Dur_Loss" in r for r in recs), "the save interval did not fire"
+        log(f"train path: {steps} steps in {wall:.1f} s (set-up, first-step plans and one "
+            f"async save + predictor evaluation included); loss {main[0]['main/loss']:.1f} -> "
+            f"{main[-1]['main/loss']:.1f}, grad_norm {main[0]['main/grad_norm']:.1f} -> "
+            f"{main[-1]['main/grad_norm']:.1f}; peak device memory {peak:.2f} GiB")
+        late = [r for r in main if r["step"] > 3]
+        log(f"train path: host clock per step after the first three, data wait included: "
+            f"{statistics.median(r['main/wall_s'] for r in late) * 1e3:.1f} ms median, "
+            f"{statistics.median(r['main/mel_frames_per_s'] for r in late):.0f} mel-frames/s")
+        log(f"train path launches: {counts}")
+        want = 8 * accum * steps
+        got = (counts["attention_train_packed"], counts["attention_train_packed.bwd"])
+        assert got == (want, want), f"kernel 11 launches {got}, expected {want} each"
+        assert counts["attention_train"] == 0 and counts["attention_block"] == 0
+        results["attention_train_packed"]["launches"] = got[0]
+        results["attention_train_packed"]["launches_bwd"] = got[1]
+
+        ckpts = sorted(Path(work, "out/checkpoints/smoke").glob("ckpt_*.npz"))
+        assert [c.name for c in ckpts] == ["ckpt_00000006.npz", "ckpt_00000010.npz"], ckpts
+        fresh = FastSpeech2(cfg)
+        assert load_checkpoint(str(ckpts[-1]), fresh)[0] == steps
+        for (n, a), (_, b) in zip(ts.model.named_parameters(), fresh.named_parameters()):
+            assert torch.equal(a, b), f"checkpoint reload: {n} differs"
+        moved = float((next(fresh.parameters()) - next(FastSpeech2(
+            cfg, generator=torch.Generator().manual_seed(cfg.train.seed)).parameters()
+        )).abs().max())
+        log(f"train path: final checkpoint reloads to the same parameters; the embedding "
+            f"table moved by up to {moved:.2e} from its initial values")
+        assert moved > 0
+
+        # the same two steps through kernel 12
+        reset_counts()
+        flags.FUSED_ATT_TRAIN_PACKED = False
+        try:
+            ts2 = train(cfg, "smoke", f"{work}/out", max_steps=2, resume_path=str(ckpts[-1]))
+            torch.cuda.synchronize()
+        finally:
+            flags.FUSED_ATT_TRAIN_PACKED = True
+        counts = read_counts()
+        log(f"switch FUSED_ATT_TRAIN_PACKED=off, 2 steps from step {steps}: launches {counts}")
+        assert ts2.step == steps + 2
+        got = (counts["attention_train"], counts["attention_train.bwd"])
+        assert got == (8 * accum * 2,) * 2 and counts["attention_train_packed"] == 0, counts
+        results["attention_train"]["launches"] = got[0]
+        results["attention_train"]["launches_bwd"] = got[1]
+        recs = [json.loads(ln) for ln in open(f"{work}/out/logs/smoke/train_metrics.jsonl")]
+        tail = [r for r in recs if "main/loss" in r and r["step"] > steps]
+        assert len(tail) == 2 and all(np.isfinite(r["main/loss"]) for r in tail)
+
+        # timed steps on one full window (64 utterances), CUDA events
+        model, opt = ts.model, ts.optimizer
+        step_fn = make_train_step(model, opt, accum, bf16=True)
+        batch_np, shape = next(iter(BucketBatcher(
+            ds, batch_size=bsz * accum, seed=1).epoch(0)))
+        dev_batch = batch_to_device(batch_np, model.device)
+        frames = int(batch_np.olens.sum())
+        sched = SeedSchedule(model.dropout_sites(), seed=123)
+        one = lambda: step_fn(ts, dev_batch, [sched.draw() for _ in range(accum)])  # noqa: E731
+        one()
+        ms, _ = timed_calls(torch, one, n=7)
+        log(f"train step (B=16 x accum 4, pad {shape}, {frames} frames): {ms:.1f} ms median "
+            f"of 7 (CUDA events), {frames / ms * 1e3:.0f} mel-frames/s")
+        by_name = profile_phase(torch, one, "train step")
+        groups = {"training attention kernels": 0.0,
+                  "int64 elementwise + arange (hash dropout masks)": 0.0,
+                  "GEMM and convolution (cuBLAS, cuDNN)": 0.0, "other plain ops": 0.0}
+        for k, v in by_name.items():
+            low = k.lower()
+            if "train_fwd" in low or "train_bwd" in low:
+                groups["training attention kernels"] += v
+            elif "long" in low or "arange" in low:
+                groups["int64 elementwise + arange (hash dropout masks)"] += v
+            elif any(w in low for w in ("gemm", "cutlass", "cudnn", "xmma", "wgrad",
+                                        "dgrad", "conv", "sm90_", "sm80_")):
+                groups["GEMM and convolution (cuBLAS, cuDNN)"] += v
+            else:
+                groups["other plain ops"] += v
+        total = sum(by_name.values())
+        for k, v in groups.items():
+            if by_name:
+                log(f"profile train step: {v:8.3f} ms  {v / total:.3f} of device time  {k}")
+        return ms, frames
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def batch(n: int, offset: int = 0):
     from fastspeech2_tpu_torch.text import phonemes_to_sequence
     import numpy as np
@@ -529,7 +894,13 @@ def profile_phase(torch, call, what):
 def kernel_modules():
     from fastspeech2_tpu_torch.ops.kernels import adaptor, attention, ffn, postnet, resstack
 
-    return {"attention_block": (attention, "launches"), "ffn_block": (ffn, "launches"),
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as at
+
+    return {"attention_train_packed": (at, "packed_fwd_launches"),
+            "attention_train_packed.bwd": (at, "packed_bwd_launches"),
+            "attention_train": (at, "fwd_launches"),
+            "attention_train.bwd": (at, "bwd_launches"),
+            "attention_block": (attention, "launches"), "ffn_block": (ffn, "launches"),
             "variance_adaptor": (adaptor, "launches"), "postnet": (postnet, "launches"),
             "resstack": (resstack, "launches"),
             "attention_res_ln": (attention, "res_ln_launches")}
@@ -635,6 +1006,17 @@ def wav_path_phase(torch, results, synth):
     log(f"B=32 wav call: {ms:.3f} ms median of 5, {secs:.1f} s of audio, "
         f"{secs / ms * 1e3:.0f} audio-seconds/s; same batch as mel only {ms_mel:.3f} ms: "
         f"vocoder + PCM + wav copy take {(ms - ms_mel) / ms:.3f} of the call")
+    # what device.py's process-wide switch costs the serving path: the same
+    # two calls with reduced-precision reductions of bf16 GEMMs refused (the
+    # port's setting), allowed, allowed, refused, inside one run
+    matmul = torch.backends.cuda.matmul
+    for allow in (False, True, True, False):
+        matmul.allow_bf16_reduced_precision_reduction = allow
+        synth.wav_from_token_batch(b32)
+        ab_mel, _ = timed_calls(torch, lambda: synth.mel_from_token_batch(b32))
+        ab_wav, _ = timed_calls(torch, lambda: synth.wav_from_token_batch(b32))
+        log(f"B=32 calls with bf16 reduced-precision reduction "
+            f"{'allowed' if allow else 'refused'}: mel {ab_mel:.3f} ms, wav {ab_wav:.3f} ms")
     by_name = profile_phase(torch, lambda: synth.wav_from_token_batch(b32), "B=32 wav call")
     rs = sum(v for k, v in by_name.items() if "resstack" in k)
     if by_name:
@@ -821,10 +1203,15 @@ def main() -> int:
 
     results = {}
     kernel_phase(torch, results)
+    train_kernel_phase(torch, results)
     ms, frames, synth = main_path_phase(torch, results)
     wav_ms, wav_secs = wav_path_phase(torch, results, synth)
     server_phase(torch, synth)
     switch_phase(torch, results, synth)
+    del synth
+    torch.cuda.empty_cache()
+    train_step_vs_cpu_phase(torch)
+    step_ms, step_frames = train_path_phase(torch, results)
     assert "jax" not in sys.modules and not any(
         m == "fastspeech2_tpu" or m.startswith("fastspeech2_tpu.") for m in sys.modules)
 
@@ -836,11 +1223,17 @@ def main() -> int:
             "replaces": r["replaces"], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"][key],
             "plain_ms": r["plain_ms"][key], "bound_ms": r["bound_ms"][key],
-            "bound_by": r["bound_by"][key], "library_ms": None, "shape": key,
+            "bound_by": r["bound_by"][key],
+            "library_ms": r["library_ms"][key] if "library_ms" in r else None,
+            "shape": key,
             "all_shapes": {k: {"ms": r["ms"][k], "plain_ms": r["plain_ms"][k],
                                "bound_ms": r["bound_ms"][k]} for k in r["ms"]}})
+        if "bwd" in r:  # the training kernels: "ms" is the forward's time
+            kernels[-1].update(launches_bwd=r["launches_bwd"], bwd=r["bwd"][key],
+                               bwd_all_shapes=r["bwd"])
     log(f"total {time.perf_counter() - t_start:.1f} s; B=32 {frames / ms * 1e3:.0f} "
-        f"mel-frames/s, {wav_secs / wav_ms * 1e3:.0f} audio-seconds/s on {smi}")
+        f"mel-frames/s, {wav_secs / wav_ms * 1e3:.0f} audio-seconds/s, train step "
+        f"{step_ms:.1f} ms ({step_frames / step_ms * 1e3:.0f} mel-frames/s) on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

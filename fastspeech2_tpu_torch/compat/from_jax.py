@@ -13,6 +13,12 @@ statistics come from ``state["postnet"]["bn"]``.
 
 ``load_jax_melgan_params(gen, params)`` does the same for the MelGAN
 generator.
+
+The inverse, for checkpoints: ``flat_to_jax(model, tensors)`` turns tensors
+named like the model's parameters (the parameters themselves, or an
+optimizer's moments) into the JAX package's flat ``/``-joined keys and
+layouts; ``flat_from_jax(model, flat)`` is its strict inverse;
+``state_to_jax`` / ``load_jax_state`` carry the BatchNorm running statistics.
 """
 
 from __future__ import annotations
@@ -110,3 +116,86 @@ def load_jax_melgan_params(gen: tnn.Module, params) -> tnn.Module:
                              f"shape {tuple(own[name].shape)}")
     gen.load_state_dict(sd, strict=True)
     return gen
+
+
+def _jax_key(model: tnn.Module, name: str):
+    """(JAX flat key, leaf) of the model parameter called ``name``."""
+    mod_path, _, attr = name.rpartition(".")
+    module = model.get_submodule(mod_path) if mod_path else model
+    if attr == "alpha":
+        leaf = "alpha"
+    elif attr == "bias":
+        leaf = "b"
+    elif isinstance(module, (tnn.LayerNorm, tnn.BatchNorm1d)):
+        leaf = "g"
+    else:
+        leaf = "w"
+    return "/".join(filter(None, [mod_path.replace(".", "/"), leaf])), module, leaf
+
+
+def flat_to_jax(model: tnn.Module, tensors: Mapping[str, torch.Tensor]
+                ) -> Dict[str, np.ndarray]:
+    """{parameter name: tensor} -> {JAX key: numpy array in the JAX layout}."""
+    out = {}
+    for name, t in tensors.items():
+        key, module, leaf = _jax_key(model, name)
+        a = t.detach().cpu().numpy()
+        if leaf == "w" and isinstance(module, tnn.Linear):
+            a = a.T
+        elif leaf == "w" and isinstance(module, tnn.Conv1d):
+            a = a.transpose(2, 1, 0)
+        out[key] = np.array(a, order="C")  # (ascontiguousarray would make 0-dim 1-dim)
+    return out
+
+
+def flat_from_jax(model: tnn.Module, flat: Mapping[str, np.ndarray]
+                  ) -> Dict[str, torch.Tensor]:
+    """Strict inverse of :func:`flat_to_jax` over ALL of the model's
+    parameters: raises KeyError on a missing leaf, ValueError on a shape
+    mismatch or a leaf left over."""
+    out = {}
+    used = set()
+    for name, p in model.named_parameters():
+        key, module, leaf = _jax_key(model, name)
+        if key not in flat:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        a = _to_torch_layout(module, leaf, np.asarray(flat[key], np.float32))
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"shape mismatch for {key}: checkpoint "
+                             f"{tuple(a.shape)} vs model {tuple(p.shape)}")
+        out[name] = torch.from_numpy(np.array(a, order="C"))
+        used.add(key)
+    extra = set(flat) - used
+    if extra:
+        raise ValueError(f"unexpected leaves {sorted(extra)[:5]}")
+    return out
+
+
+def _bn_layers(model: tnn.Module):
+    post = getattr(model, "postnet", None)
+    if post is None or not post.cfg.use_batch_norm:
+        return []
+    return [layer.bn for layer in post.layers]
+
+
+def state_to_jax(model: tnn.Module) -> Dict[str, np.ndarray]:
+    """The BatchNorm running statistics under the JAX state's flat keys."""
+    out = {}
+    for i, bn in enumerate(_bn_layers(model)):
+        out[f"postnet/bn/{i}/mean"] = bn.running_mean.detach().cpu().numpy().copy()
+        out[f"postnet/bn/{i}/var"] = bn.running_var.detach().cpu().numpy().copy()
+    return out
+
+
+@torch.no_grad()
+def load_jax_state(model: tnn.Module, flat: Mapping[str, np.ndarray]) -> None:
+    """Strict inverse of :func:`state_to_jax`, in place."""
+    want = state_to_jax(model)
+    if set(flat) != set(want):
+        raise KeyError(f"state leaves differ: {sorted(set(flat) ^ set(want))[:5]}")
+    for i, bn in enumerate(_bn_layers(model)):
+        for stat, buf in (("mean", bn.running_mean), ("var", bn.running_var)):
+            a = np.asarray(flat[f"postnet/bn/{i}/{stat}"], np.float32)
+            if tuple(a.shape) != tuple(buf.shape):
+                raise ValueError(f"shape mismatch for postnet/bn/{i}/{stat}")
+            buf.copy_(torch.from_numpy(a.copy()))

@@ -72,29 +72,6 @@ qkv_proj_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
   });
 }
 
-// s = Q_w K^T for one warp: 16 query rows (Qw, row stride lq) x 64 keys (Ks).
-template <int DK>
-__device__ __forceinline__ void warp_scores(float (&s)[8][4], const bf16* Qw,
-                                            int lq, const bf16* Ks, int lk,
-                                            int lane) {
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) s[ni][r] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DK; kk += 16) {
-    uint32_t a[4];
-    load_a_frag(a, Qw + kk, lq, lane);
-#pragma unroll
-    for (int ni = 0; ni < 8; ni += 2) {
-      uint32_t b[4];
-      load_b_frag2(b, Ks + ni * 8 * lk + kk, lk, lane);
-      mma_bf16(s[ni], a, b[0], b[1]);
-      mma_bf16(s[ni + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 // One 64-key tile of K (and V) of head h into shared memory, zeros at keys
 // >= len; row-major [key][d], row stride lk.
 template <int DK>

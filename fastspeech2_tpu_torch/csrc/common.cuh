@@ -16,6 +16,10 @@
 #include <float.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 typedef __nv_bfloat16 bf16;
 
 #define FS2_EXPORT extern "C" __attribute__((visibility("default")))
@@ -119,6 +123,30 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const bf16* tile, 
 __device__ __forceinline__ void load_b_frag2(uint32_t (&b)[4], const bf16* tile, int ld,
                                              int lane) {
   ldmatrix_x4(b, tile + ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8);
+}
+
+// s = A_w B^T for one warp: 16 rows of A (Qw, row stride lq, DK deep) x 64
+// rows of an n-major B (Ks, row stride lk): the score tile of attention.
+template <int DK>
+__device__ __forceinline__ void warp_scores(float (&s)[8][4], const bf16* Qw,
+                                            int lq, const bf16* Ks, int lk,
+                                            int lane) {
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[ni][r] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DK; kk += 16) {
+    uint32_t a[4];
+    load_a_frag(a, Qw + kk, lq, lane);
+#pragma unroll
+    for (int ni = 0; ni < 8; ni += 2) {
+      uint32_t b[4];
+      load_b_frag2(b, Ks + ni * 8 * lk + kk, lk, lane);
+      mma_bf16(s[ni], a, b[0], b[1]);
+      mma_bf16(s[ni + 1], a, b[2], b[3]);
+    }
+  }
 }
 
 // Block-cooperative C = A * W^T, bf16 operands, f32 accumulators.
@@ -244,9 +272,28 @@ struct TileGemm {
   }
 };
 
-// Shared-memory opt-in above 48 KB, then the launch status.
+// Shared-memory opt-in above 48 KB. The opt-in of a kernel only ever grows,
+// under a lock: two host threads launch one kernel at different widths (a
+// server's dispatch thread the encoder at D=256, its delivery thread the
+// decoder at D=384), and a smaller request landing between the other
+// thread's request and its launch would have that launch refused
+// (cudaErrorInvalidValue).
+static inline cudaError_t set_smem_of(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> granted;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = granted[std::make_pair(dev, kernel)];
+  if (bytes <= have) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) have = bytes;
+  return e;
+}
+
 template <class K>
 static inline cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  return set_smem_of(reinterpret_cast<const void*>(kernel), bytes);
 }

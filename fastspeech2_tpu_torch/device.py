@@ -4,7 +4,8 @@ Entry points run on the card unless the caller asks for the CPU: ``None``
 means ``cuda``, and ``cuda`` without a GPU raises instead of carrying on on
 the CPU. Resolving a CUDA device also turns TF32 off for both matmuls and
 cuDNN convolutions: the f32 tier and the f32 duration head need full f32
-products (cuDNN's TF32 default flips integer durations).
+products (cuDNN's TF32 default flips integer durations); and it turns
+reduced-precision reductions of bf16 matmuls off.
 """
 
 from __future__ import annotations
@@ -24,4 +25,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "plain PyTorch versions on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # bf16 products accumulate and reduce in f32 (ops/nn.py's contract)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -1,20 +1,35 @@
-"""FFT-block (feed-forward Transformer) encoder/decoder stack, inference path
+"""FFT-block (feed-forward Transformer) encoder/decoder stack
 (``fastspeech2_tpu/models/encoder.py``).
 
 Input layer: token embedding ("embed", the text encoder) or
-Linear -> LayerNorm -> ReLU ("linear", the decoder), then (scaled) sinusoidal
-positional encoding; N blocks of [self-attention + position-wise FFN], post-LN
-by default; a final LayerNorm only when ``normalize_before``.
+Linear -> LayerNorm -> Dropout -> ReLU ("linear", the decoder), then (scaled)
+sinusoidal positional encoding and positional dropout; N blocks of
+[self-attention + position-wise FFN], post-LN by default; a final LayerNorm
+only when ``normalize_before``.
 
-Branches follow the JAX engagement rules (``encoder.py:191-219``), so both
-packages take the same path: the attention-half kernel runs only under bf16,
-at d_k >= 128, post-LN, with lengths given; the FFN-half kernel only with a
-conv mask. On the f32 tier the JAX package uses XLA ops and the port uses
-plain PyTorch ops. With ``flags.FUSED_ATT_QKV`` off the post-LN blocks
-project q/k/v with plain ops and take the q/k/v-given attention kernel, as the
-JAX package does. Branches whose JAX counterpart is a kernel this port does
-not have yet (pre-LN, ``concat_after``, ``FUSED_ATT_RES`` off) raise
+Branches follow the JAX engagement rules (``encoder.py:191-229``), so both
+packages take the same path. Routes served:
+
+- serving (deterministic, bf16, d_k >= 128, lengths given): the post-LN
+  attention-half kernel, with ``flags.FUSED_ATT_QKV`` off the q/k/v-given
+  kernel after plain projections; the FFN-half kernel only with a conv mask.
+  These kernels take no gradient.
+- training (not deterministic, seeds given, bf16, d_k >= 128, T <= 1024):
+  q/k/v projections, the training attention kernels with in-kernel hash
+  dropout (``ops/kernels/attention_train.py``; head-packed up to T = 896
+  unless ``flags.FUSED_ATT_TRAIN_PACKED`` is off), out projection, then the
+  dropout sites and the FFN as plain ops. ``remat`` checkpoints each block.
+- everything else (the f32 tier, small heads, the CPU tests): plain ops,
+  ``ops.attention.mha_apply`` with its dropout branch.
+
+Branches whose JAX counterpart is a kernel this port does not have yet
+(pre-LN, ``concat_after``, ``FUSED_ATT_RES`` off on the serving route) raise
 NotImplementedError rather than run something else.
+
+Dropout sites, in the JAX package's fixed order: ``input`` (linear input
+layer only), ``pos``, then per block i ``{i}/attn``, ``{i}/res``, ``{i}/ffn``,
+``{i}/ffn_res``; ``Encoder.dropout_sites()`` lists them and ``forward`` takes
+their uint32 seeds as a mapping.
 """
 
 from __future__ import annotations
@@ -22,18 +37,20 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from fastspeech2_tpu_torch.ops import flags, nn
 from fastspeech2_tpu_torch.ops.attention import mha_apply
 from fastspeech2_tpu_torch.ops.kernels import attention as attn_kernel
+from fastspeech2_tpu_torch.ops.kernels import attention_train
 from fastspeech2_tpu_torch.ops.kernels import common
 from fastspeech2_tpu_torch.ops.kernels import ffn as ffn_kernel
-from fastspeech2_tpu_torch.ops.precision import current_compute_dtype
+from fastspeech2_tpu_torch.ops.precision import compute_dtype, current_compute_dtype
 
 
 @dataclass(frozen=True)
@@ -43,6 +60,9 @@ class EncoderConfig:
     attention_heads: int = 2
     linear_units: int = 1024
     num_blocks: int = 4
+    dropout_rate: float = 0.2
+    positional_dropout_rate: float = 0.2
+    attention_dropout_rate: float = 0.2
     input_layer: str = "embed"     # "embed" | "linear"
     use_scaled_pos_enc: bool = True
     normalize_before: bool = False
@@ -88,15 +108,18 @@ class PositionwiseFFN(tnn.Module):
         else:
             raise ValueError(f"unknown positionwise_layer_type {self.kind}")
 
-    def forward(self, x: torch.Tensor,
-                conv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, conv_mask: Optional[torch.Tensor], *,
+                dropout_rate: float = 0.0, seed: Optional[int] = None,
+                deterministic: bool = True) -> torch.Tensor:
         """conv_mask (B, T): zero conv inputs at invalid rows. Under bf16 the
-        wide hidden stays in bf16, as in the JAX package."""
+        wide hidden stays in bf16, as in the JAX package; in training mode
+        it is dropped after the ReLU."""
         mid = current_compute_dtype() or x.dtype
         op = nn.conv1d if self.kind == "conv1d" else nn.linear
         if self.kind == "conv1d" and conv_mask is not None:
             x = torch.where(conv_mask[..., None], x, torch.zeros_like(x))
         h = torch.relu(op(x, self.w1.weight, self.w1.bias, out_dtype=mid))
+        h = nn.dropout(h, dropout_rate, seed, deterministic=deterministic)
         return op(h, self.w2.weight, self.w2.bias, out_dtype=x.dtype)
 
 
@@ -151,22 +174,43 @@ class Encoder(tnn.Module):
             return x + self.alpha * pe
         return x * math.sqrt(cfg.attention_dim) + pe
 
+    def dropout_sites(self) -> List[str]:
+        """Names of this stack's dropout sites in the JAX package's key order
+        (``encoder.py:226-253``): 2 + 4 per block. The embed input layer has
+        no ``input`` dropout; the JAX package skips that key too."""
+        sites = ["input", "pos"]
+        for i in range(self.cfg.num_blocks):
+            sites += [f"{i}/attn", f"{i}/res", f"{i}/ffn", f"{i}/ffn_res"]
+        return sites
+
     def forward(self, xs: torch.Tensor, mask: Optional[torch.Tensor], *,
                 conv_mask: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None,
-                fused_attention: bool = False) -> torch.Tensor:
+                fused_attention: bool = False,
+                seeds: Optional[Mapping[str, int]] = None,
+                deterministic: bool = True,
+                remat: bool = False) -> torch.Tensor:
         """xs: (B, T) token ids ("embed") or (B, T, idim) features ("linear");
         mask: (B, T, T) bool, True where valid; conv_mask: (B, T) row validity;
-        lengths: (B,) int32, required by the kernels."""
+        lengths: (B,) int32, required by the kernels; seeds: uint32 per
+        dropout site (``dropout_sites``), required when not deterministic;
+        remat: recompute each block in the backward pass
+        (``torch.utils.checkpoint``; the seeds make the replay identical)."""
         cfg = self.cfg
+        if not deterministic and seeds is None:
+            raise ValueError("training mode needs the dropout seeds")
+        seed = (lambda name: None) if deterministic else seeds.__getitem__
         d_k = cfg.attention_dim // cfg.attention_heads
         speed_path = (fused_attention and lengths is not None
                       and current_compute_dtype() == torch.bfloat16)
-        use_fused = speed_path and d_k >= 128
+        fusable = speed_path and d_k >= 128
+        use_fused = fusable and deterministic
         use_fused_res = use_fused and not cfg.concat_after and flags.FUSED_ATT_RES
-        use_fused_ffn = (speed_path and conv_mask is not None
+        use_fused_ffn = (speed_path and deterministic and conv_mask is not None
                          and cfg.positionwise_layer_type == "conv1d"
                          and cfg.positionwise_conv_kernel_size % 2 == 1)
+        use_fused_train = (fusable and not deterministic
+                           and xs.shape[1] <= attention_train.MAX_T)
         if use_fused and not use_fused_res:
             raise NotImplementedError(
                 "bare fused attention (fastspeech2_tpu/ops/pallas/attention.py:"
@@ -184,14 +228,24 @@ class Encoder(tnn.Module):
         else:
             x = nn.linear(xs, self.input_linear.weight, self.input_linear.bias)
             x = nn.layer_norm(x, self.input_ln.weight, self.input_ln.bias)
+            x = nn.dropout(x, cfg.dropout_rate, seed("input"),
+                           deterministic=deterministic)
             x = torch.relu(x)
         x = self._positional_encode(x)
+        x = nn.dropout(x, cfg.positional_dropout_rate, seed("pos"),
+                       deterministic=deterministic)
 
         cd = current_compute_dtype()
-        for layer in self.layers:
+
+        def fft_block(i: int, layer: FFTBlock, x: torch.Tensor) -> torch.Tensor:
+            ran_fused_res = False
+            residual = x
+            y = (nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)
+                 if cfg.normalize_before else x)
             if use_fused_res and flags.FUSED_ATT_QKV:
                 x = attn_kernel.attention_block(x, *layer.attn_pack(cd), lengths,
                                                 cfg.attention_heads)
+                ran_fused_res = True
             elif use_fused_res:
                 # split route: projections as plain ops (the JAX package
                 # leaves them to XLA), then the q/k/v-given kernel
@@ -201,28 +255,51 @@ class Encoder(tnn.Module):
                 x = attn_kernel.attention_res_ln(
                     q, k, v, x, *layer.attn_pack(cd)[2:], lengths,
                     cfg.attention_heads)
+                ran_fused_res = True
+            elif use_fused_train:
+                att = attention_train.mha_fused_train_apply(
+                    layer.attn, y, lengths, cfg.attention_heads,
+                    seed(f"{i}/attn"), cfg.attention_dropout_rate)
             else:
-                residual = x
-                y = (nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)
-                     if cfg.normalize_before else x)
-                att = mha_apply(layer.attn, y, y, y, mask, cfg.attention_heads)
+                att = mha_apply(layer.attn, y, y, y, mask, cfg.attention_heads,
+                                dropout_rate=cfg.attention_dropout_rate,
+                                dropout_seed=seed(f"{i}/attn"),
+                                deterministic=deterministic)
+            if not ran_fused_res:
                 if cfg.concat_after:
                     x = residual + nn.linear(torch.cat([y, att], dim=-1),
                                              layer.concat.weight, layer.concat.bias)
                 else:
-                    x = residual + att
+                    x = residual + nn.dropout(att, cfg.dropout_rate,
+                                              seed(f"{i}/res"),
+                                              deterministic=deterministic)
                 if not cfg.normalize_before:
                     x = nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)
             if use_fused_ffn:
-                x = ffn_kernel.ffn_block(x, *layer.ffn_pack(cd), lengths,
-                                         cfg.positionwise_conv_kernel_size)
+                return ffn_kernel.ffn_block(x, *layer.ffn_pack(cd), lengths,
+                                            cfg.positionwise_conv_kernel_size)
+            residual = x
+            y = (nn.layer_norm(x, layer.norm2.weight, layer.norm2.bias)
+                 if cfg.normalize_before else x)
+            f = layer.ffn(y, conv_mask, dropout_rate=cfg.dropout_rate,
+                          seed=seed(f"{i}/ffn"), deterministic=deterministic)
+            x = residual + nn.dropout(f, cfg.dropout_rate, seed(f"{i}/ffn_res"),
+                                      deterministic=deterministic)
+            if not cfg.normalize_before:
+                x = nn.layer_norm(x, layer.norm2.weight, layer.norm2.bias)
+            return x
+
+        def replayed_block(i: int, layer: FFTBlock, x: torch.Tensor) -> torch.Tensor:
+            # the backward pass replays the block outside the caller's
+            # compute-dtype context: enter it again
+            with compute_dtype(cd):
+                return fft_block(i, layer, x)
+
+        for i, layer in enumerate(self.layers):
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(replayed_block, i, layer, x, use_reentrant=False)
             else:
-                residual = x
-                y = (nn.layer_norm(x, layer.norm2.weight, layer.norm2.bias)
-                     if cfg.normalize_before else x)
-                x = residual + layer.ffn(y, conv_mask)
-                if not cfg.normalize_before:
-                    x = nn.layer_norm(x, layer.norm2.weight, layer.norm2.bias)
+                x = fft_block(i, layer, x)
         if cfg.normalize_before:
             x = nn.layer_norm(x, self.after_norm.weight, self.after_norm.bias)
         return x

@@ -1,13 +1,17 @@
-"""Tacotron-2 postnet, inference path (``fastspeech2_tpu/models/postnet.py``).
+"""Tacotron-2 postnet (``fastspeech2_tpu/models/postnet.py``).
 
-(n_layers-1) x [Conv1d(k, no bias) -> BatchNorm1d -> Tanh] then
-Conv1d -> BatchNorm1d; applied residually: ``after = before + postnet(before)``.
+(n_layers-1) x [Conv1d(k, no bias) -> BatchNorm1d -> Tanh -> Dropout] then
+Conv1d -> BatchNorm1d -> Dropout; applied residually:
+``after = before + postnet(before)``. In training mode BatchNorm normalises
+with the batch statistics and updates its running statistics in place, and
+the teacher-forced forward passes no conv mask (pad rows leak into conv
+windows, as in the reference). One dropout site per layer, named by its index.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 from torch import nn as tnn
@@ -23,6 +27,7 @@ class PostnetConfig:
     n_layers: int = 5
     n_chans: int = 256
     n_filts: int = 5
+    dropout_rate: float = 0.5
     use_batch_norm: bool = True
 
 
@@ -47,18 +52,26 @@ class Postnet(tnn.Module):
             for i in range(cfg.n_layers))
 
     def forward(self, xs: torch.Tensor,
-                conv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """xs (B, L, odim) -> residual (B, L, odim), module-by-module ops."""
+                conv_mask: Optional[torch.Tensor] = None, *,
+                seeds: Optional[Mapping[str, int]] = None,
+                training: bool = False) -> torch.Tensor:
+        """xs (B, L, odim) -> residual (B, L, odim), module-by-module ops.
+        training: batch statistics (running statistics updated in place) and
+        dropout with the per-layer seeds."""
         h = xs
         for i, layer in enumerate(self.layers):
             if conv_mask is not None:
                 h = torch.where(conv_mask[..., None], h, torch.zeros_like(h))
             h = nn.conv1d(h, layer.conv.weight)
             if self.cfg.use_batch_norm:
-                h = nn.batch_norm(h, layer.bn.running_mean, layer.bn.running_var,
-                                  layer.bn.weight, layer.bn.bias)
+                bn = nn.batch_norm_train if training else nn.batch_norm
+                h = bn(h, layer.bn.running_mean, layer.bn.running_var,
+                       layer.bn.weight, layer.bn.bias)
             if i < self.cfg.n_layers - 1:
                 h = torch.tanh(h)
+            h = nn.dropout(h, self.cfg.dropout_rate,
+                           seeds[str(i)] if training else None,
+                           deterministic=not training)
         return h
 
     def fused(self, xs: torch.Tensor, lengths: torch.Tensor,

@@ -29,11 +29,15 @@ def masked_softmax(scores: torch.Tensor,
 
 def mha_apply(attn, query: torch.Tensor, key: torch.Tensor,
               value: torch.Tensor, mask: Optional[torch.Tensor],
-              n_heads: int) -> torch.Tensor:
-    """Scaled dot-product multi-head attention on the deterministic path.
+              n_heads: int, *, dropout_rate: float = 0.0,
+              dropout_seed: Optional[int] = None,
+              deterministic: bool = True) -> torch.Tensor:
+    """Scaled dot-product multi-head attention.
 
     attn: a module with ``q``, ``k``, ``v``, ``out`` linears (torch layout).
     query/key/value: (B, T, D); mask: (B, Tq, Tk) bool, True where valid.
+    In training mode the attention weights are dropped after the masked
+    softmax (``nn.dropout`` over (B, H, Tq, Tk) with the site's seed).
     """
     B, Tq, D = query.shape
     d_k = D // n_heads
@@ -45,6 +49,8 @@ def mha_apply(attn, query: torch.Tensor, key: torch.Tensor,
     q, k, v = split(query, attn.q), split(key, attn.k), split(value, attn.v)
     scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d_k)
     w = masked_softmax(scores, None if mask is None else mask[:, None])
-    x = (w.to(query.dtype).float() @ v.float()).to(query.dtype)
+    w = nn.dropout(w.to(query.dtype), dropout_rate, dropout_seed,
+                   deterministic=deterministic)
+    x = (w.float() @ v.float()).to(query.dtype)
     x = x.transpose(1, 2).reshape(B, Tq, D)
     return nn.linear(x, attn.out.weight, attn.out.bias)

@@ -1,4 +1,4 @@
-"""Process-wide switches of the serving path, read once at import.
+"""Process-wide switches of the serving and training paths, read once at import.
 
 Same names and environment variables as ``fastspeech2_tpu/ops/flags.py``, so
 one environment configures both packages. Set the variable before the first
@@ -31,3 +31,11 @@ DEMAND_SIZED: bool = os.environ.get("FS2_DEMAND_SIZED", "on") != "off"
 #: on a rounding knife-edge, and a flipped integer duration shifts every later
 #: frame. FS2_F32_DURATION=off runs the head in bf16.
 F32_DURATION: bool = os.environ.get("FS2_F32_DURATION", "on") != "off"
+
+#: head-packed (B, T, D) training attention kernel
+#: (ops/kernels/attention_train.py:fused_attention_train_packed): no
+#: (B,T,H,dk)<->(B,H,T,dk) transposes around the projections.
+#: FS2_FUSED_ATT_TRAIN_PACKED=off takes the (B, H, T, dk) entry
+#: (fused_attention_train) for every length.
+FUSED_ATT_TRAIN_PACKED: bool = (
+    os.environ.get("FS2_FUSED_ATT_TRAIN_PACKED", "on") != "off")

@@ -79,6 +79,7 @@ def attention_block(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
     the compute dtype; bqkv (3D,), bo/g/be (D,) f32; lengths (B,) int32.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     global launches, _fn
+    common.refuse_grad("attention_block", x, wqkv, bqkv, wo, bo, g, be)
     if x.device.type == "cpu":
         return attention_block_plain(x, wqkv, bqkv, wo, bo, g, be, lengths,
                                      n_heads, eps)
@@ -116,6 +117,7 @@ def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
     dtype; bo/g/be (D,) f32; lengths (B,) int32. CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     global res_ln_launches, _fn_res_ln
+    common.refuse_grad("attention_res_ln", q, k, v, res, wo, bo, g, be)
     if q.device.type == "cpu":
         return attention_res_ln_plain(q, k, v, res, wo, bo, g, be, lengths,
                                       n_heads, eps)

@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-KERNEL_SOURCES = ("attention", "ffn", "adaptor", "postnet", "resstack")
+KERNEL_SOURCES = ("attention", "ffn", "adaptor", "postnet", "resstack",
+                  "attention_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
@@ -154,6 +155,14 @@ def check_cuda(name: str, device: torch.device,
                              f"expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The serving kernels have no backward: raise when autograd would
+    record one of their inputs (training takes other routes)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} takes no gradient: it is a serving kernel "
+                           "(run it under torch.no_grad or inference_mode)")
 
 
 def unfold_rows(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -44,6 +44,7 @@ def ffn_block(x, w1, b1, w2, b2, g, be, lengths, kernel: int,
     """x (B, T, D) f32; w1 (H, k*D) and w2 (D, H) in the compute dtype;
     b1 (H,), b2/g/be (D,) f32; lengths (B,) int32."""
     global launches, _fn
+    common.refuse_grad("ffn_block", x, w1, b1, w2, b2, g, be)
     if x.device.type == "cpu":
         return ffn_block_plain(x, w1, b1, w2, b2, g, be, lengths, kernel, eps)
     B, T, D = x.shape

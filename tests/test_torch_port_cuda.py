@@ -57,6 +57,53 @@ def test_attention_and_ffn_blocks(dev, B, T, D):
     assert KA.launches == n0 + 1
 
 
+def test_two_threads_launch_one_kernel_at_two_widths(dev):
+    """A server's dispatch thread runs the encoder (D=256) while its delivery
+    thread runs the decoder (D=384): both reach ``qkv_proj_kernel`` with other
+    shared-memory sizes. Two threads call the C entry back to back (nothing of
+    Python between the calls, so they overlap inside it): no launch may be
+    refused. With a per-launch opt-in that could shrink, about one launch in
+    twenty at the wider size came back with cudaErrorInvalidValue."""
+    import math
+    import threading
+
+    from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+
+    torch.manual_seed(5)
+    jobs, keep = [], []
+    for D in (256, 384):
+        blk = FFTBlock(EncoderConfig(idim=D, attention_dim=D, linear_units=1024),
+                       device=dev)
+        x = torch.randn(1, 32, D, device=dev)
+        lens = torch.tensor([32], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            ap = blk.attn_pack(torch.bfloat16)
+            want = KA.attention_block(x, *ap, lens, 2)  # binds KA._fn
+        qkv = torch.empty((1, 32, 3 * D), dtype=torch.bfloat16, device=dev)
+        out = torch.empty_like(x)
+        keep.append((blk, x, lens, ap, qkv, out, want))
+        jobs.append((x.data_ptr(), *(t.data_ptr() for t in ap), lens.data_ptr(),
+                     qkv.data_ptr(), out.data_ptr(), 1, 32, D, 2,
+                     1.0 / math.sqrt(D // 2), 1e-5,
+                     torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    refused = {}
+
+    def run(args):
+        refused[args[12]] = sum(1 for _ in range(50000) if KA._fn(*args))
+
+    threads = [threading.Thread(target=run, args=(job,)) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert refused == {256: 0, 384: 0}, f"refused launches of 50000 per width: {refused}"
+    for *_, out, want in keep:
+        assert torch.equal(out, want)
+
+
 def test_adaptor_and_postnet(dev):
     from fastspeech2_tpu_torch.models.postnet import Postnet, PostnetConfig
     from fastspeech2_tpu_torch.models.predictors import Predictor, PredictorConfig
@@ -209,5 +256,167 @@ def test_attention_res_ln(dev, B, T, D):
     # many outputs through the softmax and the LayerNorm, so the two kernels
     # agree within the band but not bit for bit
     _close(got, fused)
-    with pytest.raises(ValueError, match="bfloat16"):
+    # (no-grad: the serving kernels refuse inputs that autograd would record,
+    # and the packed LayerNorm weights are the parameters themselves)
+    with torch.no_grad(), pytest.raises(ValueError, match="bfloat16"):
         KA.attention_res_ln(q.float(), k, v, x, *ap[2:], lens, 2)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["kernel11_packed", "kernel12"])
+@pytest.mark.parametrize("B,T,D,rate", [(3, 96, 256, 0.2), (2, 160, 384, 0.2),
+                                        (2, 200, 384, 0.0), (4, 40, 256, 0.5)])
+def test_attention_train_forward_and_backward(dev, packed, B, T, D, rate):
+    """Kernels 11 and 12 against the plain version's autograd: output and dQ,
+    dK, dV for a random dO, at lengths that are no multiple of the 64-row
+    tiles, with a full row, a row of length 1 and dead tiles; a seed past
+    2^31; padded rows exactly zero. Band: both sides round at the same
+    points, the summation order differs: max < 2^-6 (two bf16 steps at the
+    peak), mean < 1e-4 of the plain result's peak. dO arrives non-contiguous and in f32, as autograd may hand
+    it over."""
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    H, dk = 2, D // 2
+    g = torch.Generator().manual_seed(B * T + D)
+    lens = _lengths(B, T, dev, g)
+    shape = (B, T, D) if packed else (B, H, T, dk)
+    q, k, v = (torch.randn(shape, generator=g).bfloat16().to(dev).requires_grad_()
+               for _ in range(3))
+    do = torch.randn(shape[:-1] + (2 * shape[-1],), generator=g).to(dev)[..., ::2]
+    assert not do.is_contiguous() and do.dtype == torch.float32
+    seed = 2 ** 31 + 12345
+    if packed:
+        kern = KT.fused_attention_train_packed(q, k, v, lens, seed, H, rate)
+        plain = KT.attention_train_plain(q, k, v, lens, seed, rate, H)
+    else:
+        kern = KT.fused_attention_train(q, k, v, lens, seed, rate)
+        plain = KT.attention_train_plain(q, k, v, lens, seed, rate)
+    n0 = KT.packed_bwd_launches + KT.bwd_launches
+    got = (kern, *torch.autograd.grad(kern, (q, k, v), do))
+    want = (plain, *torch.autograd.grad(plain, (q, k, v), do.bfloat16()))
+    torch.cuda.synchronize()
+    assert KT.packed_bwd_launches + KT.bwd_launches == n0 + 1
+    pad = torch.arange(T, device=dev)[None] >= lens[:, None]
+    pad = pad[:, :, None] if packed else pad[:, None, :, None]
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert float(torch.where(pad, a.detach().float().abs(), 0.0).max()) == 0.0, name
+        d, peak = (a.float() - b.float()).abs(), float(b.float().abs().max())
+        assert float(d.max()) < 2.0 ** -6 * peak and float(d.mean()) < 1e-4 * peak, (
+            name, float(d.max()), float(d.mean()), peak)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["kernel11_packed", "kernel12"])
+@pytest.mark.parametrize("B,T,D,rate", [(2, 100, 256, 0.2), (2, 70, 384, 0.0)])
+def test_attention_train_f32(dev, packed, B, T, D, rate):
+    """The f32 instantiation (plain multiply-adds, no TF32) against the plain
+    version's autograd in full f32: 2e-5 of each result's peak (other
+    summation order, expf against torch's exp); padded rows exactly zero."""
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    H, dk = 2, D // 2
+    g = torch.Generator().manual_seed(T + D)
+    lens = _lengths(B, T, dev, g)
+    shape = (B, T, D) if packed else (B, H, T, dk)
+    q, k, v = (torch.randn(shape, generator=g).to(dev).requires_grad_() for _ in range(3))
+    do = torch.randn(shape, generator=g).to(dev)
+    seed = 2 ** 32 - 3
+    if packed:
+        kern = KT.fused_attention_train_packed(q, k, v, lens, seed, H, rate)
+        plain = KT.attention_train_plain(q, k, v, lens, seed, rate, H)
+    else:
+        kern = KT.fused_attention_train(q, k, v, lens, seed, rate)
+        plain = KT.attention_train_plain(q, k, v, lens, seed, rate)
+    got = (kern, *torch.autograd.grad(kern, (q, k, v), do))
+    want = (plain, *torch.autograd.grad(plain, (q, k, v), do))
+    torch.cuda.synchronize()
+    pad = torch.arange(T, device=dev)[None] >= lens[:, None]
+    pad = pad[:, :, None] if packed else pad[:, None, :, None]
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert float(torch.where(pad, a.detach().abs(), 0.0).max()) == 0.0, name
+        d, peak = (a - b).detach().abs(), float(b.detach().abs().max())
+        assert float(d.max()) < 2e-5 * peak, (name, float(d.max()), peak)
+
+
+def test_attention_train_layouts_draw_the_same_mask(dev):
+    """The packed and the (B, H, T, dk) entries agree bit for bit on the same
+    values: one kernel body, the same (seed, b, h) mask."""
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    B, T, H, dk = 2, 130, 2, 128
+    g = torch.Generator().manual_seed(7)
+    lens = _lengths(B, T, dev, g)
+    q4, k4, v4, do4 = (torch.randn(B, H, T, dk, generator=g).bfloat16().to(dev)
+                       for _ in range(4))
+    pack = lambda t: t.transpose(1, 2).reshape(B, T, H * dk).contiguous()  # noqa: E731
+    a = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+    b = [pack(t).requires_grad_() for t in (q4, k4, v4)]
+    oa = KT.fused_attention_train(*a, lens, 99, 0.3)
+    ob = KT.fused_attention_train_packed(*b, lens, 99, H, 0.3)
+    ga = torch.autograd.grad(oa, a, do4)
+    gb = torch.autograd.grad(ob, b, pack(do4))
+    for x, y in zip((oa, *ga), (ob, *gb)):
+        assert torch.equal(pack(x), y)
+
+
+def test_attention_train_rejects_what_it_does_not_cover(dev):
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    lens = torch.tensor([8, 3], dtype=torch.int32, device=dev)
+    q = torch.randn(2, 8, 256, device=dev)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        KT.fused_attention_train_packed(q.half(), q.half(), q.half(), lens, 1, 2, 0.0)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        KT.fused_attention_train_packed(qb, qb, qb, lens, 1, 4, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        KT.fused_attention_train_packed(qb, qb.transpose(0, 1).contiguous().transpose(0, 1),
+                                        qb, lens, 1, 2, 0.0)
+    with pytest.raises(ValueError, match="lengths"):
+        KT.fused_attention_train_packed(qb, qb, qb, lens.long(), 1, 2, 0.0)
+    a, b, c = qb.clone().requires_grad_(), qb.clone().requires_grad_(), qb.clone()
+    o = KT.fused_attention_train_packed(a, b, c, lens, 1, 2, 0.0)
+    with pytest.raises(RuntimeError, match="all three"):
+        o.sum().backward()
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One bf16 train step at d_k=128 (kernel route) on the card against the
+    same step on the CPU (plain versions): same weights, batch and seeds.
+    Loss within 1%, gradient norm within 5%."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config, ModelConfig
+    from fastspeech2_tpu_torch.models.fastspeech2 import Batch, FastSpeech2
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+    from fastspeech2_tpu_torch.train.optimizer import NoamAdam
+    from fastspeech2_tpu_torch.train.seeds import SeedSchedule
+    from fastspeech2_tpu_torch.train.step import TrainState, make_train_step, trainable
+
+    cfg = Config(model=ModelConfig(adim=256, aheads=2, elayers=1, eunits=128, ddim=256,
+                                   dlayers=1, dunits=128, postnet_layers=2,
+                                   postnet_chans=32, fused_attention="on"))
+    g = np.random.default_rng(0)
+    B, T, L = 4, 16, 96
+    ds = g.integers(1, 7, (B, T)).astype(np.int32)
+    olens = ds.sum(1).astype(np.int32)
+    m = (np.arange(L)[None] < olens[:, None])
+    batch = Batch(xs=g.integers(1, 68, (B, T)).astype(np.int32),
+                  ilens=np.full(B, T, np.int32),
+                  ys=(g.normal(-5, 2, (B, L, 80)) * m[..., None]).astype(np.float32),
+                  olens=olens, ds=ds,
+                  es=(g.uniform(0.02, 100, (B, L)) * m).astype(np.float32),
+                  ps=(g.uniform(71, 600, (B, L)) * m).astype(np.float32))
+    out = {}
+    for d in ("cpu", dev):
+        model = FastSpeech2(cfg, device=d, generator=torch.Generator().manual_seed(1))
+        opt = NoamAdam(trainable(model), cfg)
+        seeds = [SeedSchedule(model.dropout_sites(), seed=5).draw() for _ in range(2)]
+        n0 = KT.packed_fwd_launches
+        _, rep = make_train_step(model, opt, 2, bf16=True)(
+            TrainState(model, opt), Batch(*(torch.from_numpy(a).to(d) for a in batch)), seeds)
+        out[str(d)] = (float(rep["loss"]), float(rep["grad_norm"]),
+                       KT.packed_fwd_launches - n0)
+    (lc, nc, kc), (lg, ng, kg) = out["cpu"], out[str(dev)]
+    assert kc == 0 and kg == 4  # 2 blocks x 2 micro-batches
+    assert abs(lg - lc) < 0.01 * abs(lc) and abs(ng - nc) < 0.05 * nc, out

@@ -52,10 +52,13 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "fastspeech2_tpu"
        or m.startswith("fastspeech2_tpu.")]
 assert not bad, bad
-assert len(names) >= 30, names
+assert len(names) >= 44, names
 need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
         "text.cleaners", "text.numbers", "text.cmudict", "text.g2p",
-        "ops.kernels.resstack", "ops.kernels.attention", "compat.from_jax"}
+        "ops.kernels.resstack", "ops.kernels.attention", "compat.from_jax",
+        "ops.kernels.attention_train", "models.init", "train.loop", "train.step",
+        "train.optimizer", "train.checkpoint", "train.metrics", "train.seeds",
+        "data.filelist", "data.dataset", "data.batching", "data.prefetch"}
 missing = {pkg.__name__ + "." + n for n in need} - set(names)
 assert not missing, missing
 print(len(names))
