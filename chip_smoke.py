@@ -6,20 +6,23 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: refuse to run without CUDA; print the card's name and power limit.
-2. build: compile the six CUDA sources of fastspeech2_tpu_torch/csrc with
+2. build: compile the seven CUDA sources of fastspeech2_tpu_torch/csrc with
    nvcc for sm_90a (all sources at once) and print the build seconds and the
    ptxas register/shared-memory report.
-3. kernels: each of the eight kernels (attention_block, ffn_block,
-   variance_adaptor, postnet, resstack, attention_res_ln, and the training
+3. kernels: each of the nine kernels (attention_block, ffn_block,
+   variance_adaptor, postnet, resstack, attention_res_ln, the training
    attention's two entries attention_train_packed and attention_train,
-   forward and backward) against its plain PyTorch version on the card, on
+   forward and backward, and stft_mel_energy in f32 at the preprocess path's
+   (8, 229,376) and (8, 16,384) buckets, 1e-4) against its plain PyTorch
+   version on the card, on
    the same bf16-tier inputs at the main paths' shapes (the FFT-block and
    decoder kernels with lengths that leave dead tiles, the MelGAN residual
    stack at the four stage shapes of a B=16, 768-frame rung, at a single-tile
    length and in f32, the training attention at the decoder's and the
    encoder's training shapes with rate 0 and 0.2, and in f32); max/mean abs error
    against the stated tolerance; kernel and plain times (CUDA events, median
-   of 25) beside the least time the card could take for the same work and,
+   of 25) beside the least time the card could take for the same work (for
+   stft_mel_energy counted by an FFT and the sparse mel projection) and,
    for the training attention, one scaled_dot_product_attention call.
 4. mel path: the default-config model (random weights from seed 0, duration
    bias 1.87 for realistic frame counts) served through
@@ -55,6 +58,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    checkpoint reloads to the same parameters; two more steps from it with
    flags.FUSED_ATT_TRAIN_PACKED off go through kernel 12; ms per step (CUDA
    events), mel-frames/s, peak device memory, a profile of one step.
+10. Griffin-Lim (between 7 and 8): a Synthesizer with no vocoder serves a
+   B=1 sentence; vocode (30 iterations) on the card against the CPU port from
+   the same mel and initial phase (max < 1e-3 of the peak); ms per call;
+   serve() with no vocoder answers a /synthesize wav and a /stream request
+   with RIFF audio of (frames - 1) * 256 samples.
+11. preprocess: 160 seeded synthetic wavs (16-bit, 1.5-10 s; three of
+   cmd_preprocess's 64-file chunks) through cli.main(["preprocess"]) on the card and cli.main(["stats"]); one .npy of
+   each kind per wav with the JAX package's shapes and dtypes, kernel 14
+   launched once per bucket batch and no other kernel, four files held
+   against the CPU port (1e-4), the statistics finite with every key, the
+   store read by TTSDataset; wavs/s, audio-seconds/s, shares of the wall
+   time (kernel 14, host DIO, file I/O).
 
 The line before the last is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -62,6 +77,7 @@ is {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import struct
@@ -137,8 +153,8 @@ TEXTS = ["Hello world, this is a test of the server.",
          "He had never seen such a beautiful morning in all his life."]
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -146,12 +162,17 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def compare(name, got, want, mean_tol, max_tol):
+def compare(name, got, want, mean_tol, max_tol, rtol=0.0):
+    """Fails unless the mean abs error is under mean_tol and every element is
+    within max_tol + rtol * |want| (with rtol, assert_allclose's rule with
+    atol = max_tol). Returns the max abs error."""
     d = (got.float() - want.float()).abs()
     mx, mn = float(d.max()), float(d.mean())
-    ok = mx < max_tol and mn < mean_tol
+    worst = float((d / (max_tol + rtol * want.float().abs())).max())
+    ok = worst < 1 and mn < mean_tol
+    rule = f"rtol {rtol:g}, atol {max_tol:.3g}: worst {worst:.3f} of it" if rtol else f"max<{max_tol:g}"
     log(f"  {name}: max_abs={mx:.3e} mean_abs={mn:.3e} "
-        f"(tolerance max<{max_tol:g} mean<{mean_tol:g}) {'ok' if ok else 'FAIL'}")
+        f"(tolerance {rule}, mean<{mean_tol:.3g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return mx
@@ -892,7 +913,7 @@ def profile_phase(torch, call, what):
 
 
 def kernel_modules():
-    from fastspeech2_tpu_torch.ops.kernels import adaptor, attention, ffn, postnet, resstack
+    from fastspeech2_tpu_torch.ops.kernels import adaptor, attention, ffn, postnet, resstack, stft
 
     from fastspeech2_tpu_torch.ops.kernels import attention_train as at
 
@@ -903,7 +924,8 @@ def kernel_modules():
             "attention_block": (attention, "launches"), "ffn_block": (ffn, "launches"),
             "variance_adaptor": (adaptor, "launches"), "postnet": (postnet, "launches"),
             "resstack": (resstack, "launches"),
-            "attention_res_ln": (attention, "res_ln_launches")}
+            "attention_res_ln": (attention, "res_ln_launches"),
+            "stft_mel_energy": (stft, "launches")}
 
 
 def reset_counts():
@@ -1025,9 +1047,10 @@ def wav_path_phase(torch, results, synth):
     return ms, secs
 
 
-def server_phase(torch, synth):
-    """serve() in a thread on 127.0.0.1 with the wav synthesizer: concurrent
-    text and phoneme requests, a stream, a mel request, healthz, shutdown."""
+@contextlib.contextmanager
+def serving(synth):
+    """infer.server.serve in a thread on 127.0.0.1 (an ephemeral port);
+    yields its URL, then stops it and checks that it shut down."""
     import socket
 
     from fastspeech2_tpu_torch.config import Config
@@ -1036,101 +1059,113 @@ def server_phase(torch, synth):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    url = f"http://127.0.0.1:{port}"
     ready, stop = threading.Event(), threading.Event()
     th = threading.Thread(target=serve, args=(synth, Config()), daemon=True,
                           kwargs=dict(host="127.0.0.1", port=port, max_batch=16,
                                       max_wait_ms=20.0, ready_event=ready, stop_event=stop))
     th.start()
     assert ready.wait(timeout=60), "server did not come up"
-
-    def post(path, payload):
-        req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
-                                     headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(req, timeout=120) as r:
-            return r.headers, r.read()
-
-    def samples(body):
-        assert body[:4] == b"RIFF" and body[8:12] == b"WAVE", body[:12]
-        n = struct.unpack("<I", body[40:44])[0] // 2
-        assert n > 0 and n % 256 == 0 and len(body) == 44 + 2 * n, (n, len(body))
-        return n
-
-    def healthz():
-        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
-            return json.loads(r.read())
-
     try:
-        # the batcher's two threads are new to the card: their first calls pay
-        # for their own cuBLAS/cuDNN handles, which Synthesizer.warmup (run
-        # from the main thread) cannot warm. Two requests, one after the
-        # other, before the timed ones.
-        first = []
-        for text in TEXTS[:2]:
-            t0 = time.perf_counter()
-            samples(post("/synthesize", {"text": text, "format": "wav"})[1])
-            first.append((time.perf_counter() - t0) * 1e3)
-        log(f"server: first two requests after start {first[0]:.1f} ms, {first[1]:.1f} ms")
-        n_req = 16
-
-        def round_of_requests():
-            lat, total, errors = [0.0] * n_req, [0] * n_req, []
-
-            def go(i):
-                payload = ({"text": TEXTS[(i // 2) % len(TEXTS)]} if i % 2 == 0 else
-                           {"phonemes": SENTENCES[(i // 2) % len(SENTENCES)]})
-                t0 = time.perf_counter()
-                try:
-                    _, body = post("/synthesize", {**payload, "format": "wav"})
-                    total[i] = samples(body)
-                except Exception as e:  # reported below: a thread cannot fail the run
-                    errors.append(f"request {i}: {e!r}")
-                lat[i] = time.perf_counter() - t0
-
-            stats0 = healthz()
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=go, args=(i,)) for i in range(n_req)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=300)
-                assert not t.is_alive(), "a request did not return"
-            wall = time.perf_counter() - t0
-            assert not errors, errors
-            stats = healthz()
-            n_batches = stats["batches"] - stats0["batches"]
-            assert stats["requests"] - stats0["requests"] == n_req and n_batches < n_req, stats
-            return wall, lat, n_batches, sum(total), stats
-
-        # round 1 meets its batch shapes (token buffer x batch size) for the
-        # first time; round 2 repeats them warm and is the one reported
-        wall1, lat1, nb1, _, _ = round_of_requests()
-        log(f"server: round 1 (first use of its shapes): {n_req} requests in {nb1} batches, "
-            f"{n_req / wall1:.1f} requests/s, median latency "
-            f"{statistics.median(lat1) * 1e3:.1f} ms, max {max(lat1) * 1e3:.1f} ms")
-        wall, lat, n_batches, total, stats = round_of_requests()
-        log(f"server: {n_req} concurrent wav requests (8 text, 8 phonemes) in "
-            f"{n_batches} batches, {total / 22050.0:.1f} s of audio")
-        log(f"server: {n_req / wall:.1f} requests/s, median latency "
-            f"{statistics.median(lat) * 1e3:.1f} ms, max {max(lat) * 1e3:.1f} ms "
-            f"(sorted ms: {[round(x * 1e3) for x in sorted(lat)]})")
-
-        headers, body = post("/stream", {"text": PARAGRAPH})
-        assert headers.get("Transfer-Encoding") == "chunked"
-        assert body[:4] == b"RIFF" and body[4:8] == b"\xff\xff\xff\xff"
-        n_stream = (len(body) - 44) // 2
-        assert n_stream > 0 and n_stream % 256 == 0, n_stream
-        _, one = post("/stream", {"text": PARAGRAPH.split(".")[0] + "."})
-        assert len(body) > len(one), "three sentences streamed no more than one"
-        obj = json.loads(post("/synthesize", {"phonemes": SENTENCES[0]})[1])
-        assert obj["frames"] == len(obj["mel"]) > 0 and len(obj["mel"][0]) == 80
-        log(f"server: /stream {n_stream} samples over 3 sentences, mel request "
-            f"{obj['frames']} frames, healthz {stats}")
+        yield f"http://127.0.0.1:{port}"
     finally:
         stop.set()
         th.join(timeout=60)
     assert not th.is_alive(), "the server did not shut down"
+
+
+def http_post(url, path, payload):
+    req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.headers, r.read()
+
+
+def riff_samples(body):
+    """Sample count of a 16-bit mono RIFF body with its sizes filled in."""
+    assert body[:4] == b"RIFF" and body[8:12] == b"WAVE", body[:12]
+    n = struct.unpack("<I", body[40:44])[0] // 2
+    assert n > 0 and n % 256 == 0 and len(body) == 44 + 2 * n, (n, len(body))
+    return n
+
+
+def server_phase(torch, synth):
+    """serve() in a thread on 127.0.0.1 with the wav synthesizer: concurrent
+    text and phoneme requests, a stream, a mel request, healthz, shutdown."""
+    with serving(synth) as url:
+        server_rounds(url)
     log("server: shut down cleanly")
+
+
+def server_rounds(url):
+    def healthz():
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            return json.loads(r.read())
+
+    # the batcher's two threads are new to the card: their first calls pay
+    # for their own cuBLAS/cuDNN handles, which Synthesizer.warmup (run
+    # from the main thread) cannot warm. Two requests, one after the
+    # other, before the timed ones.
+    first = []
+    for text in TEXTS[:2]:
+        t0 = time.perf_counter()
+        riff_samples(http_post(url, "/synthesize", {"text": text, "format": "wav"})[1])
+        first.append((time.perf_counter() - t0) * 1e3)
+    log(f"server: first two requests after start {first[0]:.1f} ms, {first[1]:.1f} ms")
+    n_req = 16
+
+    def round_of_requests():
+        lat, total, errors = [0.0] * n_req, [0] * n_req, []
+
+        def go(i):
+            payload = ({"text": TEXTS[(i // 2) % len(TEXTS)]} if i % 2 == 0 else
+                       {"phonemes": SENTENCES[(i // 2) % len(SENTENCES)]})
+            t0 = time.perf_counter()
+            try:
+                _, body = http_post(url, "/synthesize", {**payload, "format": "wav"})
+                total[i] = riff_samples(body)
+            except Exception as e:  # reported below: a thread cannot fail the run
+                errors.append(f"request {i}: {e!r}")
+            lat[i] = time.perf_counter() - t0
+
+        stats0 = healthz()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(n_req)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive(), "a request did not return"
+        wall = time.perf_counter() - t0
+        assert not errors, errors
+        stats = healthz()
+        n_batches = stats["batches"] - stats0["batches"]
+        assert stats["requests"] - stats0["requests"] == n_req and n_batches < n_req, stats
+        return wall, lat, n_batches, sum(total), stats
+
+    # round 1 meets its batch shapes (token buffer x batch size) for the
+    # first time; round 2 repeats them warm and is the one reported
+    wall1, lat1, nb1, _, _ = round_of_requests()
+    log(f"server: round 1 (first use of its shapes): {n_req} requests in {nb1} batches, "
+        f"{n_req / wall1:.1f} requests/s, median latency "
+        f"{statistics.median(lat1) * 1e3:.1f} ms, max {max(lat1) * 1e3:.1f} ms")
+    wall, lat, n_batches, total, stats = round_of_requests()
+    log(f"server: {n_req} concurrent wav requests (8 text, 8 phonemes) in "
+        f"{n_batches} batches, {total / 22050.0:.1f} s of audio")
+    log(f"server: {n_req / wall:.1f} requests/s, median latency "
+        f"{statistics.median(lat) * 1e3:.1f} ms, max {max(lat) * 1e3:.1f} ms "
+        f"(sorted ms: {[round(x * 1e3) for x in sorted(lat)]})")
+
+    headers, body = http_post(url, "/stream", {"text": PARAGRAPH})
+    assert headers.get("Transfer-Encoding") == "chunked"
+    assert body[:4] == b"RIFF" and body[4:8] == b"\xff\xff\xff\xff"
+    n_stream = (len(body) - 44) // 2
+    assert n_stream > 0 and n_stream % 256 == 0, n_stream
+    _, one = http_post(url, "/stream", {"text": PARAGRAPH.split(".")[0] + "."})
+    assert len(body) > len(one), "three sentences streamed no more than one"
+    obj = json.loads(http_post(url, "/synthesize", {"phonemes": SENTENCES[0]})[1])
+    assert obj["frames"] == len(obj["mel"]) > 0 and len(obj["mel"][0]) == 80
+    log(f"server: /stream {n_stream} samples over 3 sentences, mel request "
+        f"{obj['frames']} frames, healthz {stats}")
 
 
 def switch_phase(torch, results, synth):
@@ -1171,6 +1206,271 @@ def switch_phase(torch, results, synth):
             mel_f[live], 0.02, 0.2)
 
 
+def synthetic_utterance(n: int, g):
+    """LJSpeech-like stand-in audio: a harmonic series on a slowly varying
+    f0 in 90-250 Hz, a syllable-rate amplitude envelope, breath noise and a
+    few unvoiced (noise-only) gaps; float32 in [-1, 1]."""
+    import numpy as np
+
+    t = np.arange(n) / 22050.0
+    f0 = np.clip(g.uniform(100, 230) * (1 + 0.15 * np.sin(
+        2 * np.pi * g.uniform(0.2, 0.8) * t + g.uniform(0, 6.3))), 90, 250)
+    ph = 2 * np.pi * np.cumsum(f0) / 22050.0
+    y = sum(g.uniform(0.2, 1.0) / k * np.sin(k * ph) for k in range(1, 9))
+    y = 0.15 * y * (0.3 + 0.7 * np.sin(2 * np.pi * g.uniform(1.5, 4.0) * t) ** 2)
+    for _ in range(max(1, n // 33075)):
+        a = int(g.integers(0, n - 4000))
+        y[a:a + int(g.integers(1500, 4000))] = 0.0
+    y = y + 0.003 * g.normal(size=n)
+    return np.clip(y, -1, 1).astype(np.float32)
+
+
+def stft_flops(frames, n_fft, n_mels, mel_nnz):
+    """The least f32 operations of STFT magnitude -> mel -> log, plus energy:
+    per frame the window, a real FFT (a complex FFT of n_fft/2 points,
+    5 (n/2) log2(n/2), then a twiddle product and four adds per bin), the
+    power and its root, the mel projection over the filterbank's nonzero
+    weights, the clamp and log, and the energy's sum and root."""
+    half = n_fft // 2
+    n_freq = half + 1
+    per_frame = (n_fft + 5 * half * (half.bit_length() - 1) + 10 * n_freq
+                 + 4 * n_freq + 2 * mel_nnz + 2 * n_mels + n_freq + 1)
+    return frames * per_frame
+
+
+def stft_kernel_phase(torch, results):
+    """Kernel 14 against its plain version (full f32) at the preprocess
+    path's bucket shapes: (8, 229,376) (10.4 s rows, F = 897) and (8, 16,384),
+    row 0 silent after its first tenth (a bucket's zero tail)."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.audio.stft import mel_filterbank
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    dev = torch.device("cuda")
+    fb = torch.from_numpy(mel_filterbank()).to(dev)
+    g = np.random.default_rng(14)
+    for B, N in ((8, 229_376), (8, 16_384)):
+        key = f"B={B},N={N}"
+        ys = np.stack([synthetic_utterance(N, g) for _ in range(B)])
+        ys[0, N // 10:] = 0.0
+        y = torch.from_numpy(ys).to(dev)
+        mel, en = KS.stft_mel_energy(y, fb)
+        pmel, pen = KS.stft_mel_energy_plain(y, fb)
+        torch.cuda.synchronize()
+        F = N // 256 + 1
+        assert mel.shape == (B, 80, F) and en.shape == (B, F)
+        log(f"kernel stft_mel_energy {key} (F={F})")
+        # the TPU kernel's tolerance (tests/test_pallas.py): rtol 1e-4, atol
+        # 1e-4 (of the peak for energy); the mean abs error under atol
+        tol = 1e-4 * float(pen.abs().max())
+        err = max(compare("log-mel", mel, pmel, 1e-4, 1e-4, rtol=1e-4),
+                  compare("energy", en, pen, tol, tol, rtol=1e-4))
+        ms = cuda_time_ms(lambda: KS.stft_mel_energy(y, fb))
+        pms = cuda_time_ms(lambda: KS.stft_mel_energy_plain(y, fb))
+        # the bound counts what the function needs (an FFT, the sparse mel
+        # projection), not the kernel's direct DFT; bytes: the signal, both
+        # outputs and the mel basis, each once
+        flops = stft_flops(B * F, 1024, 80, int((fb != 0).sum()))
+        nb = 4 * (B * N + B * 80 * F + B * F + fb.numel())
+        b_ms, by = bound_ms(flops, nb, PEAK_F32_FLOPS)
+        dft_flops = B * F * (2 * 1024 * 2 * 513 + 2 * 513 * 80)
+        log(f"  stft_mel_energy: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by}: {flops / 1e9:.4f} GFLOP at 67 TF/s, {nb / 1e6:.2f} MB at "
+            f"3.35 TB/s), kernel {ms / b_ms:.1f}x its bound; the kernel's direct DFT does "
+            f"{dft_flops / 1e9:.3f} GFLOP, {dft_flops / ms / 1e9:.1f} TFLOP/s")
+        r = results.setdefault("stft_mel_energy", {
+            "name": "stft_mel_energy", "route": "cuda",
+            "source": "fastspeech2_tpu_torch/csrc/stft.cu",
+            "replaces": "fastspeech2_tpu/ops/pallas/stft.py:68", "max_abs_err": 0.0,
+            "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {},
+            "main_shape": "B=8,N=229376"})  # the longest bucket of the corpus
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"][key], r["plain_ms"][key], r["bound_ms"][key], r["bound_by"][key] = (
+            ms, pms, b_ms, by)
+
+
+def preprocess_phase(torch, results):
+    """Path A: `preprocess` and `stats` on 160 seeded synthetic wavs (16-bit,
+    22,050 Hz, 1.5-10 s: three of cmd_preprocess's chunks) on the card; the store is checked, held against the
+    CPU port on four files, and read by the port's dataset."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from scipy.io.wavfile import write as write_wav
+
+    from fastspeech2_tpu_torch import cli, native
+    from fastspeech2_tpu_torch.audio import pitch as pitch_mod
+    from fastspeech2_tpu_torch.audio.stft import MelSpectrogram
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fs2_pre_", dir=str(ROOT / "build"))
+    spans = {"kernel": 0.0, "mel": 0.0, "dio": 0.0, "read": 0.0}
+    real = (KS.stft_mel_energy, MelSpectrogram.mel_and_energy, pitch_mod.extract_pitch,
+            cli.read_wav_float)
+
+    def timed(name, fn, sync=False):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            spans[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    try:
+        wav_dir, store = Path(work, "wavs"), f"{work}/store"
+        wav_dir.mkdir()
+        g = np.random.default_rng(2024)
+        lens = [int(g.uniform(1.5, 10.0) * 22050) for _ in range(160)]
+        for i, n in enumerate(lens):
+            pcm = np.round(synthetic_utterance(n, g) * 32767).astype(np.int16)
+            write_wav(str(wav_dir / f"SYN-{i:04d}.wav"), 22050, pcm)
+        # the bucketed path's batches: per chunk of files, up to 8 rows per
+        # 16,384-sample bucket
+        n_batches = 0
+        for c in range(0, len(lens), cli.CHUNK):
+            groups = {}
+            for n in lens[c:c + cli.CHUNK]:
+                k = -(-(n + 512) // 16384)
+                groups[k] = groups.get(k, 0) + 1
+            n_batches += sum(-(-v // 8) for v in groups.values())
+        t0 = time.perf_counter()
+        assert native.available(), "the native DIO did not build"
+        secs = sum(lens) / 22050.0
+        log(f"preprocess: {len(lens)} wavs, {secs:.1f} s of audio, "
+            f"{min(lens) / 22050:.2f}-{max(lens) / 22050:.2f} s; native DIO ready in "
+            f"{time.perf_counter() - t0:.2f} s; {n_batches} bucket batches expected")
+
+        KS.stft_mel_energy = timed("kernel", real[0], sync=True)
+        MelSpectrogram.mel_and_energy = timed("mel", real[1], sync=True)
+        pitch_mod.extract_pitch = timed("dio", real[2])
+        cli.read_wav_float = timed("read", real[3])
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(["preprocess", "-d", str(wav_dir), "-o", store])  # device: the card
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            (KS.stft_mel_energy, MelSpectrogram.mel_and_energy, pitch_mod.extract_pitch,
+             cli.read_wav_float) = real
+        log(f"preprocess launches: {counts}")
+        assert counts["stft_mel_energy"] == n_batches, (counts, n_batches)
+        assert sum(counts.values()) == n_batches, "another kernel ran in preprocess"
+        results["stft_mel_energy"]["launches"] = counts["stft_mel_energy"]
+        other = wall - spans["mel"] - spans["dio"] - spans["read"]
+        log(f"preprocess: {wall:.2f} s wall, {len(lens) / wall:.1f} wavs/s, "
+            f"{secs / wall:.1f} audio-seconds/s; shares of wall: kernel 14 (wrapper + "
+            f"kernel, synchronised) {spans['kernel'] / wall:.3f}, mel/energy batches "
+            f"(host padding and copies included) {spans['mel'] / wall:.3f}, host DIO "
+            f"{spans['dio'] / wall:.3f}, wav reads {spans['read'] / wall:.3f}, .npy "
+            f"writes and the rest {other / wall:.3f}")
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["stats", "-d", store])
+        stats = json.loads(buf.getvalue())
+        keys = {"e_mean", "e_std", "e_min", "e_max", "f0_mean", "f0_std", "p_min", "p_max"}
+        assert set(stats) == keys and all(np.isfinite(v) for v in stats.values()), stats
+        log(f"stats: {json.dumps(stats)}")
+
+        lines = []
+        for i, n in enumerate(lens):
+            F = n // 256 + 1
+            for kind, shape, dt in (("mels", (80, F), np.float32), ("energy", (F,), np.float32),
+                                    ("pitch", (F,), np.float64)):
+                a = np.load(f"{store}/{kind}/SYN-{i:04d}.npy")
+                assert a.shape == shape and a.dtype == dt and np.isfinite(a).all(), (
+                    kind, i, a.shape, a.dtype)
+            durs = [F // 4] * 3 + [F - 3 * (F // 4)]
+            starts = np.concatenate([[0], np.cumsum(durs)[:-1]])
+            lines.append(f"synthetic|{' '.join(map(str, starts))}|{' '.join(map(str, durs))}"
+                         f"|HH AH0 L OW1|SYN-{i:04d}.wav")
+        voiced = np.mean([(np.load(f"{store}/pitch/SYN-{i:04d}.npy") > 0).mean()
+                          for i in range(len(lens))])
+        log(f"preprocess: one mel (80, F) f32, energy (F,) f32 and pitch (F,) f64 per wav; "
+            f"{voiced:.3f} of frames voiced")
+
+        # four utterances (the longest, the shortest, two others) against the
+        # CPU port's matmul path on the same files
+        cpu = MelSpectrogram(device="cpu")
+        for i in sorted({int(np.argmax(lens)), int(np.argmin(lens)), 0, 1}):
+            w = cli.read_wav_float(str(wav_dir / f"SYN-{i:04d}.wav"), 22050)
+            m, e = cpu.mel_and_energy(torch.from_numpy(w)[None])
+            log(f"preprocess SYN-{i:04d} ({lens[i] / 22050:.2f} s), card store vs CPU port:")
+            tol = 1e-4 * float(e.abs().max())
+            compare("log-mel", torch.from_numpy(np.load(f"{store}/mels/SYN-{i:04d}.npy")),
+                    m[0], 1e-4, 1e-4, rtol=1e-4)
+            compare("energy", torch.from_numpy(np.load(f"{store}/energy/SYN-{i:04d}.npy")),
+                    e[0], tol, tol, rtol=1e-4)
+
+        fl = f"{work}/filelist.txt"
+        Path(fl).write_text("\n".join(lines) + "\n")
+        ds = TTSDataset(store, fl)
+        for i in range(len(ds)):
+            u = ds[i]
+            F = lens[i] // 256 + 1
+            assert u.mel.shape == (F, 80) and u.energy.shape == u.pitch.shape == (F,)
+            assert int(u.durations.sum()) == F
+        log(f"preprocess: the port's TTSDataset loads all {len(ds)} utterances")
+        return len(lens) / wall, secs / wall
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def griffin_lim_phase(torch, model):
+    """Path B: a Synthesizer with no vocoder; Griffin-Lim (30 iterations) on
+    the card against the CPU port from the same mel and initial phase; then
+    the server answers wav and stream requests with Griffin-Lim audio."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer, vocode
+
+    synth = Synthesizer(model, bf16=True)
+    assert not synth.has_vocoder
+    cfg = Config()
+    mel = synth.synth_phonemes(SENTENCES[1])
+    vocode(mel, cfg)  # first call: cuBLAS plans, the bases to the card
+    ms, wav = timed_calls(torch, lambda: vocode(mel, cfg))  # a host array: synchronised
+    secs = len(wav) / 22050.0
+    assert wav.shape == ((len(mel) - 1) * 256,) and np.isfinite(wav).all()
+    log(f"griffin-lim: B=1 sentence, {len(mel)} frames -> {len(wav)} samples; vocode "
+        f"(30 iterations, card) {ms:.2f} ms median of 5, {secs / ms * 1e3:.1f} audio-seconds/s")
+    t0 = time.perf_counter()
+    want = vocode(mel, cfg, device="cpu")
+    d = np.abs(wav - want)
+    peak = float(np.abs(want).max())
+    # band: the CPU port in f32 against itself in f64 differs by 1.3e-5 of
+    # the peak after 30 iterations; the card may sum in other orders
+    log(f"griffin-lim card vs CPU port ({time.perf_counter() - t0:.1f} s on the CPU), same mel "
+        f"and initial phase: max {d.max() / peak:.3e}, mean {d.mean() / peak:.3e} of the peak "
+        f"{peak:.3f} (tolerance max < 1e-3 of the peak)")
+    assert d.max() < 1e-3 * peak, "card Griffin-Lim off the CPU port"
+
+    with serving(synth) as url:
+        obj = json.loads(http_post(url, "/synthesize", {"phonemes": SENTENCES[2]})[1])
+        want_n = (obj["frames"] - 1) * 256
+        t0 = time.perf_counter()
+        headers, body = http_post(url, "/synthesize", {"phonemes": SENTENCES[2], "format": "wav"})
+        lat = (time.perf_counter() - t0) * 1e3
+        assert headers["Content-Type"] == "audio/wav" and riff_samples(body) == want_n
+        headers, body = http_post(url, "/stream", {"phonemes": SENTENCES[2]})
+        assert headers.get("Transfer-Encoding") == "chunked"
+        assert body[:4] == b"RIFF" and body[4:8] == b"\xff\xff\xff\xff"
+        assert (len(body) - 44) // 2 == want_n, (len(body), want_n)
+    log(f"griffin-lim server: /synthesize wav ({obj['frames']} frames, {want_n} samples, "
+        f"{lat:.1f} ms) and /stream answered 200 with RIFF audio; shut down cleanly")
+    return ms, secs
+
+
 def main() -> int:
     try:
         import torch
@@ -1204,20 +1504,24 @@ def main() -> int:
     results = {}
     kernel_phase(torch, results)
     train_kernel_phase(torch, results)
+    stft_kernel_phase(torch, results)
     ms, frames, synth = main_path_phase(torch, results)
     wav_ms, wav_secs = wav_path_phase(torch, results, synth)
     server_phase(torch, synth)
     switch_phase(torch, results, synth)
+    gl_ms, gl_secs = griffin_lim_phase(torch, synth.model)
     del synth
     torch.cuda.empty_cache()
     train_step_vs_cpu_phase(torch)
     step_ms, step_frames = train_path_phase(torch, results)
+    wavs_per_s, pre_secs_per_s = preprocess_phase(torch, results)
     assert "jax" not in sys.modules and not any(
         m == "fastspeech2_tpu" or m.startswith("fastspeech2_tpu.") for m in sys.modules)
 
     kernels = []
     for r in results.values():
-        key = max(r["ms"], key=lambda k: r["ms"][k])  # the decoder-rung shape
+        # the decoder-rung shape, or the phase's own main shape
+        key = r.get("main_shape") or max(r["ms"], key=lambda k: r["ms"][k])
         kernels.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
             "replaces": r["replaces"], "launches": r["launches"],
@@ -1233,7 +1537,9 @@ def main() -> int:
                                bwd_all_shapes=r["bwd"])
     log(f"total {time.perf_counter() - t_start:.1f} s; B=32 {frames / ms * 1e3:.0f} "
         f"mel-frames/s, {wav_secs / wav_ms * 1e3:.0f} audio-seconds/s, train step "
-        f"{step_ms:.1f} ms ({step_frames / step_ms * 1e3:.0f} mel-frames/s) on {smi}")
+        f"{step_ms:.1f} ms ({step_frames / step_ms * 1e3:.0f} mel-frames/s), preprocess "
+        f"{wavs_per_s:.1f} wavs/s ({pre_secs_per_s:.1f} audio-seconds/s), Griffin-Lim "
+        f"{gl_secs / gl_ms * 1e3:.1f} audio-seconds/s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

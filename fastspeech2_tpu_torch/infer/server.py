@@ -11,10 +11,9 @@ API (JSON over HTTP, stdlib-only):
                                     {"phonemes": "HH AH0 L OW1 ..."}
                               optional: "alpha": float, "format": "mel"|"wav"
       format=mel (default): {"mel": [[...80 floats...] x L], "frames": L, ...}
-      format=wav: audio/wav bytes, from the synthesizer's attached vocoder
-        or the ``vocoder=`` callable given to ``serve``; HTTP 501 without
-        either (the JAX package falls back to Griffin-Lim there, which needs
-        ``fastspeech2_tpu/audio/``, not ported yet)
+      format=wav: audio/wav bytes, from the synthesizer's attached vocoder,
+        else the ``vocoder=`` callable given to ``serve``, else Griffin-Lim
+        (``infer/synthesize.py:vocode``) on the synthesizer's device
     POST /stream              body: {"text": "..."} (optional "alpha")
       chunked streaming WAV: the paragraph is split into sentences, ALL
       sentences are submitted
@@ -22,9 +21,9 @@ API (JSON over HTTP, stdlib-only):
       sentence's PCM streams out the moment it is synthesized -- first audio
       after one sentence's latency instead of the whole paragraph's.
 
-Run: build a ``Synthesizer`` (``infer/synthesize.py``), attach a vocoder and
-call ``serve(synth, cfg, port=8000)``; the README's port section has the
-snippet.
+Run: build a ``Synthesizer`` (``infer/synthesize.py``), attach a vocoder (or
+none, for Griffin-Lim audio) and call ``serve(synth, cfg, port=8000)``; the
+README's port section has the snippet.
 
 Both batcher threads enqueue CUDA work on the default stream: device work
 of two in-flight batches serialises, host work (padding, the demand read, the
@@ -241,15 +240,11 @@ class Batcher:
 
 
 def make_handler(batcher: Batcher, cfg, vocoder=None):
-    from fastspeech2_tpu_torch.infer.synthesize import pcm16
+    from fastspeech2_tpu_torch.infer.synthesize import pcm16, vocode
     from fastspeech2_tpu_torch.text import phonemes_to_sequence
     from fastspeech2_tpu_torch.text.g2p import preprocess_text, process_paragraph
 
-    can_wav = vocoder is not None or bool(getattr(batcher.synth, "has_vocoder",
-                                                  False))
-    no_vocoder = ("wav output needs a vocoder: attach one to the synthesizer "
-                  "or pass vocoder= to serve (the Griffin-Lim fallback, "
-                  "fastspeech2_tpu/audio/griffin_lim.py, is not ported yet)")
+    device = batcher.synth.device
 
     class Handler(BaseHTTPRequestHandler):
         # HTTP/1.1 for Transfer-Encoding: chunked on /stream; every other
@@ -338,10 +333,11 @@ def make_handler(batcher: Batcher, cfg, vocoder=None):
 
         def _req_pcm(self, req) -> np.ndarray:
             """Finished request -> int16 PCM (fused-path wav, else the
-            vocoder callable on the mel)."""
+            vocoder callable or Griffin-Lim on the mel)."""
             if req.wav is not None:  # fused path: already int16 PCM
                 return req.wav.astype("<i2", copy=False)
-            return pcm16(np.asarray(vocoder(req.mel))).astype("<i2", copy=False)
+            wav = vocode(req.mel, cfg, vocoder=vocoder, device=device)
+            return pcm16(wav).astype("<i2", copy=False)
 
         def do_POST(self):
             if self.path == "/stream":
@@ -357,9 +353,6 @@ def make_handler(batcher: Batcher, cfg, vocoder=None):
             if parsed is None:
                 return
             alpha, fmt, phonemes, text = parsed
-            if fmt == "wav" and not can_wav:
-                self._json(501, {"error": no_vocoder})
-                return
 
             if phonemes:
                 try:
@@ -417,9 +410,6 @@ def make_handler(batcher: Batcher, cfg, vocoder=None):
             if parsed is None:
                 return
             alpha, _, phonemes, text = parsed
-            if not can_wav:
-                self._json(501, {"error": no_vocoder})
-                return
             # same precedence as /synthesize: explicit phonemes win over text
             if phonemes:
                 try:  # one pre-tokenized "sentence"; bad symbols = client 400

@@ -17,11 +17,14 @@ With a MelGAN generator attached (``attach_vocoder``) the wav methods run the
 vocoder and the int16 PCM conversion on the device right after each group's
 decode, assemble mel and wav there, and cross to the host once. A host-level
 vocoder callable (``attach_vocoder_fn``) runs on the finished mels instead.
+With neither, ``vocode`` turns a finished mel into audio by Griffin-Lim
+(``audio/griffin_lim.py``) on the given device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import time
 from typing import List, Optional, Sequence, Tuple, Union
@@ -424,3 +427,45 @@ class Synthesizer:
             "msec_per_frame": 1000.0 * t_model / max(full.shape[0], 1),
         }
         return full, stats
+
+
+@functools.lru_cache(maxsize=4)
+def _mel_pinv(sample_rate: int, n_fft: int, n_mels: int, fmin: float, fmax) -> np.ndarray:
+    """Pseudo-inverse of the mel filterbank, computed once per audio config
+    (an SVD of (n_mels, n_freq): ~25 ms on the host, per request otherwise)."""
+    from fastspeech2_tpu_torch.audio.stft import mel_filterbank
+
+    return np.linalg.pinv(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax))
+
+
+def vocode(mel: np.ndarray, cfg, vocoder=None, gl_iters: int = 30,
+           device: Union[str, torch.device, None] = None,
+           phase: Optional[torch.Tensor] = None) -> np.ndarray:
+    """(L, n_mels) log-mel -> float waveform. Uses the given neural vocoder
+    (callable mel->wav) when provided, else Griffin-Lim over the approximate
+    inverse mel on ``device`` (None: the card; reference
+    inference.py:180-199). ``phase`` (1, n_freq, L) replaces Griffin-Lim's
+    seeded initial phase."""
+    if vocoder is not None:
+        return np.asarray(vocoder(mel))
+    from fastspeech2_tpu_torch.audio.griffin_lim import griffin_lim
+
+    dev = resolve_device(device)
+    a = cfg.audio
+    # least-squares pseudo-inverse mel -> linear magnitude (host, numpy)
+    inv = _mel_pinv(a.sample_rate, a.n_fft, a.n_mels, a.fmin, a.fmax)
+    mag = np.maximum(inv @ np.exp(mel.T), 0.0)  # (n_freq, L)
+    wav = griffin_lim(torch.from_numpy(np.ascontiguousarray(mag[None], np.float32)).to(dev),
+                      n_iters=gl_iters, n_fft=a.n_fft, hop_length=a.hop_length,
+                      win_length=a.win_length, phase=phase)
+    return wav[0].cpu().numpy()
+
+
+def write_wav(path: str, wav: np.ndarray, sample_rate: int) -> None:
+    """int16 PCM wav (reference inference.py:200-201), via scipy."""
+    from scipy.io.wavfile import write
+
+    peak = np.abs(wav).max()
+    if peak > 1.0:
+        wav = wav / peak
+    write(path, sample_rate, (wav * 32767.0).astype(np.int16))

@@ -1,7 +1,7 @@
 """Wrappers of the port's hand-written CUDA kernels (sources in ``csrc/``).
 
 Each module holds its kernels' wrappers, their plain PyTorch versions and the
-launch counters. Eight kernels, by the TPU kernel each replaces:
+launch counters. Nine kernels, by the TPU kernel each replaces:
 
 - ``attention.attention_block``: post-LN FFT-block attention half with the
   QKV projections (``ops/pallas/attention.py:fused_attention_packed_qkv_res_ln``)
@@ -19,4 +19,6 @@ launch counters. Eight kernels, by the TPU kernel each replaces:
   (``ops/pallas/attention_train.py:fused_attention_train_packed``)
 - ``attention_train.fused_attention_train``: its (B, H, T, dk) twin
   (``ops/pallas/attention_train.py:fused_attention_train``)
+- ``stft.stft_mel_energy``: STFT -> mel -> log plus energy, full f32
+  (``ops/pallas/stft.py:stft_mel_energy``)
 """

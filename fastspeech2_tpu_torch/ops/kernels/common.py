@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 KERNEL_SOURCES = ("attention", "ffn", "adaptor", "postnet", "resstack",
-                  "attention_train")
+                  "attention_train", "stft")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")

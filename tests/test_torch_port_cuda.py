@@ -420,3 +420,54 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     (lc, nc, kc), (lg, ng, kg) = out["cpu"], out[str(dev)]
     assert kc == 0 and kg == 4  # 2 blocks x 2 micro-batches
     assert abs(lg - lc) < 0.01 * abs(lc) and abs(ng - nc) < 0.05 * nc, out
+
+
+def _speechlike(B, N, g):
+    """Harmonics on a gliding f0 plus noise; row 0 keeps sound only in its
+    first tenth (a bucket's zero tail)."""
+    t = torch.arange(N, dtype=torch.float64) / 22050
+    f0 = 90 + 160 * torch.rand(B, 1, generator=g, dtype=torch.float64)
+    ph = 2 * torch.pi * torch.cumsum(f0 * (1 + 0.1 * torch.sin(2 * torch.pi * t)), -1) / 22050
+    y = sum(0.3 / k * torch.sin(k * ph) for k in range(1, 8))
+    y = y + 0.01 * torch.randn(B, N, generator=g, dtype=torch.float64)
+    y[0, N // 10:] = 0
+    return y.float()
+
+
+@pytest.mark.parametrize("B,N", [(8, 229_376), (8, 16_384), (3, 700), (1, 300)])
+def test_stft_mel_energy(dev, B, N):
+    """Kernel 14 against its plain version (full f32 on both sides) at the
+    preprocess path's bucket shapes and at a short row, including one no
+    longer than the reflect pad. Tolerance 1e-4 (rtol and atol; the energy's
+    atol 1e-4 of its peak), the one the TPU kernel is held to."""
+    from fastspeech2_tpu_torch.audio.stft import mel_filterbank
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    g = torch.Generator().manual_seed(N)
+    y = _speechlike(B, N, g).to(dev)
+    fb = torch.from_numpy(mel_filterbank()).to(dev)
+    n0 = KS.launches
+    mel, en = KS.stft_mel_energy(y, fb)
+    pm, pe = KS.stft_mel_energy_plain(y, fb)
+    torch.cuda.synchronize()
+    assert KS.launches == n0 + 1
+    F = N // 256 + 1
+    assert mel.shape == pm.shape == (B, 80, F) and en.shape == pe.shape == (B, F)
+    torch.testing.assert_close(mel, pm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(en, pe, rtol=1e-4, atol=1e-4 * float(pe.abs().max()))
+
+
+def test_stft_mel_energy_rejects_what_it_does_not_cover(dev):
+    from fastspeech2_tpu_torch.audio.stft import MelSpectrogram, mel_filterbank
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    y = torch.randn(2, 4096, device=dev)
+    fb = torch.from_numpy(mel_filterbank()).to(dev)
+    with pytest.raises(ValueError, match="n_fft == 4"):
+        KS.stft_mel_energy(y, fb, n_fft=1024, hop_length=128)
+    with pytest.raises(ValueError, match="dtype"):
+        KS.stft_mel_energy(y.double(), fb)
+    # another ratio takes the matmul path on the card, as in the JAX package
+    n0 = KS.launches
+    mel, en = MelSpectrogram(hop_length=128, device=dev).mel_and_energy(y)
+    assert KS.launches == n0 and mel.shape == (2, 80, 33)

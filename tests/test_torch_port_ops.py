@@ -52,8 +52,11 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "fastspeech2_tpu"
        or m.startswith("fastspeech2_tpu.")]
 assert not bad, bad
-assert len(names) >= 44, names
+assert len(names) >= 53, names
 need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
+        "audio", "audio.stft", "audio.pitch", "audio.griffin_lim",
+        "audio.processing", "native", "cli", "__main__", "ops.kernels.stft",
+        "data.ljspeech",
         "text.cleaners", "text.numbers", "text.cmudict", "text.g2p",
         "ops.kernels.resstack", "ops.kernels.attention", "compat.from_jax",
         "ops.kernels.attention_train", "models.init", "train.loop", "train.step",

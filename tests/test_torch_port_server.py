@@ -118,11 +118,24 @@ def test_text_and_phonemes_reach_the_same_tokens(server):
 
 
 def test_wav_without_vocoder_is_501(server):
-    """The JAX server falls back to Griffin-Lim here; until audio/ is ported
-    the port answers 501 and names what is missing."""
-    for path in ("/synthesize", "/stream"):
-        code, obj = _status(server, {"text": "hello world", "format": "wav"}, path)
-        assert code == 501 and "griffin_lim" in obj["error"]
+    """Without a vocoder the server answers wav requests with Griffin-Lim
+    audio, as the JAX server does (no more 501): /synthesize with the
+    sample count ``vocode`` gives for the request's frames, (L - 1) * hop,
+    and /stream with a streaming RIFF header."""
+    from fastspeech2_tpu_torch.infer.synthesize import vocode
+
+    mel = np.asarray(json.loads(_post(server, {"text": "hello world"})[1])["mel"],
+                     np.float32)
+    headers, body = _post(server, {"text": "hello world", "format": "wav"})
+    assert headers["Content-Type"] == "audio/wav" and body[:4] == b"RIFF"
+    n = struct.unpack("<I", body[40:44])[0] // 2
+    assert n == len(vocode(mel, CFG, device="cpu")) == (len(mel) - 1) * 256
+    pcm = np.frombuffer(body[44:], "<i2")
+    assert pcm.shape == (n,) and np.abs(pcm).max() > 0
+    headers, body = _post(server, {"text": "hello world", "format": "wav"}, "/stream")
+    assert headers.get("Transfer-Encoding") == "chunked"
+    assert body[:4] == b"RIFF" and body[4:8] == b"\xff\xff\xff\xff"
+    assert (len(body) - 44) // 2 == n
     assert _healthz(server)["status"] == "ok"  # still serving
 
 
