@@ -9,12 +9,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: compile the seven CUDA sources of fastspeech2_tpu_torch/csrc with
    nvcc for sm_90a (all sources at once) and print the build seconds and the
    ptxas register/shared-memory report.
-3. kernels: each of the nine kernels (attention_block, ffn_block,
-   variance_adaptor, postnet, resstack, attention_res_ln, the training
-   attention's two entries attention_train_packed and attention_train,
-   forward and backward, and stft_mel_energy in f32 at the preprocess path's
-   (8, 229,376) and (8, 16,384) buckets, 1e-4) against its plain PyTorch
-   version on the card, on
+3. kernels: each of the fourteen kernels (attention_block, ffn_block,
+   variance_adaptor, postnet, resstack, attention_res_ln, attention_res,
+   fused_attention_packed, fused_attention, ffn_block_pre, fused_ffn, the
+   training attention's two entries attention_train_packed and
+   attention_train, forward and backward, and stft_mel_energy in f32 at the
+   preprocess path's (8, 229,376) and (8, 16,384) buckets, 1e-4) against its
+   plain PyTorch version on the card, on
    the same bf16-tier inputs at the main paths' shapes (the FFT-block and
    decoder kernels with lengths that leave dead tiles, the MelGAN residual
    stack at the four stage shapes of a B=16, 768-frame rung, at a single-tile
@@ -23,7 +24,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    against the stated tolerance; kernel and plain times (CUDA events, median
    of 25) beside the least time the card could take for the same work (for
    stft_mel_energy counted by an FFT and the sparse mel projection) and,
-   for the training attention, one scaled_dot_product_attention call.
+   for the training attention and the bare attention (fused_attention_packed,
+   fused_attention), one scaled_dot_product_attention call; the dead rows of
+   the pre-LN and bare kernels against their exact constants.
 4. mel path: the default-config model (random weights from seed 0, duration
    bias 1.87 for realistic frame counts) served through
    Synthesizer(bf16=True) on cuda at B=1, 8 and 32 with fixed ARPAbet
@@ -46,7 +49,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    headers, sample counts, batching engaged; requests/s and median latency;
    clean shutdown.
 7. switch: flags.FUSED_ATT_QKV off: the split attention kernel carries a B=8
-   mel batch and its output is held to the fused route's.
+   mel batch and its output is held to the fused route's; then
+   flags.FUSED_ATT_RES off: the bare attention kernel (plain projections,
+   residual and LayerNorm around it) and the post-LN FFN kernel, held the
+   same way.
 8. one train step, card against CPU: the default-config model (seed 0) takes
    one bf16 step on the same batch and dropout seeds on the card (training
    attention kernels) and on the CPU (plain versions); loss and gradient norm
@@ -70,6 +76,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    against the CPU port (1e-4), the statistics finite with every key, the
    store read by TTSDataset; wavs/s, audio-seconds/s, shares of the wall
    time (kernel 14, host DIO, file I/O).
+
+12. prenorm (after 10): the default widths and depth with pre-LN blocks in
+   both stacks (a minimal override YAML), seed 0, duration bias 1.87, saved
+   as a checkpoint; `python -m fastspeech2_tpu_torch serve -p CKPT --warmup`
+   as a subprocess (config from the checkpoint's hp_yaml): two rounds of 16
+   concurrent mel requests and a Griffin-Lim wav request, requests/s, median
+   latency, the server's launch counts from /healthz; in process B=1/8/32 mel
+   calls through Synthesizer(bf16=True) (kernels 6 and 9 in every block, not
+   1 and 2), ms per B=32 call, mel-frames/s, B=8 against the CPU port fed the
+   card's durations; `synth -p CKPT` once on the card (mel.npy, test_tts.wav).
+13. prenorm_concat: the same with concat_after in both stacks, a B=8 call:
+   kernels 7 and 9, not 6.
 
 The line before the last is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -198,11 +216,13 @@ def kernel_phase(torch, results):
         ls[0], ls[-1] = T, max(1, T // 5)  # one full row, one short row
         return ls.to(dev)
 
-    def record(name, src, replaces, err, ms, plain_ms, flops, nb, key=None):
+    def record(name, src, replaces, err, ms, plain_ms, flops, nb, key=None,
+               library_ms=None):
         key = key or shape_key
         b_ms, by = bound_ms(flops, nb)
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({by})")
+        lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+            f"{b_ms:.4f} ms ({by}), kernel {ms / b_ms:.1f}x its bound")
         results.setdefault(name, {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "max_abs_err": 0.0, "ms": {}, "plain_ms": {},
@@ -213,6 +233,8 @@ def kernel_phase(torch, results):
         r["plain_ms"][key] = plain_ms
         r["bound_ms"][key] = b_ms
         r["bound_by"][key] = by
+        if library_ms is not None:
+            r.setdefault("library_ms", {})[key] = library_ms
 
     # kernel 1 and 2: encoder shape and a decoder rung shape
     for B, T, D in ((32, 128, 256), (16, 768, 384)):
@@ -320,6 +342,7 @@ def kernel_phase(torch, results):
                nbytes(mel, mel, w, bn, out_lens))
     resstack_phase(torch, results, record)
     attention_res_ln_phase(torch, results, record)
+    prenorm_kernel_phase(torch, results, record)
 
 
 def resstack_phase(torch, results, record):
@@ -790,15 +813,54 @@ def batch(n: int, offset: int = 0):
     return seqs
 
 
+def hold_b8_vs_cpu(torch, synth, cfg, what):
+    """One B=8 batch served through the timed path with the 2-way split
+    engaged; every served row is held against the same port on the CPU
+    (plain versions) fed the card's durations (live frames do not depend on
+    the decode rung, so one CPU decode at the longer rung covers both)."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops import make_non_pad_mask
+    from fastspeech2_tpu_torch.ops.length_regulator import frame_demand, scale_durations
+    from fastspeech2_tpu_torch.ops.precision import compute_dtype
+
+    model = synth.model
+    seqs = batch(8, offset=8)
+    mel_s, lens_s = synth.mel_from_token_batch(seqs)
+    B, t_pad, _, xs_g, il_g, alphas = synth._pad_batch(seqs, 1.0)
+    with synth._cd():
+        _, d_g = model.encode(xs_g, il_g)
+        demand = frame_demand(scale_durations(d_g, alphas), make_non_pad_mask(il_g, t_pad))
+    groups = synth._decode_groups(demand.cpu().numpy())
+    log(f"{what}: B=8 decode groups (rows, rung): {[(g.tolist(), r) for g, r in groups]}")
+    assert len(groups) == 2, "the 2-way split did not engage on the B=8 batch"
+    rung = max(r for _, r in groups)
+    assert mel_s.shape[1] == rung, (mel_s.shape, rung)
+    cpu_model = FastSpeech2(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    xs_c, il_c, d_g = xs_g.cpu(), il_g.cpu(), d_g.cpu()
+    with compute_dtype(torch.bfloat16), torch.inference_mode():
+        hs_c, d_c = cpu_model.encode(xs_c, il_c)
+        mel_c, lens_c = cpu_model.decode_frames(hs_c, d_g, il_c, out_maxlen=rung)
+    dur_match = float((d_c == d_g).float().mean())
+    log(f"{what} on the card vs CPU plain versions: durations agree on "
+        f"{dur_match:.4f} of tokens")
+    assert np.array_equal(lens_s, lens_c[:B].numpy()), "out_lens differ"
+    live = torch.from_numpy(np.arange(rung)[None] < lens_s[:, None])
+    for i in range(B):
+        compare(f"{what} row {i} ({int(lens_s[i])} frames)",
+                torch.from_numpy(mel_s[i])[live[i]], mel_c[i][live[i]], 0.02, 0.2)
+    compare(f"{what} mel, live frames, card kernels vs CPU plain (bf16 band)",
+            torch.from_numpy(mel_s)[live], mel_c[:B][live], 0.02, 0.2)
+
+
 def main_path_phase(torch, results):
     import numpy as np
 
     from fastspeech2_tpu_torch.config import Config
     from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
     from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
-    from fastspeech2_tpu_torch.ops import make_non_pad_mask
-    from fastspeech2_tpu_torch.ops.length_regulator import frame_demand, scale_durations
-    from fastspeech2_tpu_torch.ops.precision import compute_dtype
 
     mel_kernels = ("attention_block", "ffn_block", "variance_adaptor", "postnet")
     cfg = Config()
@@ -831,37 +893,7 @@ def main_path_phase(torch, results):
     synth.mel_from_token_batch(b32)
     log(f"launches per B=32 mel call: {read_counts()}")
 
-    # one B=8 batch served through the timed path with the 2-way split
-    # engaged; every served row is held against the same port on the CPU
-    # (plain versions) fed the card's durations (live frames do not depend
-    # on the decode rung, so one CPU decode at the longer rung covers both)
-    seqs = batch(8, offset=8)
-    mel_s, lens_s = synth.mel_from_token_batch(seqs)
-    B, t_pad, _, xs_g, il_g, alphas = synth._pad_batch(seqs, 1.0)
-    with synth._cd():
-        _, d_g = model.encode(xs_g, il_g)
-        demand = frame_demand(scale_durations(d_g, alphas), make_non_pad_mask(il_g, t_pad))
-    groups = synth._decode_groups(demand.cpu().numpy())
-    log(f"B=8 decode groups (rows, rung): {[(g.tolist(), r) for g, r in groups]}")
-    assert len(groups) == 2, "the 2-way split did not engage on the B=8 batch"
-    rung = max(r for _, r in groups)
-    assert mel_s.shape[1] == rung, (mel_s.shape, rung)
-    cpu_model = FastSpeech2(cfg, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    xs_c, il_c, d_g = xs_g.cpu(), il_g.cpu(), d_g.cpu()
-    with compute_dtype(torch.bfloat16), torch.inference_mode():
-        hs_c, d_c = cpu_model.encode(xs_c, il_c)
-        mel_c, lens_c = cpu_model.decode_frames(hs_c, d_g, il_c, out_maxlen=rung)
-    dur_match = float((d_c == d_g).float().mean())
-    log(f"B=8 served on the card vs CPU plain versions: durations agree on "
-        f"{dur_match:.4f} of tokens")
-    assert np.array_equal(lens_s, lens_c[:B].numpy()), "out_lens differ"
-    live = torch.from_numpy(np.arange(rung)[None] < lens_s[:, None])
-    for i in range(B):
-        compare(f"B=8 served row {i} ({int(lens_s[i])} frames)",
-                torch.from_numpy(mel_s[i])[live[i]], mel_c[i][live[i]], 0.02, 0.2)
-    compare("B=8 served mel, live frames, card kernels vs CPU plain (bf16 band)",
-            torch.from_numpy(mel_s)[live], mel_c[:B][live], 0.02, 0.2)
+    hold_b8_vs_cpu(torch, synth, cfg, "B=8 served")
 
     # B=32 throughput, CUDA events around whole serving calls
     frames = int(outs[32][1].sum())
@@ -912,29 +944,16 @@ def profile_phase(torch, call, what):
     return {k: v / 1e3 for k, v in by_name.items()}
 
 
-def kernel_modules():
-    from fastspeech2_tpu_torch.ops.kernels import adaptor, attention, ffn, postnet, resstack, stft
-
-    from fastspeech2_tpu_torch.ops.kernels import attention_train as at
-
-    return {"attention_train_packed": (at, "packed_fwd_launches"),
-            "attention_train_packed.bwd": (at, "packed_bwd_launches"),
-            "attention_train": (at, "fwd_launches"),
-            "attention_train.bwd": (at, "bwd_launches"),
-            "attention_block": (attention, "launches"), "ffn_block": (ffn, "launches"),
-            "variance_adaptor": (adaptor, "launches"), "postnet": (postnet, "launches"),
-            "resstack": (resstack, "launches"),
-            "attention_res_ln": (attention, "res_ln_launches"),
-            "stft_mel_energy": (stft, "launches")}
-
-
 def reset_counts():
-    for mod, attr in kernel_modules().values():
-        setattr(mod, attr, 0)
+    from fastspeech2_tpu_torch.ops.kernels import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def read_counts():
-    return {k: getattr(mod, attr) for k, (mod, attr) in kernel_modules().items()}
+    from fastspeech2_tpu_torch.ops.kernels import launch_counts
+
+    return launch_counts()
 
 
 def timed_calls(torch, call, n=5):
@@ -1096,11 +1115,50 @@ def server_phase(torch, synth):
     log("server: shut down cleanly")
 
 
-def server_rounds(url):
-    def healthz():
-        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
-            return json.loads(r.read())
+def healthz(url):
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        return json.loads(r.read())
 
+
+def concurrent_round(url, n_req, fmt):
+    """n_req concurrent /synthesize requests (even: text, odd: phonemes) in
+    ``fmt`` ("wav": RIFF bodies, "mel": JSON); returns (wall s, latencies s,
+    batches used, total samples or frames, healthz after)."""
+    lat, total, errors = [0.0] * n_req, [0] * n_req, []
+
+    def go(i):
+        payload = ({"text": TEXTS[(i // 2) % len(TEXTS)]} if i % 2 == 0 else
+                   {"phonemes": SENTENCES[(i // 2) % len(SENTENCES)]})
+        t0 = time.perf_counter()
+        try:
+            _, body = http_post(url, "/synthesize", {**payload, "format": fmt})
+            if fmt == "wav":
+                total[i] = riff_samples(body)
+            else:
+                obj = json.loads(body)
+                assert obj["frames"] == len(obj["mel"]) > 0 and len(obj["mel"][0]) == 80
+                total[i] = obj["frames"]
+        except Exception as e:  # reported below: a thread cannot fail the run
+            errors.append(f"request {i}: {e!r}")
+        lat[i] = time.perf_counter() - t0
+
+    stats0 = healthz(url)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(n_req)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive(), "a request did not return"
+    wall = time.perf_counter() - t0
+    assert not errors, errors
+    stats = healthz(url)
+    n_batches = stats["batches"] - stats0["batches"]
+    assert stats["requests"] - stats0["requests"] == n_req and n_batches < n_req, stats
+    return wall, lat, n_batches, sum(total), stats
+
+
+def server_rounds(url):
     # the batcher's two threads are new to the card: their first calls pay
     # for their own cuBLAS/cuDNN handles, which Synthesizer.warmup (run
     # from the main thread) cannot warm. Two requests, one after the
@@ -1113,42 +1171,13 @@ def server_rounds(url):
     log(f"server: first two requests after start {first[0]:.1f} ms, {first[1]:.1f} ms")
     n_req = 16
 
-    def round_of_requests():
-        lat, total, errors = [0.0] * n_req, [0] * n_req, []
-
-        def go(i):
-            payload = ({"text": TEXTS[(i // 2) % len(TEXTS)]} if i % 2 == 0 else
-                       {"phonemes": SENTENCES[(i // 2) % len(SENTENCES)]})
-            t0 = time.perf_counter()
-            try:
-                _, body = http_post(url, "/synthesize", {**payload, "format": "wav"})
-                total[i] = riff_samples(body)
-            except Exception as e:  # reported below: a thread cannot fail the run
-                errors.append(f"request {i}: {e!r}")
-            lat[i] = time.perf_counter() - t0
-
-        stats0 = healthz()
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=go, args=(i,)) for i in range(n_req)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-            assert not t.is_alive(), "a request did not return"
-        wall = time.perf_counter() - t0
-        assert not errors, errors
-        stats = healthz()
-        n_batches = stats["batches"] - stats0["batches"]
-        assert stats["requests"] - stats0["requests"] == n_req and n_batches < n_req, stats
-        return wall, lat, n_batches, sum(total), stats
-
     # round 1 meets its batch shapes (token buffer x batch size) for the
     # first time; round 2 repeats them warm and is the one reported
-    wall1, lat1, nb1, _, _ = round_of_requests()
+    wall1, lat1, nb1, _, _ = concurrent_round(url, n_req, "wav")
     log(f"server: round 1 (first use of its shapes): {n_req} requests in {nb1} batches, "
         f"{n_req / wall1:.1f} requests/s, median latency "
         f"{statistics.median(lat1) * 1e3:.1f} ms, max {max(lat1) * 1e3:.1f} ms")
-    wall, lat, n_batches, total, stats = round_of_requests()
+    wall, lat, n_batches, total, stats = concurrent_round(url, n_req, "wav")
     log(f"server: {n_req} concurrent wav requests (8 text, 8 phonemes) in "
         f"{n_batches} batches, {total / 22050.0:.1f} s of audio")
     log(f"server: {n_req / wall:.1f} requests/s, median latency "
@@ -1164,13 +1193,15 @@ def server_rounds(url):
     assert len(body) > len(one), "three sentences streamed no more than one"
     obj = json.loads(http_post(url, "/synthesize", {"phonemes": SENTENCES[0]})[1])
     assert obj["frames"] == len(obj["mel"]) > 0 and len(obj["mel"][0]) == 80
+    stats = {k: v for k, v in stats.items() if k != "launches"}
     log(f"server: /stream {n_stream} samples over 3 sentences, mel request "
         f"{obj['frames']} frames, healthz {stats}")
 
 
 def switch_phase(torch, results, synth):
     """flags.FUSED_ATT_QKV off: q/k/v projected with plain ops, then the
-    q/k/v-given attention kernel; held to the fused-QKV route."""
+    q/k/v-given attention kernel; flags.FUSED_ATT_RES off: the bare attention
+    kernel inside plain projections; each held to the fused route."""
     from fastspeech2_tpu_torch.ops import flags
 
     model = synth.model
@@ -1202,6 +1233,32 @@ def switch_phase(torch, results, synth):
     compare("switch: encoder states vs fused-QKV route (bf16 band)", hs_x, hs_f, 0.02, 0.2)
     assert torch.equal(lens_x, lens_f)
     live = torch.arange(1024, device=mel_f.device)[None] < lens_f[:, None]
+    compare("switch: mel, live frames, same durations (bf16 band)", mel_x[live],
+            mel_f[live], 0.02, 0.2)
+
+    # FUSED_ATT_RES off: the bare attention kernel inside plain projections,
+    # the residual and the post-LN LayerNorm as plain ops; the FFN kernel
+    reset_counts()
+    flags.FUSED_ATT_RES = False
+    try:
+        mel_s, lens_s = synth.mel_from_token_batch(seqs)
+        counts = read_counts()
+        with synth._cd():
+            hs_x, d_x = model.encode(xs, ilens)
+            mel_x, lens_x = model.decode_frames(hs_x, d_f, ilens, out_maxlen=1024,
+                                                alpha=alphas)
+    finally:
+        flags.FUSED_ATT_RES = True
+    log(f"switch FUSED_ATT_RES=off, B=8 mel call: launches {counts}")
+    assert counts["fused_attention_packed"] > 0 and counts["ffn_block"] > 0, counts
+    assert counts["attention_block"] == counts["attention_res_ln"] == 0, counts
+    results["fused_attention_packed"]["launches_switch"] = counts["fused_attention_packed"]
+    assert mel_s.shape[0] == 8 and (lens_s > 0).all()
+    agree = float((d_x == d_f).float().mean())
+    log(f"  durations agree with the fused route on {agree:.4f} of tokens")
+    assert agree > 0.98
+    compare("switch: encoder states vs fused route (bf16 band)", hs_x, hs_f, 0.02, 0.2)
+    assert torch.equal(lens_x, lens_f)
     compare("switch: mel, live frames, same durations (bf16 band)", mel_x[live],
             mel_f[live], 0.02, 0.2)
 
@@ -1471,6 +1528,345 @@ def griffin_lim_phase(torch, model):
     return ms, secs
 
 
+def prenorm_kernel_phase(torch, results, record):
+    """Kernels 6-10 against their plain versions on the card: 6 (pre-LN
+    attention half), 7 (bare attention, heads packed) and 8 (its (B, H, T,
+    dk) twin) at the encoder shape (B=32, T=128, D=256) and the decoder rung
+    (B=16, T=768, D=384); 9 (pre-LN FFN half) at both shapes and 10 (bare
+    FFN, O = D) at the decoder rung, H=1024, k=9. q/k/v come from a block's projections of
+    LN(x); random lengths with one full and one short row. Dead rows hold
+    their exact constants: res + bo (6), zeros (7, 8), x + the bias row (9),
+    the bias row (10). Library: one scaled_dot_product_attention call with a
+    boolean key mask for 7 and 8 (the same function on the live rows)."""
+    import torch.nn.functional as F
+
+    from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
+    from fastspeech2_tpu_torch.ops import nn
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+    from fastspeech2_tpu_torch.ops.precision import compute_dtype
+
+    dev, bf16, H, K, HID = torch.device("cuda"), torch.bfloat16, 2, 9, 1024
+    gen = torch.Generator().manual_seed(6)
+    src_a = "fastspeech2_tpu_torch/csrc/attention.cu"
+    src_f = "fastspeech2_tpu_torch/csrc/ffn.cu"
+    for B, T, D in ((32, 128, 256), (16, 768, 384)):
+        key, dk = f"B={B},T={T},D={D}", D // H
+        torch.manual_seed(B + T + D + 6)
+        blk = FFTBlock(EncoderConfig(idim=D, attention_dim=D, attention_heads=H,
+                                     linear_units=HID, positionwise_conv_kernel_size=K),
+                       device=dev)
+        with torch.no_grad():  # LayerNorm affines with something to do
+            for ln in (blk.norm1, blk.norm2):
+                ln.weight.add_(0.2 * torch.randn(D, generator=gen).to(dev))
+                ln.bias.add_(0.1 * torch.randn(D, generator=gen).to(dev))
+        x = (2.0 * torch.randn(B, T, D, generator=gen) + 0.5).to(dev)
+        lens = torch.randint(T // 4, T + 1, (B,), generator=gen, dtype=torch.int32)
+        lens[0], lens[-1] = T, max(1, T // 5)
+        lc, lens = lens.tolist(), lens.to(dev)
+        live_qkv = 3 * sum(lc) * D * 2  # q/k/v rows past a length are not read
+        with torch.inference_mode(), compute_dtype(bf16):
+            y = nn.layer_norm(x, blk.norm1.weight, blk.norm1.bias)
+            q, k, v = (nn.linear(y, p.weight, p.bias, out_dtype=bf16)
+                       for p in (blk.attn.q, blk.attn.k, blk.attn.v))
+            wo = blk.attn.out.weight.to(bf16).contiguous()
+            bo = blk.attn.out.bias.float().contiguous()
+
+            # kernel 6
+            a6 = (q, k, v, x, wo, bo, lens, H)
+            got, want = KA.attention_res(*a6), KA.attention_res_plain(*a6)
+            torch.cuda.synchronize()
+            log(f"kernel attention_res {key}")
+            err = compare("attention_res", got, want, 2e-3, 0.1)
+            for b, n in enumerate(lc):
+                assert torch.equal(got[b, n:], x[b, n:] + bo), f"attention_res dead row {b}"
+            log("  attention_res: rows at or past each length == res + bo exactly")
+            record("attention_res", src_a, "fastspeech2_tpu/ops/pallas/attention.py:358",
+                   err, cuda_time_ms(lambda: KA.attention_res(*a6)),
+                   cuda_time_ms(lambda: KA.attention_res_plain(*a6)),
+                   sum(4 * l * l * D + 2 * l * D * D for l in lc),
+                   live_qkv + nbytes(x, got, wo, bo), key)
+
+            # kernels 7 and 8, and the library call on the same values
+            mask = (torch.arange(T, device=dev)[None] < lens[:, None])[:, None, None, :]
+            q4, k4, v4 = (t.view(B, T, H, dk).transpose(1, 2) for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)  # noqa: E731
+            lib_ms = cuda_time_ms(lib)
+            flops = sum(4 * l * l * D for l in lc)
+            got7 = KA.fused_attention_packed(q, k, v, lens, H)
+            want = KA.fused_attention_packed_plain(q, k, v, lens, H)
+            torch.cuda.synchronize()
+            log(f"kernel fused_attention_packed {key}")
+            err = compare("fused_attention_packed", got7, want, 2e-3, 0.1)
+            for b, n in enumerate(lc):
+                assert not got7[b, n:].any(), f"fused_attention_packed dead row {b}"
+            live = torch.arange(T, device=dev)[None] < lens[:, None]
+            ref = lib().transpose(1, 2).reshape(B, T, D)
+            compare("fused_attention_packed vs the library call, live rows", got7[live],
+                    ref[live], 2e-3, 0.1)
+            record("fused_attention_packed", src_a,
+                   "fastspeech2_tpu/ops/pallas/attention.py:190", err,
+                   cuda_time_ms(lambda: KA.fused_attention_packed(q, k, v, lens, H)),
+                   cuda_time_ms(lambda: KA.fused_attention_packed_plain(q, k, v, lens, H)),
+                   flops, live_qkv + nbytes(got7), key, library_ms=lib_ms)
+            q8, k8, v8 = (t.contiguous() for t in (q4, k4, v4))
+            got8 = KA.fused_attention(q8, k8, v8, lens)
+            want = KA.fused_attention_plain(q8, k8, v8, lens)
+            torch.cuda.synchronize()
+            log(f"kernel fused_attention {key} (B, H, T, dk)")
+            err = compare("fused_attention", got8, want, 2e-3, 0.1)
+            for b, n in enumerate(lc):
+                assert not got8[b, :, n:].any(), f"fused_attention dead row {b}"
+            assert torch.equal(got8.transpose(1, 2).reshape(B, T, D), got7), \
+                "kernels 7 and 8 (one body) differ"
+            log("  rows at or past each length are zeros; kernel 8 == kernel 7 bit for bit")
+            lib8 = lambda: F.scaled_dot_product_attention(q8, k8, v8, attn_mask=mask)  # noqa: E731
+            record("fused_attention", src_a, "fastspeech2_tpu/ops/pallas/attention.py:101",
+                   err, cuda_time_ms(lambda: KA.fused_attention(q8, k8, v8, lens)),
+                   cuda_time_ms(lambda: KA.fused_attention_plain(q8, k8, v8, lens)),
+                   flops, live_qkv + nbytes(got8), key, library_ms=cuda_time_ms(lib8))
+
+            # kernel 9 at both shapes, kernel 10 at the decoder rung: the FFN
+            # over l + 4 rows
+            fp = blk.ffn_pack(bf16)
+            ffn_flops = sum(min(l + (K - 1) // 2, T) * 2 * (K * D * HID + HID * D) for l in lc)
+            got = KF.ffn_block_pre(x, *fp, lens, K)
+            want = KF.ffn_block_pre_plain(x, *fp, lens, K)
+            torch.cuda.synchronize()
+            log(f"kernel ffn_block_pre {key}, H={HID}, k={K}")
+            err = compare("ffn_block_pre", got, want, 2e-3, 0.1)
+            const = []
+            for b, n in enumerate(lc):  # dead tiles: x + one bias row
+                t0 = -(-(n + (K - 1) // 2) // 64) * 64
+                if t0 < T:
+                    c = got[b, t0:] - x[b, t0:]
+                    assert float((c - c[:1]).abs().max()) < 1e-5, f"ffn_block_pre dead tile {b}"
+                    const.append(c[0])
+            log(f"  ffn_block_pre: {len(const)} rows with dead tiles hold x + one bias row")
+            # x is read whole (every output row is x + ...), the output written whole
+            record("ffn_block_pre", src_f, "fastspeech2_tpu/ops/pallas/ffn.py:228", err,
+                   cuda_time_ms(lambda: KF.ffn_block_pre(x, *fp, lens, K)),
+                   cuda_time_ms(lambda: KF.ffn_block_pre_plain(x, *fp, lens, K)),
+                   ffn_flops, nbytes(x, got, *fp), key)
+            if D != 384:
+                continue
+            xb = y.to(bf16)
+            w = fp[:4]
+            got = KF.fused_ffn(xb, *w, lens, K)
+            want = KF.fused_ffn_plain(xb, *w, lens, K)
+            torch.cuda.synchronize()
+            log(f"kernel fused_ffn {key}, H={HID}, O={D}, k={K}, bf16 out")
+            err = compare("fused_ffn", got, want, 2e-3, 0.1)
+            rows = []
+            for b, n in enumerate(lc):  # dead tiles: the one bias row
+                t0 = -(-(n + (K - 1) // 2) // 64) * 64
+                if t0 < T:
+                    assert torch.equal(got[b, t0:], got[b, t0:t0 + 1].expand(T - t0, D)), b
+                    rows.append(got[b, t0].float())
+            if rows and const:
+                compare("fused_ffn bias row (bf16) vs ffn_block_pre's (f32)", rows[0],
+                        const[0], 2e-3, 0.1)
+            err = max(err, compare("fused_ffn f32 out", KF.fused_ffn(xb, *w, lens, K, torch.float32),
+                                   KF.fused_ffn_plain(xb, *w, lens, K, torch.float32), 2e-3, 0.1))
+            record("fused_ffn", src_f, "fastspeech2_tpu/ops/pallas/ffn.py:101", err,
+                   cuda_time_ms(lambda: KF.fused_ffn(xb, *w, lens, K)),
+                   cuda_time_ms(lambda: KF.fused_ffn_plain(xb, *w, lens, K)),
+                   ffn_flops, sum(lc) * D * 2 + nbytes(got, *w), key)
+    for name in ("fused_attention", "fused_ffn"):
+        # launches: read from the prenorm path's counted run
+        results[name]["note"] = "no model route reaches it (as in the JAX package)"
+
+
+def seeded_model(torch, cfg):
+    """The main path's model for ``cfg``: torch's generator seeded with 0,
+    duration bias 1.87 (as bench.py does), on the card."""
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+
+    torch.manual_seed(0)
+    model = FastSpeech2(cfg)
+    with torch.no_grad():
+        model.duration_predictor.out.bias.fill_(1.87)
+    return model
+
+
+def override_config(work, name, model_keys):
+    """A minimal override YAML in ``work``, loaded onto Config()."""
+    from fastspeech2_tpu_torch.config import load_config
+
+    path = Path(work, f"{name}.yaml")
+    path.write_text("model:\n" + "".join(f"  {k}: true\n" for k in model_keys))
+    return load_config(str(path))
+
+
+PRENORM_KEYS = ("encoder_normalize_before", "decoder_normalize_before")
+
+
+def cli_server_phase(ckpt, work):
+    """`python -m fastspeech2_tpu_torch serve -p CKPT --warmup` as a
+    subprocess on the card (no -c: the config comes from the checkpoint):
+    two requests, two rounds of 16 concurrent mel requests (the second
+    reported), a Griffin-Lim wav request; its launch counts from /healthz.
+    The process is stopped in every case."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    log_path = Path(work, "serve.log")
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fastspeech2_tpu_torch", "serve", "-p", ckpt,
+             "--host", "127.0.0.1", "--port", str(port), "--max_batch", "16", "--warmup"],
+            cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=logf,
+            stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError("the CLI server exited:\n" + log_path.read_text()[-3000:])
+            try:
+                healthz(url)
+                break
+            except OSError:
+                assert time.perf_counter() - t0 < 300, "the CLI server did not come up in 300 s"
+                time.sleep(0.25)
+        log(f"prenorm CLI server: up in {time.perf_counter() - t0:.1f} s (process start, "
+            f"checkpoint load, --warmup)")
+        first = []
+        for text in TEXTS[:2]:
+            t1 = time.perf_counter()
+            http_post(url, "/synthesize", {"text": text})
+            first.append((time.perf_counter() - t1) * 1e3)
+        wall1 = concurrent_round(url, 16, "mel")[0]
+        wall, lat, nb, frames, _ = concurrent_round(url, 16, "mel")
+        rps, med = 16 / wall, statistics.median(lat) * 1e3
+        log(f"prenorm CLI server: first two requests {first[0]:.1f}, {first[1]:.1f} ms; round 1 "
+            f"{16 / wall1:.1f} requests/s; round 2: 16 concurrent mel requests in {nb} batches, "
+            f"{frames} frames, {rps:.1f} requests/s, median latency {med:.1f} ms, max "
+            f"{max(lat) * 1e3:.1f} ms")
+        headers, body = http_post(url, "/synthesize", {"phonemes": SENTENCES[2], "format": "wav"})
+        assert headers["Content-Type"] == "audio/wav"
+        n = riff_samples(body)
+        launches = healthz(url)["launches"]
+        log(f"prenorm CLI server: Griffin-Lim wav request {n} samples; the server's launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        assert launches["attention_res"] > 0 and launches["ffn_block_pre"] > 0, launches
+        assert launches["attention_block"] == launches["ffn_block"] == 0, launches
+        return rps, med
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log(f"prenorm CLI server: stopped (exit code {proc.returncode})")
+
+
+def prenorm_path_phase(torch, results):
+    """The pre-LN model at full width and depth (``prenorm``): through the
+    CLI server in a subprocess, in process at B=1/8/32, against the CPU
+    port, and through the CLI synth command."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from scipy.io.wavfile import read as read_wav
+
+    from fastspeech2_tpu_torch import cli
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.train.checkpoint import save_checkpoint
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fs2_prenorm_", dir=str(ROOT / "build"))
+    try:
+        cfg = override_config(work, "prenorm", PRENORM_KEYS)
+        assert cfg.model.encoder_normalize_before and cfg.model.decoder_normalize_before
+        model = seeded_model(torch, cfg)
+        ckpt = f"{work}/prenorm.npz"
+        save_checkpoint(ckpt, model, None, 0, cfg)
+        rps, med = cli_server_phase(ckpt, work)
+
+        synth = Synthesizer(model, bf16=True)
+        b32 = batch(32)
+        synth.mel_from_token_batch(b32)  # warm: packs, handles, allocator
+        reset_counts()
+        for n in (1, 8, 32):
+            mel, lens = synth.mel_from_token_batch(batch(n, offset=n))
+            assert np.isfinite(mel).all() and (lens > 0).all(), f"prenorm B={n}"
+        counts = read_counts()
+        log(f"prenorm launches (B=1,8,32): { {k: v for k, v in counts.items() if v} }")
+        for k in ("attention_res", "ffn_block_pre", "variance_adaptor", "postnet"):
+            assert counts[k] > 0, f"kernel {k} was not launched on the prenorm path"
+        assert counts["attention_block"] == counts["ffn_block"] == 0, counts
+        assert counts["fused_attention_packed"] == counts["attention_res_ln"] == 0, counts
+        # kernels 8 and 10: no model route reaches them, as in the JAX package
+        assert counts["fused_attention"] == counts["fused_ffn"] == 0, counts
+        for k in ("attention_res", "ffn_block_pre", "fused_attention", "fused_ffn"):
+            results[k]["launches"] = counts[k]
+        reset_counts()
+        synth.mel_from_token_batch(b32)
+        per = read_counts()
+        log(f"prenorm launches per B=32 mel call: { {k: v for k, v in per.items() if v} }")
+        # 4 encoder blocks + 4 decoder blocks x 2 decode groups
+        assert per["attention_res"] == per["ffn_block_pre"] == 12, per
+        ms, (_, lens) = timed_calls(torch, lambda: synth.mel_from_token_batch(b32))
+        frames = int(lens.sum())
+        log(f"prenorm B=32 mel call: {ms:.3f} ms median of 5, {frames} mel frames, "
+            f"{frames / ms * 1e3:.0f} mel-frames/s")
+        profile_phase(torch, lambda: synth.mel_from_token_batch(b32), "prenorm B=32 mel call")
+        hold_b8_vs_cpu(torch, synth, cfg, "prenorm B=8")
+
+        out = Path(work, "synth")
+        t0 = time.perf_counter()
+        cli.main(["synth", "-p", ckpt, "--phonemes", "--text", SENTENCES[0], "-o", str(out)])
+        mel = np.load(out / "mel.npy")
+        sr, wav = read_wav(str(out / "test_tts.wav"))
+        assert mel.shape[0] == 80 and mel.shape[1] > 0 and np.isfinite(mel).all(), mel.shape
+        assert sr == 22050 and len(wav) == (mel.shape[1] - 1) * 256 > 0, (sr, len(wav))
+        log(f"prenorm synth command on the card (f32 tier, Griffin-Lim): mel.npy {mel.shape}, "
+            f"test_tts.wav {len(wav)} samples in {time.perf_counter() - t0:.1f} s")
+        return {"ms": ms, "frames": frames, "rps": rps, "median_ms": med}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def prenorm_concat_phase(torch, results):
+    """``prenorm_concat``: pre-LN and concat_after in both stacks, a B=8 mel
+    call: the bare attention kernel (7) and the pre-LN FFN kernel (9), not
+    kernel 6; the served rows held against the CPU port."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+
+    work = tempfile.mkdtemp(prefix="fs2_concat_", dir=str(ROOT / "build"))
+    try:
+        cfg = override_config(work, "prenorm_concat", PRENORM_KEYS + (
+            "encoder_concat_after", "decoder_concat_after"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    assert cfg.model.encoder_concat_after and cfg.model.decoder_normalize_before
+    synth = Synthesizer(seeded_model(torch, cfg), bf16=True)
+    seqs = batch(8, offset=8)
+    synth.mel_from_token_batch(seqs)
+    reset_counts()
+    mel, lens = synth.mel_from_token_batch(seqs)
+    counts = read_counts()
+    log(f"prenorm_concat B=8 mel call: {int(lens.sum())} frames; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    assert np.isfinite(mel).all() and (lens > 0).all()
+    assert counts["fused_attention_packed"] > 0 and counts["ffn_block_pre"] > 0, counts
+    assert counts["attention_res"] == counts["attention_block"] == 0, counts
+    assert counts["fused_attention"] == counts["fused_ffn"] == 0, counts
+    results["fused_attention_packed"]["launches"] = counts["fused_attention_packed"]
+    hold_b8_vs_cpu(torch, synth, cfg, "prenorm_concat B=8")
+
+
 def main() -> int:
     try:
         import torch
@@ -1512,6 +1908,9 @@ def main() -> int:
     gl_ms, gl_secs = griffin_lim_phase(torch, synth.model)
     del synth
     torch.cuda.empty_cache()
+    pre = prenorm_path_phase(torch, results)
+    prenorm_concat_phase(torch, results)
+    torch.cuda.empty_cache()
     train_step_vs_cpu_phase(torch)
     step_ms, step_frames = train_path_phase(torch, results)
     wavs_per_s, pre_secs_per_s = preprocess_phase(torch, results)
@@ -1529,7 +1928,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"][key], "bound_ms": r["bound_ms"][key],
             "bound_by": r["bound_by"][key],
             "library_ms": r["library_ms"][key] if "library_ms" in r else None,
-            "shape": key,
+            "shape": key, **({"note": r["note"]} if "note" in r else {}),
             "all_shapes": {k: {"ms": r["ms"][k], "plain_ms": r["plain_ms"][k],
                                "bound_ms": r["bound_ms"][k]} for k in r["ms"]}})
         if "bwd" in r:  # the training kernels: "ms" is the forward's time
@@ -1539,7 +1938,9 @@ def main() -> int:
         f"mel-frames/s, {wav_secs / wav_ms * 1e3:.0f} audio-seconds/s, train step "
         f"{step_ms:.1f} ms ({step_frames / step_ms * 1e3:.0f} mel-frames/s), preprocess "
         f"{wavs_per_s:.1f} wavs/s ({pre_secs_per_s:.1f} audio-seconds/s), Griffin-Lim "
-        f"{gl_secs / gl_ms * 1e3:.1f} audio-seconds/s on {smi}")
+        f"{gl_secs / gl_ms * 1e3:.1f} audio-seconds/s; prenorm B=32 mel call {pre['ms']:.3f} ms "
+        f"({pre['frames'] / pre['ms'] * 1e3:.0f} mel-frames/s), its CLI server "
+        f"{pre['rps']:.1f} requests/s, median {pre['median_ms']:.1f} ms on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

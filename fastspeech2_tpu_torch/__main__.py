@@ -1,4 +1,5 @@
-"""``python -m fastspeech2_tpu_torch <subcommand>``: see ``cli.py``."""
+"""``python -m fastspeech2_tpu_torch {preprocess,stats,synth,serve} ...``: see
+``cli.py``."""
 
 import logging
 import sys

@@ -2,12 +2,19 @@
 
     python -m fastspeech2_tpu_torch preprocess -d WAV_DIR -c CONFIG [--device cpu]
     python -m fastspeech2_tpu_torch stats -c CONFIG [-d DATA_DIR]
+    python -m fastspeech2_tpu_torch synth -p CKPT --text "..." [--phonemes] -o OUT [--device cpu]
+    python -m fastspeech2_tpu_torch serve -p CKPT [--port 8000] [--warmup] [--device cpu]
 
 ``preprocess`` turns a folder of wavs into the feature store that
 ``data/dataset.py`` and ``train.loop.train`` read (``mels/``, ``energy/``,
 ``pitch/`` .npy per utterance); ``stats`` prints the energy and pitch
-statistics of that store for the config's ``data:`` section. The other
-subcommands of the JAX package are not ported yet.
+statistics of that store for the config's ``data:`` section. ``synth``
+writes one sentence's mel (``mel.npy``, (n_mels, L)) and wav
+(``test_tts.wav``, Griffin-Lim or ``--vocoder`` MelGAN) in the f32 tier;
+``serve`` runs the micro-batching HTTP server (``infer/server.py``), bf16 on
+the card. Both load a ``.npz`` checkpoint of either package with its
+embedded config (``-p``), or build a seeded random model from ``-c``
+without one. The other subcommands of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -127,6 +134,99 @@ def cmd_stats(args):
     print(json.dumps(out, indent=1))
 
 
+def _load_model(args, device):
+    """(cfg, model on ``device``): a ``.npz`` checkpoint of either package
+    with its embedded config (``-p``), else a random init from seed 0 of the
+    ``-c`` config (smoke runs)."""
+    import torch
+
+    from fastspeech2_tpu_torch.config import Config, load_config
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint, load_checkpoint_meta
+
+    path = args.checkpoint_path
+    if path and path.endswith((".pth", ".pyt", ".pt")):
+        raise NotImplementedError(
+            f"{path}: reference .pth checkpoints are not loaded by the port yet "
+            "(ROADMAP.md, queue 1: weights); convert them to .npz with the JAX package")
+    if path:
+        cfg = Config.from_yaml(load_checkpoint_meta(path)["hp_yaml"])
+        model = FastSpeech2(cfg, device=device)
+        load_checkpoint(path, model)
+    else:
+        cfg = load_config(args.config)
+        model = FastSpeech2(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    return cfg, model
+
+
+def cmd_synth(args):
+    """One sentence -> mel.npy (n_mels, L) and test_tts.wav (inference.py),
+    in the f32 tier: the Synthesizer gets no bf16, so no kernel runs."""
+    from fastspeech2_tpu_torch.device import resolve_device
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer, vocode, write_wav
+
+    device = resolve_device(args.device)
+    cfg, model = _load_model(args, device)
+    synth = Synthesizer(model, device=device)
+    if args.phonemes:
+        mel = synth.synth_phonemes(args.text, alpha=args.alpha)
+        stats = {"frames": int(mel.shape[0])}
+    else:
+        mel, stats = synth.synth_text(args.text, alpha=args.alpha)
+    logging.info("synthesized %s frames (%s)", mel.shape[0], stats)
+    os.makedirs(args.out, exist_ok=True)
+    np.save(os.path.join(args.out, "mel.npy"), mel.T)  # (n_mels, L) like the ref
+    try:  # mel.png artifact (reference inference.py:177-178); best-effort
+        from fastspeech2_tpu_torch.utils.plotting import save_spectrogram_png
+
+        save_spectrogram_png(mel.T, os.path.join(args.out, "mel.png"))
+    except Exception as exc:
+        logging.warning("mel.png not written: %s", exc)
+    vocoder = None
+    vocoder_path = args.vocoder or cfg.train.vocoder_checkpoint
+    if vocoder_path:
+        from fastspeech2_tpu_torch.vocoder import detect_vocoder_kind, load_vocoder
+
+        kind = detect_vocoder_kind(vocoder_path)
+        vocoder = load_vocoder(vocoder_path, kind=kind, device=device)
+        logging.info("vocoding with %s checkpoint %s", kind, vocoder_path)
+    wav = vocode(mel, cfg, vocoder=vocoder, device=device)
+    write_wav(os.path.join(args.out, "test_tts.wav"), wav, cfg.audio.sample_rate)
+    logging.info("wrote %s", os.path.join(args.out, "test_tts.wav"))
+
+
+def cmd_serve(args):
+    """Micro-batching HTTP synthesis server (infer/server.py), bf16 on the
+    card; blocks until the process is stopped."""
+    import time
+
+    from fastspeech2_tpu_torch.device import resolve_device
+    from fastspeech2_tpu_torch.infer.server import serve
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+
+    device = resolve_device(args.device)
+    cfg, model = _load_model(args, device)
+    on_card = device.type == "cuda"
+    synth = Synthesizer(model, bf16=on_card, device=device)
+    vocoder_path = args.vocoder or cfg.train.vocoder_checkpoint
+    if vocoder_path:
+        from fastspeech2_tpu_torch.vocoder import (detect_vocoder_kind, load_melgan_params,
+                                                   load_vocoder)
+
+        kind = detect_vocoder_kind(vocoder_path)
+        if kind != "melgan":
+            load_vocoder(vocoder_path, kind=kind)  # raises: WaveGlow is not ported
+        # fused text->wav: MelGAN runs on the device right after the model
+        synth.attach_vocoder(load_melgan_params(vocoder_path, bf16=on_card, device=device))
+        logging.info("serving wav fused with MelGAN checkpoint %s", vocoder_path)
+    if args.warmup:
+        t0 = time.perf_counter()
+        n = synth.warmup(batch_sizes=(1, args.max_batch))
+        logging.info("warmed %d serving shapes in %.1fs", n, time.perf_counter() - t0)
+    serve(synth, cfg, host=args.host, port=args.port, max_batch=args.max_batch,
+          max_wait_ms=args.max_wait_ms)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="fastspeech2_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -144,6 +244,41 @@ def main(argv=None):
     sp.add_argument("-c", "--config", default=None)
     sp.add_argument("-d", "--data_dir", default=None)
     sp.set_defaults(fn=cmd_stats)
+
+    sp = sub.add_parser("synth")
+    sp.add_argument("-p", "--checkpoint_path", default=None,
+                    help=".npz checkpoint; its embedded config is used")
+    sp.add_argument("-c", "--config", default=None,
+                    help="config of a random init from seed 0 (without -p)")
+    sp.add_argument("--text", required=True)
+    sp.add_argument("--phonemes", action="store_true",
+                    help="treat --text as a space-joined phoneme string")
+    sp.add_argument("--alpha", type=float, default=1.0)
+    sp.add_argument("--vocoder", default=None,
+                    help="local seungwonpark-format MelGAN checkpoint "
+                         "(else Griffin-Lim)")
+    sp.add_argument("-o", "--out", default="./synth_out")
+    sp.add_argument("--device", default=None, help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_synth)
+
+    sp = sub.add_parser("serve")
+    sp.add_argument("-p", "--checkpoint_path", default=None,
+                    help=".npz checkpoint; its embedded config is used")
+    sp.add_argument("-c", "--config", default=None,
+                    help="config of a random init from seed 0 (without -p)")
+    sp.add_argument("--host", default="0.0.0.0")
+    sp.add_argument("--port", type=int, default=8000)
+    sp.add_argument("--max_batch", type=int, default=16)
+    sp.add_argument("--max_wait_ms", type=float, default=5.0)
+    sp.add_argument("--vocoder", default=None,
+                    help="local MelGAN checkpoint for wav responses "
+                         "(else Griffin-Lim)")
+    sp.add_argument("--warmup", action="store_true",
+                    help="run every pow2 batch bucket up to --max_batch at "
+                         "common token lengths before binding the port")
+    sp.add_argument("--device", default=None,
+                    help="torch device (default: cuda, in bf16; cpu runs f32)")
+    sp.set_defaults(fn=cmd_serve)
 
     args = p.parse_args(argv)
     args.fn(args)

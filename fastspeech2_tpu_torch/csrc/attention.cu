@@ -1,16 +1,28 @@
-// Post-LN FFT-block attention half on the H100:
-//   out = LN(x + MHA(x Wq + bq, x Wk + bk, x Wv + bv) Wo + bo)
-// masked by length; rows at or past the length give LN(x + bo).
+// FFT-block attention on the H100, one attention body with three epilogues:
+//   RES_LN  out = LN(res + MHA(q, k, v) Wo + bo)   (post-LN block half)
+//   RES     out = res + MHA(q, k, v) Wo + bo       (pre-LN block half)
+//   BARE    out = MHA(q, k, v), bf16, no projection
+// masked by length. Rows at or past the length give LN(res + bo), res + bo
+// and zeros respectively.
 //
 // Replaces fastspeech2_tpu/ops/pallas/attention.py:
-// fused_attention_packed_qkv_res_ln (kernel _attn_kernel_packed_qkv_res_ln)
-// and, through the second launch alone with q/k/v given
-// (fs2_attention_res_ln), fused_attention_packed_res_ln.
+//  - fused_attention_packed_qkv_res_ln (kernel _attn_kernel_packed_qkv_res_ln):
+//    fs2_attention_block, a QKV projection launch, then RES_LN;
+//  - fused_attention_packed_res_ln (kernel _attn_kernel_packed_res_ln), which
+//    the JAX package takes with FS2_FUSED_ATT_QKV=off: fs2_attention_res_ln,
+//    RES_LN alone with q/k/v given;
+//  - fused_attention_packed_res (kernel _attn_kernel_packed_res), every
+//    pre-LN block: fs2_attention_res, RES with q/k/v given;
+//  - fused_attention_packed (kernel _attn_kernel_packed, heads packed along
+//    D) and fused_attention (kernel _attn_kernel, (B, H, T, dk)): both
+//    through fs2_attention, BARE with a batch, a head and a row stride.
 //
 // Bound on the H100: at the serving shapes (T <= 2048, D = 256/384, two
 // heads of 128/192) the work is ~8*T*D^2 projection FLOPs plus ~4*T^2*D
 // attention FLOPs per row against ~8*T*D bytes of f32 stream, i.e. well
 // above the card's ~295 FLOP/byte ridge: tensor-core (operations) bound.
+// BARE alone does 4*T^2*D FLOPs against 8*T*D bytes of bf16: at T >= 128 it
+// is operations-bound too.
 //
 // Design. The TPU kernel projects K/V into VMEM scratch at the first query
 // block of a row and reuses it on later grid steps; CUDA blocks of one row
@@ -19,7 +31,8 @@
 //     writes q|k|v in bf16, rounded like the TPU kernel's proj() (product
 //     rounded to bf16, + bias in f32, rounded to bf16). Row tiles at or past
 //     the length are skipped: nothing reads them.
-//  2. attn_block_kernel: one block per (64-query tile, row), 4 warps x 16
+//  2. attn_block_kernel: one block per (64-query tile, row) -- and per head
+//     in BARE, which needs no cross-head out projection -- 4 warps x 16
 //     query rows. Whole-row K/V (1.5 MB each at L=2048, D=384) cannot sit in
 //     227 KB of shared memory, so K/V stream through in 64-key tiles. To keep
 //     the reference's rounding points (softmax normalised in f32, then
@@ -27,10 +40,11 @@
 //     pass 1 finds each row's max and denominator, pass 2 forms
 //     p = exp(s - m) / max(l, tiny), rounds it to bf16 and accumulates P.V in
 //     f32 registers. K/V tiles arrive by cp.async, fragments by ldmatrix
-//     (V through the transposing load). The head output (o_scr, bf16)
-//     overwrites the head's Q columns in shared memory; the out projection
-//     stages Wo 64 output columns at a time in the K/V space, adds bo and the
-//     residual, writes the f32 rows, and each warp LayerNorms its own 16
+//     (V through the transposing load). BARE stores the head output, rounded
+//     to bf16, from registers. The RES epilogues write it (o_scr, bf16) over
+//     the head's Q columns in shared memory; the out projection stages Wo 64
+//     output columns at a time in the K/V space, adds bo and the residual,
+//     writes the f32 rows, and in RES_LN each warp LayerNorms its own 16
 //     rows. QK^T runs twice (1.5x attention FLOPs) -- the price of exact
 //     rounding points in a first kernel; an online softmax is the obvious
 //     later trade.
@@ -40,6 +54,31 @@ namespace {
 
 constexpr int QT = 64;     // query rows per block: 4 warps x 16
 constexpr int KTILE = 64;  // keys per streamed K/V tile
+
+enum : int { EPI_RES_LN = 0, EPI_RES = 1, EPI_BARE = 2 };
+
+// Pointers, strides (elements) and sizes of one attention launch. Element
+// (b, h, t, c) of q/k/v is at q[b * sb + h * sh + t * ld + c]: heads packed
+// along D are sh = dk, (B, H, T, dk) is sh = T * dk, ld = dk. BARE writes
+// ob[b * osb + h * osh + t * old + c]; the RES epilogues read res and write
+// out, both (B, T, D) f32 contiguous.
+struct AttnArgs {
+  const float* res;
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  int sb, sh, ld;
+  const bf16* wo;
+  const float* bo;
+  const float* g;
+  const float* be;
+  const int* lens;
+  float* out;
+  bf16* ob;
+  int osb, osh, old;
+  int T, D, H;
+  float scale, eps;
+};
 
 __global__ void __launch_bounds__(128)
 qkv_proj_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
@@ -72,75 +111,87 @@ qkv_proj_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
   });
 }
 
-// One 64-key tile of K (and V) of head h into shared memory, zeros at keys
-// >= len; row-major [key][d], row stride lk.
+// One 64-key tile of one head's K (and V) into shared memory, zeros at keys
+// >= len; kh/vh point at the head's row 0, rows ld apart; row-major
+// [key][d] in shared memory, row stride lk.
 template <int DK>
 __device__ __forceinline__ void load_kv_tile(bf16* Ks, bf16* Vs, int lk,
-                                             const bf16* __restrict__ kp,
-                                             const bf16* __restrict__ vp,
-                                             size_t row0, int ld, int h,
-                                             int k0, int len) {
+                                             const bf16* __restrict__ kh,
+                                             const bf16* __restrict__ vh,
+                                             int ld, int k0, int len) {
   for (int i = threadIdx.x; i < KTILE * (DK / 8); i += blockDim.x) {
     const int r = i / (DK / 8), c = (i % (DK / 8)) * 8;
     const bool ok = k0 + r < len;
-    const size_t off = ok ? (row0 + k0 + r) * ld + h * DK + c : 0;
-    cp_async16(Ks + r * lk + c, kp + off, ok);
-    if (Vs != nullptr) cp_async16(Vs + r * lk + c, vp + off, ok);
+    const size_t off = ok ? (size_t)(k0 + r) * ld + c : 0;
+    cp_async16(Ks + r * lk + c, kh + off, ok);
+    if (Vs != nullptr) cp_async16(Vs + r * lk + c, vh + off, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
 }
 
-template <int DK>
-__global__ void __launch_bounds__(128)
-attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qp,
-                  const bf16* __restrict__ kp, const bf16* __restrict__ vp, int ld,
-                  const bf16* __restrict__ wo, const float* __restrict__ bo,
-                  const float* __restrict__ gamma, const float* __restrict__ beta,
-                  const int* __restrict__ lens, float* __restrict__ out, int T,
-                  int D, int H, float scale, float eps) {
+template <int DK, int EPI>
+__global__ void __launch_bounds__(128) attn_block_kernel(const AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lq = D + 8, lk = DK + 8;
+  const int T = a.T, D = a.D;
+  // BARE: one head per block (blockIdx.z); the RES epilogues: all heads
+  const int h0 = EPI == EPI_BARE ? blockIdx.z : 0;
+  const int nh = EPI == EPI_BARE ? 1 : a.H;
+  const int W = nh * DK;
+  const int lq = W + 8, lk = DK + 8;
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [QT][lq]: Q, then o_scr
   bf16* Ks = Qs + QT * lq;                   // [KTILE][lk]
   bf16* Vs = Ks + KTILE * lk;                // [KTILE][lk]
-  bf16* Wst = Ks;                            // [64][lq]: Wo slice (aliases K/V)
+  bf16* Wst = Ks;                            // [64][D + 8]: Wo slice (aliases K/V)
   const int b = blockIdx.y, t0 = blockIdx.x * QT;
-  const int len = min(lens[b], T);
+  const int len = min(a.lens[b], T);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g8 = lane >> 2, t4 = lane & 3;
   const size_t row0 = (size_t)b * T;
+  const bf16* qb = a.q + (size_t)b * a.sb;
 
-  if (t0 >= len) {  // dead tile: every row is LN(x + bo)
+  if (t0 >= len) {  // dead tile: LN(res + bo), res + bo, or zeros
     for (int r = warp; r < QT && t0 + r < T; r += 4) {
-      const float* xr = x + (row0 + t0 + r) * D;
-      float* orow = out + (row0 + t0 + r) * D;
-      for (int c = lane; c < D; c += 32) orow[c] = xr[c] + bo[c];
-      __syncwarp();
-      warp_layer_norm(orow, orow, D, gamma, beta, eps, lane);
+      if (EPI == EPI_BARE) {
+        bf16* orow = a.ob + (size_t)b * a.osb + (size_t)h0 * a.osh + (size_t)(t0 + r) * a.old;
+        for (int c = lane; c < DK; c += 32) orow[c] = __float2bfloat16_rn(0.f);
+        continue;
+      }
+      const float* xr = a.res + (row0 + t0 + r) * D;
+      float* orow = a.out + (row0 + t0 + r) * D;
+      for (int c = lane; c < D; c += 32) orow[c] = xr[c] + a.bo[c];
+      if (EPI == EPI_RES_LN) {
+        __syncwarp();
+        warp_layer_norm(orow, orow, D, a.g, a.be, a.eps, lane);
+      }
     }
     return;
   }
 
-  for (int i = threadIdx.x; i < QT * (D / 8); i += 128) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+  for (int i = threadIdx.x; i < QT * (W / 8); i += 128) {
+    const int r = i / (W / 8), c = (i % (W / 8)) * 8;
+    const int h = h0 + c / DK, cc = c % DK;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T) v = *reinterpret_cast<const uint4*>(qp + (row0 + t0 + r) * ld + c);
+    if (t0 + r < T)
+      v = *reinterpret_cast<const uint4*>(qb + (size_t)h * a.sh + (size_t)(t0 + r) * a.ld + cc);
     *reinterpret_cast<uint4*>(Qs + r * lq + c) = v;
   }
 
   const int qr = warp * 16;  // this warp's rows in the tile
   const bool va = t0 + qr + g8 < len, vb = t0 + qr + g8 + 8 < len;
   const int nkt = (len + KTILE - 1) / KTILE;
+  const float scale = a.scale;
 
-  for (int h = 0; h < H; ++h) {
-    const bf16* Qw = Qs + qr * lq + h * DK;
+  for (int h = h0; h < h0 + nh; ++h) {
+    const bf16* Qw = Qs + qr * lq + (h - h0) * DK;
+    const bf16* kh = a.k + (size_t)b * a.sb + (size_t)h * a.sh;
+    const bf16* vh = a.v + (size_t)b * a.sb + (size_t)h * a.sh;
     // pass 1: row max m and denominator l = sum exp(s - m) over valid keys
     float m_a = -FLT_MAX, m_b = -FLT_MAX, l_a = 0.f, l_b = 0.f;
     for (int kt = 0; kt < nkt; ++kt) {
       const int k0 = kt * KTILE;
       __syncthreads();
-      load_kv_tile<DK>(Ks, nullptr, lk, kp, vp, row0, ld, h, k0, len);
+      load_kv_tile<DK>(Ks, nullptr, lk, kh, vh, a.ld, k0, len);
       __syncthreads();
       float s[8][4];
       warp_scores<DK>(s, Qw, lq, Ks, lk, lane);
@@ -191,7 +242,7 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qp,
     for (int kt = 0; kt < nkt; ++kt) {
       const int k0 = kt * KTILE;
       __syncthreads();
-      load_kv_tile<DK>(Ks, Vs, lk, kp, vp, row0, ld, h, k0, len);
+      load_kv_tile<DK>(Ks, Vs, lk, kh, vh, a.ld, k0, len);
       __syncthreads();
       float s[8][4];
       warp_scores<DK>(s, Qw, lq, Ks, lk, lane);
@@ -211,17 +262,32 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qp,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         // A fragment order: (g, k 0-7), (g+8, k 0-7), (g, k 8-15), (g+8, k 8-15)
-        const uint32_t a[4] = {pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3]};
+        const uint32_t af[4] = {pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3]};
 #pragma unroll
         for (int dn = 0; dn < DK / 8; dn += 2) {
           // V is [key][d]: the transposing load gives the col-major B
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * lk +
-                                   (dn + (lane >> 4)) * 8);
-          mma_bf16(o[dn], a, b[0], b[1]);
-          mma_bf16(o[dn + 1], a, b[2], b[3]);
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * lk +
+                                    (dn + (lane >> 4)) * 8);
+          mma_bf16(o[dn], af, bf[0], bf[1]);
+          mma_bf16(o[dn + 1], af, bf[2], bf[3]);
         }
       }
+    }
+    if (EPI == EPI_BARE) {
+      // the head output in bf16 straight to global memory; rows past the
+      // length hold exact zeros (their weights are all zero)
+      bf16* oh = a.ob + (size_t)b * a.osb + (size_t)h * a.osh;
+      const int ta = t0 + qr + g8, tb = ta + 8;
+#pragma unroll
+      for (int dn = 0; dn < DK / 8; ++dn) {
+        const int c = dn * 8 + 2 * t4;
+        if (ta < T)
+          *reinterpret_cast<uint32_t*>(oh + (size_t)ta * a.old + c) = pack_bf16(o[dn][0], o[dn][1]);
+        if (tb < T)
+          *reinterpret_cast<uint32_t*>(oh + (size_t)tb * a.old + c) = pack_bf16(o[dn][2], o[dn][3]);
+      }
+      continue;
     }
     // o_scr: the head's output in bf16 over its own Q columns (own rows only)
 #pragma unroll
@@ -231,13 +297,14 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qp,
       *reinterpret_cast<uint32_t*>(Qs + (qr + g8 + 8) * lq + c) = pack_bf16(o[dn][2], o[dn][3]);
     }
   }
+  if (EPI == EPI_BARE) return;
 
-  // out projection, 64 output columns at a time: v = round(o_scr Wo) + bo + x
+  // out projection, 64 output columns at a time: v = round(o_scr Wo) + bo + res
   for (int n0 = 0; n0 < D; n0 += 64) {
     __syncthreads();
     for (int i = threadIdx.x; i < 64 * (D / 8); i += 128) {
       const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      cp_async16(Wst + r * lq + c, wo + (size_t)(n0 + r) * D + c, true);
+      cp_async16(Wst + r * lq + c, a.wo + (size_t)(n0 + r) * D + c, true);
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -248,14 +315,14 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qp,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[ni][r] = 0.f;
     for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      load_a_frag(a, Qs + qr * lq + kk, lq, lane);
+      uint32_t af[4];
+      load_a_frag(af, Qs + qr * lq + kk, lq, lane);
 #pragma unroll
       for (int ni = 0; ni < 8; ni += 2) {
-        uint32_t b[4];
-        load_b_frag2(b, Wst + ni * 8 * lq + kk, lq, lane);
-        mma_bf16(acc[ni], a, b[0], b[1]);
-        mma_bf16(acc[ni + 1], a, b[2], b[3]);
+        uint32_t bf[4];
+        load_b_frag2(bf, Wst + ni * 8 * lq + kk, lq, lane);
+        mma_bf16(acc[ni], af, bf[0], bf[1]);
+        mma_bf16(acc[ni + 1], af, bf[2], bf[3]);
       }
     }
 #pragma unroll
@@ -266,49 +333,70 @@ attn_block_kernel(const float* __restrict__ x, const bf16* __restrict__ qp,
         const int c = n0 + ni * 8 + 2 * t4 + (e & 1);
         if (t < T) {
           const size_t off = (row0 + t) * D + c;
-          out[off] = (bf16r(acc[ni][e]) + bo[c]) + x[off];
+          a.out[off] = (bf16r(acc[ni][e]) + a.bo[c]) + a.res[off];
         }
       }
   }
-  __syncwarp();
-  for (int r = 0; r < 16 && t0 + qr + r < T; ++r) {
-    float* orow = out + (row0 + t0 + qr + r) * D;
-    warp_layer_norm(orow, orow, D, gamma, beta, eps, lane);
+  if (EPI == EPI_RES_LN) {
+    __syncwarp();
+    for (int r = 0; r < 16 && t0 + qr + r < T; ++r) {
+      float* orow = a.out + (row0 + t0 + qr + r) * D;
+      warp_layer_norm(orow, orow, D, a.g, a.be, a.eps, lane);
+    }
   }
 }
 
-template <int DK>
-cudaError_t launch_attn(const float* x, const bf16* qp, const bf16* kp,
-                        const bf16* vp, int ld, const bf16* wo,
-                        const float* bo, const float* g, const float* be,
-                        const int* lens, float* out, int B, int T, int D, int H,
-                        float scale, float eps, cudaStream_t stream) {
+template <int DK, int EPI>
+cudaError_t launch_attn(const AttnArgs& a, int B, cudaStream_t stream) {
+  const int W = EPI == EPI_BARE ? DK : a.D;
   const size_t kv = (size_t)2 * KTILE * (DK + 8);
-  const size_t wst = (size_t)64 * (D + 8);
-  const size_t smem = ((size_t)QT * (D + 8) + (kv > wst ? kv : wst)) * sizeof(bf16);
-  cudaError_t e = set_smem(attn_block_kernel<DK>, smem);
+  const size_t wst = EPI == EPI_BARE ? 0 : (size_t)64 * (a.D + 8);
+  const size_t smem = ((size_t)QT * (W + 8) + (kv > wst ? kv : wst)) * sizeof(bf16);
+  cudaError_t e = set_smem(attn_block_kernel<DK, EPI>, smem);
   if (e != cudaSuccess) return e;
-  attn_block_kernel<DK><<<dim3((T + QT - 1) / QT, B), 128, smem, stream>>>(
-      x, qp, kp, vp, ld, wo, bo, g, be, lens, out, T, D, H, scale, eps);
+  attn_block_kernel<DK, EPI><<<dim3((a.T + QT - 1) / QT, B, EPI == EPI_BARE ? a.H : 1), 128,
+                               smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // DK is a template parameter: pick the instantiation for D / H.
-cudaError_t launch_attn_any(const float* x, const bf16* qp, const bf16* kp,
-                            const bf16* vp, int ld, const bf16* wo, const float* bo,
-                            const float* g, const float* be, const int* lens,
-                            float* out, int B, int T, int D, int H, float scale,
-                            float eps, cudaStream_t stream) {
-  if (D / H == 128)
-    return launch_attn<128>(x, qp, kp, vp, ld, wo, bo, g, be, lens, out, B, T, D, H,
-                            scale, eps, stream);
-  return launch_attn<192>(x, qp, kp, vp, ld, wo, bo, g, be, lens, out, B, T, D, H,
-                          scale, eps, stream);
+template <int EPI>
+cudaError_t launch_attn_any(const AttnArgs& a, int B, cudaStream_t stream) {
+  if (a.D / a.H == 128) return launch_attn<128, EPI>(a, B, stream);
+  return launch_attn<192, EPI>(a, B, stream);
 }
 
 bool attn_shape_ok(int D, int H) {
   const int DK = H > 0 ? D / H : 0;
   return D % 64 == 0 && DK * H == D && (DK == 128 || DK == 192);
+}
+
+// q/k/v heads packed along D with a common row stride ld; res and out
+// (B, T, D) f32; the RES epilogues.
+AttnArgs packed_args(const float* res, const bf16* q, const bf16* k, const bf16* v,
+                     int ld, const bf16* wo, const float* bo, const float* g,
+                     const float* be, const int* lens, float* out, int T, int D,
+                     int H, float scale, float eps) {
+  AttnArgs a{};
+  a.res = res;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.sb = T * ld;
+  a.sh = D / H;
+  a.ld = ld;
+  a.wo = wo;
+  a.bo = bo;
+  a.g = g;
+  a.be = be;
+  a.lens = lens;
+  a.out = out;
+  a.T = T;
+  a.D = D;
+  a.H = H;
+  a.scale = scale;
+  a.eps = eps;
+  return a;
 }
 
 }  // namespace
@@ -332,8 +420,10 @@ FS2_EXPORT int fs2_attention_block(const float* x, const bf16* wqkv,
                     smem1, stream>>>(x, wqkv, bqkv, lens, qkv, T, D);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_attn_any(x, qkv, qkv + D, qkv + 2 * D, 3 * D, wo, bo, g, be, lens,
-                              out, B, T, D, H, scale, eps, stream);
+  return (int)launch_attn_any<EPI_RES_LN>(
+      packed_args(x, qkv, qkv + D, qkv + 2 * D, 3 * D, wo, bo, g, be, lens, out, T, D, H,
+                  scale, eps),
+      B, stream);
 }
 
 // The second launch alone, q/k/v given: out = LN(res + MHA(q, k, v) Wo + bo).
@@ -343,7 +433,7 @@ FS2_EXPORT int fs2_attention_block(const float* x, const bf16* wqkv,
 // res (B,T,D) f32; q, k, v (B,T,D) bf16, each with row stride ld elements
 // (ld >= D, a multiple of 8, 16-byte aligned bases): three separate tensors
 // (ld = D) or three column blocks of one buffer; rows at or past the length
-// are not read. wo (D, D) bf16 (out, in); bo/g/be (D) f32; lens (B) i32;
+// are not used. wo (D, D) bf16 (out, in); bo/g/be (D) f32; lens (B) i32;
 // out (B,T,D) f32.
 FS2_EXPORT int fs2_attention_res_ln(const float* res, const bf16* q, const bf16* k,
                                     const bf16* v, int ld, const bf16* wo,
@@ -352,6 +442,55 @@ FS2_EXPORT int fs2_attention_res_ln(const float* res, const bf16* q, const bf16*
                                     int H, float scale, float eps, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   if (!attn_shape_ok(D, H) || ld < D || ld % 8 != 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_attn_any(res, q, k, v, ld, wo, bo, g, be, lens, out, B, T, D, H,
-                              scale, eps, stream);
+  return (int)launch_attn_any<EPI_RES_LN>(
+      packed_args(res, q, k, v, ld, wo, bo, g, be, lens, out, T, D, H, scale, eps), B,
+      stream);
+}
+
+// Pre-LN: out = res + MHA(q, k, v) Wo + bo, no LayerNorm; rows at or past the
+// length give res + bo. Replaces fastspeech2_tpu/ops/pallas/attention.py:
+// fused_attention_packed_res (kernel _attn_kernel_packed_res). Arguments as
+// fs2_attention_res_ln without g/be/eps.
+FS2_EXPORT int fs2_attention_res(const float* res, const bf16* q, const bf16* k,
+                                 const bf16* v, int ld, const bf16* wo,
+                                 const float* bo, const int* lens, float* out, int B,
+                                 int T, int D, int H, float scale, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (!attn_shape_ok(D, H) || ld < D || ld % 8 != 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_attn_any<EPI_RES>(
+      packed_args(res, q, k, v, ld, wo, bo, nullptr, nullptr, lens, out, T, D, H, scale,
+                  0.f),
+      B, stream);
+}
+
+// Bare masked attention, out = MHA(q, k, v) in bf16 (no projection); rows at
+// or past the length are zeros. Replaces fastspeech2_tpu/ops/pallas/
+// attention.py: fused_attention_packed (heads packed along D: sb = T*ld,
+// sh = dk) and fused_attention ((B, H, T, dk): sb = H*T*dk, sh = T*dk,
+// ld = dk). q/k/v element (b, h, t, c) at q[b*sb + h*sh + t*ld + c], out at
+// out[b*osb + h*osh + t*old + c]; every stride a multiple of 8 and the bases
+// 16-byte aligned. lens (B) i32; one block per (64 queries, row, head).
+FS2_EXPORT int fs2_attention(const bf16* q, const bf16* k, const bf16* v, int sb, int sh,
+                             int ld, const int* lens, bf16* out, int osb, int osh, int old,
+                             int B, int T, int H, int DK, float scale, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if ((DK != 128 && DK != 192) || H < 1 || (sb | sh | ld | osb | osh | old) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  AttnArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.sb = sb;
+  a.sh = sh;
+  a.ld = ld;
+  a.lens = lens;
+  a.ob = out;
+  a.osb = osb;
+  a.osh = osh;
+  a.old = old;
+  a.T = T;
+  a.D = H * DK;
+  a.H = H;
+  a.scale = scale;
+  return (int)launch_attn_any<EPI_BARE>(a, B, stream);
 }

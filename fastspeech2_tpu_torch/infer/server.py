@@ -6,7 +6,7 @@ tensor-core-shaped batches instead of B=1 calls.
 
 API (JSON over HTTP, stdlib-only):
 
-    GET  /healthz             -> {"status": "ok", ...}
+    GET  /healthz             -> {"status": "ok", ..., "launches": {kernel: count}}
     POST /synthesize          body: {"text": "..."} or
                                     {"phonemes": "HH AH0 L OW1 ..."}
                               optional: "alpha": float, "format": "mel"|"wav"
@@ -43,6 +43,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
 import numpy as np
+
+from fastspeech2_tpu_torch.ops.kernels import launch_counts
 
 log = logging.getLogger("fastspeech2_tpu_torch.serve")
 
@@ -264,7 +266,8 @@ def make_handler(batcher: Batcher, cfg, vocoder=None):
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._json(200, {"status": "ok", **batcher.stats})
+                self._json(200, {"status": "ok", **batcher.stats,
+                                 "launches": launch_counts()})
             else:
                 self._json(404, {"error": "unknown path"})
 

@@ -7,13 +7,20 @@ sinusoidal positional encoding and positional dropout; N blocks of
 [self-attention + position-wise FFN], post-LN by default; a final LayerNorm
 only when ``normalize_before``.
 
-Branches follow the JAX engagement rules (``encoder.py:191-229``), so both
-packages take the same path. Routes served:
+Branches follow the JAX engagement rules (``encoder.py:191-229, 248-368``),
+so both packages take the same path. Routes served:
 
-- serving (deterministic, bf16, d_k >= 128, lengths given): the post-LN
-  attention-half kernel, with ``flags.FUSED_ATT_QKV`` off the q/k/v-given
-  kernel after plain projections; the FFN-half kernel only with a conv mask.
-  These kernels take no gradient.
+- serving (deterministic, bf16, d_k >= 128, lengths given), attention half:
+  post-LN blocks take the attention-half kernel (with ``flags.FUSED_ATT_QKV``
+  off the q/k/v-given kernel after plain projections); pre-LN blocks project
+  q/k/v from LN(x) and take ``attention_res`` with x as the residual; under
+  ``concat_after`` or with ``flags.FUSED_ATT_RES`` off, the bare attention
+  kernel inside plain q/k/v and out projections (``mha_fused_apply``), then
+  the ``concat`` linear or the residual, and the post-LN LayerNorm where the
+  block is post-LN.
+- serving, FFN half (conv FFN with odd k, a conv mask given): the post-LN
+  kernel or the pre-LN kernel ``ffn_block_pre``. These kernels take no
+  gradient.
 - training (not deterministic, seeds given, bf16, d_k >= 128, T <= 1024):
   q/k/v projections, the training attention kernels with in-kernel hash
   dropout (``ops/kernels/attention_train.py``; head-packed up to T = 896
@@ -21,10 +28,6 @@ packages take the same path. Routes served:
   dropout sites and the FFN as plain ops. ``remat`` checkpoints each block.
 - everything else (the f32 tier, small heads, the CPU tests): plain ops,
   ``ops.attention.mha_apply`` with its dropout branch.
-
-Branches whose JAX counterpart is a kernel this port does not have yet
-(pre-LN, ``concat_after``, ``FUSED_ATT_RES`` off on the serving route) raise
-NotImplementedError rather than run something else.
 
 Dropout sites, in the JAX package's fixed order: ``input`` (linear input
 layer only), ``pos``, then per block i ``{i}/attn``, ``{i}/res``, ``{i}/ffn``,
@@ -140,9 +143,7 @@ class FFTBlock(tnn.Module):
             lambda: attn_kernel.pack_weights(self.attn, self.norm1, cd))
 
     def ffn_pack(self, cd):
-        return common.cached_pack(
-            self.ffn, [p for p in self.ffn.parameters()] + [self.norm2.weight, self.norm2.bias],
-            lambda: ffn_kernel.pack_weights(self.ffn, self.norm2, cd))
+        return ffn_kernel.block_pack(self.ffn, self.norm2, cd)
 
 
 class Encoder(tnn.Module):
@@ -211,17 +212,6 @@ class Encoder(tnn.Module):
                          and cfg.positionwise_conv_kernel_size % 2 == 1)
         use_fused_train = (fusable and not deterministic
                            and xs.shape[1] <= attention_train.MAX_T)
-        if use_fused and not use_fused_res:
-            raise NotImplementedError(
-                "bare fused attention (fastspeech2_tpu/ops/pallas/attention.py:"
-                "fused_attention_packed) is not ported yet")
-        if use_fused_res and cfg.normalize_before:
-            raise NotImplementedError(
-                "pre-LN fused attention (attention.py:"
-                "fused_attention_packed_res) is not ported yet")
-        if use_fused_ffn and cfg.normalize_before:
-            raise NotImplementedError(
-                "pre-LN fused FFN (ffn.py:fused_ffn_block) is not ported yet")
 
         if cfg.input_layer == "embed":
             x = nn.embedding(self.embed.weight, xs)
@@ -242,7 +232,11 @@ class Encoder(tnn.Module):
             residual = x
             y = (nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)
                  if cfg.normalize_before else x)
-            if use_fused_res and flags.FUSED_ATT_QKV:
+            if use_fused_res and cfg.normalize_before:
+                x = attn_kernel.mha_fused_res_apply(layer.attn, y, residual, lengths,
+                                                    cfg.attention_heads)
+                ran_fused_res = True
+            elif use_fused_res and flags.FUSED_ATT_QKV:
                 x = attn_kernel.attention_block(x, *layer.attn_pack(cd), lengths,
                                                 cfg.attention_heads)
                 ran_fused_res = True
@@ -256,6 +250,9 @@ class Encoder(tnn.Module):
                     q, k, v, x, *layer.attn_pack(cd)[2:], lengths,
                     cfg.attention_heads)
                 ran_fused_res = True
+            elif use_fused:
+                att = attn_kernel.mha_fused_apply(layer.attn, y, lengths,
+                                                  cfg.attention_heads)
             elif use_fused_train:
                 att = attention_train.mha_fused_train_apply(
                     layer.attn, y, lengths, cfg.attention_heads,
@@ -275,6 +272,8 @@ class Encoder(tnn.Module):
                                               deterministic=deterministic)
                 if not cfg.normalize_before:
                     x = nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)
+            if use_fused_ffn and cfg.normalize_before:
+                return ffn_kernel.ffn_block_fused_apply(layer.norm2, layer.ffn, x, lengths)
             if use_fused_ffn:
                 return ffn_kernel.ffn_block(x, *layer.ffn_pack(cd), lengths,
                                             cfg.positionwise_conv_kernel_size)

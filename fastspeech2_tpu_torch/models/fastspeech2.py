@@ -19,9 +19,11 @@ postnet. Every conv input is re-zeroed beyond the true length, so a padded
 buffer gives the unpadded result (exact-unpadded semantics).
 
 Under the bf16 tier (``ops.precision.compute_dtype(torch.bfloat16)``) and
-``fused_attention`` on, the four kernels of ``ops/kernels`` carry the path
-with the JAX engagement rules: attention and FFN halves of every block, the
-variance adaptor (``FUSED_ADAPTOR``) and the postnet.
+``fused_attention`` on, the kernels of ``ops/kernels`` carry the path with
+the JAX engagement rules: attention and FFN halves of every block (post-LN,
+pre-LN, ``concat_after`` and the ``FUSED_ATT_*`` switches each take their
+own kernel, ``models/encoder.py``), the variance adaptor (``FUSED_ADAPTOR``)
+and the postnet.
 """
 
 from __future__ import annotations

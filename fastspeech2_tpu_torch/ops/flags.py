@@ -12,8 +12,8 @@ import os
 FUSED_ADAPTOR: bool = os.environ.get("FS2_FUSED_ADAPTOR", "on") != "off"
 
 #: the fused [attention -> out-proj -> +residual] block half.
-#: FS2_FUSED_ATT_RES=off selects the bare fused attention kernel, which is
-#: not ported yet.
+#: FS2_FUSED_ATT_RES=off selects the bare fused attention kernel
+#: (ops/kernels/attention.py:mha_fused_apply) with plain projections around it.
 FUSED_ATT_RES: bool = os.environ.get("FS2_FUSED_ATT_RES", "on") != "off"
 
 #: QKV projections inside the post-LN attention block kernel

@@ -17,6 +17,23 @@ or past the length come out as ``LN(x + bo)``.
 ``FS2_FUSED_ATT_QKV=off``. It is the second launch of ``csrc/attention.cu``
 alone, under its own C entry; q/k/v arrive rounded to the compute dtype and
 the residual is a separate f32 input.
+
+``attention_res`` is the pre-LN block's attention half, ``res + MHA(q, k,
+v)·Wo + bo`` with no LayerNorm (rows at or past the length: ``res + bo``): the
+port of ``attention.py:fused_attention_packed_res`` (kernel
+``_attn_kernel_packed_res``), C entry ``fs2_attention_res``.
+``mha_fused_res_apply`` projects q/k/v and calls it, as the JAX wrapper does.
+
+``fused_attention_packed`` and ``fused_attention`` are the bare masked
+attention, heads packed along D (B, T, D) and in the (B, H, T, dk) layout,
+bf16 out, rows at or past the length zero: the ports of
+``attention.py:fused_attention_packed`` (kernel ``_attn_kernel_packed``) and
+``attention.py:fused_attention`` (kernel ``_attn_kernel``), both through the
+strided C entry ``fs2_attention``. ``mha_fused_apply`` wraps the packed one
+in the q/k/v and out projections; the model takes it under ``concat_after``
+and ``flags.FUSED_ATT_RES`` off. Only bf16 operands reach the kernel on the
+card (the f32 entry of these two is not ported: the f32 tier takes
+``ops.attention.mha_apply``).
 """
 
 from __future__ import annotations
@@ -28,32 +45,69 @@ import torch
 from fastspeech2_tpu_torch.ops import nn
 from fastspeech2_tpu_torch.ops.attention import masked_softmax
 from fastspeech2_tpu_torch.ops.kernels import common
-from fastspeech2_tpu_torch.ops.precision import round_to
+from fastspeech2_tpu_torch.ops.precision import current_compute_dtype, round_to
 
 #: launches of the CUDA kernel (the plain version does not count)
 launches = 0
 #: launches of the q/k/v-given entry (``attention_res_ln``)
 res_ln_launches = 0
+#: launches of the pre-LN entry (``attention_res``)
+res_launches = 0
+#: launches of the bare attention, head-packed (``fused_attention_packed``)
+packed_launches = 0
+#: launches of the bare attention, (B, H, T, dk) (``fused_attention``)
+bhtd_launches = 0
 _fn = None
 _fn_res_ln = None
+_fn_res = None
+_fn_bare = None
+
+
+def _attend(q, k, v, lengths, cd):
+    """Masked attention of (B, H, T, dk) values; f32 result holding values of
+    the compute dtype ``cd``: weights rounded before P·V, the product
+    rounded. Rows at or past the length come out zero."""
+    T, dk = q.shape[2], q.shape[3]
+    q, k, v = q.float(), k.float(), v.float()
+    scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dk))
+    pos = torch.arange(T, device=q.device)
+    valid = pos[None, :] < lengths.to(q.device)[:, None]
+    w = masked_softmax(scores, valid[:, None, :, None] & valid[:, None, None, :])
+    return round_to(round_to(w, cd) @ v, cd)
+
+
+def _attend_packed(q, k, v, lengths, n_heads: int, cd):
+    """``_attend`` with heads packed along D: (B, T, D) in and out."""
+    B, T, D = q.shape
+    split = [t.reshape(B, T, n_heads, D // n_heads).transpose(1, 2) for t in (q, k, v)]
+    return _attend(*split, lengths, cd).transpose(1, 2).reshape(B, T, D)
+
+
+def attention_res_plain(q, k, v, res, wo, bo, lengths, n_heads: int):
+    """``res + MHA(q, k, v)·Wo + bo`` in plain PyTorch (f32 out); q/k/v hold
+    values of the compute dtype, which is wo's dtype."""
+    cd = wo.dtype
+    o = _attend_packed(q, k, v, lengths, n_heads, cd)
+    return (round_to(o @ wo.float().t(), cd) + bo) + res.float()
 
 
 def attention_res_ln_plain(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
                            eps: float = 1e-5):
     """``LN(res + MHA(q, k, v)·Wo + bo)`` in plain PyTorch; q/k/v hold values
     of the compute dtype, which is wo's dtype."""
-    cd = wo.dtype
-    B, T, D = q.shape
-    dk = D // n_heads
-    q, k, v = (t.float().reshape(B, T, n_heads, dk).transpose(1, 2)
-               for t in (q, k, v))
-    scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dk))
-    pos = torch.arange(T, device=q.device)
-    valid = pos[None, :] < lengths.to(q.device)[:, None]
-    w = masked_softmax(scores, valid[:, None, :, None] & valid[:, None, None, :])
-    o = round_to(round_to(w, cd) @ v, cd).transpose(1, 2).reshape(B, T, D)
-    out = round_to(o @ wo.float().t(), cd) + bo
-    return nn.layer_norm(out + res.float(), g, be, eps=eps)
+    return nn.layer_norm(attention_res_plain(q, k, v, res, wo, bo, lengths, n_heads),
+                         g, be, eps=eps)
+
+
+def fused_attention_packed_plain(q, k, v, lengths, n_heads: int):
+    """Bare masked attention, heads packed along D, in plain PyTorch; out in
+    q's dtype (bf16 rounds the weights and the result, f32 does not)."""
+    return _attend_packed(q, k, v, lengths, n_heads, q.dtype).to(q.dtype)
+
+
+def fused_attention_plain(q, k, v, lengths):
+    """Bare masked attention of (B, H, T, dk) q/k/v in plain PyTorch."""
+    return _attend(q, k, v, lengths, q.dtype).to(q.dtype)
 
 
 def attention_block_plain(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
@@ -109,6 +163,30 @@ def attention_block(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
     return out
 
 
+def _qkv_stride(name, q, k, v, shape):
+    """The common row stride of q, k, v: bf16 tensors of ``shape`` on one
+    device, each contiguous or a column block of one wider buffer (unit
+    column stride, a row stride that is a multiple of 8, 16-byte aligned
+    bases): no re-packing copy is made."""
+    B, T, _ = shape
+    ld = q.stride(1)
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be a {shape} bfloat16 tensor on "
+                             f"{q.device} (the f32 entry is not ported)")
+        if (t.stride(2) != 1 or t.stride(1) != ld or ld % 8 or t.data_ptr() % 16
+                or (B > 1 and t.stride(0) != T * ld)):
+            raise ValueError(f"{name}: {arg} needs unit column stride, the common "
+                             "row stride (a multiple of 8) and a 16-byte aligned base")
+    return ld
+
+
+def _check_heads(name, D, n_heads):
+    if D % 64 or D % n_heads or D // n_heads not in (128, 192):
+        raise ValueError(f"{name}: D={D}, heads={n_heads} not supported by the "
+                         "kernel (d_k 128 or 192)")
+
+
 def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
                      eps: float = 1e-5):
     """q, k, v (B, T, D) in the compute dtype, each contiguous or a column
@@ -127,19 +205,8 @@ def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
         ("res", res, f32, (B, T, D)), ("wo", wo, bf16, (D, D)),
         ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
         ("lengths", lengths, torch.int32, (B,))])
-    ld = q.stride(1)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != bf16 or tuple(t.shape) != (B, T, D):
-            raise ValueError(f"attention_res_ln: {name} must be a {(B, T, D)} "
-                             f"bfloat16 tensor on {q.device}")
-        if (t.stride(2) != 1 or t.stride(1) != ld or ld % 8 or t.data_ptr() % 16
-                or (B > 1 and t.stride(0) != T * ld)):
-            raise ValueError(f"attention_res_ln: {name} needs unit column "
-                             "stride, the common row stride (a multiple of 8) "
-                             "and a 16-byte aligned base")
-    if D % 64 or D % n_heads or D // n_heads not in (128, 192):
-        raise ValueError(f"attention_res_ln: D={D}, heads={n_heads} not "
-                         "supported by the kernel (d_k 128 or 192)")
+    ld = _qkv_stride("attention_res_ln", q, k, v, (B, T, D))
+    _check_heads("attention_res_ln", D, n_heads)
     if _fn_res_ln is None:
         P, I, F = common.P, common.I, common.F
         _fn_res_ln = common.bind(common.load("attention"), "fs2_attention_res_ln",
@@ -153,6 +220,122 @@ def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
     with common.count_lock:
         res_ln_launches += 1
     return out
+
+
+def attention_res(q, k, v, res, wo, bo, lengths, n_heads: int):
+    """Pre-LN attention half ``res + MHA(q, k, v)·Wo + bo``: q, k, v as in
+    ``attention_res_ln``; res (B, T, D) f32; wo (D, D) in the compute dtype;
+    bo (D,) f32; lengths (B,) int32. CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    global res_launches, _fn_res
+    common.refuse_grad("attention_res", q, k, v, res, wo, bo)
+    if q.device.type == "cpu":
+        return attention_res_plain(q, k, v, res, wo, bo, lengths, n_heads)
+    B, T, D = q.shape
+    common.check_cuda("attention_res", q.device, [
+        ("res", res, torch.float32, (B, T, D)), ("wo", wo, torch.bfloat16, (D, D)),
+        ("bo", bo, torch.float32, (D,)), ("lengths", lengths, torch.int32, (B,))])
+    ld = _qkv_stride("attention_res", q, k, v, (B, T, D))
+    _check_heads("attention_res", D, n_heads)
+    if _fn_res is None:
+        P, I, F = common.P, common.I, common.F
+        _fn_res = common.bind(common.load("attention"), "fs2_attention_res",
+                              [P] * 4 + [I] + [P] * 4 + [I] * 4 + [F, P])
+    out = torch.empty_like(res)
+    common.launch(_fn_res, res.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  ld, wo.data_ptr(), bo.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  B, T, D, n_heads, 1.0 / math.sqrt(D // n_heads), common.stream_of(q))
+    with common.count_lock:
+        res_launches += 1
+    return out
+
+
+def _bare(name, q, k, v, lengths, B, T, H, dk, strides):
+    """Launch the bare attention through the strided C entry; strides =
+    (batch, head, row) of q/k/v, the output takes the same layout."""
+    global _fn_bare
+    common.check_cuda(name, q.device, [("lengths", lengths, torch.int32, (B,))])
+    if dk not in (128, 192):
+        raise ValueError(f"{name}: d_k={dk} not supported by the kernel (128 or 192)")
+    if _fn_bare is None:
+        P, I, F = common.P, common.I, common.F
+        _fn_bare = common.bind(common.load("attention"), "fs2_attention",
+                               [P] * 3 + [I] * 3 + [P] * 2 + [I] * 7 + [F, P])
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    ostr = (out.stride(0), out.stride(1) if out.dim() == 4 else dk,
+            out.stride(-2))
+    common.launch(_fn_bare, q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides,
+                  lengths.data_ptr(), out.data_ptr(), *ostr, B, T, H, dk,
+                  1.0 / math.sqrt(dk), common.stream_of(q))
+    return out
+
+
+def fused_attention_packed(q, k, v, lengths, n_heads: int):
+    """Bare masked attention, heads packed along D: q, k, v (B, T, D) (bf16
+    on the card; contiguous or column blocks of one buffer, as in
+    ``attention_res_ln``), lengths (B,) int32 -> (B, T, D) in q's dtype, rows
+    at or past the length zero. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    global packed_launches
+    common.refuse_grad("fused_attention_packed", q, k, v)
+    if q.device.type == "cpu":
+        return fused_attention_packed_plain(q, k, v, lengths, n_heads)
+    B, T, D = q.shape
+    ld = _qkv_stride("fused_attention_packed", q, k, v, (B, T, D))
+    if D % n_heads:
+        raise ValueError(f"fused_attention_packed: D={D} is not a multiple of "
+                         f"heads={n_heads}")
+    dk = D // n_heads
+    out = _bare("fused_attention_packed", q, k, v, lengths, B, T, n_heads, dk,
+                (T * ld, dk, ld))
+    with common.count_lock:
+        packed_launches += 1
+    return out
+
+
+def fused_attention(q, k, v, lengths):
+    """Bare masked attention of (B, H, T, dk) q, k, v (contiguous, bf16 on
+    the card), lengths (B,) int32 -> (B, H, T, dk), rows at or past the
+    length zero. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (the body of ``fused_attention_packed``, other strides)."""
+    global bhtd_launches
+    common.refuse_grad("fused_attention", q, k, v)
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, lengths)
+    B, H, T, dk = q.shape
+    common.check_cuda("fused_attention", q.device, [
+        (n, t, torch.bfloat16, (B, H, T, dk)) for n, t in (("q", q), ("k", k), ("v", v))])
+    out = _bare("fused_attention", q, k, v, lengths, B, T, H, dk,
+                (H * T * dk, T * dk, dk))
+    with common.count_lock:
+        bhtd_launches += 1
+    return out
+
+
+def _project(attn, x, dt):
+    return tuple(nn.linear(x, p.weight, p.bias, out_dtype=dt)
+                 for p in (attn.q, attn.k, attn.v))
+
+
+def mha_fused_res_apply(attn, x, residual, lengths, n_heads: int):
+    """Pre-LN attention half on the serving path: q/k/v projected from x
+    (the normalised stream) with plain ops in the compute dtype, then
+    ``attention_res`` with ``residual`` (the block input). attn has q, k, v,
+    out linears (torch layout)."""
+    dt = current_compute_dtype() or x.dtype
+    o = attn.out
+    wo, bo = common.cached_pack(o, [o.weight, o.bias], lambda: (
+        o.weight.to(dt).contiguous(), o.bias.float().contiguous()))
+    return attention_res(*_project(attn, x, dt), residual, wo, bo, lengths, n_heads)
+
+
+def mha_fused_apply(attn, x, lengths, n_heads: int):
+    """Self-attention through the bare kernel: q/k/v projections in the
+    compute dtype, ``fused_attention_packed``, then the out projection back
+    to x's dtype (plain ops around the kernel)."""
+    dt = current_compute_dtype() or x.dtype
+    o = fused_attention_packed(*_project(attn, x, dt), lengths, n_heads)
+    return nn.linear(o, attn.out.weight, attn.out.bias, out_dtype=x.dtype)
 
 
 @torch.no_grad()

@@ -1,0 +1,120 @@
+"""The port's ``synth`` and ``serve`` commands on the CPU, against the JAX
+package's.
+
+A small ``prenorm`` checkpoint (pre-LN in both stacks) is written by the JAX
+package from a minimal override YAML, with its config embedded as
+``hp_yaml``. ``synth`` runs the f32 tier in both packages: the port's
+``mel.npy`` matches the JAX command's to 1e-4 (the f32 tier's tolerance,
+tests/test_torch_port_model.py) and both write ``test_tts.wav``. ``serve``
+runs as a subprocess on the CPU: one mel request over a live socket; every
+wait has its own timeout and the process is stopped in a ``finally``.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import yaml
+from scipy.io.wavfile import read as read_wav
+
+from fastspeech2_tpu import cli as jcli
+from fastspeech2_tpu.config import load_config as jload_config
+from fastspeech2_tpu.models.fastspeech2 import FastSpeech2 as JFS
+from fastspeech2_tpu.train.checkpoint import save_checkpoint as jsave_checkpoint
+from fastspeech2_tpu_torch import cli as tcli
+
+ROOT = Path(__file__).resolve().parents[1]
+PHONEMES = "HH AH0 L OW1 W ER1 L D pau DH IH1 S IH1 Z AH0 T EH1 S T"
+
+
+@pytest.fixture(scope="module")
+def prenorm_ckpt(tmp_path_factory):
+    d = tmp_path_factory.mktemp("prenorm")
+    override = {"model": {"adim": 32, "aheads": 2, "elayers": 1, "eunits": 64,
+                          "ddim": 32, "dlayers": 1, "dunits": 64, "postnet_layers": 2,
+                          "postnet_chans": 16, "positionwise_conv_kernel_size": 3,
+                          "duration_predictor_chans": 16,
+                          "encoder_normalize_before": True,
+                          "decoder_normalize_before": True}}
+    (d / "prenorm.yaml").write_text(yaml.safe_dump(override))
+    cfg = jload_config(str(d / "prenorm.yaml"))
+    assert cfg.model.encoder_normalize_before and cfg.model.adim == 32
+    jm = JFS(cfg)
+    params, state = jax.jit(jm.init)(jax.random.PRNGKey(3))
+    params = jax.device_get(params)
+    params["duration_predictor"]["out"]["b"] = params["duration_predictor"]["out"]["b"] + 1.8
+    path = str(d / "ckpt_00000001.npz")
+    jsave_checkpoint(path, params, jax.device_get(state), {}, 1, cfg)
+    return path
+
+
+def test_synth_matches_jax_command(prenorm_ckpt, tmp_path):
+    args = ["synth", "-p", prenorm_ckpt, "--phonemes", "--text", PHONEMES]
+    tcli.main(args + ["-o", str(tmp_path / "port"), "--device", "cpu"])
+    jcli.main(args + ["-o", str(tmp_path / "jax")])
+    mt = np.load(tmp_path / "port" / "mel.npy")
+    mj = np.load(tmp_path / "jax" / "mel.npy")
+    assert mt.shape == mj.shape and mt.shape[0] == 80 and mt.shape[1] > 5, mt.shape
+    np.testing.assert_allclose(mt, mj, rtol=1e-4, atol=1e-4)
+    sr, wav = read_wav(str(tmp_path / "port" / "test_tts.wav"))
+    assert sr == 22050 and wav.dtype == np.int16
+    assert len(wav) == (mt.shape[1] - 1) * 256 and np.abs(wav).max() > 0
+    assert (tmp_path / "jax" / "test_tts.wav").exists()
+
+
+def test_synth_refuses_a_pth_checkpoint(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tcli.main(["synth", "-p", str(tmp_path / "ref.pth"), "--text", "hi",
+                   "-o", str(tmp_path), "--device", "cpu"])
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_serve_answers_a_mel_request(prenorm_ckpt, tmp_path):
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    log = open(tmp_path / "serve.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fastspeech2_tpu_torch", "serve", "-p", prenorm_ckpt,
+         "--device", "cpu", "--host", "127.0.0.1", "--port", str(port), "--max_batch", "4"],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, (tmp_path / "serve.log").read_text()[-2000:]
+            try:
+                with urllib.request.urlopen(url + "/healthz", timeout=5) as r:
+                    assert r.status == 200
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                assert time.monotonic() < deadline, "the server did not come up in 120 s"
+                time.sleep(0.2)
+        req = urllib.request.Request(url + "/synthesize",
+                                     data=json.dumps({"phonemes": PHONEMES}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            obj = json.loads(r.read())
+        assert obj["frames"] == len(obj["mel"]) > 5 and len(obj["mel"][0]) == 80
+        assert np.isfinite(np.asarray(obj["mel"])).all()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()

@@ -471,3 +471,157 @@ def test_stft_mel_energy_rejects_what_it_does_not_cover(dev):
     n0 = KS.launches
     mel, en = MelSpectrogram(hop_length=128, device=dev).mel_and_energy(y)
     assert KS.launches == n0 and mel.shape == (2, 80, 33)
+
+
+def _lengths_0_1(B, T, dev, g):
+    """Random lengths with a full row, a length-1 row and a length-0 row."""
+    ls = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    ls[0], ls[1], ls[-1] = T, 1, 0
+    return ls.to(dev)
+
+
+@pytest.mark.parametrize("B,T,D", [(4, 96, 256), (3, 160, 384), (4, 32, 256)])
+def test_attention_res_and_bare(dev, B, T, D):
+    """Kernel 6 (pre-LN attention half) and kernel 7 (bare, heads packed) at
+    d_k 128 and 192 against their plain versions; dead tiles and lengths 0
+    and 1: res + bo and zeros exactly; column blocks of one q|k|v buffer
+    give the same bits as separate tensors."""
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+
+    g = torch.Generator().manual_seed(B * T + D)
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, T, D, generator=g).to(bf).to(dev) for _ in range(3))
+    res = torch.randn(B, T, D, generator=g).to(dev)
+    wo = (torch.randn(D, D, generator=g) / D ** 0.5).to(bf).to(dev)
+    bo = (0.1 * torch.randn(D, generator=g)).to(dev)
+    lens = _lengths_0_1(B, T, dev, g)
+    n6, n7 = KA.res_launches, KA.packed_launches
+    got = KA.attention_res(q, k, v, res, wo, bo, lens, 2)
+    want = KA.attention_res_plain(q, k, v, res, wo, bo, lens, 2)
+    bare = KA.fused_attention_packed(q, k, v, lens, 2)
+    bare_want = KA.fused_attention_packed_plain(q, k, v, lens, 2)
+    qkv = torch.cat([q, k, v], dim=-1)
+    bare_cols = KA.fused_attention_packed(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:],
+                                          lens, 2)
+    torch.cuda.synchronize()
+    assert (KA.res_launches, KA.packed_launches) == (n6 + 1, n7 + 2)
+    _close(got, want)
+    assert bare.dtype == bf
+    _close(bare, bare_want)
+    assert torch.equal(bare, bare_cols)
+    for b, n in enumerate(lens.tolist()):
+        assert torch.equal(got[b, n:], res[b, n:] + bo), b
+        assert not bare[b, n:].any(), b
+
+
+@pytest.mark.parametrize("B,H,T,dk", [(4, 2, 96, 128), (3, 2, 160, 192), (2, 4, 64, 128)])
+def test_fused_attention_bhtd(dev, B, H, T, dk):
+    """Kernel 8, (B, H, T, dk), against its plain version and against kernel
+    7 on the same values packed along D (the same body: bit for bit)."""
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+
+    g = torch.Generator().manual_seed(T * dk)
+    q, k, v = (torch.randn(B, H, T, dk, generator=g).to(torch.bfloat16).to(dev)
+               for _ in range(3))
+    lens = _lengths_0_1(B, T, dev, g)
+    n8 = KA.bhtd_launches
+    got = KA.fused_attention(q, k, v, lens)
+    want = KA.fused_attention_plain(q, k, v, lens)
+    pack = lambda t: t.transpose(1, 2).reshape(B, T, H * dk).contiguous()  # noqa: E731
+    packed = KA.fused_attention_packed(pack(q), pack(k), pack(v), lens, H)
+    torch.cuda.synchronize()
+    assert KA.bhtd_launches == n8 + 1 and got.shape == (B, H, T, dk)
+    _close(got, want)
+    assert torch.equal(pack(got), packed)
+    for b, n in enumerate(lens.tolist()):
+        assert not got[b, :, n:].any(), b
+
+
+@pytest.mark.parametrize("B,T,D", [(4, 96, 256), (3, 160, 384)])
+def test_ffn_block_pre(dev, B, T, D):
+    """Kernel 9, x + FFN(mask(LN(x))), at k=9 and H=1024 against its plain
+    version; lengths 0 and 1 and dead tiles give x + the bias row."""
+    from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    g = torch.Generator().manual_seed(B * T)
+    torch.manual_seed(D)
+    blk = FFTBlock(EncoderConfig(idim=D, attention_dim=D, linear_units=1024), device=dev)
+    with torch.no_grad():
+        blk.norm2.weight.add_(0.2 * torch.randn(D, generator=g).to(dev))
+        blk.norm2.bias.add_(0.1 * torch.randn(D, generator=g).to(dev))
+    x = (3.0 * torch.randn(B, T, D, generator=g) + 1.0).to(dev)  # LN has work to do
+    lens = _lengths_0_1(B, T, dev, g)
+    with torch.inference_mode():
+        fp = blk.ffn_pack(torch.bfloat16)
+        n9 = KF.pre_launches
+        got = KF.ffn_block_pre(x, *fp, lens, 9)
+        want = KF.ffn_block_pre_plain(x, *fp, lens, 9)
+        torch.cuda.synchronize()
+    assert KF.pre_launches == n9 + 1
+    _close(got, want)
+    # length 0: every tile past the first (whose halo reaches row 0) is dead
+    # and holds x + the one bias row (f32 rounding of the add only)
+    row = got[-1, 64:] - x[-1, 64:]
+    assert float((row - row[:1]).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("O,out_dtype", [(384, torch.bfloat16), (384, torch.float32),
+                                         (80, torch.float32), (200, torch.bfloat16)])
+def test_fused_ffn(dev, O, out_dtype):
+    """Kernel 10, the bare conv-FFN of a bf16 input with O outputs (O != D
+    and O not a multiple of the 384-column tile), in bf16 and in f32."""
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    g = torch.Generator().manual_seed(O)
+    B, T, D, Hd, k = 3, 160, 384, 1024, 9
+    bf = torch.bfloat16
+    x = torch.randn(B, T, D, generator=g).to(bf).to(dev)
+    w1 = (torch.randn(Hd, k * D, generator=g) / (k * D) ** 0.5).to(bf).to(dev)
+    w2 = (torch.randn(O, Hd, generator=g) / Hd ** 0.5).to(bf).to(dev)
+    b1, b2 = ((0.1 * torch.randn(n, generator=g)).to(dev) for n in (Hd, O))
+    lens = _lengths_0_1(B, T, dev, g)
+    n10 = KF.bare_launches
+    got = KF.fused_ffn(x, w1, b1, w2, b2, lens, k, out_dtype)
+    want = KF.fused_ffn_plain(x, w1, b1, w2, b2, lens, k, out_dtype)
+    torch.cuda.synchronize()
+    assert KF.bare_launches == n10 + 1
+    assert got.dtype == out_dtype and got.shape == (B, T, O)
+    _close(got, want)
+    # length 0: the dead tiles (all but the first) hold the one bias row
+    assert torch.equal(got[-1, 64:], got[-1, 64:65].expand(T - 64, O))
+
+
+def test_new_kernels_refuse_the_wrong_dtype(dev):
+    """A CUDA tensor the kernels do not take raises; nothing falls back to
+    the plain version."""
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    B, T, D = 2, 64, 256
+    q = torch.randn(B, T, D, device=dev)  # f32: the f32 entry is not ported
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    n = (KA.res_launches, KA.packed_launches, KA.bhtd_launches, KF.pre_launches,
+         KF.bare_launches)
+    wo, bo = torch.zeros(D, D, dtype=torch.bfloat16, device=dev), torch.zeros(D, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        KA.attention_res(q, q, q, q, wo, bo, lens, 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        KA.fused_attention_packed(q, q, q, lens, 2)
+    q4 = q.reshape(B, 2, T, D // 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        KA.fused_attention(q4, q4, q4, lens)
+    with pytest.raises(ValueError, match="d_k"):
+        qb = torch.zeros(B, 4, T, 64, dtype=torch.bfloat16, device=dev)
+        KA.fused_attention(qb, qb, qb, lens)
+    w1 = torch.zeros(1024, 9 * D, dtype=torch.bfloat16, device=dev)
+    w2 = torch.zeros(D, 1024, dtype=torch.bfloat16, device=dev)
+    b1, b2 = torch.zeros(1024, device=dev), torch.zeros(D, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        KF.ffn_block_pre(q.to(torch.bfloat16), w1, b1, w2, b2, b2, b2, lens, 9)
+    with pytest.raises(ValueError, match="dtype"):
+        KF.fused_ffn(q, w1, b1, w2, b2, lens, 9)
+    with pytest.raises(ValueError, match="out_dtype"):
+        KF.fused_ffn(q.to(torch.bfloat16), w1, b1, w2, b2, lens, 9, torch.float16)
+    assert (KA.res_launches, KA.packed_launches, KA.bhtd_launches, KF.pre_launches,
+            KF.bare_launches) == n

@@ -58,7 +58,8 @@ need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
         "audio.processing", "native", "cli", "__main__", "ops.kernels.stft",
         "data.ljspeech",
         "text.cleaners", "text.numbers", "text.cmudict", "text.g2p",
-        "ops.kernels.resstack", "ops.kernels.attention", "compat.from_jax",
+        "ops.kernels.resstack", "ops.kernels.attention", "ops.kernels.ffn",
+        "models.encoder", "models.fastspeech2", "compat.from_jax",
         "ops.kernels.attention_train", "models.init", "train.loop", "train.step",
         "train.optimizer", "train.checkpoint", "train.metrics", "train.seeds",
         "data.filelist", "data.dataset", "data.batching", "data.prefetch"}
