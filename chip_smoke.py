@@ -8,7 +8,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: refuse to run without CUDA; print the card's name and power limit.
 2. build: compile the seven CUDA sources of fastspeech2_tpu_torch/csrc with
    nvcc for sm_90a (all sources at once) and print the build seconds and the
-   ptxas register/shared-memory report.
+   ptxas register/shared-memory report; the fourteen bf16 training-attention
+   kernels (forward, dQ, dK/dV at d_k 128/192/256, both grid splits) must
+   show HGMMA and no HMMA in their SASS (cuobjdump) and no ptxas spills.
 3. kernels: each of the fourteen kernels (attention_block, ffn_block,
    variance_adaptor, postnet, resstack, attention_res_ln, attention_res,
    fused_attention_packed, fused_attention, ffn_block_pre, fused_ffn, the
@@ -20,7 +22,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    decoder kernels with lengths that leave dead tiles, the MelGAN residual
    stack at the four stage shapes of a B=16, 768-frame rung, at a single-tile
    length and in f32, the training attention at the decoder's and the
-   encoder's training shapes with rate 0 and 0.2, and in f32); max/mean abs error
+   encoder's training shapes with rate 0 and 0.2, timed at both rates beside
+   SDPA at the same dropout_p, with the backward's three launches timed apart
+   by the profiler, and in f32); max/mean abs error
    against the stated tolerance; kernel and plain times (CUDA events, median
    of 25) beside the least time the card could take for the same work (for
    stft_mel_energy counted by an FFT and the sparse mel projection) and,
@@ -97,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import struct
 import subprocess
@@ -452,16 +457,89 @@ def attention_res_ln_phase(torch, results, record):
                    3 * sum(lc) * D * 2 + nbytes(x, x, *ap[2:]), key)
 
 
+def train_attention_fns(KT, packed, lens, seed, H, rate):
+    """The kernel entry (11 packed, 12 (B, H, T, dk)) and its plain version."""
+    if packed:
+        return (lambda q, k, v: KT.fused_attention_train_packed(q, k, v, lens, seed, H, rate),
+                lambda q, k, v: KT.attention_train_plain(q, k, v, lens, seed, rate, H))
+    return (lambda q, k, v: KT.fused_attention_train(q, k, v, lens, seed, rate),
+            lambda q, k, v: KT.attention_train_plain(q, k, v, lens, seed, rate))
+
+
+def train_attention_times(torch, KT, packed, q, k, v, do, lens, H, rate, seed=12345):
+    """Forward and backward ms of one training-attention entry (CUDA events,
+    median of 25) and of one scaled_dot_product_attention call on the same
+    q, k, v with a boolean key mask and the same dropout_p (a yardstick only:
+    SDPA draws its own dropout mask)."""
+    import torch.nn.functional as F
+
+    kern = train_attention_fns(KT, packed, lens, seed, H, rate)[0]
+    o = kern(q, k, v)
+    with torch.no_grad():
+        f_ms = cuda_time_ms(lambda: kern(q, k, v))
+    b_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True))
+    del o
+    B, T = lens.numel(), q.shape[1] if packed else q.shape[2]
+    dk = q.shape[-1] // H if packed else q.shape[-1]
+    q4, k4, v4, do4 = ((t if not packed else t.reshape(B, T, H, dk).transpose(1, 2))
+                       for t in (q, k, v, do))
+    pad = torch.arange(T, device=q.device)[None] >= lens[:, None]
+    amask = (~pad)[:, None, :, None] & (~pad)[:, None, None, :]
+    amask = amask | pad[:, None, :, None]  # padded rows: any key, no NaN
+    sd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=amask, dropout_p=rate)
+    so = sd()
+    with torch.no_grad():
+        lf_ms = cuda_time_ms(sd)
+    lb_ms = cuda_time_ms(lambda: torch.autograd.grad(so, (q, k, v), do4, retain_graph=True))
+    out = {"fwd": f_ms, "bwd": b_ms, "sdpa_fwd": lf_ms, "sdpa_bwd": lb_ms}
+    # device time per call (the profiler's kernel durations summed): at the
+    # encoder's shape a single call's events also hold the host's launch time
+    o = kern(q, k, v)
+    for name, fn in (("fwd", lambda: kern(q, k, v)), ("sdpa_fwd", sd),
+                     ("bwd", lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)),
+                     ("sdpa_bwd", lambda: torch.autograd.grad(so, (q, k, v), do4,
+                                                              retain_graph=True))):
+        with torch.no_grad() if name.endswith("fwd") else contextlib.nullcontext():
+            by_kernel = device_ms_by_kernel(torch, fn)
+        out["device_" + name] = sum(by_kernel.values()) if by_kernel else None
+        if name == "bwd":  # the backward's launches apart: t, dQ, dK/dV
+            out["bwd_launches"] = {n: round(ms, 5) for n, ms in by_kernel.items()
+                                   if "train_" in n}
+    return out
+
+
+def device_ms_by_kernel(torch, fn, n=10):
+    """Device ms per call of each kernel that fn launches, by name
+    (torch.profiler over n calls); {} where the profiler records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+)(<[^(]*>)?\(", e.name)
+            name = m.group(1) if m else e.name
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / n
+    return out
+
+
 def train_kernel_phase(torch, results):
     """Kernels 11 and 12, forward and backward, against the plain version on
     the card: the decoder's and the encoder's training shapes, lengths with
     one full row, one short row and dead tiles, rate 0 and 0.2; padded rows
     exactly zero; times (CUDA events, median of 25) of forward and backward
-    beside the plain version's, one scaled_dot_product_attention call's
-    (rate 0, boolean mask: the library yardstick, used nowhere in the port)
-    and the bound."""
-    import torch.nn.functional as F
-
+    at rate 0 and 0.2, each beside one scaled_dot_product_attention call at
+    the same dropout_p (boolean mask: the library yardstick, used nowhere in
+    the port), the plain version's (0.2) and the bound; the backward's
+    launches (t, dQ, dK/dV) timed apart by the profiler; kernel 12's backward
+    against kernel 11's at each shape."""
     from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
 
     dev, bf16, H = torch.device("cuda"), torch.bfloat16, 2
@@ -493,16 +571,7 @@ def train_kernel_phase(torch, results):
             err = 0.0
             for rate in (0.0, 0.2):
                 seed = 0xFFFFFFF0 + int(rate * 10)  # past 2^31: the uint32 path
-                if packed:
-                    kern = lambda q, k, v: KT.fused_attention_train_packed(  # noqa: E731
-                        q, k, v, lens, seed, H, rate)
-                    plain = lambda q, k, v: KT.attention_train_plain(  # noqa: E731
-                        q, k, v, lens, seed, rate, H)
-                else:
-                    kern = lambda q, k, v: KT.fused_attention_train(  # noqa: E731
-                        q, k, v, lens, seed, rate)
-                    plain = lambda q, k, v: KT.attention_train_plain(  # noqa: E731
-                        q, k, v, lens, seed, rate)
+                kern, plain = train_attention_fns(KT, packed, lens, seed, H, rate)
                 got = grads(kern, q, k, v, do)
                 want = grads(plain, q, k, v, do)
                 torch.cuda.synchronize()
@@ -518,31 +587,25 @@ def train_kernel_phase(torch, results):
                     peak = float(w.detach().float().abs().max())
                     err = max(err, compare(f"{name}.{what} (peak {peak:.3f}, padded rows 0)",
                                            g.detach(), w.detach(), 1e-4 * peak, 2.0 ** -6 * peak))
-            # times at rate 0.2, the configured rate
-            o = kern(q, k, v)
-            op = plain(q, k, v)
+            # times at rate 0 and 0.2 (the configured rate), each beside SDPA
+            # at the same dropout_p; the plain version at 0.2
+            tm = {rate: train_attention_times(torch, KT, packed, q, k, v, do, lens, H, rate)
+                  for rate in (0.0, 0.2)}
+            f_ms, b_ms, lf_ms, lb_ms = (tm[0.2][x] for x in ("fwd", "bwd", "sdpa_fwd", "sdpa_bwd"))
+            o = plain(q, k, v)
             with torch.no_grad():
-                f_ms = cuda_time_ms(lambda: kern(q, k, v))
                 pf_ms = cuda_time_ms(lambda: plain(q, k, v), reps=5)
-            b_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (q, k, v), do,
-                                                            retain_graph=True))
-            pb_ms = cuda_time_ms(lambda: torch.autograd.grad(op, (q, k, v), do,
+            pb_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (q, k, v), do,
                                                              retain_graph=True), reps=5)
-            del o, op
-            q4, k4, v4 = ((t if not packed else t.reshape(B, T, H, dk).transpose(1, 2))
-                          for t in (q, k, v))
-            valid = ~pad
-            amask = (valid[:, None, :, None] & valid[:, None, None, :])
-            amask = amask | pad[:, None, :, None]  # padded rows: any key, no NaN
-            sd = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q4, k4, v4, attn_mask=amask, dropout_p=0.0)
-            so = sd()
-            do4 = do if not packed else do.reshape(B, T, H, dk).transpose(1, 2)
-            with torch.no_grad():
-                lf_ms = cuda_time_ms(sd)
-            lb_ms = cuda_time_ms(lambda: torch.autograd.grad(so, (q, k, v), do4,
-                                                             retain_graph=True))
-            del so
+            del o
+            split = tm[0.2].get("bwd_launches")
+            for rate, t in tm.items():
+                log(f"  {name} {key} rate {rate}: forward {t['fwd']:.4f} ms (sdpa "
+                    f"{t['sdpa_fwd']:.4f}), backward {t['bwd']:.4f} ms (sdpa "
+                    f"{t['sdpa_bwd']:.4f}); device time per call (profiler): forward "
+                    f"{t['device_fwd']} (sdpa {t['device_sdpa_fwd']}), backward "
+                    f"{t['device_bwd']} (sdpa {t['device_sdpa_bwd']})")
+            log(f"  {name} {key}: backward launches at 0.2 (profiler, ms per launch): {split}")
             pairs = sum(l * l for l in lc) * H * dk
             # bytes the function needs: q, k, v (and dO) by live rows, the
             # outputs whole (padded rows are written as zeros); the saved row
@@ -562,6 +625,17 @@ def train_kernel_phase(torch, results):
             r["bound_ms"][key], r["bound_by"][key], r["library_ms"][key] = fb, fby, lf_ms
             r["bwd"][key] = {"ms": b_ms, "plain_ms": pb_ms, "bound_ms": bb,
                              "bound_by": bby, "library_ms": lb_ms}
+            r.setdefault("rate0", {})[key] = tm[0.0]
+            r.setdefault("bwd_launches_ms", {})[key] = split
+        # CUDA events around one call also hold the host's launch time, which
+        # at the encoder's shape is several times the device's; the
+        # profiler's device time is the kernels' own
+        k11, k12 = (results[entries[p][0]] for p in (True, False))
+        ev = k12["bwd"][key]["ms"] / k11["bwd"][key]["ms"]
+        d11, d12 = (r["rate0"][key]["device_bwd"] for r in (k11, k12))
+        dv = f"{d12 / d11:.3f}" if d11 and d12 else "not measured"
+        log(f"  {key}: kernel 12 backward / kernel 11 backward: {ev:.3f} by CUDA events "
+            f"around one call (rate 0.2), {dv} by device time (rate 0)")
 
     # the f32 instantiation (plain multiply-adds, no TF32) at a smaller shape
     B, T, D, rate, seed = 4, 320, 384, 0.2, 2 ** 32 - 3
@@ -572,14 +646,7 @@ def train_kernel_phase(torch, results):
         q, k, v = (torch.randn(shape, generator=gen).to(dev).requires_grad_()
                    for _ in range(3))
         do = torch.randn(shape, generator=gen).to(dev)
-        if packed:
-            kern = lambda q, k, v: KT.fused_attention_train_packed(  # noqa: E731
-                q, k, v, lens, seed, H, rate)
-            plain = lambda q, k, v: KT.attention_train_plain(  # noqa: E731
-                q, k, v, lens, seed, rate, H)
-        else:
-            kern = lambda q, k, v: KT.fused_attention_train(q, k, v, lens, seed, rate)  # noqa: E731
-            plain = lambda q, k, v: KT.attention_train_plain(q, k, v, lens, seed, rate)  # noqa: E731
+        kern, plain = train_attention_fns(KT, packed, lens, seed, H, rate)
         got, want = grads(kern, q, k, v, do), grads(plain, q, k, v, do)
         torch.cuda.synchronize()
         log(f"kernel {name} f32 B={B},T={T},D={D} rate={rate}")
@@ -1867,6 +1934,36 @@ def prenorm_concat_phase(torch, results):
     hold_b8_vs_cpu(torch, synth, cfg, "prenorm_concat B=8")
 
 
+def training_kernels_sass():
+    """The bf16 training-attention kernels (forward, dQ, dK/dV; every head
+    dim and grid split) are wgmma kernels: HGMMA in their SASS and no
+    mma.sync HMMA (cuobjdump), and ptxas spills nothing in them."""
+    import shutil
+
+    from fastspeech2_tpu_torch.ops.kernels import common
+
+    log_text = common.ptxas_report("attention_train")
+    spills = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", log_text, re.S)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(common._lib_path("attention_train"))],
+                          check=True, capture_output=True, text=True, timeout=120).stdout
+    seen = 0
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split()[0]
+        kind = next((k for k in ("train_fwd_kernel", "train_bwd_dq_kernel",
+                                 "train_bwd_dkv_kernel") if k in fn), None)
+        if kind is None:
+            continue
+        seen += 1
+        hg, hm = part.count("HGMMA"), len(re.findall(r"\bHMMA\b", part))
+        spill = next((f"{a}/{b}" for n, a, b in spills if n == fn), "?")
+        log(f"  sass {kind}{fn[fn.index(kind) + len(kind):][:14]}: {hg} HGMMA, {hm} HMMA, "
+            f"ptxas spill stores/loads {spill} bytes")
+        assert hg > 0 and hm == 0 and spill == "0/0", fn
+    assert seen == 14, f"expected 14 bf16 training kernels in the SASS, found {seen}"
+
+
 def main() -> int:
     try:
         import torch
@@ -1896,6 +1993,7 @@ def main() -> int:
         for line in common.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    training_kernels_sass()
 
     results = {}
     kernel_phase(torch, results)

@@ -4,9 +4,11 @@
 Port of ``fastspeech2_tpu/ops/pallas/attention_train.py``:
 ``fused_attention_train_packed`` ((B, T, D), heads as column blocks) and
 ``fused_attention_train`` ((B, H, T, dk)), each a forward and a backward
-kernel. CUDA source: ``csrc/attention_train.cu`` (one kernel body per
-direction serves both layouts through strides; a forward launch, and a
-backward of two launches: dQ with the row sums, then dK/dV).
+kernel. CUDA source: ``csrc/attention_train.cu`` with ``csrc/hopper.cuh``
+(one kernel body per direction serves both layouts through TMA maps; bf16
+on wgmma: a forward launch that also saves O's f32 accumulator, and a
+backward of three launches: the row sums ``t = rowsum(dO * O32)``, dQ, then
+dK/dV).
 
 What the function is, to the rounding point (cd = the inputs' dtype):
 
@@ -28,7 +30,9 @@ differentiable by autograd; two small autograd helpers put the backward's
 rounding points where the kernels have them. The CPU takes it; a CUDA tensor
 launches the kernels or raises: bf16 on the tensor cores (what the model
 sends) or f32 with plain multiply-adds and no TF32 (for callers that hold the
-kernels to an f32 reference), d_k 128 or 192 only.
+kernels to an f32 reference), d_k 128, 192 or 256 only. The bf16 backward
+takes t from O's f32 accumulator before its rounding: equal to
+``rowsum(dA * A)`` but for the rounding of D inside it.
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ from fastspeech2_tpu_torch.ops.precision import current_compute_dtype
 MAX_T = 1024
 #: longest T the model routes to the head-packed entry
 PACKED_MAX_T = 896
+
+#: head dims the CUDA kernels take
+HEAD_DIMS = (128, 192, 256)
 
 #: launches of the CUDA kernels (the plain version does not count): forward
 #: and backward of the head-packed entry, then of the (B, H, T, dk) entry
@@ -141,9 +148,9 @@ def _check(name, q, k, v, lengths, B, dk):
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: the CUDA kernels take bfloat16 or float32, "
                          f"got {q.dtype}")
-    if dk not in (128, 192):
+    if dk not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {dk} not supported by the kernel "
-                         "(128 or 192)")
+                         "(128, 192 or 256)")
     common.check_cuda(name, q.device, [
         ("q", q, q.dtype, None), ("k", k, q.dtype, tuple(q.shape)),
         ("v", v, q.dtype, tuple(q.shape)),
@@ -170,19 +177,25 @@ class _AttentionTrainFn(torch.autograd.Function):
             dims = (B, H, T, dk)
             name = "fs2_attention_train_fwd"
         _check(name, q, k, v, lengths, B, dk)
+        f32 = q.dtype == torch.float32
         o = torch.empty_like(q)
-        stats = torch.empty((2, B, H, T), dtype=torch.float32, device=q.device)
+        # bf16: O's f32 accumulator for the backward's row sums, and the row
+        # statistics padded to whole 64-row tiles (the dK/dV launch copies
+        # them a tile at a time); the f32 kernels use neither
+        o32 = torch.empty(0 if f32 else q.shape, dtype=torch.float32, device=q.device)
+        Tp = T if f32 else -(-T // 64) * 64
+        stats = torch.empty((2, B, H, Tp), dtype=torch.float32, device=q.device)
         scale, thresh = 1.0 / math.sqrt(dk), dropout_threshold(rate) if rate > 0.0 else 0
-        common.launch(_entry(name, 6), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(), o.data_ptr(), stats.data_ptr(), *dims,
-                      scale, int(seed) & _M32, thresh, 1.0 - rate,
-                      int(q.dtype == torch.float32), common.stream_of(q))
+        common.launch(_entry(name, 7), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      lengths.data_ptr(), o.data_ptr(), o32.data_ptr(), stats.data_ptr(),
+                      *dims, scale, int(seed) & _M32, thresh, 1.0 - rate, int(f32),
+                      common.stream_of(q))
         with common.count_lock:
             if packed:
                 packed_fwd_launches += 1
             else:
                 fwd_launches += 1
-        ctx.save_for_backward(q, k, v, lengths, stats)
+        ctx.save_for_backward(q, k, v, lengths, o32, stats)
         ctx.args = (dims, scale, int(seed) & _M32, thresh, rate, packed)
         return o
 
@@ -193,14 +206,16 @@ class _AttentionTrainFn(torch.autograd.Function):
             raise RuntimeError("attention_train: the backward kernels produce dQ, "
                                "dK and dV together; all three inputs must "
                                "require grad")
-        q, k, v, lengths, stats = ctx.saved_tensors
+        q, k, v, lengths, o32, stats = ctx.saved_tensors
         dims, scale, seed, thresh, rate, packed = ctx.args
         do = do.to(q.dtype).contiguous()
+        if do.data_ptr() % 16:  # a view at an odd offset: TMA reads 16-byte aligned bases
+            do = do.clone()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
         tbuf = torch.empty(stats.shape[1:], dtype=torch.float32, device=q.device)
         name = "fs2_attention_train_bwd" + ("_packed" if packed else "")
-        common.launch(_entry(name, 10), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      do.data_ptr(), lengths.data_ptr(), stats.data_ptr(),
+        common.launch(_entry(name, 11), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), o32.data_ptr(), lengths.data_ptr(), stats.data_ptr(),
                       tbuf.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                       *dims, scale, seed, thresh, 1.0 / (1.0 - rate),
                       int(q.dtype == torch.float32), common.stream_of(q))

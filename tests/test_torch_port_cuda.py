@@ -380,6 +380,126 @@ def test_attention_train_rejects_what_it_does_not_cover(dev):
         o.sum().backward()
 
 
+def _train_attention_pair(KT, packed, B, H, T, dk, rate, seed, g, dev):
+    """Kernel and plain version of one entry on the same bf16 inputs: (o, dq,
+    dk, dv) of each, and the padded-row mask of the layout."""
+    lens = _lengths(B, T, dev, g)
+    shape = (B, T, H * dk) if packed else (B, H, T, dk)
+    q, k, v = (torch.randn(shape, generator=g).bfloat16().to(dev).requires_grad_()
+               for _ in range(3))
+    do = torch.randn(shape, generator=g).bfloat16().to(dev)
+    if packed:
+        kern = lambda: KT.fused_attention_train_packed(q, k, v, lens, seed, H, rate)  # noqa: E731
+        plain = KT.attention_train_plain(q, k, v, lens, seed, rate, H)
+    else:
+        kern = lambda: KT.fused_attention_train(q, k, v, lens, seed, rate)  # noqa: E731
+        plain = KT.attention_train_plain(q, k, v, lens, seed, rate)
+    o = kern()
+    got = (o, *torch.autograd.grad(o, (q, k, v), do))
+    o2 = kern()
+    again = (o2, *torch.autograd.grad(o2, (q, k, v), do))
+    want = (plain, *torch.autograd.grad(plain, (q, k, v), do))
+    torch.cuda.synchronize()
+    pad = torch.arange(T, device=dev)[None] >= lens[:, None]
+    return got, again, want, (pad[:, :, None] if packed else pad[:, None, :, None])
+
+
+@pytest.mark.parametrize("packed,B,H,T,dk,rate", [
+    (False, 2, 2, 1024, 128, 0.2),   # kernel 12 at MAX_T: 16 key tiles turn the ring over
+    (True, 2, 2, 896, 192, 0.2),     # kernel 11 at PACKED_MAX_T
+    (True, 4, 2, 128, 128, 0.2),     # B * H far below the SM count: the key split
+    (False, 3, 2, 128, 192, 0.0),
+    (True, 2, 1, 200, 256, 0.2),     # d_k 256, one head: (2, 200, 256)
+    (False, 2, 1, 200, 256, 0.0),
+    (True, 2, 2, 160, 256, 0.2),     # d_k 256, two heads: (2, 160, 512)
+    (False, 2, 2, 160, 256, 0.2),
+    (True, 16, 2, 640, 192, 0.2),    # B * H * ceil(T / 128) >= the SM count: the row split
+    (False, 16, 2, 1024, 256, 0.2),  # the row split at d_k 256 (the dQ launch splits keys)
+], ids=["k12_T1024", "k11_T896", "k11_small_grid", "k12_small_grid_rate0", "k11_dk256_h1",
+        "k12_dk256_h1_rate0", "k11_dk256_h2", "k12_dk256_h2", "k11_row_split",
+        "k12_dk256_row_split"])
+def test_attention_train_ring_split_and_dk256(dev, packed, B, H, T, dk, rate):
+    """Kernels 11 and 12 where the ring turns over many times, in both grid
+    splits (128 query rows a block, or 64 rows whose keys the two warpgroups
+    share where the grid would leave SMs idle), and at d_k 256, against the
+    plain version's autograd within the bands of
+    test_attention_train_forward_and_backward (max < 2^-6, mean < 1e-4 of the
+    peak); padded rows exactly zero; a second call gives the same bits (no
+    atomics: every output tile has one writer)."""
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    g = torch.Generator().manual_seed(B * T + dk + H)
+    got, again, want, pad = _train_attention_pair(KT, packed, B, H, T, dk, rate,
+                                                  2 ** 31 + 77, g, dev)
+    for name, a, a2, b in zip(("o", "dq", "dk", "dv"), got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert torch.equal(a, a2), f"{name}: two calls differ"
+        assert float(torch.where(pad, a.detach().float().abs(), 0.0).max()) == 0.0, name
+        d, peak = (a.float() - b.float()).abs(), float(b.float().abs().max())
+        assert float(d.max()) < 2.0 ** -6 * peak and float(d.mean()) < 1e-4 * peak, (
+            name, float(d.max()), float(d.mean()), peak)
+
+
+def test_mha_fused_train_apply_dk256_matches_the_cpu(dev):
+    """Projections + kernel + out projection at adim 256, aheads 1 (d_k 256)
+    in bf16, rate 0.2, on the card against the CPU port (plain version) with
+    the same weights and seed: the route the JAX encoder takes for any
+    d_k >= 128. Band: 2 bf16 steps of the output's peak (the projections
+    sum in other orders)."""
+    from fastspeech2_tpu_torch.models.encoder import MultiHeadAttention
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+    from fastspeech2_tpu_torch.ops.precision import compute_dtype
+
+    B, T, D = 3, 150, 256
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(B, T, D, generator=g)
+    lens = torch.tensor([150, 97, 1], dtype=torch.int32)
+    out = {}
+    for d in ("cpu", dev):
+        attn = MultiHeadAttention(D, device="cpu")
+        with torch.no_grad():
+            for p in attn.parameters():
+                p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel()))
+                        * 0.05)
+        attn = attn.to(d)
+        n0 = KT.packed_fwd_launches + KT.fwd_launches
+        with compute_dtype(torch.bfloat16):
+            out[str(d)] = KT.mha_fused_train_apply(attn, x.to(d), lens.to(d), 1, 1234,
+                                                   0.2).float().cpu()
+        out[str(d) + "_n"] = KT.packed_fwd_launches + KT.fwd_launches - n0
+    assert out["cpu_n"] == 0 and out[str(dev) + "_n"] == 1
+    want, got = out["cpu"], out[str(dev)]
+    d = (got - want).abs()
+    assert float(d.max()) < 2 * 2.0 ** -8 * float(want.abs().max()), float(d.max())
+
+
+def test_attention_train_kernels_use_wgmma_and_do_not_spill(dev):
+    """The bf16 training kernels are built from wgmma (HGMMA in the SASS, no
+    mma.sync HMMA) and ptxas reports no spills for any instantiation."""
+    import re
+    import shutil
+    import subprocess
+
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+    from fastspeech2_tpu_torch.ops.kernels import common
+
+    KT._entry("fs2_attention_train_fwd", 7)  # builds the library
+    log = common.ptxas_report("attention_train")
+    funcs = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads", log, re.S)
+    bf16 = [f for f in funcs if "train_" in f[0] and "f32" not in f[0] and "rowdot" not in f[0]]
+    assert len(bf16) >= 9, [f[0] for f in funcs]  # fwd x 2 splits, dq x 2, dkv; 3 head dims
+    assert all(f[1] == "0" and f[2] == "0" for f in bf16), bf16
+    assert "setmaxnreg ignored" not in log
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(common._lib_path("attention_train"))],
+                          check=True, capture_output=True, text=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        if "train_" in name and "f32" not in name and "rowdot" not in name:
+            assert "HGMMA" in part and "HMMA" not in part.replace("HGMMA", ""), name
+
+
 def test_train_step_on_the_card_matches_the_cpu(dev):
     """One bf16 train step at d_k=128 (kernel route) on the card against the
     same step on the CPU (plain versions): same weights, batch and seeds.

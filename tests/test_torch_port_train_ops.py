@@ -179,6 +179,21 @@ def test_attention_train_needs_all_three_grads_and_bf16_on_cuda():
         tat._check("t", qb, qb, qb, torch.zeros(1, dtype=torch.int32), 1, 64)
 
 
+@pytest.mark.parametrize("dk,ok", [(64, False), (128, True), (192, True), (256, True),
+                                   (320, False)])
+def test_attention_train_head_dims(dk, ok):
+    """The CUDA entry takes the head dims of its kernel instantiations (128,
+    192, 256; the JAX encoder routes every d_k >= 128 to these kernels) and
+    refuses the others before it builds anything."""
+    q = torch.zeros(1, 8, dk, dtype=torch.bfloat16)
+    lens = torch.zeros(1, dtype=torch.int32)
+    if ok:
+        tat._check("t", q, q, q, lens, 1, dk)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            tat._check("t", q, q, q, lens, 1, dk)
+
+
 @pytest.mark.parametrize("packed_flag", [True, False], ids=["packed", "unpacked"])
 def test_mha_fused_train_apply_matches_jax(monkeypatch, packed_flag):
     """Projections + kernel + out projection at d_k=128, bf16 tier, rate 0.2:
