@@ -9,7 +9,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: compile the seven CUDA sources of fastspeech2_tpu_torch/csrc with
    nvcc for sm_90a (all sources at once) and print the build seconds and the
    ptxas register/shared-memory report; the fourteen bf16 training-attention
-   kernels (forward, dQ, dK/dV at d_k 128/192/256, both grid splits) must
+   kernels (forward, dQ, dK/dV at d_k 128/192/256, both grid splits) and the
+   six SERVE instantiations of the shared forward (kernels 7 and 8) must
    show HGMMA and no HMMA in their SASS (cuobjdump) and no ptxas spills.
 3. kernels: each of the fourteen kernels (attention_block, ffn_block,
    variance_adaptor, postnet, resstack, attention_res_ln, attention_res,
@@ -29,8 +30,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    of 25) beside the least time the card could take for the same work (for
    stft_mel_energy counted by an FFT and the sparse mel projection) and,
    for the training attention and the bare attention (fused_attention_packed,
-   fused_attention), one scaled_dot_product_attention call; the dead rows of
-   the pre-LN and bare kernels against their exact constants.
+   fused_attention), one scaled_dot_product_attention call (for the bare
+   attention also both device times per call, by the profiler); the dead
+   rows of the pre-LN and bare kernels against their exact constants; kernel
+   7 against kernel 11's forward at rate 0, bit for bit (one body), at both
+   shapes and at T = 2048, where 7 and 8 also meet their plain versions.
 4. mel path: the default-config model (random weights from seed 0, duration
    bias 1.87 for realistic frame counts) served through
    Synthesizer(bf16=True) on cuda at B=1, 8 and 32 with fixed ARPAbet
@@ -1692,6 +1696,18 @@ def prenorm_kernel_phase(torch, results, record):
                    err, cuda_time_ms(lambda: KA.fused_attention(q8, k8, v8, lens)),
                    cuda_time_ms(lambda: KA.fused_attention_plain(q8, k8, v8, lens)),
                    flops, live_qkv + nbytes(got8), key, library_ms=cuda_time_ms(lib8))
+            # device time per call (the profiler's kernel durations summed):
+            # events around one call also hold the host's launch time
+            for name, kern, library in (
+                    ("fused_attention_packed",
+                     lambda: KA.fused_attention_packed(q, k, v, lens, H), lib),
+                    ("fused_attention", lambda: KA.fused_attention(q8, k8, v8, lens), lib8)):
+                d_k, d_l = (sum(device_ms_by_kernel(torch, f).values()) or None
+                            for f in (kern, library))
+                results[name].setdefault("device_ms", {})[key] = d_k
+                results[name].setdefault("library_device_ms", {})[key] = d_l
+                log(f"  {name} {key}: device time per call (profiler) {d_k} ms, the "
+                    f"library call's {d_l} ms")
 
             # kernel 9 at both shapes, kernel 10 at the decoder rung: the FFN
             # over l + 4 rows
@@ -1742,6 +1758,45 @@ def prenorm_kernel_phase(torch, results, record):
     for name in ("fused_attention", "fused_ffn"):
         # launches: read from the prenorm path's counted run
         results[name]["note"] = "no model route reaches it (as in the JAX package)"
+    bare_attention_checks(torch, results)
+
+
+def bare_attention_checks(torch, results):
+    """Kernel 7 against kernel 11's forward at rate 0, bit for bit (one body
+    in its SERVE and TRAIN modes), at the kernel phase's two shapes and at
+    T = 2048; there also kernels 7 and 8 against their plain versions (the
+    bf16 band), dead rows zero, kernel 8 == kernel 7."""
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    dev, H = torch.device("cuda"), 2
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for B, T, D in ((32, 128, 256), (16, 768, 384), (8, 2048, 384)):
+            key = f"B={B},T={T},D={D}"
+            q, k, v = (torch.randn(B, T, D, generator=gen).to(torch.bfloat16).to(dev)
+                       for _ in range(3))
+            lens = torch.randint(T // 4, T + 1, (B,), generator=gen, dtype=torch.int32)
+            lens[0], lens[-1] = T, max(1, T // 5)
+            lc, lens = lens.tolist(), lens.to(dev)
+            got = KA.fused_attention_packed(q, k, v, lens, H)
+            k11 = KT.fused_attention_train_packed(q, k, v, lens, 0, H, 0.0)
+            torch.cuda.synchronize()
+            assert torch.equal(got, k11), f"kernel 7 != kernel 11's forward at rate 0, {key}"
+            log(f"kernel fused_attention_packed {key}: == attention_train_packed's forward "
+                "at rate 0, bit for bit")
+            if T != 2048:
+                continue
+            want = KA.fused_attention_packed_plain(q, k, v, lens, H)
+            err = compare(f"fused_attention_packed {key}", got, want, 2e-3, 0.1)
+            split = lambda t: t.view(B, T, H, D // H).transpose(1, 2).contiguous()  # noqa: E731
+            got8 = KA.fused_attention(split(q), split(k), split(v), lens)
+            assert torch.equal(got8, split(got)), f"kernel 8 != kernel 7, {key}"
+            for b, n in enumerate(lc):
+                assert not got[b, n:].any(), f"fused_attention_packed dead row {b}, {key}"
+            log("  rows at or past each length are zeros; kernel 8 == kernel 7 bit for bit")
+            for name in ("fused_attention_packed", "fused_attention"):
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
 
 def seeded_model(torch, cfg):
@@ -1934,34 +1989,48 @@ def prenorm_concat_phase(torch, results):
     hold_b8_vs_cpu(torch, synth, cfg, "prenorm_concat B=8")
 
 
-def training_kernels_sass():
-    """The bf16 training-attention kernels (forward, dQ, dK/dV; every head
-    dim and grid split) are wgmma kernels: HGMMA in their SASS and no
-    mma.sync HMMA (cuobjdump), and ptxas spills nothing in them."""
+def wgmma_kernels_sass():
+    """The bf16 attention kernels built on csrc/hopper.cuh are wgmma kernels:
+    HGMMA in their SASS and no mma.sync HMMA (cuobjdump), and ptxas spills
+    nothing in them. attention_train's library: the forward in its TRAIN
+    mode, dQ and dK/dV (every head dim and grid split, 14 kernels);
+    attention's: the forward in its SERVE mode (kernels 7 and 8; 6 kernels),
+    which also keeps no stack frame (its two score arrays stay in
+    registers) and no ptxas note that it serialized wgmma (C7514/C7515:
+    its overlap would be gone)."""
     import shutil
 
     from fastspeech2_tpu_torch.ops.kernels import common
 
-    log_text = common.ptxas_report("attention_train")
-    spills = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
-                        r"(\d+) bytes spill loads", log_text, re.S)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(common._lib_path("attention_train"))],
-                          check=True, capture_output=True, text=True, timeout=120).stdout
-    seen = 0
-    for part in sass.split("Function : ")[1:]:
-        fn = part.split()[0]
-        kind = next((k for k in ("train_fwd_kernel", "train_bwd_dq_kernel",
-                                 "train_bwd_dkv_kernel") if k in fn), None)
-        if kind is None:
-            continue
-        seen += 1
-        hg, hm = part.count("HGMMA"), len(re.findall(r"\bHMMA\b", part))
-        spill = next((f"{a}/{b}" for n, a, b in spills if n == fn), "?")
-        log(f"  sass {kind}{fn[fn.index(kind) + len(kind):][:14]}: {hg} HGMMA, {hm} HMMA, "
-            f"ptxas spill stores/loads {spill} bytes")
-        assert hg > 0 and hm == 0 and spill == "0/0", fn
-    assert seen == 14, f"expected 14 bf16 training kernels in the SASS, found {seen}"
+    for lib, kinds, want in (
+            ("attention_train", ("attn_fwd_kernel", "train_bwd_dq_kernel",
+                                 "train_bwd_dkv_kernel"), 14),
+            ("attention", ("attn_fwd_kernel",), 6)):
+        log_text = common.ptxas_report(lib)
+        for line in log_text.splitlines():
+            if "serialized" in line:
+                log(f"  ptxas {lib}: {line.strip()}")
+        # the SERVE kernels' overlap exists only if ptxas kept wgmma asynchronous
+        assert lib != "attention" or "serialized" not in log_text, "wgmma serialized"
+        props = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+                           r"(\d+) bytes spill stores, (\d+) bytes spill loads", log_text, re.S)
+        sass = subprocess.run([tool, "-sass", str(common._lib_path(lib))], check=True,
+                              capture_output=True, text=True, timeout=120).stdout
+        seen = 0
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split()[0]
+            kind = next((k for k in kinds if k in fn), None)
+            if kind is None:
+                continue
+            seen += 1
+            hg, hm = part.count("HGMMA"), len(re.findall(r"\bHMMA\b", part))
+            stack, st, ld = next(((a, b, c) for n, a, b, c in props if n == fn), ("?",) * 3)
+            log(f"  sass {lib} {kind}{fn[fn.index(kind) + len(kind):][:14]}: {hg} HGMMA, "
+                f"{hm} HMMA, ptxas spill stores/loads {st}/{ld} bytes, stack frame {stack}")
+            assert hg > 0 and hm == 0 and (st, ld) == ("0", "0"), fn
+            assert lib == "attention_train" or stack == "0", fn
+        assert seen == want, f"expected {want} bf16 wgmma kernels in {lib}, found {seen}"
 
 
 def main() -> int:
@@ -1993,7 +2062,7 @@ def main() -> int:
         for line in common.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    training_kernels_sass()
+    wgmma_kernels_sass()
 
     results = {}
     kernel_phase(torch, results)
@@ -2027,6 +2096,8 @@ def main() -> int:
             "bound_by": r["bound_by"][key],
             "library_ms": r["library_ms"][key] if "library_ms" in r else None,
             "shape": key, **({"note": r["note"]} if "note" in r else {}),
+            **({"device_ms": r["device_ms"][key],
+                "library_device_ms": r["library_device_ms"][key]} if "device_ms" in r else {}),
             "all_shapes": {k: {"ms": r["ms"][k], "plain_ms": r["plain_ms"][k],
                                "bound_ms": r["bound_ms"][k]} for k in r["ms"]}})
         if "bwd" in r:  # the training kernels: "ms" is the forward's time

@@ -1,9 +1,10 @@
-// FFT-block attention on the H100, one attention body with three epilogues:
+// FFT-block attention on the H100, masked by length:
 //   RES_LN  out = LN(res + MHA(q, k, v) Wo + bo)   (post-LN block half)
 //   RES     out = res + MHA(q, k, v) Wo + bo       (pre-LN block half)
-//   BARE    out = MHA(q, k, v), bf16, no projection
-// masked by length. Rows at or past the length give LN(res + bo), res + bo
-// and zeros respectively.
+// on one attention body with two epilogues (rows at or past the length give
+// LN(res + bo) and res + bo), and the bare attention
+//   out = MHA(q, k, v), bf16, no projection (rows at or past the length zero)
+// on attention_fwd.cuh's wgmma/TMA forward in its SERVE mode.
 //
 // Replaces fastspeech2_tpu/ops/pallas/attention.py:
 //  - fused_attention_packed_qkv_res_ln (kernel _attn_kernel_packed_qkv_res_ln):
@@ -15,14 +16,17 @@
 //    pre-LN block: fs2_attention_res, RES with q/k/v given;
 //  - fused_attention_packed (kernel _attn_kernel_packed, heads packed along
 //    D) and fused_attention (kernel _attn_kernel, (B, H, T, dk)): both
-//    through fs2_attention, BARE with a batch, a head and a row stride.
+//    through fs2_attention, the SERVE forward of attention_fwd.cuh (the body
+//    of the training kernels 11 and 12 without their dropout and saved
+//    state), d_k 128, 192 or 256.
 //
 // Bound on the H100: at the serving shapes (T <= 2048, D = 256/384, two
 // heads of 128/192) the work is ~8*T*D^2 projection FLOPs plus ~4*T^2*D
 // attention FLOPs per row against ~8*T*D bytes of f32 stream, i.e. well
 // above the card's ~295 FLOP/byte ridge: tensor-core (operations) bound.
-// BARE alone does 4*T^2*D FLOPs against 8*T*D bytes of bf16: at T >= 128 it
-// is operations-bound too.
+// The bare attention needs 4*T^2*D FLOPs against 8*T*D bytes of bf16: at
+// the serving shapes (T <= 2048) its byte time is the larger; its two sweeps
+// do 6*T^2*D.
 //
 // Design. The TPU kernel projects K/V into VMEM scratch at the first query
 // block of a row and reuses it on later grid steps; CUDA blocks of one row
@@ -31,8 +35,7 @@
 //     writes q|k|v in bf16, rounded like the TPU kernel's proj() (product
 //     rounded to bf16, + bias in f32, rounded to bf16). Row tiles at or past
 //     the length are skipped: nothing reads them.
-//  2. attn_block_kernel: one block per (64-query tile, row) -- and per head
-//     in BARE, which needs no cross-head out projection -- 4 warps x 16
+//  2. attn_block_kernel: one block per (64-query tile, row), 4 warps x 16
 //     query rows. Whole-row K/V (1.5 MB each at L=2048, D=384) cannot sit in
 //     227 KB of shared memory, so K/V stream through in 64-key tiles. To keep
 //     the reference's rounding points (softmax normalised in f32, then
@@ -40,14 +43,15 @@
 //     pass 1 finds each row's max and denominator, pass 2 forms
 //     p = exp(s - m) / max(l, tiny), rounds it to bf16 and accumulates P.V in
 //     f32 registers. K/V tiles arrive by cp.async, fragments by ldmatrix
-//     (V through the transposing load). BARE stores the head output, rounded
-//     to bf16, from registers. The RES epilogues write it (o_scr, bf16) over
-//     the head's Q columns in shared memory; the out projection stages Wo 64
-//     output columns at a time in the K/V space, adds bo and the residual,
+//     (V through the transposing load). The epilogues write the head output
+//     (o_scr, bf16) over the head's Q columns in shared memory; the out
+//     projection stages Wo 64 output columns at a time in the K/V space,
+//     adds bo and the residual,
 //     writes the f32 rows, and in RES_LN each warp LayerNorms its own 16
 //     rows. QK^T runs twice (1.5x attention FLOPs) -- the price of exact
 //     rounding points in a first kernel; an online softmax is the obvious
 //     later trade.
+#include "attention_fwd.cuh"
 #include "common.cuh"
 
 namespace {
@@ -55,13 +59,11 @@ namespace {
 constexpr int QT = 64;     // query rows per block: 4 warps x 16
 constexpr int KTILE = 64;  // keys per streamed K/V tile
 
-enum : int { EPI_RES_LN = 0, EPI_RES = 1, EPI_BARE = 2 };
+enum : int { EPI_RES_LN = 0, EPI_RES = 1 };
 
 // Pointers, strides (elements) and sizes of one attention launch. Element
-// (b, h, t, c) of q/k/v is at q[b * sb + h * sh + t * ld + c]: heads packed
-// along D are sh = dk, (B, H, T, dk) is sh = T * dk, ld = dk. BARE writes
-// ob[b * osb + h * osh + t * old + c]; the RES epilogues read res and write
-// out, both (B, T, D) f32 contiguous.
+// (b, h, t, c) of q/k/v is at q[b * sb + h * sh + t * ld + c], heads packed
+// along D (sh = dk); res and out are (B, T, D) f32 contiguous.
 struct AttnArgs {
   const float* res;
   const bf16* q;
@@ -74,8 +76,6 @@ struct AttnArgs {
   const float* be;
   const int* lens;
   float* out;
-  bf16* ob;
-  int osb, osh, old;
   int T, D, H;
   float scale, eps;
 };
@@ -134,11 +134,7 @@ template <int DK, int EPI>
 __global__ void __launch_bounds__(128) attn_block_kernel(const AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = a.T, D = a.D;
-  // BARE: one head per block (blockIdx.z); the RES epilogues: all heads
-  const int h0 = EPI == EPI_BARE ? blockIdx.z : 0;
-  const int nh = EPI == EPI_BARE ? 1 : a.H;
-  const int W = nh * DK;
-  const int lq = W + 8, lk = DK + 8;
+  const int lq = D + 8, lk = DK + 8;
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [QT][lq]: Q, then o_scr
   bf16* Ks = Qs + QT * lq;                   // [KTILE][lk]
   bf16* Vs = Ks + KTILE * lk;                // [KTILE][lk]
@@ -150,13 +146,8 @@ __global__ void __launch_bounds__(128) attn_block_kernel(const AttnArgs a) {
   const size_t row0 = (size_t)b * T;
   const bf16* qb = a.q + (size_t)b * a.sb;
 
-  if (t0 >= len) {  // dead tile: LN(res + bo), res + bo, or zeros
+  if (t0 >= len) {  // dead tile: LN(res + bo) or res + bo
     for (int r = warp; r < QT && t0 + r < T; r += 4) {
-      if (EPI == EPI_BARE) {
-        bf16* orow = a.ob + (size_t)b * a.osb + (size_t)h0 * a.osh + (size_t)(t0 + r) * a.old;
-        for (int c = lane; c < DK; c += 32) orow[c] = __float2bfloat16_rn(0.f);
-        continue;
-      }
       const float* xr = a.res + (row0 + t0 + r) * D;
       float* orow = a.out + (row0 + t0 + r) * D;
       for (int c = lane; c < D; c += 32) orow[c] = xr[c] + a.bo[c];
@@ -168,9 +159,9 @@ __global__ void __launch_bounds__(128) attn_block_kernel(const AttnArgs a) {
     return;
   }
 
-  for (int i = threadIdx.x; i < QT * (W / 8); i += 128) {
-    const int r = i / (W / 8), c = (i % (W / 8)) * 8;
-    const int h = h0 + c / DK, cc = c % DK;
+  for (int i = threadIdx.x; i < QT * (D / 8); i += 128) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const int h = c / DK, cc = c % DK;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (t0 + r < T)
       v = *reinterpret_cast<const uint4*>(qb + (size_t)h * a.sh + (size_t)(t0 + r) * a.ld + cc);
@@ -182,8 +173,8 @@ __global__ void __launch_bounds__(128) attn_block_kernel(const AttnArgs a) {
   const int nkt = (len + KTILE - 1) / KTILE;
   const float scale = a.scale;
 
-  for (int h = h0; h < h0 + nh; ++h) {
-    const bf16* Qw = Qs + qr * lq + (h - h0) * DK;
+  for (int h = 0; h < a.H; ++h) {
+    const bf16* Qw = Qs + qr * lq + h * DK;
     const bf16* kh = a.k + (size_t)b * a.sb + (size_t)h * a.sh;
     const bf16* vh = a.v + (size_t)b * a.sb + (size_t)h * a.sh;
     // pass 1: row max m and denominator l = sum exp(s - m) over valid keys
@@ -274,21 +265,6 @@ __global__ void __launch_bounds__(128) attn_block_kernel(const AttnArgs a) {
         }
       }
     }
-    if (EPI == EPI_BARE) {
-      // the head output in bf16 straight to global memory; rows past the
-      // length hold exact zeros (their weights are all zero)
-      bf16* oh = a.ob + (size_t)b * a.osb + (size_t)h * a.osh;
-      const int ta = t0 + qr + g8, tb = ta + 8;
-#pragma unroll
-      for (int dn = 0; dn < DK / 8; ++dn) {
-        const int c = dn * 8 + 2 * t4;
-        if (ta < T)
-          *reinterpret_cast<uint32_t*>(oh + (size_t)ta * a.old + c) = pack_bf16(o[dn][0], o[dn][1]);
-        if (tb < T)
-          *reinterpret_cast<uint32_t*>(oh + (size_t)tb * a.old + c) = pack_bf16(o[dn][2], o[dn][3]);
-      }
-      continue;
-    }
     // o_scr: the head's output in bf16 over its own Q columns (own rows only)
 #pragma unroll
     for (int dn = 0; dn < DK / 8; ++dn) {
@@ -297,7 +273,6 @@ __global__ void __launch_bounds__(128) attn_block_kernel(const AttnArgs a) {
       *reinterpret_cast<uint32_t*>(Qs + (qr + g8 + 8) * lq + c) = pack_bf16(o[dn][2], o[dn][3]);
     }
   }
-  if (EPI == EPI_BARE) return;
 
   // out projection, 64 output columns at a time: v = round(o_scr Wo) + bo + res
   for (int n0 = 0; n0 < D; n0 += 64) {
@@ -348,14 +323,12 @@ __global__ void __launch_bounds__(128) attn_block_kernel(const AttnArgs a) {
 
 template <int DK, int EPI>
 cudaError_t launch_attn(const AttnArgs& a, int B, cudaStream_t stream) {
-  const int W = EPI == EPI_BARE ? DK : a.D;
   const size_t kv = (size_t)2 * KTILE * (DK + 8);
-  const size_t wst = EPI == EPI_BARE ? 0 : (size_t)64 * (a.D + 8);
-  const size_t smem = ((size_t)QT * (W + 8) + (kv > wst ? kv : wst)) * sizeof(bf16);
+  const size_t wst = (size_t)64 * (a.D + 8);
+  const size_t smem = ((size_t)QT * (a.D + 8) + (kv > wst ? kv : wst)) * sizeof(bf16);
   cudaError_t e = set_smem(attn_block_kernel<DK, EPI>, smem);
   if (e != cudaSuccess) return e;
-  attn_block_kernel<DK, EPI><<<dim3((a.T + QT - 1) / QT, B, EPI == EPI_BARE ? a.H : 1), 128,
-                               smem, stream>>>(a);
+  attn_block_kernel<DK, EPI><<<dim3((a.T + QT - 1) / QT, B, 1), 128, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -465,32 +438,30 @@ FS2_EXPORT int fs2_attention_res(const float* res, const bf16* q, const bf16* k,
 
 // Bare masked attention, out = MHA(q, k, v) in bf16 (no projection); rows at
 // or past the length are zeros. Replaces fastspeech2_tpu/ops/pallas/
-// attention.py: fused_attention_packed (heads packed along D: sb = T*ld,
-// sh = dk) and fused_attention ((B, H, T, dk): sb = H*T*dk, sh = T*dk,
-// ld = dk). q/k/v element (b, h, t, c) at q[b*sb + h*sh + t*ld + c], out at
-// out[b*osb + h*osh + t*old + c]; every stride a multiple of 8 and the bases
-// 16-byte aligned. lens (B) i32; one block per (64 queries, row, head).
-FS2_EXPORT int fs2_attention(const bf16* q, const bf16* k, const bf16* v, int sb, int sh,
-                             int ld, const int* lens, bf16* out, int osb, int osh, int old,
-                             int B, int T, int H, int DK, float scale, void* stream_ptr) {
+// attention.py: fused_attention_packed (packed = 1: q, k, v (B, T, .), head h
+// = columns [h DK, (h + 1) DK) of rows ld >= H * DK apart -- contiguous, or
+// column blocks of one q|k|v buffer; out (B, T, H * DK) contiguous) and
+// fused_attention (packed = 0: q, k, v and out (B, H, T, DK) contiguous,
+// ld = DK). ld a multiple of 8, bases 16-byte aligned; lens (B) i32; DK 128,
+// 192 or 256. The SERVE forward of attention_fwd.cuh, its three tensor maps
+// encoded per call.
+FS2_EXPORT int fs2_attention(const bf16* q, const bf16* k, const bf16* v, int ld,
+                             const int* lens, bf16* out, int B, int T, int H, int DK, int packed,
+                             float scale, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if ((DK != 128 && DK != 192) || H < 1 || (sb | sh | ld | osb | osh | old) % 8 != 0)
+  if ((DK != 128 && DK != 192 && DK != 256) || B < 1 || T < 1 || H < 1 || ld % 8 != 0 ||
+      (packed ? ld < H * DK : ld != DK))
     return (int)cudaErrorInvalidValue;
-  AttnArgs a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.sb = sb;
-  a.sh = sh;
-  a.ld = ld;
-  a.lens = lens;
-  a.ob = out;
-  a.osb = osb;
-  a.osh = osh;
-  a.old = old;
-  a.T = T;
-  a.D = H * DK;
-  a.H = H;
-  a.scale = scale;
-  return (int)launch_attn_any<EPI_BARE>(a, B, stream);
+  const long long osb = (long long)H * T * DK, osh = packed ? DK : (long long)T * DK;
+  const int osr = packed ? H * DK : DK;
+  const Geometry gm = packed ? Geometry{T, H, (long long)T * ld, DK, ld, 1, osb, osh, osr}
+                             : Geometry{T, H, osb, osh, DK, 0, osb, osh, osr};
+  if (DK == 128)
+    return (int)launch_fwd<128, FWD_SERVE>(q, k, v, lens, out, nullptr, nullptr, B, gm, scale,
+                                           0u, 0u, 1.0f, stream);
+  if (DK == 192)
+    return (int)launch_fwd<192, FWD_SERVE>(q, k, v, lens, out, nullptr, nullptr, B, gm, scale,
+                                           0u, 0u, 1.0f, stream);
+  return (int)launch_fwd<256, FWD_SERVE>(q, k, v, lens, out, nullptr, nullptr, B, gm, scale, 0u,
+                                         0u, 1.0f, stream);
 }

@@ -34,20 +34,11 @@
 // spills. The TPU kernels hold
 // whole (T, T) f32 score matrices in VMEM; here keys and queries stream in
 // 64-row tiles and nothing (T, T) exists.
-//  * forward (one launch): a block owns 128 query rows, 64 per warpgroup, or,
-//    where B * H * ceil(T / 128) would leave SMs idle, 64 rows whose key tiles
-//    the two warpgroups split (even / odd), merging row max and denominator
-//    between the sweeps and O at the end. Two sweeps over the keys keep the
-//    JAX function's rounding point (round D after normalising): sweep 1,
-//    S = Q K^T (SS) -> row max m and denominator l; sweep 2, S again, then
-//    P = keep * exp(s - m) / l / (1 - rate) in f32, packed in registers into
-//    the bf16 A fragment, O += P V (RS, V MN-major). Exponentials are exp2 of
-//    log2e-scaled scores (m is saved in those units), divisions multiplies by
-//    per-row reciprocals. The two warpgroups are not locked in step, so
-//    one's exp/hash/packing can overlap the other's MMAs (no explicit
-//    ping-pong schedule). Saves m and 1 / max(l, tiny)
-//    per row ((2, B, H, Tp) f32, Tp = T rounded up to 64) and the f32 accumulator
-//    of O before its rounding (O32, O's layout in f32).
+//  * forward (one launch): attention_fwd.cuh's body in its FWD_TRAIN mode,
+//    shared with the serving kernels 7 and 8. It also saves m (the row max in
+//    log2 units) and 1 / max(l, tiny) per row ((2, B, H, Tp) f32, Tp = T
+//    rounded up to 64) and the f32 accumulator of O before its rounding
+//    (O32, O's layout in f32).
 //  * backward, three launches, 7 products, no atomics (every output tile has
 //    one writer, so two calls give the same bits):
 //    - t: t = rowsum(dO * O32), one warp a row. Equal to rowsum(dA * A) but
@@ -63,371 +54,18 @@
 //      barriers), dK += dS^T Q. One 32-register accumulator per 64 columns
 //      of each output and warpgroup.
 //  An f32 instantiation with plain multiply-adds follows the bf16 kernels.
-#include "common.cuh"
-#include "hopper.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
-using namespace hopper;
-
-constexpr int TILE = 64;               // rows of a streamed tile and of a warpgroup
-constexpr int CONSUMERS = 256;  // two warpgroups
-constexpr int STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t mask_key(uint32_t seed, int b, int h) {
-  return lowbias32(seed ^ (0x9E3779B9u * (uint32_t)(b * 1024 + h)));
-}
+constexpr int STAGES = 2;  // ring stages of the backward kernels
 
 __device__ __forceinline__ bool keep_at(uint32_t key, uint32_t thresh, int row, int col,
                                         int T) {
   return lowbias32(((uint32_t)row * (uint32_t)T + (uint32_t)col) ^ key) >= thresh;
 }
 
-struct Geometry {
-  int T, H;
-  long long sb, sh;  // batch and head stride, elements
-  int sr;            // row stride, elements
-  int packed;        // 1: (B, T, D), the head a column block; 0: (B, H, T, dk)
-};
-
-// ---- bf16 kernels -------------------------------------------------------------
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
-// Rows [r0, r0 + 64) x DK columns of one (b, h) matrix into a 64-row tile
-// (DK / 64 swizzled sub-tiles), counted on `bar`.
-template <int DK>
-__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int r0, int plane) {
-#pragma unroll
-  for (int cb = 0; cb < DK / 64; ++cb)
-    tma_load_3d(static_cast<unsigned char*>(dst) + cb * 8192, map, bar, col + cb * 64, r0,
-                plane);
-}
-
-// S (+)= A B^T over DK: A and B both 64-row K-major tiles.
-template <int DK>
-__device__ __forceinline__ void tile_product(float (&s)[32], uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < DK / 16; ++ks) wgmma_ss<0>(s, kmajor_desc(a, ks), kmajor_desc(b, ks), ks);
-}
-
-// acc += P X with P the 64 x 64 register operand pa and X a 64-row tile read
-// MN-major (the reduction down its rows).
-template <int DK>
-__device__ __forceinline__ void tile_accumulate(float (&acc)[DK / 64][32],
-                                                const uint32_t (&pa)[4][4], uint32_t x) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int c = 0; c < DK / 64; ++c) wgmma_rs<1>(acc[c], pa[kk], mnmajor_desc(x, c, kk), 1);
-}
-
-// n-tile ni of a score accumulator (rows a and a + 8, columns 2t4, 2t4 + 1)
-// into the bf16 A fragment.
-__device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4], int ni, const float (&p)[4]) {
-  pa[ni >> 1][(ni & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-  pa[ni >> 1][(ni & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-}
-
-// The warp's arrival on a stage's empty barrier, after its reads of the stage.
-__device__ __forceinline__ void release(uint64_t* bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
-}
-
-template <int DK>
-__device__ __forceinline__ void zero_acc(float (&acc)[DK / 64][32]) {
-#pragma unroll
-  for (int c = 0; c < DK / 64; ++c)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
-}
-
-// Key split: warpgroup 1 hands its partial accumulator to warpgroup 0 through
-// shared memory (`red`, 64 x DK floats, thread-major), which adds it to its own
-// (fixed order: even tiles + odd tiles). Both warpgroups call it; only
-// warpgroup 0 holds the sum afterwards.
-template <int DK>
-__device__ __forceinline__ void merge_acc(float (&acc)[DK / 64][32], float* red, int wg, int t) {
-  bar_sync(1, CONSUMERS);  // both are past their last read of the ring
-  if (wg == 1) {
-#pragma unroll
-    for (int c = 0; c < DK / 64; ++c)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) red[(c * 32 + i) * 128 + t] = acc[c][i];
-  }
-  bar_sync(1, CONSUMERS);
-  if (wg == 0) {
-#pragma unroll
-    for (int c = 0; c < DK / 64; ++c)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[c][i] += red[(c * 32 + i) * 128 + t];
-  }
-}
-
-// The warpgroup's 64 x DK accumulator to global memory as bf16 times mul (and
-// as f32 into out32 when given), rows [r0, r0 + 64) of one (b, h) matrix;
-// rows >= T are not written, rows >= zero_from are written as zeros.
-template <int DK>
-__device__ __forceinline__ void store_tile(bf16* __restrict__ dst, float* __restrict__ out32,
-                                           int sr, int r0, int T, int zero_from,
-                                           const float (&acc)[DK / 64][32], float mul, int t) {
-  const int lane = t & 31, ra = r0 + (t >> 5) * 16 + (lane >> 2), t4 = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = ra + 8 * half;
-    if (row >= T) continue;
-    const bool live = row < zero_from;
-#pragma unroll
-    for (int c = 0; c < DK / 64; ++c)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = c * 64 + ni * 8 + 2 * t4;
-        const float x = live ? acc[c][ni * 4 + 2 * half] * mul : 0.f;
-        const float y = live ? acc[c][ni * 4 + 2 * half + 1] * mul : 0.f;
-        *reinterpret_cast<uint32_t*>(dst + (size_t)row * sr + col) = pack_bf16(x, y);
-        if (out32 != nullptr)
-          *reinterpret_cast<float2*>(out32 + (size_t)row * sr + col) = make_float2(x, y);
-      }
-  }
-}
-
-// Zero rows [r0, min(r0 + ROWS, T)) x DK of one (b, h) matrix.
-template <int DK, int ROWS>
-__device__ __forceinline__ void zero_rows(bf16* __restrict__ dst, int sr, int r0, int T) {
-  for (int i = threadIdx.x; i < ROWS * (DK / 8); i += blockDim.x) {
-    const int r = i / (DK / 8), c = (i % (DK / 8)) * 8;
-    if (r0 + r < T)
-      *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * sr + c) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-struct Maps {
-  CUtensorMap q, k, v, g;  // g: dO (backward only)
-};
-
-// Forward. KSPLIT = false: 128 query rows a block, warpgroup w owns rows
-// [64 w, 64 w + 64) and reads every key tile. KSPLIT = true: 64 rows, the
-// warpgroups take alternate key tiles.
-template <int DK, bool KSPLIT>
-__global__ void __launch_bounds__(CONSUMERS, 1)
-train_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, const int* __restrict__ lens,
-                 bf16* __restrict__ o, float* __restrict__ o32, float* __restrict__ m_out,
-                 float* __restrict__ rden_out, Geometry gm, int Tp, float scale, uint32_t seed,
-                 uint32_t thresh, float inv_keep) {
-  constexpr int QROWS = KSPLIT ? TILE : 2 * TILE;
-  constexpr int TB = TILE * DK * 2;  // bytes of a 64-row tile
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  unsigned char* Qs = smem;
-  unsigned char* ring = Qs + QROWS * DK * 2;  // STAGES x (K tile, V tile)
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * TB);
-  uint64_t* empty = full + STAGES;
-  uint64_t* qbar = empty + STAGES;
-  float* xch = reinterpret_cast<float*>(qbar + 1);  // key split: [2][64 rows][m, l]
-
-  const int b = blockIdx.z, h = blockIdx.y, t0 = blockIdx.x * QROWS;
-  const int T = gm.T;
-  const int len = min(lens[b], T);
-  const size_t base = (size_t)b * gm.sb + (size_t)h * gm.sh;
-  if (t0 >= len) {  // dead tile: exact zeros
-    zero_rows<DK, QROWS>(o + base, gm.sr, t0, T);
-    return;
-  }
-  const int nkt = (len + TILE - 1) / TILE;
-  const int col = gm.packed ? h * DK : 0, plane = gm.packed ? b : b * gm.H + h;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], KSPLIT ? 4 : 8);  // one arrival per consuming warp
-    }
-    mbar_init(qbar, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  // Thread 0 keeps the ring loaded: tile i of the block's sequence (sweep 1:
-  // K tiles, sweep 2: K and V tiles) goes to stage i % STAGES once every warp
-  // that reads the stage has released its previous tile.
-  const int total = 2 * nkt;
-  int issued = 0;
-  auto top_up = [&](int upto) {
-    for (; issued < min(upto, total); ++issued) {
-      const int s = issued % STAGES, pass = issued >= nkt, kt = pass ? issued - nkt : issued;
-      mbar_wait(&empty[s], ((issued / STAGES) & 1) ^ 1);
-      unsigned char* Ks = ring + s * 2 * TB;
-      mbar_expect_tx(&full[s], pass ? 2 * TB : TB);
-      tma_tile<DK>(Ks, &tk, &full[s], col, kt * TILE, plane);
-      if (pass) tma_tile<DK>(Ks + TB, &tv, &full[s], col, kt * TILE, plane);
-    }
-  };
-  if (threadIdx.x == 0) {
-    mbar_expect_tx(qbar, QROWS * DK * 2);
-#pragma unroll
-    for (int g = 0; g < QROWS / TILE; ++g)
-      tma_tile<DK>(Qs + g * TB, &tq, qbar, col, t0 + g * TILE, plane);
-    top_up(STAGES);
-  }
-  __syncwarp();
-
-  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const int lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
-  const int r0 = KSPLIT ? t0 : t0 + wg * TILE;  // this warpgroup's first row
-  const int ra = r0 + (t >> 5) * 16 + g8, rb = ra + 8;
-  const bool va = ra < len, vb = rb < len;
-  const uint32_t key = mask_key(seed, b, h);
-  const uint32_t qaddr = smem_u32(Qs + (KSPLIT ? 0 : wg * TB));
-  const float sl2 = scale * LOG2E;  // scores in log2 units
-  mbar_wait(qbar, 0);
-
-  // sweep 1: row max m and denominator l = sum 2^(x - m), x = s * scale * log2e
-  float m_a = -FLT_MAX, m_b = -FLT_MAX, l_a = 0.f, l_b = 0.f;
-  float s[32];
-  int it = 0;
-  for (int kt = 0; kt < nkt; ++kt, ++it) {
-    if (KSPLIT && (kt & 1) != wg) continue;
-    if (threadIdx.x == 0) top_up(it + STAGES);
-    __syncwarp();
-    const int st = it % STAGES;
-    mbar_wait(&full[st], (it / STAGES) & 1);
-    wgmma_fence();
-    tile_product<DK>(s, qaddr, smem_u32(ring + st * 2 * TB));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    release(&empty[st]);
-    const int k0 = kt * TILE;
-    float mx_a = -FLT_MAX, mx_b = -FLT_MAX;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool vc = k0 + ni * 8 + 2 * t4 + e < len;
-        s[ni * 4 + e] *= sl2;
-        s[ni * 4 + 2 + e] *= sl2;
-        if (va && vc) mx_a = fmaxf(mx_a, s[ni * 4 + e]);
-        if (vb && vc) mx_b = fmaxf(mx_b, s[ni * 4 + 2 + e]);
-      }
-#pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    float sa = 0.f, sb2 = 0.f;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool vc = k0 + ni * 8 + 2 * t4 + e < len;
-        if (va && vc) sa += exp2f(s[ni * 4 + e] - mn_a);
-        if (vb && vc) sb2 += exp2f(s[ni * 4 + 2 + e] - mn_b);
-      }
-#pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      sa += __shfl_xor_sync(0xffffffffu, sa, o2);
-      sb2 += __shfl_xor_sync(0xffffffffu, sb2, o2);
-    }
-    l_a = l_a * exp2f(m_a - mn_a) + sa;
-    l_b = l_b * exp2f(m_b - mn_b) + sb2;
-    m_a = mn_a;
-    m_b = mn_b;
-  }
-  if (KSPLIT) {  // merge the two halves of the keys, in the same order in both
-    const int ia = (t >> 5) * 16 + g8;
-    if (t4 == 0) {
-      xch[(wg * 64 + ia) * 2] = m_a;
-      xch[(wg * 64 + ia) * 2 + 1] = l_a;
-      xch[(wg * 64 + ia + 8) * 2] = m_b;
-      xch[(wg * 64 + ia + 8) * 2 + 1] = l_b;
-    }
-    bar_sync(1, CONSUMERS);
-    const float m0a = xch[ia * 2], l0a = xch[ia * 2 + 1];
-    const float m1a = xch[(64 + ia) * 2], l1a = xch[(64 + ia) * 2 + 1];
-    const float m0b = xch[(ia + 8) * 2], l0b = xch[(ia + 8) * 2 + 1];
-    const float m1b = xch[(64 + ia + 8) * 2], l1b = xch[(64 + ia + 8) * 2 + 1];
-    m_a = fmaxf(m0a, m1a);
-    m_b = fmaxf(m0b, m1b);
-    l_a = l0a * exp2f(m0a - m_a) + l1a * exp2f(m1a - m_a);
-    l_b = l0b * exp2f(m0b - m_b) + l1b * exp2f(m1b - m_b);
-  }
-  // 1 / max(l, tiny): saved as it is used, so the backward multiplies by it
-  const float ra_den = 1.0f / fmaxf(l_a, FLT_MIN), rb_den = 1.0f / fmaxf(l_b, FLT_MIN);
-  if (t4 == 0 && (!KSPLIT || wg == 0)) {
-    const size_t srow = ((size_t)b * gm.H + h) * Tp;
-    if (ra < T) {
-      m_out[srow + ra] = m_a;
-      rden_out[srow + ra] = ra_den;
-    }
-    if (rb < T) {
-      m_out[srow + rb] = m_b;
-      rden_out[srow + rb] = rb_den;
-    }
-  }
-
-  // sweep 2: O = round(D) V, D = keep ? p / (1 - rate) : 0, p normalised in f32
-  const uint32_t rowa_T = (uint32_t)ra * (uint32_t)T, rowb_T = (uint32_t)rb * (uint32_t)T;
-  float acc[DK / 64][32];
-  zero_acc<DK>(acc);
-  for (int kt = 0; kt < nkt; ++kt, ++it) {
-    if (KSPLIT && (kt & 1) != wg) continue;
-    if (threadIdx.x == 0) top_up(it + STAGES);
-    __syncwarp();
-    const int st = it % STAGES;
-    mbar_wait(&full[st], (it / STAGES) & 1);
-    const uint32_t kaddr = smem_u32(ring + st * 2 * TB);
-    wgmma_fence();
-    tile_product<DK>(s, qaddr, kaddr);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    const int k0 = kt * TILE;
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = k0 + ni * 8 + 2 * t4 + e;
-        const bool vc = c < len;
-        p[e] = (va && vc) ? exp2f(s[ni * 4 + e] * sl2 - m_a) * ra_den : 0.f;
-        p[2 + e] = (vb && vc) ? exp2f(s[ni * 4 + 2 + e] * sl2 - m_b) * rb_den : 0.f;
-        if (thresh != 0u) {
-          p[e] = lowbias32((rowa_T + (uint32_t)c) ^ key) >= thresh ? p[e] * inv_keep : 0.f;
-          p[2 + e] = lowbias32((rowb_T + (uint32_t)c) ^ key) >= thresh ? p[2 + e] * inv_keep : 0.f;
-        }
-      }
-      pack_a(pa, ni, p);
-    }
-    wgmma_fence();
-    tile_accumulate<DK>(acc, pa, kaddr + TB);
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < DK / 64; ++c) fence_regs(acc[c]);
-    release(&empty[st]);
-  }
-  if (KSPLIT) {
-    merge_acc<DK>(acc, reinterpret_cast<float*>(ring), wg, t);
-    if (wg == 1) return;
-  }
-  store_tile<DK>(o + base, o32 + base, gm.sr, r0, T, len, acc, 1.0f, t);
-}
+// ---- bf16 kernels: the forward is attention_fwd.cuh's FWD_TRAIN mode -------
 
 // Backward launch 1: t = rowsum(dO * O32) for every row (0 past the length).
 __global__ void __launch_bounds__(256)
@@ -765,35 +403,6 @@ train_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0, c = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess &&
-        cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
-      n = c;
-    else
-      return 132;
-  }
-  return n;
-}
-
-// The row split (128 query rows a block) unless it leaves SMs idle.
-bool use_key_split(int B, const Geometry& gm) {
-  return (long long)B * gm.H * ((gm.T + 2 * TILE - 1) / (2 * TILE)) < sm_count();
-}
-
-// One TMA map of an operand of either layout: (row width, T, planes).
-cudaError_t make_map(CUtensorMap* map, const void* p, int B, int DK, const Geometry& gm) {
-  if (gm.packed)
-    return tma_map_bf16(map, p, (uint64_t)gm.sr, gm.T, B, gm.sr, gm.sb);
-  return tma_map_bf16(map, p, DK, gm.T, (uint64_t)B * gm.H, gm.sr, gm.sh);
-}
-
-size_t fwd_smem(int DK, bool ksplit) {
-  const size_t qrows = ksplit ? TILE : 2 * TILE, tb = (size_t)TILE * DK * 2;
-  return 1024 + qrows * DK * 2 + STAGES * 2 * tb + (2 * STAGES + 1) * 8 + 2 * 64 * 2 * 4;
-}
 size_t dq_smem(int DK, bool ksplit) {
   const size_t qrows = ksplit ? TILE : 2 * TILE, tb = (size_t)TILE * DK * 2;
   return 1024 + 2 * qrows * DK * 2 + STAGES * 2 * tb + (2 * STAGES + 1) * 8;
@@ -802,40 +411,6 @@ size_t dkv_smem(int DK) {
   const size_t tb = (size_t)TILE * DK * 2;
   return 1024 + 2 * tb + STAGES * 2 * tb + 2 * 32 * 128 * 4 + STAGES * 3 * TILE * 4 +
          (2 * STAGES + 1) * 8;
-}
-
-template <int DK, bool KSPLIT>
-cudaError_t launch_fwd_split(const Maps& mp, const int* lens, bf16* o, float* o32, float* stats,
-                             int B, Geometry gm, int Tp, float scale, uint32_t seed,
-                             uint32_t thresh, float inv_keep, cudaStream_t stream) {
-  const size_t smem = fwd_smem(DK, KSPLIT);
-  cudaError_t e = set_smem(train_fwd_kernel<DK, KSPLIT>, smem);
-  if (e != cudaSuccess) return e;
-  const int rows = KSPLIT ? TILE : 2 * TILE;
-  const size_t n = (size_t)B * gm.H * Tp;
-  train_fwd_kernel<DK, KSPLIT><<<dim3((gm.T + rows - 1) / rows, gm.H, B), CONSUMERS, smem,
-                                 stream>>>(mp.q, mp.k, mp.v, lens, o, o32, stats, stats + n, gm,
-                                           Tp, scale, seed, thresh, inv_keep);
-  return cudaGetLastError();
-}
-
-template <int DK>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
-                       float* o32, float* stats, int B, Geometry gm, float scale, uint32_t seed,
-                       uint32_t thresh, float keep_prob, cudaStream_t stream) {
-  Maps mp;
-  cudaError_t e;
-  if ((e = make_map(&mp.q, q, B, DK, gm)) != cudaSuccess ||
-      (e = make_map(&mp.k, k, B, DK, gm)) != cudaSuccess ||
-      (e = make_map(&mp.v, v, B, DK, gm)) != cudaSuccess)
-    return e;
-  const int Tp = (gm.T + TILE - 1) / TILE * TILE;
-  const float inv_keep = 1.0f / keep_prob;
-  if (use_key_split(B, gm))
-    return launch_fwd_split<DK, true>(mp, lens, o, o32, stats, B, gm, Tp, scale, seed, thresh,
-                                      inv_keep, stream);
-  return launch_fwd_split<DK, false>(mp, lens, o, o32, stats, B, gm, Tp, scale, seed, thresh,
-                                     inv_keep, stream);
 }
 
 template <int DK, bool KSPLIT>
@@ -1230,12 +805,15 @@ bool geometry_ok(int B, int T, int H, int DK) {
          (long long)T * T < (1ll << 32);
 }
 
+// q, k, v and every output share one layout
 Geometry packed_geometry(int T, int D, int H) {
-  return Geometry{T, H, (long long)T * D, (long long)(D / H), D, 1};
+  const long long sb = (long long)T * D, sh = D / H;
+  return Geometry{T, H, sb, sh, D, 1, sb, sh, D};
 }
 
 Geometry split_geometry(int H, int T, int DK) {
-  return Geometry{T, H, (long long)H * T * DK, (long long)T * DK, DK, 0};
+  const long long sb = (long long)H * T * DK, sh = (long long)T * DK;
+  return Geometry{T, H, sb, sh, DK, 0, sb, sh, DK};
 }
 
 // The entries take untyped pointers and an f32 flag: bf16 tensors go to the
@@ -1260,13 +838,13 @@ int fwd_any(const void* q, const void* k, const void* v, const int* lens, void* 
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
   if (DK == 128)
-    return (int)launch_fwd<128>(qb, kb, vb, lens, ob, o32, stats, B, gm, scale, seed, thresh,
-                                keep_prob, stream);
+    return (int)launch_fwd<128, FWD_TRAIN>(qb, kb, vb, lens, ob, o32, stats, B, gm, scale,
+                                           seed, thresh, keep_prob, stream);
   if (DK == 192)
-    return (int)launch_fwd<192>(qb, kb, vb, lens, ob, o32, stats, B, gm, scale, seed, thresh,
-                                keep_prob, stream);
-  return (int)launch_fwd<256>(qb, kb, vb, lens, ob, o32, stats, B, gm, scale, seed, thresh,
-                              keep_prob, stream);
+    return (int)launch_fwd<192, FWD_TRAIN>(qb, kb, vb, lens, ob, o32, stats, B, gm, scale,
+                                           seed, thresh, keep_prob, stream);
+  return (int)launch_fwd<256, FWD_TRAIN>(qb, kb, vb, lens, ob, o32, stats, B, gm, scale, seed,
+                                         thresh, keep_prob, stream);
 }
 
 int bwd_any(const void* q, const void* k, const void* v, const void* dout, const float* o32,

@@ -26,14 +26,18 @@ port of ``attention.py:fused_attention_packed_res`` (kernel
 
 ``fused_attention_packed`` and ``fused_attention`` are the bare masked
 attention, heads packed along D (B, T, D) and in the (B, H, T, dk) layout,
-bf16 out, rows at or past the length zero: the ports of
+out in q's dtype, rows at or past the length zero: the ports of
 ``attention.py:fused_attention_packed`` (kernel ``_attn_kernel_packed``) and
 ``attention.py:fused_attention`` (kernel ``_attn_kernel``), both through the
-strided C entry ``fs2_attention``. ``mha_fused_apply`` wraps the packed one
-in the q/k/v and out projections; the model takes it under ``concat_after``
-and ``flags.FUSED_ATT_RES`` off. Only bf16 operands reach the kernel on the
-card (the f32 entry of these two is not ported: the f32 tier takes
-``ops.attention.mha_apply``).
+C entry ``fs2_attention``: the SERVE mode of ``csrc/attention_fwd.cuh``, the
+wgmma/TMA forward of the training kernels 11 and 12 without their dropout,
+O32 and row statistics (d_k 128, 192 or 256). For the same bf16 values the
+packed entry gives ``attention_train.fused_attention_train_packed`` at rate
+0 bit for bit. f32 operands on the card take the training kernels' f32
+forward (plain multiply-adds, no TF32) at rate 0, its row statistics
+discarded. ``mha_fused_apply`` wraps the packed one in the q/k/v and out
+projections; the model takes it under ``concat_after`` and
+``flags.FUSED_ATT_RES`` off.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import torch
 
 from fastspeech2_tpu_torch.ops import nn
 from fastspeech2_tpu_torch.ops.attention import masked_softmax
-from fastspeech2_tpu_torch.ops.kernels import common
+from fastspeech2_tpu_torch.ops.kernels import attention_train, common
 from fastspeech2_tpu_torch.ops.precision import current_compute_dtype, round_to
 
 #: launches of the CUDA kernel (the plain version does not count)
@@ -173,7 +177,7 @@ def _qkv_stride(name, q, k, v, shape):
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} must be a {shape} bfloat16 tensor on "
-                             f"{q.device} (the f32 entry is not ported)")
+                             f"{q.device}")
         if (t.stride(2) != 1 or t.stride(1) != ld or ld % 8 or t.data_ptr() % 16
                 or (B > 1 and t.stride(0) != T * ld)):
             raise ValueError(f"{name}: {arg} needs unit column stride, the common "
@@ -250,63 +254,88 @@ def attention_res(q, k, v, res, wo, bo, lengths, n_heads: int):
     return out
 
 
-def _bare(name, q, k, v, lengths, B, T, H, dk, strides):
-    """Launch the bare attention through the strided C entry; strides =
-    (batch, head, row) of q/k/v, the output takes the same layout."""
+def check_head_dim(name: str, dk: int) -> None:
+    """The bare kernels take the head dims of their instantiations
+    (``attention_train.HEAD_DIMS``: 128, 192, 256); raise for others."""
+    if dk not in attention_train.HEAD_DIMS:
+        raise ValueError(f"{name}: d_k={dk} not supported by the kernel (128, 192 or 256)")
+
+
+def _bare(name, q, k, v, lengths, n_heads=None):
+    """Launch the bare attention: bf16 through ``fs2_attention``, f32
+    through the training kernels' f32 forward at rate 0. ``n_heads`` given:
+    (B, T, D) operands, heads packed along D; None: (B, H, T, dk). The output
+    is contiguous."""
     global _fn_bare
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: the kernel takes bfloat16 or float32, got {q.dtype}")
+    packed = n_heads is not None
+    if packed:
+        B, T, D = q.shape
+        if D % n_heads:
+            raise ValueError(f"{name}: D={D} is not a multiple of heads={n_heads}")
+        H, dk = n_heads, D // n_heads
+    else:
+        B, H, T, dk = q.shape
+    check_head_dim(name, dk)
+    if q.dtype == torch.float32:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        attention_train._check(name, q, k, v, lengths, B, dk)
+        o = torch.empty_like(q)
+        stats = torch.empty((2, B, H, T), dtype=torch.float32, device=q.device)
+        entry = "fs2_attention_train_fwd" + ("_packed" if packed else "")
+        dims = (B, T, H * dk, H) if packed else (B, H, T, dk)
+        common.launch(attention_train._entry(entry, 7), q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), lengths.data_ptr(), o.data_ptr(), 0, stats.data_ptr(),
+                      *dims, 1.0 / math.sqrt(dk), 0, 0, 1.0, 1, common.stream_of(q))
+        return o
+    if packed:
+        ld = _qkv_stride(name, q, k, v, (B, T, H * dk))
+    else:
+        common.check_cuda(name, q.device, [
+            (n, t, torch.bfloat16, (B, H, T, dk)) for n, t in (("q", q), ("k", k), ("v", v))])
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError(f"{name}: inputs need 16-byte aligned bases")
+        ld = dk
     common.check_cuda(name, q.device, [("lengths", lengths, torch.int32, (B,))])
-    if dk not in (128, 192):
-        raise ValueError(f"{name}: d_k={dk} not supported by the kernel (128 or 192)")
     if _fn_bare is None:
         P, I, F = common.P, common.I, common.F
         _fn_bare = common.bind(common.load("attention"), "fs2_attention",
-                               [P] * 3 + [I] * 3 + [P] * 2 + [I] * 7 + [F, P])
-    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    ostr = (out.stride(0), out.stride(1) if out.dim() == 4 else dk,
-            out.stride(-2))
-    common.launch(_fn_bare, q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides,
-                  lengths.data_ptr(), out.data_ptr(), *ostr, B, T, H, dk,
-                  1.0 / math.sqrt(dk), common.stream_of(q))
+                               [P] * 3 + [I] + [P] * 2 + [I] * 5 + [F, P])
+    out = torch.empty((B, T, H * dk) if packed else (B, H, T, dk), dtype=torch.bfloat16,
+                      device=q.device)
+    common.launch(_fn_bare, q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, lengths.data_ptr(),
+                  out.data_ptr(), B, T, H, dk, int(packed), 1.0 / math.sqrt(dk),
+                  common.stream_of(q))
     return out
 
 
 def fused_attention_packed(q, k, v, lengths, n_heads: int):
     """Bare masked attention, heads packed along D: q, k, v (B, T, D) (bf16
-    on the card; contiguous or column blocks of one buffer, as in
-    ``attention_res_ln``), lengths (B,) int32 -> (B, T, D) in q's dtype, rows
-    at or past the length zero. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    on the card: contiguous or column blocks of one buffer, as in
+    ``attention_res_ln``; or f32), lengths (B,) int32 -> (B, T, D) in q's
+    dtype, rows at or past the length zero. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     global packed_launches
     common.refuse_grad("fused_attention_packed", q, k, v)
     if q.device.type == "cpu":
         return fused_attention_packed_plain(q, k, v, lengths, n_heads)
-    B, T, D = q.shape
-    ld = _qkv_stride("fused_attention_packed", q, k, v, (B, T, D))
-    if D % n_heads:
-        raise ValueError(f"fused_attention_packed: D={D} is not a multiple of "
-                         f"heads={n_heads}")
-    dk = D // n_heads
-    out = _bare("fused_attention_packed", q, k, v, lengths, B, T, n_heads, dk,
-                (T * ld, dk, ld))
+    out = _bare("fused_attention_packed", q, k, v, lengths, n_heads)
     with common.count_lock:
         packed_launches += 1
     return out
 
 
 def fused_attention(q, k, v, lengths):
-    """Bare masked attention of (B, H, T, dk) q, k, v (contiguous, bf16 on
-    the card), lengths (B,) int32 -> (B, H, T, dk), rows at or past the
-    length zero. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (the body of ``fused_attention_packed``, other strides)."""
+    """Bare masked attention of (B, H, T, dk) q, k, v (contiguous; bf16 or
+    f32 on the card), lengths (B,) int32 -> (B, H, T, dk), rows at or past
+    the length zero. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (the body of ``fused_attention_packed``, other tensor maps)."""
     global bhtd_launches
     common.refuse_grad("fused_attention", q, k, v)
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, lengths)
-    B, H, T, dk = q.shape
-    common.check_cuda("fused_attention", q.device, [
-        (n, t, torch.bfloat16, (B, H, T, dk)) for n, t in (("q", q), ("k", k), ("v", v))])
-    out = _bare("fused_attention", q, k, v, lengths, B, T, H, dk,
-                (H * T * dk, T * dk, dk))
+    out = _bare("fused_attention", q, k, v, lengths)
     with common.count_lock:
         bhtd_launches += 1
     return out

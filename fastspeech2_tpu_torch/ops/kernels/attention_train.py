@@ -4,11 +4,12 @@
 Port of ``fastspeech2_tpu/ops/pallas/attention_train.py``:
 ``fused_attention_train_packed`` ((B, T, D), heads as column blocks) and
 ``fused_attention_train`` ((B, H, T, dk)), each a forward and a backward
-kernel. CUDA source: ``csrc/attention_train.cu`` with ``csrc/hopper.cuh``
-(one kernel body per direction serves both layouts through TMA maps; bf16
-on wgmma: a forward launch that also saves O's f32 accumulator, and a
-backward of three launches: the row sums ``t = rowsum(dO * O32)``, dQ, then
-dK/dV).
+kernel. CUDA sources: ``csrc/attention_train.cu``, ``csrc/attention_fwd.cuh``
+and ``csrc/hopper.cuh`` (one kernel body per direction serves both layouts
+through TMA maps; bf16 on wgmma: a forward launch that also saves O's f32
+accumulator -- the forward body of the serving kernels 7 and 8 in its TRAIN
+mode -- and a backward of three launches: the row sums
+``t = rowsum(dO * O32)``, dQ, then dK/dV).
 
 What the function is, to the rounding point (cd = the inputs' dtype):
 

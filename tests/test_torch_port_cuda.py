@@ -487,7 +487,8 @@ def test_attention_train_kernels_use_wgmma_and_do_not_spill(dev):
     log = common.ptxas_report("attention_train")
     funcs = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
                        r"(\d+) bytes spill loads", log, re.S)
-    bf16 = [f for f in funcs if "train_" in f[0] and "f32" not in f[0] and "rowdot" not in f[0]]
+    bf16 = [f for f in funcs if ("train_" in f[0] or "attn_fwd_kernel" in f[0])
+            and "f32" not in f[0] and "rowdot" not in f[0]]
     assert len(bf16) >= 9, [f[0] for f in funcs]  # fwd x 2 splits, dq x 2, dkv; 3 head dims
     assert all(f[1] == "0" and f[2] == "0" for f in bf16), bf16
     assert "setmaxnreg ignored" not in log
@@ -496,7 +497,8 @@ def test_attention_train_kernels_use_wgmma_and_do_not_spill(dev):
                           check=True, capture_output=True, text=True).stdout
     for part in sass.split("Function : ")[1:]:
         name = part.split()[0]
-        if "train_" in name and "f32" not in name and "rowdot" not in name:
+        if (("train_" in name or "attn_fwd_kernel" in name) and "f32" not in name
+                and "rowdot" not in name):
             assert "HGMMA" in part and "HMMA" not in part.replace("HGMMA", ""), name
 
 
@@ -657,6 +659,117 @@ def test_fused_attention_bhtd(dev, B, H, T, dk):
         assert not got[b, :, n:].any(), b
 
 
+# (B, H, T, dk): every head dim in both grid splits (B * H * ceil(T / 128)
+# below the card's 132 SMs: 64-row blocks whose key tiles the two warpgroups
+# split; at or above: 128-row blocks), T from one key tile to 36
+BARE_SHAPES = [(4, 2, 96, 128), (70, 2, 96, 128), (3, 2, 160, 192), (34, 2, 160, 192),
+               (3, 1, 160, 256), (132, 1, 96, 256), (9, 2, 1024, 128), (3, 2, 1024, 192),
+               (9, 2, 1024, 256), (3, 1, 2304, 128), (4, 2, 2304, 192), (3, 2, 2304, 256)]
+BARE_IDS = ["dk128_T96_ksplit", "dk128_T96_rows", "dk192_T160_ksplit", "dk192_T160_rows",
+            "dk256_T160_ksplit", "dk256_T96_rows", "dk128_T1024_rows", "dk192_T1024_ksplit",
+            "dk256_T1024_rows", "dk128_T2304_ksplit", "dk192_T2304_rows",
+            "dk256_T2304_ksplit"]
+
+
+@pytest.mark.parametrize("B,H,T,dk", BARE_SHAPES, ids=BARE_IDS)
+def test_bare_attention_widths_and_splits(dev, B, H, T, dk):
+    """Kernels 7 and 8 (the SERVE forward of csrc/attention_fwd.cuh) against
+    their plain versions in the bf16 band, lengths T, 1 and 0: dead rows are
+    zeros; kernel 8 equals kernel 7 and a second call the first, bit for bit;
+    column blocks of one q|k|v buffer give the bits of separate tensors; and
+    kernel 7 gives kernel 11's forward at rate 0 bit for bit (one body, the
+    same arithmetic)."""
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    g = torch.Generator().manual_seed(B * T + dk)
+    D = H * dk
+    q, k, v = (torch.randn(B, T, D, generator=g).to(torch.bfloat16).to(dev) for _ in range(3))
+    lens = _lengths_0_1(B, T, dev, g)
+    split = lambda t: t.view(B, T, H, dk).transpose(1, 2).contiguous()  # noqa: E731
+    n7, n8 = KA.packed_launches, KA.bhtd_launches
+    with torch.no_grad():
+        got7 = KA.fused_attention_packed(q, k, v, lens, H)
+        again = KA.fused_attention_packed(q, k, v, lens, H)
+        got8 = KA.fused_attention(split(q), split(k), split(v), lens)
+        qkv = torch.cat([q, k, v], dim=-1)
+        cols = KA.fused_attention_packed(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:],
+                                         lens, H)
+        k11 = KT.fused_attention_train_packed(q, k, v, lens, 7, H, 0.0)
+        want = KA.fused_attention_packed_plain(q, k, v, lens, H)
+    torch.cuda.synchronize()
+    assert (KA.packed_launches, KA.bhtd_launches) == (n7 + 3, n8 + 1)
+    assert got7.dtype == torch.bfloat16 and got7.shape == (B, T, D)
+    _close(got7, want)
+    for b, n in enumerate(lens.tolist()):
+        assert not got7[b, n:].any(), b
+    assert torch.equal(got7, again)
+    assert torch.equal(split(got7), got8)
+    assert torch.equal(got7, cols)
+    assert torch.equal(got7, k11)
+
+
+@pytest.mark.parametrize("B,H,T,dk", [(4, 2, 96, 128), (3, 1, 160, 256), (3, 2, 200, 192)])
+def test_bare_attention_f32(dev, B, H, T, dk):
+    """The f32 entry of kernels 7 and 8 (the training kernels' f32 forward at
+    rate 0: plain multiply-adds, no TF32) against the plain version within
+    2e-5 of the peak, the band of the f32 training forward; column blocks
+    of one buffer are taken too."""
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+
+    g = torch.Generator().manual_seed(T + dk)
+    D = H * dk
+    qkv = torch.randn(B, T, 3 * D, generator=g).to(dev)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    lens = _lengths_0_1(B, T, dev, g)
+    split = lambda t: t.reshape(B, T, H, dk).transpose(1, 2).contiguous()  # noqa: E731
+    n7, n8 = KA.packed_launches, KA.bhtd_launches
+    got7 = KA.fused_attention_packed(q, k, v, lens, H)
+    got8 = KA.fused_attention(split(q), split(k), split(v), lens)
+    want = KA.fused_attention_packed_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                           lens, H)
+    torch.cuda.synchronize()
+    assert (KA.packed_launches, KA.bhtd_launches) == (n7 + 1, n8 + 1)
+    assert got7.dtype == torch.float32 and got8.dtype == torch.float32
+    peak = float(want.abs().max())
+    for got in (got7, got8.transpose(1, 2).reshape(B, T, D)):
+        assert float((got - want).abs().max()) < 2e-5 * peak
+    for b, n in enumerate(lens.tolist()):
+        assert not got7[b, n:].any(), b
+
+
+def test_bare_attention_kernels_use_wgmma_and_do_not_spill(dev):
+    """The SERVE instantiations of the forward in attention's library (d_k
+    128, 192, 256, both grid splits) are wgmma kernels: HGMMA and no HMMA in
+    their SASS, no ptxas spills, no stack frame (the two score arrays of the
+    pipelined schedule stay in registers) and no ptxas note that it
+    serialized the wgmma (the overlap would be gone)."""
+    import re
+    import shutil
+    import subprocess
+
+    from fastspeech2_tpu_torch.ops.kernels import common
+
+    common.load("attention")
+    log = common.ptxas_report("attention")
+    funcs = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+                       r"(\d+) bytes spill stores, (\d+) bytes spill loads", log, re.S)
+    serve = [f for f in funcs if "attn_fwd_kernel" in f[0]]
+    assert len(serve) == 6, [f[0] for f in funcs]
+    assert all(f[1:] == ("0", "0", "0") for f in serve), serve
+    assert "serialized" not in log
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(common._lib_path("attention"))],
+                          check=True, capture_output=True, text=True).stdout
+    seen = 0
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        if "attn_fwd_kernel" in name:
+            seen += 1
+            assert "HGMMA" in part and "HMMA" not in part.replace("HGMMA", ""), name
+    assert seen == 6
+
+
 @pytest.mark.parametrize("B,T,D", [(4, 96, 256), (3, 160, 384)])
 def test_ffn_block_pre(dev, B, T, D):
     """Kernel 9, x + FFN(mask(LN(x))), at k=9 and H=1024 against its plain
@@ -719,17 +832,18 @@ def test_new_kernels_refuse_the_wrong_dtype(dev):
     from fastspeech2_tpu_torch.ops.kernels import ffn as KF
 
     B, T, D = 2, 64, 256
-    q = torch.randn(B, T, D, device=dev)  # f32: the f32 entry is not ported
+    q = torch.randn(B, T, D, device=dev)  # f32: kernel 6 takes bf16 only
     lens = torch.full((B,), T, dtype=torch.int32, device=dev)
     n = (KA.res_launches, KA.packed_launches, KA.bhtd_launches, KF.pre_launches,
          KF.bare_launches)
     wo, bo = torch.zeros(D, D, dtype=torch.bfloat16, device=dev), torch.zeros(D, device=dev)
     with pytest.raises(ValueError, match="bfloat16"):
         KA.attention_res(q, q, q, q, wo, bo, lens, 2)
-    with pytest.raises(ValueError, match="bfloat16"):
-        KA.fused_attention_packed(q, q, q, lens, 2)
-    q4 = q.reshape(B, 2, T, D // 2)
-    with pytest.raises(ValueError, match="bfloat16"):
+    qh = q.half()  # kernels 7 and 8 take bf16 or f32
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        KA.fused_attention_packed(qh, qh, qh, lens, 2)
+    q4 = qh.reshape(B, 2, T, D // 2)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         KA.fused_attention(q4, q4, q4, lens)
     with pytest.raises(ValueError, match="d_k"):
         qb = torch.zeros(B, 4, T, 64, dtype=torch.bfloat16, device=dev)

@@ -5,7 +5,8 @@ Kernel level: the plain versions of ``attention_res`` (kernel 6),
 ``fused_attention_packed`` (7), ``fused_attention`` (8), ``ffn_block_pre``
 (9) and ``fused_ffn`` (10) against the JAX Pallas functions called with
 ``interpret=True`` (the HLO interpreter; no TPU interpret mode), on inputs
-from numpy seeds with lengths 0, 1, partial and full at blocks of 8. f32:
+from numpy seeds with lengths 0, 1, partial and full at blocks of 8; 7 and 8
+also at d_k 256 (the widest Hopper instantiation) with one and two heads. f32:
 rtol/atol 1e-5 (the bar tests/test_pallas.py holds interpret kernels to);
 bf16: both sides round at the same points, f32 sums in another order flip
 an occasional bf16 rounding, so the band of tests/test_torch_port_kernels.py
@@ -96,37 +97,57 @@ def test_attention_res_matches_pallas(tier, rng):
     np.testing.assert_allclose(got.numpy()[3], res[3] + bo, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
-def test_fused_attention_packed_matches_pallas(tier, rng):
+# kernels 7 and 8: (tier, D, heads), d_k 128 at two heads, then d_k 256 (the
+# widest instantiation of the Hopper kernel) at one and at two heads
+BARE_CASES = [("f32", D, H), ("bf16", D, H), ("f32", 256, 1), ("bf16", 256, 1),
+              ("f32", 512, 2), ("bf16", 512, 2)]
+BARE_IDS = ["f32", "bf16", "f32-dk256-h1", "bf16-dk256-h1", "f32-dk256-h2", "bf16-dk256-h2"]
+
+
+@pytest.mark.parametrize("tier,dm,nh", BARE_CASES, ids=BARE_IDS)
+def test_fused_attention_packed_matches_pallas(tier, dm, nh, rng):
     """Kernel 7: bare masked attention, heads packed along D, out in q's
     dtype; rows at or past the length are zeros."""
-    (jq, jk, jv), (q, k, v) = _qkv(rng, (B, T, D), tier)
-    want = jattn.fused_attention_packed(jq, jk, jv, jnp.asarray(LENGTHS), H,
+    (jq, jk, jv), (q, k, v) = _qkv(rng, (B, T, dm), tier)
+    want = jattn.fused_attention_packed(jq, jk, jv, jnp.asarray(LENGTHS), nh,
                                         interpret=True, block_q=8)
-    got = KA.fused_attention_packed(q, k, v, torch.from_numpy(LENGTHS), H)
-    assert got.dtype == TORCH_DT[tier] and got.shape == (B, T, D)
+    got = KA.fused_attention_packed(q, k, v, torch.from_numpy(LENGTHS), nh)
+    assert got.dtype == TORCH_DT[tier] and got.shape == (B, T, dm)
     _close(got.float(), want, tier)
     _dead_rows_exact(got.float(), want)
     for b, n in enumerate(LENGTHS):
         assert not got[b, n:].any()
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
-def test_fused_attention_matches_pallas(tier, rng):
+@pytest.mark.parametrize("tier,dm,nh", BARE_CASES, ids=BARE_IDS)
+def test_fused_attention_matches_pallas(tier, dm, nh, rng):
     """Kernel 8: the same function in the (B, H, T, dk) layout; and the
     packed and unpacked plain versions agree exactly."""
-    (jq, jk, jv), (q, k, v) = _qkv(rng, (B, H, T, D // H), tier)
+    (jq, jk, jv), (q, k, v) = _qkv(rng, (B, nh, T, dm // nh), tier)
     want = jattn.fused_attention(jq, jk, jv, jnp.asarray(LENGTHS), interpret=True,
                                  block_q=8)
     got = KA.fused_attention(q, k, v, torch.from_numpy(LENGTHS))
-    assert got.dtype == TORCH_DT[tier] and got.shape == (B, H, T, D // H)
+    assert got.dtype == TORCH_DT[tier] and got.shape == (B, nh, T, dm // nh)
     _close(got.float(), want, tier)
     for b, n in enumerate(LENGTHS):
         assert not got[b, :, n:].any()
-    pack = lambda t: t.transpose(1, 2).reshape(B, T, D)  # noqa: E731
+    pack = lambda t: t.transpose(1, 2).reshape(B, T, dm)  # noqa: E731
     packed = KA.fused_attention_packed(pack(q), pack(k), pack(v),
-                                       torch.from_numpy(LENGTHS), H)
+                                       torch.from_numpy(LENGTHS), nh)
     assert torch.equal(packed, pack(got))
+
+
+@pytest.mark.parametrize("dk,ok", [(64, False), (128, True), (192, True), (256, True),
+                                   (320, False)])
+def test_bare_attention_head_dims(dk, ok):
+    """The CUDA entry of kernels 7 and 8 takes the head dims of its Hopper
+    instantiations (128, 192, 256: the training kernels' set) and refuses
+    the others before it builds anything; the check needs no card."""
+    if ok:
+        KA.check_head_dim("t", dk)
+    else:
+        with pytest.raises(ValueError, match="d_k"):
+            KA.check_head_dim("t", dk)
 
 
 def _ffn_weights(rng, D, Hd, O, k):
