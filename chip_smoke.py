@@ -9,9 +9,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: compile the seven CUDA sources of fastspeech2_tpu_torch/csrc with
    nvcc for sm_90a (all sources at once) and print the build seconds and the
    ptxas register/shared-memory report; the fourteen bf16 training-attention
-   kernels (forward, dQ, dK/dV at d_k 128/192/256, both grid splits) and the
-   six SERVE instantiations of the shared forward (kernels 7 and 8) must
-   show HGMMA and no HMMA in their SASS (cuobjdump) and no ptxas spills.
+   kernels (forward, dQ, dK/dV at d_k 128/192/256, both grid splits), the
+   six SERVE instantiations of the shared forward (kernels 7 and 8) and the
+   twelve widths of the bf16 residual stack (kernel 13) must show HGMMA and
+   no HMMA in their SASS (cuobjdump) and no ptxas spills; the SERVE and
+   residual-stack kernels also no ptxas note of serialized wgmma.
 3. kernels: each of the fourteen kernels (attention_block, ffn_block,
    variance_adaptor, postnet, resstack, attention_res_ln, attention_res,
    fused_attention_packed, fused_attention, ffn_block_pre, fused_ffn, the
@@ -21,8 +23,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    plain PyTorch version on the card, on
    the same bf16-tier inputs at the main paths' shapes (the FFT-block and
    decoder kernels with lengths that leave dead tiles, the MelGAN residual
-   stack at the four stage shapes of a B=16, 768-frame rung, at a single-tile
-   length and in f32, the training attention at the decoder's and the
+   stack at the four stage shapes of a B=16, 768-frame rung (the per-layer
+   cuDNN loop logged beside each), at lengths with one end and both ends in
+   a tile, at widths 96, 48 and 24 (zero-padded to 32) and in f32, the
+   training attention at the decoder's and the
    encoder's training shapes with rate 0 and 0.2, timed at both rates beside
    SDPA at the same dropout_p, with the backward's three launches timed apart
    by the profiler, and in f32); max/mean abs error
@@ -356,19 +360,23 @@ def kernel_phase(torch, results):
 
 def resstack_phase(torch, results, record):
     """Kernel 13 against its plain version: bf16 at the four stage shapes of
-    a B=16, 768-frame rung and at a single-tile length, f32 at a smaller
-    shape. Weights are the default generator's (seed 0), the input is unit
-    normal noise in bf16."""
+    a B=16, 768-frame rung (each beside the per-layer cuDNN loop of
+    fused_resstack=False, logged for context), at a length with both ends in
+    one tile, at a single tile of the JAX kernel, at widths the kernel takes
+    natively beyond 32/64/128/256 (96, 48: a base_channels=192 generator)
+    and at one it zero-pads (24 -> 32); f32 at a smaller shape. Weights are
+    the generators' (seed 0), the input is unit normal noise in bf16."""
     from fastspeech2_tpu_torch.ops.kernels import resstack as KR
-    from fastspeech2_tpu_torch.vocoder.melgan import MelGANGenerator
+    from fastspeech2_tpu_torch.vocoder.melgan import MelGANConfig, MelGANGenerator
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    gen = MelGANGenerator(seed=0)
+    gens = (MelGANGenerator(seed=0), MelGANGenerator(MelGANConfig(base_channels=192), seed=0))
     g = torch.Generator().manual_seed(13)
-    packs = {b.stacks[0].c1.weight.shape[0]: b.stacks for b in gen.blocks}
+    blocks = {b.stacks[0].c1.weight.shape[0]: (gen, b) for gen in gens for b in gen.blocks}
 
     def check(B, S, C, cd, time_it):
-        ws = KR.pack_weights(packs[C], cd)
+        gen, block = blocks[C]
+        ws = KR.pack_weights(block.stacks, cd)
         x = torch.randn(B, S, C, generator=g).to(cd).to(dev)
         got = KR.resstack(x, *ws)
         want = KR.resstack_plain(x, *ws)
@@ -392,11 +400,17 @@ def resstack_phase(torch, results, record):
             return err, None, None
         ms = cuda_time_ms(lambda: KR.resstack(x, *ws))
         pms = cuda_time_ms(lambda: KR.resstack_plain(x, *ws), reps=5)
+        if cd == bf16:  # context, not a gate: the unfused route of the same stage
+            loop_ms = cuda_time_ms(lambda: gen.residual_loop(x, block, bf16), reps=5)
+            log(f"  per-layer cuDNN loop (fused_resstack=False): {loop_ms:.4f} ms")
         return err, ms, pms
 
     with torch.inference_mode():
         check(2, 2048, 64, bf16, False)   # single tile of the JAX kernel
-        check(1, 128, 256, bf16, False)   # one block holds both ends
+        check(1, 128, 256, bf16, False)   # a tile per end
+        check(1, 128, 64, bf16, False)    # one tile holds both ends
+        for B, S, C in ((2, 2048, 96), (2, 4096, 48), (2, 2048, 24)):
+            check(B, S, C, bf16, False)   # widths beyond 32/64/128/256
         for S, C in ((6144, 256), (49152, 128), (98304, 64), (196608, 32)):
             B = 16
             err, ms, pms = check(B, S, C, bf16, True)
@@ -1990,14 +2004,16 @@ def prenorm_concat_phase(torch, results):
 
 
 def wgmma_kernels_sass():
-    """The bf16 attention kernels built on csrc/hopper.cuh are wgmma kernels:
-    HGMMA in their SASS and no mma.sync HMMA (cuobjdump), and ptxas spills
-    nothing in them. attention_train's library: the forward in its TRAIN
-    mode, dQ and dK/dV (every head dim and grid split, 14 kernels);
-    attention's: the forward in its SERVE mode (kernels 7 and 8; 6 kernels),
-    which also keeps no stack frame (its two score arrays stay in
-    registers) and no ptxas note that it serialized wgmma (C7514/C7515:
-    its overlap would be gone)."""
+    """The bf16 kernels built on csrc/hopper.cuh are wgmma kernels: HGMMA in
+    their SASS and no mma.sync HMMA (cuobjdump), and ptxas spills nothing in
+    them. attention_train's library: the forward in its TRAIN mode, dQ and
+    dK/dV (every head dim and grid split, 14 kernels); attention's: the
+    forward in its SERVE mode (kernels 7 and 8; 6 kernels), which also
+    keeps no stack frame (its two score arrays stay in registers);
+    resstack's: the bf16 residual stack at each of its 12 widths (kernel 13;
+    the f32 kernel is exempt). The SERVE and resstack kernels carry no ptxas
+    note that it serialized wgmma (C7514/C7515: their overlap would be
+    gone)."""
     import shutil
 
     from fastspeech2_tpu_torch.ops.kernels import common
@@ -2006,13 +2022,14 @@ def wgmma_kernels_sass():
     for lib, kinds, want in (
             ("attention_train", ("attn_fwd_kernel", "train_bwd_dq_kernel",
                                  "train_bwd_dkv_kernel"), 14),
-            ("attention", ("attn_fwd_kernel",), 6)):
+            ("attention", ("attn_fwd_kernel",), 6),
+            ("resstack", ("resstack_wgmma_kernel",), 12)):
         log_text = common.ptxas_report(lib)
         for line in log_text.splitlines():
             if "serialized" in line:
                 log(f"  ptxas {lib}: {line.strip()}")
-        # the SERVE kernels' overlap exists only if ptxas kept wgmma asynchronous
-        assert lib != "attention" or "serialized" not in log_text, "wgmma serialized"
+        # the overlap of these kernels exists only if ptxas kept wgmma asynchronous
+        assert lib == "attention_train" or "serialized" not in log_text, "wgmma serialized"
         props = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
                            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log_text, re.S)
         sass = subprocess.run([tool, "-sass", str(common._lib_path(lib))], check=True,
@@ -2029,7 +2046,7 @@ def wgmma_kernels_sass():
             log(f"  sass {lib} {kind}{fn[fn.index(kind) + len(kind):][:14]}: {hg} HGMMA, "
                 f"{hm} HMMA, ptxas spill stores/loads {st}/{ld} bytes, stack frame {stack}")
             assert hg > 0 and hm == 0 and (st, ld) == ("0", "0"), fn
-            assert lib == "attention_train" or stack == "0", fn
+            assert lib != "attention" or stack == "0", fn
         assert seen == want, f"expected {want} bf16 wgmma kernels in {lib}, found {seen}"
 
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's redesigned
 // kernels: warpgroup MMA (wgmma) with shared-memory matrix descriptors in the
-// 128-byte swizzle, mbarriers, TMA tile and bulk loads, named barriers and
-// register reallocation (setmaxnreg). Inline PTX keeps the build to seconds
-// (no CuTe/CUTLASS headers).
+// 128-byte swizzle or none (`desc_plain`: row-shifted views), mbarriers, TMA
+// tile and bulk loads (3-D maps of activations, 2-D maps of weights), the
+// async-proxy fence, named barriers and register reallocation (setmaxnreg).
+// Inline PTX keeps the build to seconds (no CuTe/CUTLASS headers).
 //
 // Layout convention. A "sub-tile" is 64 rows x 64 bf16 columns (8 KB): row r
 // at byte r * 128, its 16-byte chunk c stored at chunk c ^ (r % 8), which is
@@ -19,8 +20,11 @@
 //    the reduction) 1024 bytes, LBO (64-column blocks along N) 8192 bytes.
 //    Used with the transpose bit. `mnmajor_desc`.
 //
-// The MMA shape is m64n64k16 (bf16 in, f32 accumulate); a wider output is
-// covered by one accumulator of 32 registers per 64 columns. Accumulator
+// The attention kernels' MMA shape is m64n64k16 (bf16 in, f32 accumulate); a
+// wider output is covered by one accumulator of 32 registers per 64 columns.
+// `wgmma_ss_k<N>` and `wgmma_rs_k<N>` are the K-major products at any N that
+// is a multiple of 16 up to 128 (N / 2 accumulators a thread, the same layout
+// with N / 8 n-tiles), for the conv GEMMs of the residual stack. Accumulator
 // layout (thread t of the warpgroup, i in [0, 32)): row 16 * (t / 32) +
 // (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (t % 4) + i % 2,
 // i.e. mma.sync's m16n8 C fragment per warp, repeated over 8 n-tiles. The
@@ -90,6 +94,13 @@ __device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
   return done != 0;
 }
 
+// One arrival per warp on `bar` (lane 0), after the whole warp got here: a
+// ring stage's release once the warp's products that read it have retired.
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
 // ---- TMA -----------------------------------------------------------------
 // One box of a 3-D tensor map into shared memory; completion counts its bytes
 // on `bar`. c0 is the innermost (column) coordinate.
@@ -101,6 +112,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// One box of a 2-D tensor map (`tma_map_bf16_2d`): c0 column, c1 row.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 // `bytes` (a multiple of 16) of contiguous global memory, both ends 16-byte
 // aligned.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -110,6 +130,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (a wgmma that reads them by descriptor, a TMA store); a barrier
+// after it publishes them to the other threads' products.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- named barriers (id 0 is __syncthreads) -------------------------------
@@ -138,6 +165,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo, uin
   return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
 }
+// No swizzle (K-major, 8 x 16-byte core matrices): lbo the byte stride
+// between the two core matrices of a k-step (along K), sbo between 8-row
+// groups. With rows 16 bytes apart throughout (sbo = 128, a column-chunk-major
+// buffer [K / 8][rows][8]), a view shifted by any number of rows is a base
+// offset of 16 bytes a row.
+__device__ __forceinline__ uint64_t desc_plain(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32);
+}
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int ks) {
   return desc_sw128(base + (ks >> 2) * 8192 + (ks & 3) * 32, 16, 1024);
 }
@@ -157,9 +193,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 // Keeps the compiler from moving accesses of accumulator registers across an
 // asynchronous MMA that owns them.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int M>
+__device__ __forceinline__ void fence_regs(float (&d)[M]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define FS2_WGMMA_D32                                                                       \
@@ -197,6 +234,96 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : FS2_WGMMA_OUT32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
+
+// ---- wgmma at N = 16 .. 128 (the residual stack's conv products) -----------
+// d (+)= A B for a 64 x N tile, N a multiple of 16 up to 128: N / 2 f32
+// accumulators a thread in the layout above (n-tile ni at d[4 ni .. 4 ni + 3]).
+// B is K-major from shared memory (`kmajor_desc`). `wgmma_ss_k`: A from
+// shared memory, K-major, by a descriptor of any swizzle mode (`desc_plain`
+// for a row-shifted view); `wgmma_rs_k`: A from registers (the m16n8k16 A
+// fragment of the warp's 16 rows).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_k(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d);
+
+// operand lists of 8 Q accumulators: "%0, ..., %(8Q - 1)" and d[0 .. 8Q - 1]
+#define FS2_O8(d, b)                                                                   \
+  "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),          \
+      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define FS2_ACC_S1 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define FS2_ACC_S2 FS2_ACC_S1 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define FS2_ACC_S3 FS2_ACC_S2 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define FS2_ACC_S4 FS2_ACC_S3 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define FS2_ACC_S5 FS2_ACC_S4 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define FS2_ACC_S6 FS2_ACC_S5 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define FS2_ACC_S7 FS2_ACC_S6 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define FS2_ACC_S8 FS2_ACC_S7 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define FS2_ACC_O1(d) FS2_O8(d, 0)
+#define FS2_ACC_O2(d) FS2_ACC_O1(d), FS2_O8(d, 8)
+#define FS2_ACC_O3(d) FS2_ACC_O2(d), FS2_O8(d, 16)
+#define FS2_ACC_O4(d) FS2_ACC_O3(d), FS2_O8(d, 24)
+#define FS2_ACC_O5(d) FS2_ACC_O4(d), FS2_O8(d, 32)
+#define FS2_ACC_O6(d) FS2_ACC_O5(d), FS2_O8(d, 40)
+#define FS2_ACC_O7(d) FS2_ACC_O6(d), FS2_O8(d, 48)
+#define FS2_ACC_O8(d) FS2_ACC_O7(d), FS2_O8(d, 56)
+#define FS2_WGMMA_SS_K(N, Q, IA, IB, IP)                                                    \
+  template <>                                                                               \
+  __device__ __forceinline__ void wgmma_ss_k<N>(float (&d)[N / 2], uint64_t da, uint64_t db, \
+                                                int scale_d) {                              \
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" #IP ", 0;\n"                         \
+                 " wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" FS2_ACC_S##Q \
+                 "}, %" #IA ", %" #IB ", p, 1, 1, 0, 0;\n}\n"                                \
+                 : FS2_ACC_O##Q(d)                                                          \
+                 : "l"(da), "l"(db), "r"(scale_d));                                         \
+  }
+#define FS2_WGMMA_RS_K(N, Q, A0, A1, A2, A3, IB, IP)                                        \
+  template <>                                                                               \
+  __device__ __forceinline__ void wgmma_rs_k<N>(float (&d)[N / 2], const uint32_t (&a)[4],  \
+                                                uint64_t db, int scale_d) {                 \
+    asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %" #IP ", 0;\n"                         \
+                 " wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" FS2_ACC_S##Q \
+                 "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #IB ", p, 1, 1, 0;\n}\n"  \
+                 : FS2_ACC_O##Q(d)                                                          \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));     \
+  }
+FS2_WGMMA_SS_K(16, 1, 8, 9, 10)
+FS2_WGMMA_SS_K(32, 2, 16, 17, 18)
+FS2_WGMMA_SS_K(48, 3, 24, 25, 26)
+FS2_WGMMA_SS_K(64, 4, 32, 33, 34)
+FS2_WGMMA_SS_K(80, 5, 40, 41, 42)
+FS2_WGMMA_SS_K(96, 6, 48, 49, 50)
+FS2_WGMMA_SS_K(112, 7, 56, 57, 58)
+FS2_WGMMA_SS_K(128, 8, 64, 65, 66)
+FS2_WGMMA_RS_K(16, 1, 8, 9, 10, 11, 12, 13)
+FS2_WGMMA_RS_K(32, 2, 16, 17, 18, 19, 20, 21)
+FS2_WGMMA_RS_K(48, 3, 24, 25, 26, 27, 28, 29)
+FS2_WGMMA_RS_K(64, 4, 32, 33, 34, 35, 36, 37)
+FS2_WGMMA_RS_K(80, 5, 40, 41, 42, 43, 44, 45)
+FS2_WGMMA_RS_K(96, 6, 48, 49, 50, 51, 52, 53)
+FS2_WGMMA_RS_K(112, 7, 56, 57, 58, 59, 60, 61)
+FS2_WGMMA_RS_K(128, 8, 64, 65, 66, 67, 68, 69)
+#undef FS2_WGMMA_SS_K
+#undef FS2_WGMMA_RS_K
+#undef FS2_ACC_S1
+#undef FS2_ACC_O1
+#undef FS2_ACC_S2
+#undef FS2_ACC_O2
+#undef FS2_ACC_S3
+#undef FS2_ACC_O3
+#undef FS2_ACC_S4
+#undef FS2_ACC_O4
+#undef FS2_ACC_S5
+#undef FS2_ACC_O5
+#undef FS2_ACC_S6
+#undef FS2_ACC_O6
+#undef FS2_ACC_S7
+#undef FS2_ACC_O7
+#undef FS2_ACC_S8
+#undef FS2_ACC_O8
+#undef FS2_O8
 
 #undef FS2_WGMMA_D32
 #undef FS2_WGMMA_OUT32
@@ -244,6 +371,30 @@ static inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base, uint6
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 2-D map over a row-major matrix (cols, rows; row stride in
+// elements), read in {64, box_rows} boxes with the 128-byte swizzle: a box
+// lands as box_rows K-major rows of 128 bytes, `kmajor_desc`'s layout.
+// Columns past `cols` read as zeros.
+static inline cudaError_t tma_map_bf16_2d(CUtensorMap* map, const void* base, uint64_t cols,
+                                          uint64_t rows, uint64_t row_stride,
+                                          uint32_t box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  int dev = 0;  // a current context, as in tma_map_bf16
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_stride * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

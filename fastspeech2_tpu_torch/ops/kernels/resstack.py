@@ -4,7 +4,15 @@ dilation, on a (B, S, C) activation.
 
 Port of ``fastspeech2_tpu/ops/pallas/resstack.py:resstack_fused`` (kernel
 ``_resstack_kernel``). CUDA source: ``csrc/resstack.cu`` (one launch per
-stage; a bf16 tensor-core kernel and an f32 kernel).
+stage; a bf16 wgmma/TMA kernel and an f32 kernel).
+
+Widths: the bf16 kernel takes C a multiple of 16 up to 128 and of 32 up to
+256 (``served_width``); any other C up to 256 is zero-padded to the next of
+those (``pad_channels``), as the JAX kernel pads to 128 lanes: zero weight
+rows and columns and zero biases keep the padded channels at exactly 0
+through every block, so the real channels are unchanged. C > 256 raises (the
+64 x C f32 output of a warpgroup would need C / 2 registers a thread). The
+f32 kernel takes C a multiple of 8 up to 256.
 
 Rounding points follow the TPU kernel (cd = the compute dtype, the weights'
 dtype): ``lrelu`` of the cd activation is rounded to cd; the three taps'
@@ -41,6 +49,28 @@ def resstack_tile(S: int) -> int:
         if S % t == 0 and S >= t:
             return t
     return 0
+
+
+def served_width(C: int) -> int:
+    """The bf16 kernel's width for a C-channel stage: C rounded up to a
+    multiple of 16 up to 128, of 32 up to 256; 0 above 256."""
+    if C <= 128:
+        return max(16, -(-C // 16) * 16)
+    return -(-C // 32) * 32 if C <= 256 else 0
+
+
+def pad_channels(x, w1, b1, w2, b2, Cp: int):
+    """The stage's input and weights zero-padded from C to Cp channels
+    (w1 laid out (out, tap, in), w2 (out, in)); the padded channels of the
+    output are exact zeros and its first C are the unpadded stage's (the
+    padding adds zero terms only)."""
+    n, C = w2.shape[0], x.shape[-1]
+    p = Cp - C
+    x = F.pad(x, (0, p))
+    w1 = F.pad(w1.reshape(n, C, 3, C), (0, p, 0, 0, 0, p)).reshape(n, Cp, 3 * Cp)
+    w2 = F.pad(w2, (0, p, 0, p))
+    b1, b2 = F.pad(b1, (0, p)), F.pad(b2, (0, p))
+    return x, w1.contiguous(), b1.contiguous(), w2.contiguous(), b2.contiguous()
 
 
 def resstack_plain(x, w1, b1, w2, b2, dilations: Sequence[int] = (1, 3, 9)):
@@ -84,8 +114,15 @@ def resstack(x, w1, b1, w2, b2, dilations: Sequence[int] = (1, 3, 9)):
     if not 1 <= n <= 8 or min(dilations) < 1:
         raise ValueError(f"resstack: dilations {tuple(dilations)} not supported")
     bf16 = cd == torch.bfloat16
-    if (bf16 and C not in (32, 64, 128, 256)) or (not bf16 and (C % 8 or C > 256)):
+    Cp = served_width(C) if bf16 else C
+    if Cp == 0:
+        raise ValueError(f"resstack: C={C} not supported by the {cd} kernel (at most "
+                         "256: a warpgroup's 64 x C f32 output takes C / 2 registers "
+                         "a thread)")
+    if not bf16 and (C % 8 or C > 256):
         raise ValueError(f"resstack: C={C} not supported by the {cd} kernel")
+    if Cp != C:
+        return resstack(*pad_channels(x, w1, b1, w2, b2, Cp), dilations)[..., :C].contiguous()
     fn = _fns.get(cd)
     if fn is None:
         P, I = common.P, common.I

@@ -206,6 +206,18 @@ class MelGANGenerator(tnn.Module):
             return kern, resstack_kernel.pack_weights(block.stacks, cd)
         return common.cached_pack(block, list(block.parameters()), build)
 
+    def residual_loop(self, x: torch.Tensor, block: _Block, cd) -> torch.Tensor:
+        """One stage's residual blocks as the per-layer loop of plain convs
+        (cuDNN on the card): the route of ``fused_resstack=False``."""
+        for d, stack in zip(self.cfg.resstack_dilations, block.stacks):
+            y = _lrelu(x, cd)
+            y = _conv1d_reflect(y, _q(stack.c1.weight, cd), _q(stack.c1.bias, cd),
+                                dilation=d, cd=cd)
+            y = _lrelu(y, cd)
+            y = _conv1d_reflect(y, _q(stack.c2.weight, cd), _q(stack.c2.bias, cd), cd=cd)
+            x = _q(x + y, cd)
+        return x
+
     @torch.inference_mode()
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         cd = torch.bfloat16 if self.bf16 else None
@@ -227,14 +239,7 @@ class MelGANGenerator(tnn.Module):
                 x = resstack_kernel.resstack(x.contiguous(), *stack_w,
                                              self.cfg.resstack_dilations)
             else:
-                for d, stack in zip(self.cfg.resstack_dilations, block.stacks):
-                    y = _lrelu(x, cd)
-                    y = _conv1d_reflect(y, _q(stack.c1.weight, cd),
-                                        _q(stack.c1.bias, cd), dilation=d, cd=cd)
-                    y = _lrelu(y, cd)
-                    y = _conv1d_reflect(y, _q(stack.c2.weight, cd),
-                                        _q(stack.c2.bias, cd), cd=cd)
-                    x = _q(x + y, cd)
+                x = self.residual_loop(x, block, cd)
         x = _lrelu(x, cd)
         x = _conv1d_reflect(x, _q(self.post.weight, cd), _q(self.post.bias, cd), cd=cd)
         return _q(torch.tanh(x), cd)[..., 0].float()

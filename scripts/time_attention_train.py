@@ -18,8 +18,9 @@ shapes (16, 768, 384) (decoder rung) and (32, 128, 256) (encoder), two heads,
 the same kind of lengths; for them also the host's time to enqueue one call
 (``host_ms``: wrapper, tensor maps and launch, 200 calls back to back).
 ``digest`` holds a hash of each kernel's outputs (kernel 11 and 12: forward
-and gradients at rate 0.2 at the decoder shape; kernel 7: its output at both
-shapes), so two trees can be checked for the same bits. Prints the card's
+and gradients at rate 0.2 at the decoder shape; kernels 7 and 8: their
+outputs at both shapes), so two trees can be checked for the same bits;
+``--digest-only`` computes those and skips the timings. Prints the card's
 name and power limit, then one JSON line. To compare two trees, run parent,
 change, change, parent in one command on the same card.
 """
@@ -41,6 +42,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--digest-only", action="store_true")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -98,7 +100,7 @@ def main() -> int:
                 o = kern(q, k, v)
                 out["digest"][f"{name} B={B},T={T},D={D}"] = digest(
                     o, *torch.autograd.grad(o, (q, k, v), do))
-            for rate in (0.0, 0.2):
+            for rate in () if args.digest_only else (0.0, 0.2):
                 key = f"{name} B={B},T={T},D={D} rate={rate}"
                 out["times"][key] = smoke.train_attention_times(
                     torch, KT, packed, q, k, v, do, lens, H, rate)
@@ -115,6 +117,10 @@ def main() -> int:
         with torch.no_grad():
             out["digest"][f"k7 B={B},T={T},D={D}"] = digest(
                 KA.fused_attention_packed(q, k, v, lens, H))
+            out["digest"][f"k8 B={B},T={T},D={D}"] = digest(
+                KA.fused_attention(q8, k8, v8, lens))
+            if args.digest_only:
+                continue
             for name, fn in (
                     ("k7", lambda: KA.fused_attention_packed(q, k, v, lens, H)),
                     ("sdpa_packed", lambda: F.scaled_dot_product_attention(

@@ -163,13 +163,18 @@ def _stage(C, dev, cd, g, scale=1.0):
 
 
 @pytest.mark.parametrize("B,S,C", [(2, 2048, 256), (2, 4096, 128), (3, 2048, 64),
-                                   (2, 6144, 32), (1, 128, 64)])
+                                   (2, 6144, 32), (1, 128, 64), (2, 2048, 48),
+                                   (2, 1024, 96), (1, 512, 160), (2, 640, 16),
+                                   (1, 384, 256), (2, 256, 24), (1, 256, 200)])
 def test_resstack_bf16(dev, B, S, C):
     """bf16 kernel vs its plain version: single-tile and multi-tile lengths,
-    first and last tile (reflection) included. Tolerance relative to the
-    plain output's scale: both sides round at the same points, so they
-    differ by accumulation order only: max < 2^-6 (two bf16 ulps of the
-    largest values), mean < 1e-4."""
+    first and last tile (reflection) included; every kind of width: two
+    hidden chunks (C > 128), one, and two row chunks a warpgroup (C <= 32);
+    S = 384 and 640 are tileable but no multiple of the kernel's time tile
+    (102 rows at C = 256, 230 at C = 16); C = 24 and 200 are zero-padded to
+    32 and 224. Tolerance relative to the plain output's scale: both sides
+    round at the same points, so they differ by accumulation order only:
+    max < 2^-6 (two bf16 ulps of the largest values), mean < 1e-4."""
     from fastspeech2_tpu_torch.ops.kernels import resstack as KR
 
     g = torch.Generator().manual_seed(S + C)
@@ -217,9 +222,9 @@ def test_resstack_rejects_bad_inputs(dev):
         KR.resstack(xb[:, :13], *ws)
     with pytest.raises(ValueError, match="multiple"):
         KR.resstack(xb[:, :2000].contiguous(), *ws)
-    with pytest.raises(ValueError, match="C=48"):
-        KR.resstack(torch.zeros(1, 2048, 48, dtype=torch.bfloat16, device=dev),
-                    *_stage(48, dev, torch.bfloat16, g))
+    with pytest.raises(ValueError, match="C=512"):
+        KR.resstack(torch.zeros(1, 2048, 512, dtype=torch.bfloat16, device=dev),
+                    *_stage(512, dev, torch.bfloat16, g))
 
 
 @pytest.mark.parametrize("B,T,D", [(3, 96, 256), (2, 160, 384)])

@@ -245,12 +245,15 @@ def _stack_weights(rng, C, n=3):
 
 
 @pytest.mark.parametrize("tier", ["f32", "bf16"])
-@pytest.mark.parametrize("B,S,C", [(2, 512, 8), (1, 128, 128), (2, 256, 32)])
+@pytest.mark.parametrize("B,S,C", [(2, 512, 8), (1, 128, 128), (2, 256, 32), (1, 128, 48),
+                                   (1, 128, 96)])
 def test_resstack_matches_pallas(tier, rng, B, S, C):
     """Kernel 13: three dilated residual blocks with per-layer reflection at
     the sequence ends. (2, 512, 8): four 128-sample tiles of the JAX kernel
     at C < 128 (channel padding on the JAX side only); (1, 128, 128): a
-    single tile holding both ends; (2, 256, 32): two tiles. f32 1e-5; bf16,
+    single tile holding both ends; (2, 256, 32): two tiles; C = 48 and 96:
+    widths the CUDA kernel takes natively since it runs on wgmma (before,
+    only 32/64/128/256). f32 1e-5; bf16,
     where both sides round at the same points and activations grow through
     the residual adds: 2 bf16 ulps (2^-7) of the output's scale at most, and
     under 2^-11 of it on average."""
@@ -272,6 +275,38 @@ def test_resstack_matches_pallas(tier, rng, B, S, C):
         d, scale = np.abs(got.numpy() - want), np.abs(want).max()
         assert d.max() <= scale * 2.0 ** -7 and d.mean() < scale * 2.0 ** -11, (
             d.max(), d.mean(), scale)
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [1, 24, 100, 200])
+def test_resstack_pads_unserved_widths(tier, rng, C):
+    """The wrapper zero-pads a width the CUDA kernel does not take to the
+    next one it does (``served_width``: multiples of 16 up to 128, of 32 up
+    to 256): the padded channels stay exact zeros and the real ones are the
+    unpadded function's (zero weights and biases add exact zeros; only the
+    f32 summation order of the longer products differs), here through the
+    plain version. Bands as for the Pallas comparison above."""
+    td = TORCH_DT[tier]
+    Cp = KR.served_width(C)
+    assert Cp >= C and (Cp % 16 == 0 if Cp <= 128 else Cp % 32 == 0)
+    assert Cp - C < (16 if Cp <= 128 else 32)
+    w1, b1, w2, b2 = _stack_weights(rng, C)
+    x = _t(rng.normal(size=(2, 128, C))).to(td).float()
+    args = (x, _t(w1.transpose(0, 3, 1, 2).reshape(3, C, 3 * C)).to(td), _t(b1).to(td).float(),
+            _t(w2.transpose(0, 2, 1)).to(td), _t(b2).to(td).float())
+    padded = KR.pad_channels(*args, Cp)
+    assert padded[1].shape == (3, Cp, 3 * Cp) and padded[3].shape == (3, Cp, Cp)
+    got = KR.resstack_plain(*padded)
+    want = KR.resstack_plain(*args).numpy()
+    if tier == "f32":
+        np.testing.assert_allclose(got[..., :C].numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        d, scale = np.abs(got[..., :C].numpy() - want), np.abs(want).max()
+        assert d.max() <= scale * 2.0 ** -7 and d.mean() < scale * 2.0 ** -11, (
+            d.max(), d.mean(), scale)
+    assert not got[..., C:].any()
+    assert [KR.served_width(c) for c in (16, 48, 128, 129, 256, 257, 512)] == [
+        16, 48, 128, 160, 256, 0, 0]
 
 
 def test_resstack_pack_weights_and_tile():

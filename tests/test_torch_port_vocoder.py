@@ -147,6 +147,24 @@ def test_generator_routes(rng, jparams, monkeypatch):
     assert [c[2] for c in calls] == [4, 2]
 
 
+def test_generator_routes_other_widths(rng, monkeypatch):
+    """A generator whose stage widths the old bf16 kernel refused
+    (base_channels=96: 48, 24, 12, 6) hands every tileable stage to the
+    wrapper, which the card's kernel now serves (natively or zero-padded)."""
+    from fastspeech2_tpu_torch.ops.kernels import resstack as KR
+
+    calls = []
+    real = KR.resstack
+    monkeypatch.setattr(KR, "resstack", lambda x, *a, **k: (calls.append(tuple(x.shape)),
+                                                          real(x, *a, **k))[1])
+    gen = P.MelGANGenerator(P.MelGANConfig(base_channels=96), bf16=True,
+                            fused_resstack=True, device="cpu")
+    gen(_t(_mel(rng, B=1, T=16)))
+    # T=16: stage lengths 128, 1024, 2048, 4096, all tileable
+    assert [(c[1], c[2]) for c in calls] == [(128, 48), (1024, 24), (2048, 12), (4096, 6)]
+    assert all(KR.served_width(c[2]) > 0 for c in calls)
+
+
 def test_inference_pads_and_trims(rng, jparams):
     mel = _mel(rng, B=1, T=6)
     want = np.asarray(J.MelGANGenerator(JCFG).inference(jparams, jnp.asarray(mel)))
