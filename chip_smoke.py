@@ -10,10 +10,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    nvcc for sm_90a (all sources at once) and print the build seconds and the
    ptxas register/shared-memory report; the fourteen bf16 training-attention
    kernels (forward, dQ, dK/dV at d_k 128/192/256, both grid splits), the
-   six SERVE instantiations of the shared forward (kernels 7 and 8) and the
-   twelve widths of the bf16 residual stack (kernel 13) must show HGMMA and
-   no HMMA in their SASS (cuobjdump) and no ptxas spills; the SERVE and
-   residual-stack kernels also no ptxas note of serialized wgmma.
+   six SERVE instantiations of the shared forward (kernels 7 and 8), the
+   twelve widths of the bf16 residual stack (kernel 13) and the 18 conv-FFN
+   kernels (2, 9, 10: k-tap conv and k=1 conv with its epilogue) must show
+   HGMMA and no HMMA in their SASS (cuobjdump) and no ptxas spills; the
+   SERVE, residual-stack and FFN kernels also no ptxas note of serialized
+   wgmma.
 3. kernels: each of the fourteen kernels (attention_block, ffn_block,
    variance_adaptor, postnet, resstack, attention_res_ln, attention_res,
    fused_attention_packed, fused_attention, ffn_block_pre, fused_ffn, the
@@ -29,14 +31,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    training attention at the decoder's and the
    encoder's training shapes with rate 0 and 0.2, timed at both rates beside
    SDPA at the same dropout_p, with the backward's three launches timed apart
-   by the profiler, and in f32); max/mean abs error
+   by the profiler, and in f32; the FFN kernels 2, 9 and 10 at both shapes
+   with their device times by the profiler, and at the shapes their tiling
+   makes risky: T under and off the tiles, D = 512, D = 1024 at H = 4096,
+   H = 1056, k = 1 and 3, O = 80 and 200); max/mean abs error
    against the stated tolerance; kernel and plain times (CUDA events, median
    of 25) beside the least time the card could take for the same work (for
    stft_mel_energy counted by an FFT and the sparse mel projection) and,
    for the training attention and the bare attention (fused_attention_packed,
    fused_attention), one scaled_dot_product_attention call (for the bare
    attention also both device times per call, by the profiler); the dead
-   rows of the pre-LN and bare kernels against their exact constants; kernel
+   rows of the pre-LN and bare kernels against their exact constants, and of
+   the FFN kernels from len + (k - 1) / 2 on against the call's one
+   bias-only row c (10: c bit for bit; 9: x + c, 2: LN(x + c), within
+   1e-5); kernel
    7 against kernel 11's forward at rate 0, bit for bit (one body), at both
    shapes and at T = 2048, where 7 and 8 also meet their plain versions.
 4. mel path: the default-config model (random weights from seed 0, duration
@@ -209,11 +217,52 @@ def compare(name, got, want, mean_tol, max_tol, rtol=0.0):
     return mx
 
 
+def ffn_bias_row(torch, KF, w, k):
+    """The bias-only row c = round(relu(round(b1)) W2) + b2 of the FFN
+    weights w = (w1, b1, w2, b2) in f32, by kernel 10: row k - 1 of a
+    length-0 input, past its halo."""
+    dev, D = w[0].device, w[0].shape[1] // k
+    x0 = torch.zeros(1, k, D, dtype=torch.bfloat16, device=dev)
+    lens0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    return KF.fused_ffn(x0, *w, lens0, k, torch.float32)[0, -1]
+
+
+def ffn_dead_rows(name, got, lens, k, want_from, exact=False):
+    """Every row t >= len + (k - 1) / 2 of every batch row of an FFN kernel's
+    output against want_from(b, t0) (its rows t0 on): bit for bit, or within
+    1e-5 (the f32 rounding of the residual add and of the LayerNorm)."""
+    T, rows, worst = got.shape[1], 0, 0.0
+    for b, n in enumerate(lens.tolist()):
+        t0 = min(T, max(0, n) + (k - 1) // 2)
+        if t0 == T:
+            continue
+        want = want_from(b, t0).expand_as(got[b, t0:])
+        if exact:
+            assert bool((got[b, t0:] == want).all()), f"{name}: dead rows of row {b}"
+        else:
+            worst = max(worst, float((got[b, t0:].float() - want.float()).abs().max()))
+        rows += T - t0
+    assert worst < 1e-5, f"{name}: dead rows {worst}"
+    log(f"  {name}: {rows} rows from len + {(k - 1) // 2} on hold the call's one bias-only "
+        f"row c ({'bit for bit' if exact else f'max abs {worst:.2e}, tolerance 1e-5'})")
+
+
+def record_device_ms(torch, results, name, key, fn):
+    """The profiler's device time per call of fn (every launch it makes)
+    beside the events' time of `record`."""
+    by = device_ms_by_kernel(torch, fn)
+    d = sum(by.values()) or None
+    results[name].setdefault("device_ms", {})[key] = d
+    log(f"  {name} {key}: device time per call (profiler) {d} ms "
+        f"({', '.join(f'{n} {v:.4f}' for n, v in by.items())})")
+
+
 def kernel_phase(torch, results):
     """Each kernel against its plain version at the serving path's shapes."""
     from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
     from fastspeech2_tpu_torch.models.postnet import Postnet, PostnetConfig
     from fastspeech2_tpu_torch.models.predictors import Predictor, PredictorConfig
+    from fastspeech2_tpu_torch.ops import nn
     from fastspeech2_tpu_torch.ops.kernels import adaptor as KAd
     from fastspeech2_tpu_torch.ops.kernels import attention as KA
     from fastspeech2_tpu_torch.ops.kernels import ffn as KF
@@ -275,15 +324,20 @@ def kernel_phase(torch, results):
             fp = blk.ffn_pack(bf16)
             got = KF.ffn_block(x, *fp, lens, 9)
             want = KF.ffn_block_plain(x, *fp, lens, 9)
+            c = ffn_bias_row(torch, KF, fp[:4], 9)
             torch.cuda.synchronize()
             log(f"kernel ffn_block {shape_key}")
             err = compare("ffn_block", got, want, 2e-3, 0.1)
+            ffn_dead_rows("ffn_block", got, lens, 9,
+                          lambda b, t0: nn.layer_norm(x[b, t0:] + c, fp[4], fp[5]))
             ms = cuda_time_ms(lambda: KF.ffn_block(x, *fp, lens, 9))
             pms = cuda_time_ms(lambda: KF.ffn_block_plain(x, *fp, lens, 9))
             flops = sum(min(l + 4, T) * 2 * (9 * D * 1024 + 1024 * D) for l in lc)
             record("ffn_block", "fastspeech2_tpu_torch/csrc/ffn.cu",
                    "fastspeech2_tpu/ops/pallas/ffn.py:344", err, ms, pms, flops,
                    nbytes(x, x, *fp))
+            record_device_ms(torch, results, "ffn_block", shape_key,
+                             lambda: KF.ffn_block(x, *fp, lens, 9))
 
     # kernel 3 and 4: a decoder rung shape
     B, T, L, D, C, NB = 16, 128, 768, 256, 256, 256
@@ -356,6 +410,7 @@ def kernel_phase(torch, results):
     resstack_phase(torch, results, record)
     attention_res_ln_phase(torch, results, record)
     prenorm_kernel_phase(torch, results, record)
+    ffn_edges_phase(torch, results)
 
 
 def resstack_phase(torch, results, record):
@@ -1617,12 +1672,14 @@ def prenorm_kernel_phase(torch, results, record):
     """Kernels 6-10 against their plain versions on the card: 6 (pre-LN
     attention half), 7 (bare attention, heads packed) and 8 (its (B, H, T,
     dk) twin) at the encoder shape (B=32, T=128, D=256) and the decoder rung
-    (B=16, T=768, D=384); 9 (pre-LN FFN half) at both shapes and 10 (bare
-    FFN, O = D) at the decoder rung, H=1024, k=9. q/k/v come from a block's projections of
-    LN(x); random lengths with one full and one short row. Dead rows hold
-    their exact constants: res + bo (6), zeros (7, 8), x + the bias row (9),
-    the bias row (10). Library: one scaled_dot_product_attention call with a
-    boolean key mask for 7 and 8 (the same function on the live rows)."""
+    (B=16, T=768, D=384); 9 (pre-LN FFN half) and 10 (bare FFN, O = D) at
+    both shapes, H=1024, k=9, with their device times by the profiler. q/k/v
+    come from a block's projections of LN(x); random lengths with one full
+    and one short row. Dead rows hold their exact constants: res + bo (6),
+    zeros (7, 8), x + c (9, within 1e-5) and c (10, bit for bit) from len + 4
+    on, c the call's one bias-only row. Library: one
+    scaled_dot_product_attention call with a boolean key mask for 7 and 8
+    (the same function on the live rows)."""
     import torch.nn.functional as F
 
     from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
@@ -1723,56 +1780,113 @@ def prenorm_kernel_phase(torch, results, record):
                 log(f"  {name} {key}: device time per call (profiler) {d_k} ms, the "
                     f"library call's {d_l} ms")
 
-            # kernel 9 at both shapes, kernel 10 at the decoder rung: the FFN
-            # over l + 4 rows
+            # kernels 9 and 10 at both shapes: the FFN over l + 4 rows; rows
+            # from len + 4 on carry the one bias-only row c of the call
             fp = blk.ffn_pack(bf16)
+            w = fp[:4]
+            c = ffn_bias_row(torch, KF, w, K)
             ffn_flops = sum(min(l + (K - 1) // 2, T) * 2 * (K * D * HID + HID * D) for l in lc)
             got = KF.ffn_block_pre(x, *fp, lens, K)
             want = KF.ffn_block_pre_plain(x, *fp, lens, K)
             torch.cuda.synchronize()
             log(f"kernel ffn_block_pre {key}, H={HID}, k={K}")
             err = compare("ffn_block_pre", got, want, 2e-3, 0.1)
-            const = []
-            for b, n in enumerate(lc):  # dead tiles: x + one bias row
-                t0 = -(-(n + (K - 1) // 2) // 64) * 64
-                if t0 < T:
-                    c = got[b, t0:] - x[b, t0:]
-                    assert float((c - c[:1]).abs().max()) < 1e-5, f"ffn_block_pre dead tile {b}"
-                    const.append(c[0])
-            log(f"  ffn_block_pre: {len(const)} rows with dead tiles hold x + one bias row")
+            ffn_dead_rows("ffn_block_pre", got, lens, K, lambda b, t0: x[b, t0:] + c)
             # x is read whole (every output row is x + ...), the output written whole
             record("ffn_block_pre", src_f, "fastspeech2_tpu/ops/pallas/ffn.py:228", err,
                    cuda_time_ms(lambda: KF.ffn_block_pre(x, *fp, lens, K)),
                    cuda_time_ms(lambda: KF.ffn_block_pre_plain(x, *fp, lens, K)),
                    ffn_flops, nbytes(x, got, *fp), key)
-            if D != 384:
-                continue
+            record_device_ms(torch, results, "ffn_block_pre", key,
+                             lambda: KF.ffn_block_pre(x, *fp, lens, K))
             xb = y.to(bf16)
-            w = fp[:4]
             got = KF.fused_ffn(xb, *w, lens, K)
             want = KF.fused_ffn_plain(xb, *w, lens, K)
             torch.cuda.synchronize()
             log(f"kernel fused_ffn {key}, H={HID}, O={D}, k={K}, bf16 out")
             err = compare("fused_ffn", got, want, 2e-3, 0.1)
-            rows = []
-            for b, n in enumerate(lc):  # dead tiles: the one bias row
-                t0 = -(-(n + (K - 1) // 2) // 64) * 64
-                if t0 < T:
-                    assert torch.equal(got[b, t0:], got[b, t0:t0 + 1].expand(T - t0, D)), b
-                    rows.append(got[b, t0].float())
-            if rows and const:
-                compare("fused_ffn bias row (bf16) vs ffn_block_pre's (f32)", rows[0],
-                        const[0], 2e-3, 0.1)
-            err = max(err, compare("fused_ffn f32 out", KF.fused_ffn(xb, *w, lens, K, torch.float32),
-                                   KF.fused_ffn_plain(xb, *w, lens, K, torch.float32), 2e-3, 0.1))
+            ffn_dead_rows("fused_ffn", got, lens, K, lambda b, t0: c.to(bf16), exact=True)
+            got32 = KF.fused_ffn(xb, *w, lens, K, torch.float32)
+            err = max(err, compare("fused_ffn f32 out", got32,
+                                   KF.fused_ffn_plain(xb, *w, lens, K, torch.float32),
+                                   2e-3, 0.1))
+            ffn_dead_rows("fused_ffn f32 out", got32, lens, K, lambda b, t0: c, exact=True)
             record("fused_ffn", src_f, "fastspeech2_tpu/ops/pallas/ffn.py:101", err,
                    cuda_time_ms(lambda: KF.fused_ffn(xb, *w, lens, K)),
                    cuda_time_ms(lambda: KF.fused_ffn_plain(xb, *w, lens, K)),
                    ffn_flops, sum(lc) * D * 2 + nbytes(got, *w), key)
+            record_device_ms(torch, results, "fused_ffn", key,
+                             lambda: KF.fused_ffn(xb, *w, lens, K))
+            results["fused_ffn"]["main_shape"] = "B=16,T=768,D=384"
     for name in ("fused_attention", "fused_ffn"):
         # launches: read from the prenorm path's counted run
         results[name]["note"] = "no model route reaches it (as in the JAX package)"
     bare_attention_checks(torch, results)
+
+
+FFN_EDGES = ((3, 40, 256, 1024, 9), (2, 200, 384, 1024, 9), (2, 160, 512, 1024, 9),
+             (2, 100, 1024, 4096, 9), (3, 130, 256, 1056, 3), (3, 96, 384, 1024, 1),
+             (2, 70, 384, 1024, 3))
+
+
+def ffn_edges_phase(torch, results):
+    """Kernels 2, 9 and 10 at shapes their tiling makes risky, against their
+    plain versions (mean < 2e-3, max < 0.1): (B, T, D, H, k) with T under one
+    64-row tile and no multiple of the tiles, D = 512 (fewer ring stages),
+    D = 1024 at H = 4096 (64-row conv tiles, two column passes, the row
+    LayerNorm launch), H = 1056, k = 1 and 3; kernel 10 also at O = 80 and
+    200. Lengths 0, 1 and T; every row from len + (k - 1) / 2 on holds c,
+    x + c or LN(x + c) for the call's one bias-only row c."""
+    from fastspeech2_tpu_torch.ops import nn
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(9)
+
+    def weights(D, H, O, k):
+        w1 = (torch.randn(H, k * D, generator=g) / (k * D) ** 0.5).to(bf16).to(dev)
+        w2 = (torch.randn(O, H, generator=g) / H ** 0.5).to(bf16).to(dev)
+        return w1, (0.1 * torch.randn(H, generator=g)).to(dev), w2, \
+            (0.1 * torch.randn(O, generator=g)).to(dev)
+
+    with torch.inference_mode():
+        for B, T, D, H, k in FFN_EDGES:
+            w = weights(D, H, D, k)
+            ln_g = (1.0 + 0.2 * torch.randn(D, generator=g)).to(dev)
+            ln_b = (0.1 * torch.randn(D, generator=g)).to(dev)
+            x = (2.0 * torch.randn(B, T, D, generator=g) + 0.5).to(dev)
+            lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+            lens[0], lens[-1] = T, 0
+            lens[1] = 1 if B > 2 else lens[1]
+            lens = lens.to(dev)
+            c = ffn_bias_row(torch, KF, w, k)
+            log(f"kernels ffn_block, ffn_block_pre, fused_ffn at B={B}, T={T}, D={D}, H={H}, "
+                f"k={k}: plan {tuple(KF.plan(D, H, k, D))}")
+            xb = x.to(bf16)
+            for name, got, want, dead, exact in (
+                    ("ffn_block", KF.ffn_block(x, *w, ln_g, ln_b, lens, k),
+                     KF.ffn_block_plain(x, *w, ln_g, ln_b, lens, k),
+                     lambda b, t0: nn.layer_norm(x[b, t0:] + c, ln_g, ln_b), False),
+                    ("ffn_block_pre", KF.ffn_block_pre(x, *w, ln_g, ln_b, lens, k),
+                     KF.ffn_block_pre_plain(x, *w, ln_g, ln_b, lens, k),
+                     lambda b, t0: x[b, t0:] + c, False),
+                    ("fused_ffn", KF.fused_ffn(xb, *w, lens, k, torch.float32),
+                     KF.fused_ffn_plain(xb, *w, lens, k, torch.float32),
+                     lambda b, t0: c, True)):
+                torch.cuda.synchronize()
+                err = compare(name, got, want, 2e-3, 0.1)
+                ffn_dead_rows(name, got, lens, k, dead, exact)
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        for O in (80, 200):
+            B, T, D, H, k = 3, 160, 384, 1024, 9
+            w = weights(D, H, O, k)
+            xb = torch.randn(B, T, D, generator=g).to(bf16).to(dev)
+            lens = torch.tensor([T, 1, 0], dtype=torch.int32).to(dev)
+            log(f"kernel fused_ffn at B={B}, T={T}, D={D}, H={H}, k={k}, O={O}, bf16 out")
+            got = KF.fused_ffn(xb, *w, lens, k)
+            err = compare("fused_ffn", got, KF.fused_ffn_plain(xb, *w, lens, k), 2e-3, 0.1)
+            ffn_dead_rows("fused_ffn", got, lens, k, lambda b, t0: got[-1, -1], True)
+            results["fused_ffn"]["max_abs_err"] = max(results["fused_ffn"]["max_abs_err"], err)
 
 
 def bare_attention_checks(torch, results):
@@ -2011,9 +2125,10 @@ def wgmma_kernels_sass():
     forward in its SERVE mode (kernels 7 and 8; 6 kernels), which also
     keeps no stack frame (its two score arrays stay in registers);
     resstack's: the bf16 residual stack at each of its 12 widths (kernel 13;
-    the f32 kernel is exempt). The SERVE and resstack kernels carry no ptxas
-    note that it serialized wgmma (C7514/C7515: their overlap would be
-    gone)."""
+    the f32 kernel is exempt); ffn's: the k-tap conv (3 inputs x 2 tilings)
+    and the k=1 conv with its epilogue (3 entries x 4 widths) of kernels 2,
+    9 and 10. The SERVE, resstack and ffn kernels carry no ptxas note that
+    it serialized wgmma (C7514/C7515: their overlap would be gone)."""
     import shutil
 
     from fastspeech2_tpu_torch.ops.kernels import common
@@ -2023,7 +2138,8 @@ def wgmma_kernels_sass():
             ("attention_train", ("attn_fwd_kernel", "train_bwd_dq_kernel",
                                  "train_bwd_dkv_kernel"), 14),
             ("attention", ("attn_fwd_kernel",), 6),
-            ("resstack", ("resstack_wgmma_kernel",), 12)):
+            ("resstack", ("resstack_wgmma_kernel",), 12),
+            ("ffn", ("ffn_conv_kernel", "ffn_out_kernel"), 18)):
         log_text = common.ptxas_report(lib)
         for line in log_text.splitlines():
             if "serialized" in line:
@@ -2114,7 +2230,8 @@ def main() -> int:
             "library_ms": r["library_ms"][key] if "library_ms" in r else None,
             "shape": key, **({"note": r["note"]} if "note" in r else {}),
             **({"device_ms": r["device_ms"][key],
-                "library_device_ms": r["library_device_ms"][key]} if "device_ms" in r else {}),
+                "library_device_ms": r.get("library_device_ms", {}).get(key)}
+               if "device_ms" in r else {}),
             "all_shapes": {k: {"ms": r["ms"][k], "plain_ms": r["plain_ms"][k],
                                "bound_ms": r["bound_ms"][k]} for k in r["ms"]}})
         if "bwd" in r:  # the training kernels: "ms" is the forward's time

@@ -3,253 +3,645 @@
 //   fs2_ffn_block_pre  out = x + FFN(mask(LN(x)))    pre-LN block half
 //   fs2_ffn            out = FFN(mask(x))            bare, bf16 in, O outputs
 // with FFN(z) = Conv1d_k1(ReLU(Conv1d_k(z))), SAME zero padding, and mask()
-// zeroing rows at or past the length. Rows whose whole window lies past the
-// length carry the bias-only row c = round(relu(round(b1)) W2) + b2: they
-// give LN(x + c), x + c and c respectively.
+// zeroing rows at or past the length.
 //
 // Replaces fastspeech2_tpu/ops/pallas/ffn.py: fused_ffn_block_post (kernel
 // _ffn_block_post_kernel), fused_ffn_block (kernel _ffn_block_kernel, every
 // pre-LN block) and fused_ffn (kernel _ffn_kernel).
 //
-// Bound on the H100: 2*(k*D*H + H*D) FLOPs per row (~7.9 MFLOP at D=384,
-// H=1024, k=9) against 8*D bytes of f32 in/out per row: ~2,500 FLOP/byte,
-// far above the ridge -- tensor-core (operations) bound.
+// Bound on the H100: 2*(k*D*H + H*O) FLOPs per row (~7.9 MFLOP at D=O=384,
+// H=1024, k=9) against 8*D bytes of f32 in and out per row: ~2,500 FLOP/byte,
+// far above the ridge (~295) -- tensor-core (operations) bound.
 //
-// Design. The TPU kernel fills a zero-padded whole-row scratch at the first
-// grid step, reuses it, and keeps the hidden in VMEM. Here two launches:
-//  1. ffn_conv_kernel, one block per (64-row tile, 128 hidden columns, row):
-//     the tile's rows plus a halo of (k-1)/2, masked and rounded to bf16,
-//     sit in shared memory; because the rows are contiguous the k-tap conv
-//     is one GEMM over row-shifted views (no im2col copy) against the weight
-//     laid out (H, k, D), with four 32-deep weight slices in flight. At
-//     ~96 KB two blocks share an SM. The bf16 hidden relu(round(round(.)
-//     + b1)) goes to global memory: 4 bytes per hidden value written and
-//     read back, against 2*k*D FLOPs to make it. Keeping it in shared
-//     memory, as the TPU kernel does, took 128 KB and left one block per SM
-//     with one weight slice in flight, so L2 latency set the pace.
-//     Pre-LN: each block LayerNorms its own tile + halo rows (f32, biased
-//     variance, one warp per row, read from global memory) before masking
-//     and rounding them into shared memory. The LN is recomputed by each of
-//     the H/128 column blocks of a tile (8 at H=1024): ~5 extra reads of
-//     the tile's f32 rows from L2 and ~10*D FLOPs per row per block, next
-//     to the 2*k*D*128 FLOPs per row of the block's GEMM -- under 0.1% of
-//     its work. A pre-pass writing a bf16 LN to global memory would cost a
-//     launch and a (B, T, D) round trip instead.
-//  2. ffn_out_kernel, one block per (64-row tile, row): the tile's hidden
-//     rows in shared memory, the k=1 conv over 384 output columns at a time
-//     (three slices in flight), then the entry's epilogue: x + round(y) + b2
-//     and a LayerNorm by each warp over whole rows (post), x + round(y) + b2
-//     (pre), or round(y) + b2 in f32 or rounded to bf16 (bare).
-// Tiles wholly past length + halo skip both GEMMs: launch 2 gives them the
-// constant row from one 1 x H x N product.
+// Design (sm_90a, primitives in hopper.cuh). The mma.sync body this
+// replaces lost on four counts: mma.sync instead of wgmma; every w1 slice
+// read from L2 once per 64 rows; the post-LN rows written to global memory
+// and read back for the LayerNorm; each dead tile recomputing the bias-only
+// row. Here two launches of two warpgroups (256 threads), both products as
+// wgmma, every weight tile streamed through a TMA ring of full/empty
+// mbarriers that thread 0 keeps topped up:
+//  1. ffn_conv_kernel: hidden = relu(round(round(conv_k(x)) + b1)) in bf16.
+//     A block covers P rows x NH hidden columns (P = 128, NH = 256 where
+//     shared memory allows, else P = 64, NH = 128; `make_plan` below). Its
+//     rows plus a halo of (k-1)/2 each side sit in shared memory once,
+//     masked (zero outside [0, len)), LayerNormed first for the pre-LN entry
+//     (f32, one warp a row), rounded to bf16 and kept column-chunk-major,
+//     [D/8][rows][8]: tap j's A operand is the same tile at a base shifted by
+//     j rows (a descriptor without swizzle takes any row shift), so the k-tap
+//     conv is one K = k*D product with no im2col copy. w1 (H, k*D), laid out
+//     (out, tap, in), is K-major as it is and streams in NH x 64 tiles
+//     (128-byte swizzle), each serving all P rows.
+//  2. ffn_out_kernel: y = round(hidden W2) + b2 and the entry's epilogue. A
+//     block covers 64 rows x up to 512 output columns, the two warpgroups
+//     half each (192 accumulators' worth at O = 384 would not fit one); the
+//     hidden tile (A) and w2 (B) stream through the ring in 64-deep K
+//     chunks, so shared memory does not bound H. round(y) is staged in
+//     shared memory and a row pass forms x + (round(y) + b2) and the post-LN
+//     LayerNorm (mean, then the biased variance) in registers: the output is
+//     written once. Wider than 512 columns, column passes run as blocks and
+//     a third launch LayerNorms the rows (post-LN only).
+// The hidden goes through global memory in bf16 (25 MB at (16, 768, 1024),
+// mostly L2-resident).
+// Dead rows, by row: every row t >= len + pad gets exactly the bias-only row
+// c = round(relu(round(b1)) W2) + b2 (then LN(x + c), x + c or c). Extra
+// blocks of launch 1 compute c once per call into a float scratch behind
+// the hidden; launch 2 reads it for those rows whatever its tiling, and
+// skips the product in tiles that hold no other row.
+// What holds it back (measured on the H100, scripts/time_ffn.py): launch 1's
+// products run at about 57% of the tensor rate a block, and its live tiles
+// (data-dependent) fill the SMs in uneven waves. A deeper ring, a 2-CTA
+// cluster sharing w1 by multicast (half the L2 reads), A from registers
+// and one tile of products in flight were each no faster.
+// Every product's first k-step overwrites (scale_d = 0, known at compile
+// time); a ring tile's products are waited for before the next tile's are
+// issued, so none is in flight across a loop's back edge and no plain
+// instruction touches a pending accumulator (ptxas then keeps wgmma
+// asynchronous).
+#include <algorithm>
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int FT = 64;  // rows per block
-
-using GConv = TileGemm<2, 4, 2, 4, 4>;  // 64 x 128, 8 warps, 4 slices in flight
-using GOut = TileGemm<2, 4, 2, 12, 3>;  // 64 x 384, 8 warps
+using namespace hopper;
 
 // conv input: f32 rows as they are (post), f32 rows LayerNormed (pre), or
 // bf16 rows (bare)
 enum : int { IN_F32 = 0, IN_F32_LN = 1, IN_BF16 = 2 };
 // epilogue of the k=1 conv
-enum : int { OUT_POST_LN = 0, OUT_PRE_RES = 1, OUT_BARE_F32 = 2, OUT_BARE_BF16 = 3 };
+enum : int { OUT_POST_LN = 0, OUT_PRE_RES = 1, OUT_BARE = 2 };
 
-template <int IN>
-__global__ void __launch_bounds__(256)
-ffn_conv_kernel(const void* __restrict__ xin, const float* __restrict__ gamma,
-                const float* __restrict__ beta, float eps, const bf16* __restrict__ w1,
-                const float* __restrict__ b1, const int* __restrict__ lens,
-                bf16* __restrict__ hid, int T, int D, int Hd, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int pad = (K - 1) / 2;
-  const int lx = D + 8;
-  bf16* Xs = reinterpret_cast<bf16*>(smem);  // [FT + K - 1][lx]
-  bf16* Ws = Xs + (FT + K - 1) * lx;         // weight slices
-  const int b = blockIdx.z, t0 = blockIdx.x * FT, n0 = blockIdx.y * GConv::BN;
-  const int len = min(lens[b], T);
-  if (t0 >= len + pad) return;  // dead tile: launch 2 writes its constant rows
-  const size_t row0 = (size_t)b * T;
+constexpr int THREADS = 256;         // two warpgroups
+constexpr int SMEM_MAX = 232448;     // a block's shared memory on the H100
+constexpr int SMEM_PAIR = 115712;    // each of two blocks on one SM
+constexpr int SLACK = 1024 + 64;     // the ring's 1024-byte alignment, mbarriers
+constexpr int ROW_PASS = 512;        // launch 2: output columns of a block, at most
 
-  // x rows t0 - pad .. t0 + FT + pad - 1, zero outside [0, len), in bf16
-  if (IN == IN_F32_LN) {
-    // one warp per row: LN(x) in f32, then masked and rounded
-    const float* x = reinterpret_cast<const float*>(xin);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int r = warp; r < FT + K - 1; r += 8) {
-      const int t = t0 - pad + r;
-      bf16* dst = Xs + r * lx;
-      if (t < 0 || t >= len) {
-        for (int c = lane; c < D; c += 32) dst[c] = __float2bfloat16_rn(0.f);
-        continue;
-      }
-      const float* src = x + (row0 + t) * D;
-      float s = 0.f;
-      for (int c = lane; c < D; c += 32) s += src[c];
-      const float mean = warp_sum(s) / (float)D;
-      float q = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        const float d = src[c] - mean;
-        q += d * d;
-      }
-      const float inv = 1.0f / sqrtf(warp_sum(q) / (float)D + eps);
-      for (int c = lane; c < D; c += 32)
-        dst[c] = __float2bfloat16_rn((src[c] - mean) * inv * gamma[c] + beta[c]);
-    }
-  } else if (IN == IN_F32) {
-    const float* x = reinterpret_cast<const float*>(xin);
-    for (int i = threadIdx.x; i < (FT + K - 1) * (D / 4); i += blockDim.x) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      const int t = t0 - pad + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t >= 0 && t < len) v = *reinterpret_cast<const float4*>(x + (row0 + t) * D + c);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(Xs + r * lx + c);
-      dst[0] = pack_bf16(v.x, v.y);
-      dst[1] = pack_bf16(v.z, v.w);
-    }
-  } else {
-    const bf16* x = reinterpret_cast<const bf16*>(xin);
-    for (int i = threadIdx.x; i < (FT + K - 1) * (D / 8); i += blockDim.x) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const int t = t0 - pad + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (t >= 0 && t < len) v = *reinterpret_cast<const uint4*>(x + (row0 + t) * D + c);
-      *reinterpret_cast<uint4*>(Xs + r * lx + c) = v;
+// Tiling of one shape; mirrors ops/kernels/ffn.py:plan (fs2_ffn_plan lets a
+// test hold the two together).
+struct Plan {
+  int p, nh, st1, smem1;             // launch 1: rows, hidden columns, stages, bytes
+  int no, passes, st2, minb2, smem2;  // launch 2: columns a warpgroup, column
+                                      // passes, stages, blocks per SM, bytes
+};
+
+bool make_plan(int D, int Hd, int K, int O, Plan* pl) {
+  static const int tiles[2][2] = {{128, 256}, {64, 128}};
+  pl->p = 0;
+  for (const auto& c : tiles) {
+    const long xb = (long)D * ((c[0] + K - 1) | 1) * 2;  // the x tile, odd rows
+    const long tile = (long)c[1] * 128;
+    const long st = std::min(4L, (SMEM_MAX - SLACK - xb) / tile);
+    if (st >= 2) {
+      pl->p = c[0];
+      pl->nh = c[1];
+      pl->st1 = (int)st;
+      pl->smem1 = (int)(xb + st * tile + SLACK);
+      break;
     }
   }
-  __syncthreads();
-
-  // hidden = relu(round(round(conv_k(x)) + b1)), bf16
-  GConv gm;
-  gm.run(Xs, lx, D, K, w1, Hd, n0, Ws);
-  gm.epilogue([&](int r, int c, float v) {
-    const int t = t0 + r, n = n0 + c;
-    if (t < T && n < Hd)
-      hid[(row0 + t) * Hd + n] = __float2bfloat16_rn(fmaxf(bf16r(bf16r(v) + b1[n]), 0.f));
-  });
+  if (pl->p == 0) return false;
+  pl->passes = (O + ROW_PASS - 1) / ROW_PASS;
+  const int per = (O + pl->passes - 1) / pl->passes;
+  pl->no = ((per + 1) / 2 + 63) / 64 * 64;
+  pl->minb2 = pl->no <= 128 ? 2 : 1;
+  const int stage = 8192 + 2 * pl->no * 128;
+  pl->st2 = std::min(4, ((pl->minb2 == 2 ? SMEM_PAIR : SMEM_MAX) - SLACK) / stage);
+  pl->smem2 = pl->st2 * stage + SLACK;
+  return true;
 }
 
-// x (B, T, N) f32 (the residual: post and pre only); out (B, T, N) f32, or
-// bf16 for OUT_BARE_BF16.
-template <int OUT>
-__global__ void __launch_bounds__(256)
-ffn_out_kernel(const float* __restrict__ x, const bf16* __restrict__ hid,
-               const float* __restrict__ b1, const bf16* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const int* __restrict__ lens,
-               void* __restrict__ out_ptr, int T, int N, int Hd, int K, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int pad = (K - 1) / 2;
-  const int lh = Hd + 8;
-  bf16* Hs = reinterpret_cast<bf16*>(smem);  // [FT][lh]
-  bf16* Ws = Hs + FT * lh;                   // weight slices
-  const int b = blockIdx.y, t0 = blockIdx.x * FT;
-  const int len = min(lens[b], T);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row0 = (size_t)b * T;
-  float* outf = reinterpret_cast<float*>(out_ptr);
-  bf16* outh = reinterpret_cast<bf16*>(out_ptr);
+struct Args {
+  const void* x;  // f32 (post, pre) or bf16 (bare)
+  const float* g;
+  const float* be;
+  const float* b1;
+  const bf16* w2;
+  const float* b2;
+  const int* lens;
+  bf16* hid;    // (B, T, Hd)
+  float* crow;  // (O,) the bias-only row
+  void* out;
+  int T, D, Hd, K, O, out_f32;
+  float eps;
+};
 
-  // one output value: the residual sum for post and pre, the row for bare
-  auto put = [&](size_t off, float y) {
-    if (OUT == OUT_POST_LN || OUT == OUT_PRE_RES)
-      outf[off] = x[off] + y;
-    else if (OUT == OUT_BARE_F32)
-      outf[off] = y;
-    else
-      outh[off] = __float2bfloat16_rn(y);
-  };
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
 
-  if (t0 >= len + pad) {  // dead tile: every conv tap is zero
-    // constant row round(relu(round(b1)) W2) + b2: a warp per output
-    // column, lanes along the contiguous weight row
-    float* crow = reinterpret_cast<float*>(smem);
-    for (int n = warp; n < N; n += 8) {
-      const bf16* wr = w2 + (size_t)n * Hd;
-      float a = 0.f;
-      for (int k = lane; k < Hd; k += 32)
-        a += fmaxf(bf16r(b1[k]), 0.f) * __bfloat162float(wr[k]);
-      a = warp_sum(a);
-      if (lane == 0) crow[n] = bf16r(a) + b2[n];
+// A ring of `st` stages of `bytes` each, kept full by thread 0 (also a
+// consumer): tile i goes to stage i % st once all 8 warps released tile
+// i - st; `load(i, dst, bar)` issues tile i's copies.
+struct Ring {
+  uint32_t base;
+  unsigned char* gbase;
+  uint64_t* full;
+  uint64_t* empty;
+  int st, bytes, issued, total;
+
+  template <class L>
+  __device__ __forceinline__ void top_up(int need, L& load) {
+    for (; issued < total; ++issued) {
+      const int s = issued % st;
+      const uint32_t parity = ((issued / st) & 1) ^ 1;
+      if (issued < need)
+        mbar_wait(&empty[s], parity);
+      else if (!mbar_test(&empty[s], parity))
+        break;
+      mbar_expect_tx(&full[s], bytes);
+      load(issued, gbase + s * bytes, &full[s]);
     }
-    __syncthreads();
-    for (int r = warp; r < FT && t0 + r < T; r += 8) {
-      const size_t off = (row0 + t0 + r) * N;
-      for (int c = lane; c < N; c += 32) put(off + c, crow[c]);
-      if (OUT == OUT_POST_LN) {
-        __syncwarp();
-        warp_layer_norm(outf + off, outf + off, N, gamma, beta, eps, lane);
+  }
+  // Tile `it` is in shared memory (thread 0 issues it, and later ones whose
+  // stage is free, first); returns its shared address.
+  template <class L>
+  __device__ __forceinline__ uint32_t acquire(int it, L& load) {
+    if (threadIdx.x == 0) top_up(it + 1, load);
+    __syncwarp();
+    mbar_wait(&full[it % st], (it / st) & 1);
+    return base + (it % st) * bytes;
+  }
+  __device__ __forceinline__ void init() {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < st; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], THREADS / 32);  // one arrival per warp
+      }
+      fence_barrier_init();
+    }
+  }
+};
+
+// c[n] = round(relu(round(b1)) . w2[n]) + b2[n] for a slice of the O outputs
+// (slice `part` of `parts`): one warp an output, lanes along the contiguous
+// weight row, so every call sums in one order.
+__device__ void constant_row(const Args& a, int part, int parts) {
+  const int per = (a.O + parts - 1) / parts, lo = part * per, hi = min(a.O, lo + per);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int n = lo + warp; n < hi; n += THREADS / 32) {
+    const bf16* wr = a.w2 + (size_t)n * a.Hd;
+    float s = 0.f;
+    for (int k = lane; k < a.Hd; k += 32)
+      s += fmaxf(bf16r(a.b1[k]), 0.f) * __bfloat162float(wr[k]);
+    s = warp_sum(s);
+    if (lane == 0) a.crow[n] = bf16r(s) + a.b2[n];
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float4& u, const float4& v) {
+  return make_uint4(pack_bf16(u.x, u.y), pack_bf16(u.z, u.w), pack_bf16(v.x, v.y),
+                    pack_bf16(v.z, v.w));
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// Runs a product in ring tiles: step(it, Int<k-steps>, Int<first>) for tile
+// it, with the k-step count and the first tile's overwrite known at compile
+// time (KS is even: D and H are multiples of 32), so no wgmma sits behind a
+// runtime guard or takes a runtime scale_d.
+template <class Step>
+__device__ __forceinline__ void tiles(int KS, Step& step) {
+  const int full = KS / 4;
+  if (full > 0)
+    step(0, Int<4>{}, Int<1>{});
+  else
+    step(0, Int<2>{}, Int<1>{});
+  for (int it = 1; it < full; ++it) step(it, Int<4>{}, Int<0>{});
+  if (full > 0 && KS % 4 != 0) step(full, Int<2>{}, Int<0>{});
+}
+
+// LayerNormed x rows into xs (pre-LN): one warp takes RA = 8 / S rows at a
+// time, S 8-column chunks of each per lane, every load of them issued before
+// the sums (f32, biased variance, mean first); rows outside [0, len) zero.
+template <int S>
+__device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, int tbase,
+                                        int rows, int R, int len) {
+  constexpr int RA = 8 / S;
+  const int CH = a.D / 8, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* x = reinterpret_cast<const float*>(a.x);
+  const float4* g4 = reinterpret_cast<const float4*>(a.g);
+  const float4* b4 = reinterpret_cast<const float4*>(a.be);
+  for (int e0 = warp * RA; e0 < rows; e0 += (THREADS / 32) * RA) {
+    float4 u[RA][S], w[RA][S];
+    bool ok[RA];
+#pragma unroll
+    for (int r = 0; r < RA; ++r) {
+      const int t = tbase + e0 + r;
+      ok[r] = e0 + r < rows && t >= 0 && t < len;
+      const float4* src = reinterpret_cast<const float4*>(x + (row0 + (ok[r] ? t : 0)) * a.D);
+#pragma unroll
+      for (int q = 0; q < S; ++q) {
+        const int c = lane + 32 * q;
+        u[r][q] = w[r][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok[r] && c < CH) {
+          u[r][q] = src[2 * c];
+          w[r][q] = src[2 * c + 1];
+        }
       }
     }
-    return;
-  }
-
-  for (int i = threadIdx.x; i < FT * (Hd / 8); i += blockDim.x) {
-    const int r = i / (Hd / 8), c = (i % (Hd / 8)) * 8;
-    const bool ok = t0 + r < T;
-    cp_async16(Hs + r * lh + c, ok ? hid + (row0 + t0 + r) * Hd + c : hid, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // y = round(hidden W2) + b2 into the entry's epilogue
-  for (int n0 = 0; n0 < N; n0 += GOut::BN) {
-    GOut gm;
-    gm.run(Hs, lh, Hd, 1, w2, N, n0, Ws);
-    gm.epilogue([&](int r, int c, float v) {
-      const int t = t0 + r, n = n0 + c;
-      if (t < T && n < N) put((row0 + t) * N + n, bf16r(v) + b2[n]);
-    });
-  }
-  if (OUT == OUT_POST_LN) {
-    __syncthreads();
-    for (int r = warp; r < FT && t0 + r < T; r += 8) {
-      float* orow = outf + (row0 + t0 + r) * N;
-      warp_layer_norm(orow, orow, N, gamma, beta, eps, lane);
+#pragma unroll
+    for (int r = 0; r < RA; ++r) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < S; ++q)
+        s += ((u[r][q].x + u[r][q].y) + (u[r][q].z + u[r][q].w)) +
+             ((w[r][q].x + w[r][q].y) + (w[r][q].z + w[r][q].w));
+      const float mean = warp_sum(s) / (float)a.D;
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < S; ++q)
+        if (lane + 32 * q < CH) {
+          const float d[8] = {u[r][q].x - mean, u[r][q].y - mean, u[r][q].z - mean,
+                              u[r][q].w - mean, w[r][q].x - mean, w[r][q].y - mean,
+                              w[r][q].z - mean, w[r][q].w - mean};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v += d[i] * d[i];
+        }
+      const float inv = 1.0f / sqrtf(warp_sum(v) / (float)a.D + a.eps);
+      const int e = e0 + r;
+      if (e >= rows) continue;
+      uint4* dst = reinterpret_cast<uint4*>(xs) + e;
+#pragma unroll
+      for (int q = 0; q < S; ++q) {
+        const int c = lane + 32 * q;
+        if (c >= CH) continue;
+        uint4 o = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[r]) {
+          const float4 gu = g4[2 * c], gv = g4[2 * c + 1], bu = b4[2 * c], bv = b4[2 * c + 1];
+          const float4 uu = u[r][q], ww = w[r][q];
+          o = pack8(make_float4((uu.x - mean) * inv * gu.x + bu.x,
+                                (uu.y - mean) * inv * gu.y + bu.y,
+                                (uu.z - mean) * inv * gu.z + bu.z,
+                                (uu.w - mean) * inv * gu.w + bu.w),
+                    make_float4((ww.x - mean) * inv * gv.x + bv.x,
+                                (ww.y - mean) * inv * gv.y + bv.y,
+                                (ww.z - mean) * inv * gv.z + bv.z,
+                                (ww.w - mean) * inv * gv.w + bv.w));
+        }
+        dst[(size_t)c * R] = o;
+      }
     }
   }
+}
+
+// x rows tbase .. tbase + rows - 1 of batch row `row0 / T` into xs
+// [D/8][R][8] bf16, zero outside [0, len); pre-LN: LayerNormed first
+// (ln_rows). A thread takes 8 columns of a row (16 bytes stored, at an odd
+// row count R on 8 distinct bank groups), eight such items loaded before any
+// is stored: a dependent load and store per item left the tile's load
+// latency-bound.
+template <int IN>
+__device__ __forceinline__ void load_tile(bf16* xs, const Args& a, size_t row0, int tbase,
+                                          int rows, int R, int len) {
+  const int CH = a.D / 8;
+  if (IN == IN_F32_LN) {
+    if (CH <= 32)
+      ln_rows<1>(xs, a, row0, tbase, rows, R, len);
+    else if (CH <= 64)
+      ln_rows<2>(xs, a, row0, tbase, rows, R, len);
+    else if (CH <= 128)
+      ln_rows<4>(xs, a, row0, tbase, rows, R, len);
+    else
+      ln_rows<8>(xs, a, row0, tbase, rows, R, len);
+    return;
+  }
+  constexpr int U = 8;
+  const int n = rows * CH;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * THREADS) {
+    uint4 v[U];
+    float4 f[U][2];
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int i = i0 + q * THREADS, e = i / CH, c = i % CH, t = tbase + e;
+      const bool ok = i < n && t >= 0 && t < len;
+      if (IN == IN_F32) {
+        f[q][0] = f[q][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok) {
+          const float4* src = reinterpret_cast<const float4*>(
+              reinterpret_cast<const float*>(a.x) + (row0 + t) * a.D + c * 8);
+          f[q][0] = src[0];
+          f[q][1] = src[1];
+        }
+      } else {
+        v[q] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok)
+          v[q] = *reinterpret_cast<const uint4*>(reinterpret_cast<const bf16*>(a.x) +
+                                                 (row0 + t) * a.D + c * 8);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int i = i0 + q * THREADS;
+      if (i < n)
+        reinterpret_cast<uint4*>(xs)[(size_t)(i % CH) * R + i / CH] =
+            IN == IN_F32 ? pack8(f[q][0], f[q][1]) : v[q];
+    }
+  }
+}
+
+// Launch 1. Block (tile, hidden part, batch row): P = 64 * WR rows x NH
+// hidden columns; WR = 2: each warpgroup 64 rows x NW columns (NH = NW);
+// WR = 1: both the same 64 rows, NW columns each (NH = 2 NW). Blocks of the
+// extra tile index `ntiles` compute the bias-only row instead.
+template <int IN, int WR, int NW>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_conv_kernel(const __grid_constant__ CUtensorMap tw1, const __grid_constant__ Args a, int st,
+                int ntiles) {
+  constexpr int P = 64 * WR, NH = WR == 2 ? NW : 2 * NW;
+  extern __shared__ unsigned char smem_raw[];
+  const int b = blockIdx.z;
+  if ((int)blockIdx.x == ntiles) {
+    constant_row(a, b * gridDim.y + blockIdx.y, gridDim.y * gridDim.z);
+    return;
+  }
+  const int T = a.T, D = a.D, pad = (a.K - 1) / 2;
+  const int t0 = blockIdx.x * P, n0 = blockIdx.y * NH;
+  const int len = max(0, min(a.lens[b], T)), live = min(T, len + pad);
+  if (t0 >= live) return;  // launch 2 gives every row from len + pad on the row c
+  unsigned char* ring_g = align1024(smem_raw);
+  const int rows = P + a.K - 1, R = rows | 1;
+  bf16* xs = reinterpret_cast<bf16*>(ring_g + st * NH * 128);  // [D/8][R][8]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + (size_t)(D / 8) * R * 8);
+  Ring ring{smem_u32(ring_g), ring_g, full, full + st, st, NH * 128, 0, (a.K * D + 63) / 64};
+  ring.init();
+  __syncthreads();
+  auto load = [&](int i, unsigned char* dst, uint64_t* bar) {
+    tma_load_2d(dst, &tw1, bar, i * 64, n0);
+  };
+  if (threadIdx.x == 0) ring.top_up(0, load);  // every stage is free
+  const size_t row0 = (size_t)b * T;
+  load_tile<IN>(xs, a, row0, t0 - pad, rows, R, len);
+  fence_proxy_async_smem();  // xs is read by the products' descriptors
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
+  const uint32_t lbo = R * 16;  // bytes from one column chunk to the next
+  const uint32_t xa = smem_u32(xs) + (WR == 2 ? wg * 64 * 16 : 0);
+  const uint32_t boff = WR == 2 ? 0 : wg * NW * 128;
+  float acc[NW / 2];
+  int j = 0, c0 = 0;  // tap and first input column of the next k-step
+  auto step = [&](int it, auto nks, auto first) {
+    const uint32_t bt = ring.acquire(it, load) + boff;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < decltype(nks)::value; ++s) {
+      const uint32_t ad = xa + (c0 / 8) * lbo + j * 16;
+      wgmma_ss_k<NW>(acc, desc_plain(ad, lbo, 128), kmajor_desc(bt, s),
+                     decltype(first)::value && s == 0 ? 0 : 1);
+      c0 += 16;
+      const bool wrap = c0 == D;  // next tap
+      c0 = wrap ? 0 : c0;
+      j += wrap;
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    warp_arrive(&ring.empty[it % st]);
+  };
+  tiles(a.K * D / 16, step);
+
+  // hidden = relu(round(round(acc) + b1)); rows from len + pad on are not read
+  const int rb = t0 + (WR == 2 ? wg * 64 : 0) + warp * 16 + g8;
+  const int cbase = n0 + (WR == 2 ? 0 : wg * NW) + 2 * t4;
+  bf16* hb = a.hid + row0 * a.Hd;
+#pragma unroll
+  for (int ni = 0; ni < NW / 8; ++ni) {
+    const int n = cbase + ni * 8;
+    if (n >= a.Hd) continue;  // Hd is even: n + 1 < Hd too
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(a.b1 + n));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tr = rb + 8 * h;
+      if (tr < live)
+        *reinterpret_cast<uint32_t*>(hb + (size_t)tr * a.Hd + n) =
+            pack_bf16(fmaxf(bf16r(bf16r(acc[ni * 4 + 2 * h]) + bb.x), 0.f),
+                      fmaxf(bf16r(bf16r(acc[ni * 4 + 2 * h + 1]) + bb.y), 0.f));
+    }
+  }
+}
+
+// Launch 2. Block (64-row tile, column pass, batch row): each warpgroup NO
+// output columns of the pass. The products' round(y) go to shared memory,
+// over the drained ring; then one warp a row forms x + (round(y) + b2), or
+// the row c from len + pad on, LayerNorms it where ln_here (post-LN, the
+// pass covering every column: mean, then the biased variance, from
+// registers) and stores it. A lane takes columns lane + 32 j of RA rows at a
+// time, so every load and store is coalesced, and x is loaded for all RA rows
+// before anything else (read per element beside the shared-memory loads,
+// the loads went out one at a time: 0.12 against 0.06 ms at (16, 768, 384)).
+template <int OUT, int NO, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+ffn_out_kernel(const __grid_constant__ CUtensorMap thid, const __grid_constant__ CUtensorMap tw2,
+               const __grid_constant__ Args a, int st, int ln_here) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int SB = 8192 + 2 * NO * 128;  // a stage: hidden 64 x 64, w2 2NO x 64
+  constexpr int NC = 2 * NO, LDY = NC + 8;  // the pass's columns; ys row stride
+  unsigned char* ring_g = align1024(smem_raw);
+  float* ys = reinterpret_cast<float*>(ring_g);  // [64][LDY] round(y)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_g + st * SB);
+  const int T = a.T, O = a.O, b = blockIdx.z, t0 = blockIdx.x * 64, cb = blockIdx.y * NC;
+  const int len = max(0, min(a.lens[b], T)), live = min(T, len + (a.K - 1) / 2);
+  const size_t row0 = (size_t)b * T;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (t0 < live) {  // else no row of the tile reads the product
+    Ring ring{smem_u32(ring_g), ring_g, full, full + st, st, SB, 0, (a.Hd + 63) / 64};
+    ring.init();
+    __syncthreads();
+    auto load = [&](int i, unsigned char* dst, uint64_t* bar) {
+      tma_load_2d(dst, &thid, bar, i * 64, (int)row0 + t0);
+      tma_load_2d(dst + 8192, &tw2, bar, i * 64, cb);
+      tma_load_2d(dst + 8192 + NO * 128, &tw2, bar, i * 64, cb + NO);
+    };
+    if (threadIdx.x == 0) ring.top_up(0, load);
+    const int wg = threadIdx.x >> 7;
+    float acc[NO / 2];
+    auto step = [&](int it, auto nks, auto first) {
+      const uint32_t s0 = ring.acquire(it, load);
+      const uint32_t bt = s0 + 8192 + wg * NO * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < decltype(nks)::value; ++s)
+        wgmma_ss_k<NO>(acc, kmajor_desc(s0, s), kmajor_desc(bt, s),
+                       decltype(first)::value && s == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      warp_arrive(&ring.empty[it % st]);
+    };
+    tiles(a.Hd / 16, step);
+    __syncthreads();  // every warp's products retired: the ring is free
+    // rows 16 (warp % 4) + lane / 4 (+ 8), columns of n-tile ni at 8 ni +
+    // 2 (lane % 4); a row stride of 8 banks past a multiple of 32 puts each
+    // half-warp's pairs on 32 distinct banks
+    float* yr = ys + ((warp & 3) * 16 + (lane >> 2)) * LDY + wg * NO + 2 * (lane & 3);
+#pragma unroll
+    for (int ni = 0; ni < NO / 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(yr + h * 8 * LDY + ni * 8) =
+            make_float2(bf16r(acc[ni * 4 + 2 * h]), bf16r(acc[ni * 4 + 2 * h + 1]));
+  }
+  __syncthreads();
+
+  constexpr int J = NC / 32, RA = 4;  // values of a row per lane; rows at a time
+  const int cw = min(NC, O - cb);     // columns of this pass
+  const bool ln = OUT == OUT_POST_LN && ln_here;
+  const float* x = reinterpret_cast<const float*>(a.x);
+  float* outf = reinterpret_cast<float*>(a.out);
+  bf16* outh = reinterpret_cast<bf16*>(a.out);
+  const bool f32 = OUT != OUT_BARE || a.out_f32;
+  for (int rb = warp * RA; rb < 64; rb += (THREADS / 32) * RA) {
+    float v[RA][J], xv[RA][J];
+#pragma unroll
+    for (int r = 0; r < RA; ++r) {
+      const int row = t0 + rb + r;
+      const float* xr = x + (row0 + min(row, T - 1)) * O + cb;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int n = lane + 32 * j;
+        xv[r][j] = OUT != OUT_BARE && n < cw ? __ldg(xr + n) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RA; ++r) {
+      const int row = t0 + rb + r;
+      const bool prod = row < live;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int n = lane + 32 * j;
+        float y = 0.f;
+        if (row < T && n < cw) {
+          y = prod ? ys[(rb + r) * LDY + n] + __ldg(a.b2 + cb + n) : __ldg(a.crow + cb + n);
+          if (OUT != OUT_BARE) y = xv[r][j] + y;
+        }
+        v[r][j] = y;
+      }
+    }
+    if (ln) {
+#pragma unroll
+      for (int r = 0; r < RA; ++r) {
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < J; ++j) s += v[r][j];  // zero past cw
+        const float mean = warp_sum(s) / (float)O;
+        float q = 0.f;
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          if (lane + 32 * j < cw) q += (v[r][j] - mean) * (v[r][j] - mean);
+        const float inv = 1.0f / sqrtf(warp_sum(q) / (float)O + a.eps);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int n = lane + 32 * j;
+          if (n < cw) v[r][j] = (v[r][j] - mean) * inv * a.g[n] + a.be[n];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RA; ++r) {
+      const int row = t0 + rb + r;
+      if (row >= T) continue;
+      const size_t off = (row0 + row) * O + cb;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int n = lane + 32 * j;
+        if (n >= cw) continue;
+        if (f32)
+          outf[off + n] = v[r][j];
+        else
+          outh[off + n] = __float2bfloat16_rn(v[r][j]);
+      }
+    }
+  }
+}
+
+// Launch 3 (post-LN wider than one pass): LayerNorm of every row in place.
+__global__ void __launch_bounds__(THREADS)
+ffn_ln_rows_kernel(const __grid_constant__ Args a, int rows) {
+  const int r = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  float* row = reinterpret_cast<float*>(a.out) + (size_t)r * a.O;
+  warp_layer_norm(row, row, a.O, a.g, a.be, a.eps, threadIdx.x & 31);
+}
+
+template <int IN, int WR, int NW>
+cudaError_t launch_conv(const CUtensorMap& tw1, const Args& a, const Plan& pl, dim3 grid,
+                        int ntiles, cudaStream_t stream) {
+  cudaError_t e = set_smem(ffn_conv_kernel<IN, WR, NW>, pl.smem1);
+  if (e != cudaSuccess) return e;
+  ffn_conv_kernel<IN, WR, NW><<<grid, THREADS, pl.smem1, stream>>>(tw1, a, pl.st1, ntiles);
+  return cudaGetLastError();
+}
+
+template <int OUT, int NO>
+cudaError_t launch_out(const CUtensorMap& thid, const CUtensorMap& tw2, const Args& a,
+                       const Plan& pl, dim3 grid, cudaStream_t stream) {
+  constexpr int MINB = NO <= 128 ? 2 : 1;
+  cudaError_t e = set_smem(ffn_out_kernel<OUT, NO, MINB>, pl.smem2);
+  if (e != cudaSuccess) return e;
+  ffn_out_kernel<OUT, NO, MINB><<<grid, THREADS, pl.smem2, stream>>>(thid, tw2, a, pl.st2,
+                                                                      pl.passes == 1);
+  return cudaGetLastError();
 }
 
 template <int IN, int OUT>
-cudaError_t launch_ffn(const void* x, const float* g, const float* be, const bf16* w1,
-                       const float* b1, const bf16* w2, const float* b2, const int* lens,
-                       bf16* hid, void* out, int B, int T, int D, int Hd, int N, int K,
-                       float eps, cudaStream_t stream) {
-  if (D % 32 != 0 || Hd % 32 != 0 || K % 2 != 1 || N < 1) return cudaErrorInvalidValue;
-  const size_t smem1 = ((size_t)(FT + K - 1) * (D + 8) + GConv::STAGE_ELEMS) * sizeof(bf16);
-  cudaError_t e = set_smem(ffn_conv_kernel<IN>, smem1);
+cudaError_t launch_ffn(Args a, const bf16* w1, int B, cudaStream_t stream) {
+  Plan pl;
+  const int T = a.T, D = a.D, Hd = a.Hd, K = a.K, O = a.O;
+  if (D % 32 != 0 || Hd % 32 != 0 || K % 2 != 1 || O < 1 || B < 1 || T < 1 ||
+      !make_plan(D, Hd, K, O, &pl))
+    return cudaErrorInvalidValue;
+  // the bias-only row lives behind the hidden, 16-byte aligned
+  a.crow = reinterpret_cast<float*>(reinterpret_cast<char*>(a.hid) +
+                                    ((size_t)B * T * Hd * 2 + 15) / 16 * 16);
+  CUtensorMap tw1, thid, tw2;
+  cudaError_t e;
+  if ((e = tma_map_bf16_2d(&tw1, w1, (uint64_t)K * D, Hd, (uint64_t)K * D, pl.nh)) !=
+          cudaSuccess ||
+      (e = tma_map_bf16_2d(&thid, a.hid, Hd, (uint64_t)B * T, Hd, 64)) != cudaSuccess ||
+      (e = tma_map_bf16_2d(&tw2, a.w2, Hd, O, Hd, pl.no)) != cudaSuccess)
+    return e;
+  const int ntiles = (T + pl.p - 1) / pl.p;
+  const dim3 g1(ntiles + 1, (Hd + pl.nh - 1) / pl.nh, B);
+  if (pl.p == 128)
+    e = launch_conv<IN, 2, 256>(tw1, a, pl, g1, ntiles, stream);
+  else
+    e = launch_conv<IN, 1, 64>(tw1, a, pl, g1, ntiles, stream);
   if (e != cudaSuccess) return e;
-  ffn_conv_kernel<IN><<<dim3((T + FT - 1) / FT, (Hd + GConv::BN - 1) / GConv::BN, B),
-                        GConv::THREADS, smem1, stream>>>(x, g, be, eps, w1, b1, lens, hid, T,
-                                                         D, Hd, K);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  size_t smem2 = ((size_t)FT * (Hd + 8) + GOut::STAGE_ELEMS) * sizeof(bf16);
-  if (smem2 < (size_t)N * sizeof(float)) smem2 = (size_t)N * sizeof(float);  // dead tiles' row
-  e = set_smem(ffn_out_kernel<OUT>, smem2);
-  if (e != cudaSuccess) return e;
-  ffn_out_kernel<OUT><<<dim3((T + FT - 1) / FT, B), GOut::THREADS, smem2, stream>>>(
-      IN == IN_BF16 ? nullptr : reinterpret_cast<const float*>(x), hid, b1, w2, b2, g, be,
-      lens, out, T, N, Hd, K, eps);
+  const dim3 g2((T + 63) / 64, pl.passes, B);
+  switch (pl.no) {
+    case 64: e = launch_out<OUT, 64>(thid, tw2, a, pl, g2, stream); break;
+    case 128: e = launch_out<OUT, 128>(thid, tw2, a, pl, g2, stream); break;
+    case 192: e = launch_out<OUT, 192>(thid, tw2, a, pl, g2, stream); break;
+    default: e = launch_out<OUT, 256>(thid, tw2, a, pl, g2, stream); break;
+  }
+  if (e != cudaSuccess || OUT != OUT_POST_LN || pl.passes == 1) return e;
+  const int rows = B * T;
+  ffn_ln_rows_kernel<<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, stream>>>(a, rows);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x (B,T,D) f32; w1 (Hd, K*D) bf16 [(out, tap, in)]; b1 (Hd) f32;
-// w2 (D, Hd) bf16 (out, in); b2/g/be (D) f32; lens (B) i32;
-// hid (B,T,Hd) bf16 scratch; out (B,T,D) f32. Post-LN: LN(x + FFN(mask(x))).
+// w2 (D, Hd) bf16 (out, in); b2/g/be (D) f32; lens (B) i32; hid bf16 scratch
+// of B*T*Hd values (16-byte aligned) followed by D floats, 16-byte aligned
+// (ops/kernels/ffn.py:scratch_elems); out (B,T,D) f32.
+// Post-LN: LN(x + FFN(mask(x))).
 FS2_EXPORT int fs2_ffn_block(const float* x, const bf16* w1, const float* b1,
                              const bf16* w2, const float* b2, const float* g,
                              const float* be, const int* lens, bf16* hid,
                              float* out, int B, int T, int D, int Hd, int K,
                              float eps, void* stream_ptr) {
-  return (int)launch_ffn<IN_F32, OUT_POST_LN>(x, g, be, w1, b1, w2, b2, lens, hid, out, B,
-                                              T, D, Hd, D, K, eps,
-                                              reinterpret_cast<cudaStream_t>(stream_ptr));
+  return (int)launch_ffn<IN_F32, OUT_POST_LN>(
+      Args{x, g, be, b1, w2, b2, lens, hid, nullptr, out, T, D, Hd, K, D, 1, eps}, w1, B,
+      reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 // Pre-LN: x + FFN(mask(LN(x))), g/be the LayerNorm on the conv input; the
@@ -260,21 +652,31 @@ FS2_EXPORT int fs2_ffn_block_pre(const float* x, const bf16* w1, const float* b1
                                  const float* be, const int* lens, bf16* hid,
                                  float* out, int B, int T, int D, int Hd, int K,
                                  float eps, void* stream_ptr) {
-  return (int)launch_ffn<IN_F32_LN, OUT_PRE_RES>(x, g, be, w1, b1, w2, b2, lens, hid, out,
-                                                 B, T, D, Hd, D, K, eps,
-                                                 reinterpret_cast<cudaStream_t>(stream_ptr));
+  return (int)launch_ffn<IN_F32_LN, OUT_PRE_RES>(
+      Args{x, g, be, b1, w2, b2, lens, hid, nullptr, out, T, D, Hd, K, D, 1, eps}, w1, B,
+      reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
-// Bare: FFN(mask(x)) with x (B,T,D) bf16, w2 (O, Hd) bf16, b2 (O) f32 and out
-// (B,T,O) f32 (out_f32 != 0) or bf16 (round(y) + b2 rounded once more).
-// Replaces fastspeech2_tpu/ops/pallas/ffn.py: fused_ffn (kernel _ffn_kernel).
+// Bare: FFN(mask(x)) with x (B,T,D) bf16, w2 (O, Hd) bf16, b2 (O) f32, hid
+// as above with O floats behind it, and out (B,T,O) f32 (out_f32 != 0) or
+// bf16 (round(y) + b2 rounded once more). Replaces fastspeech2_tpu/ops/
+// pallas/ffn.py: fused_ffn (kernel _ffn_kernel).
 FS2_EXPORT int fs2_ffn(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
                        const float* b2, const int* lens, bf16* hid, void* out, int out_f32,
                        int B, int T, int D, int Hd, int O, int K, void* stream_ptr) {
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (out_f32)
-    return (int)launch_ffn<IN_BF16, OUT_BARE_F32>(x, nullptr, nullptr, w1, b1, w2, b2, lens,
-                                                  hid, out, B, T, D, Hd, O, K, 0.f, stream);
-  return (int)launch_ffn<IN_BF16, OUT_BARE_BF16>(x, nullptr, nullptr, w1, b1, w2, b2, lens,
-                                                 hid, out, B, T, D, Hd, O, K, 0.f, stream);
+  return (int)launch_ffn<IN_BF16, OUT_BARE>(
+      Args{x, nullptr, nullptr, b1, w2, b2, lens, hid, nullptr, out, T, D, Hd, K, O,
+           out_f32 != 0, 0.f},
+      w1, B, reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// The tiling chosen for a shape, as ops/kernels/ffn.py:plan gives it: p, nh,
+// st1, smem1, no, passes, st2, minb2, smem2 into out[0..8]. Returns 0, or
+// cudaErrorInvalidValue where no tiling fits.
+FS2_EXPORT int fs2_ffn_plan(int D, int Hd, int K, int O, int* out) {
+  Plan pl;
+  if (!make_plan(D, Hd, K, O, &pl)) return (int)cudaErrorInvalidValue;
+  const int v[9] = {pl.p, pl.nh, pl.st1, pl.smem1, pl.no, pl.passes, pl.st2, pl.minb2, pl.smem2};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
 }

@@ -24,7 +24,8 @@
 // wider output is covered by one accumulator of 32 registers per 64 columns.
 // `wgmma_ss_k<N>` and `wgmma_rs_k<N>` are the K-major products at any N that
 // is a multiple of 16 up to 128 (N / 2 accumulators a thread, the same layout
-// with N / 8 n-tiles), for the conv GEMMs of the residual stack. Accumulator
+// with N / 8 n-tiles), for the conv GEMMs of the residual stack; `wgmma_ss_k`
+// also at N = 192 and 256, for the conv-FFN. Accumulator
 // layout (thread t of the warpgroup, i in [0, 32)): row 16 * (t / 32) +
 // (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (t % 4) + i % 2,
 // i.e. mma.sync's m16n8 C fragment per warp, repeated over 8 n-tiles. The
@@ -235,8 +236,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
-// ---- wgmma at N = 16 .. 128 (the residual stack's conv products) -----------
-// d (+)= A B for a 64 x N tile, N a multiple of 16 up to 128: N / 2 f32
+// ---- wgmma at N = 16 .. 256 (the residual stack's and the FFN's convs) -----
+// d (+)= A B for a 64 x N tile, N a multiple of 16 up to 128 (and 192, 256
+// for `wgmma_ss_k`): N / 2 f32
 // accumulators a thread in the layout above (n-tile ni at d[4 ni .. 4 ni + 3]).
 // B is K-major from shared memory (`kmajor_desc`). `wgmma_ss_k`: A from
 // shared memory, K-major, by a descriptor of any swizzle mode (`desc_plain`
@@ -261,6 +263,14 @@ __device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a
 #define FS2_ACC_S6 FS2_ACC_S5 ", %40, %41, %42, %43, %44, %45, %46, %47"
 #define FS2_ACC_S7 FS2_ACC_S6 ", %48, %49, %50, %51, %52, %53, %54, %55"
 #define FS2_ACC_S8 FS2_ACC_S7 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define FS2_ACC_S9 FS2_ACC_S8 ", %64, %65, %66, %67, %68, %69, %70, %71"
+#define FS2_ACC_S10 FS2_ACC_S9 ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define FS2_ACC_S11 FS2_ACC_S10 ", %80, %81, %82, %83, %84, %85, %86, %87"
+#define FS2_ACC_S12 FS2_ACC_S11 ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define FS2_ACC_S13 FS2_ACC_S12 ", %96, %97, %98, %99, %100, %101, %102, %103"
+#define FS2_ACC_S14 FS2_ACC_S13 ", %104, %105, %106, %107, %108, %109, %110, %111"
+#define FS2_ACC_S15 FS2_ACC_S14 ", %112, %113, %114, %115, %116, %117, %118, %119"
+#define FS2_ACC_S16 FS2_ACC_S15 ", %120, %121, %122, %123, %124, %125, %126, %127"
 #define FS2_ACC_O1(d) FS2_O8(d, 0)
 #define FS2_ACC_O2(d) FS2_ACC_O1(d), FS2_O8(d, 8)
 #define FS2_ACC_O3(d) FS2_ACC_O2(d), FS2_O8(d, 16)
@@ -269,6 +279,14 @@ __device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a
 #define FS2_ACC_O6(d) FS2_ACC_O5(d), FS2_O8(d, 40)
 #define FS2_ACC_O7(d) FS2_ACC_O6(d), FS2_O8(d, 48)
 #define FS2_ACC_O8(d) FS2_ACC_O7(d), FS2_O8(d, 56)
+#define FS2_ACC_O9(d) FS2_ACC_O8(d), FS2_O8(d, 64)
+#define FS2_ACC_O10(d) FS2_ACC_O9(d), FS2_O8(d, 72)
+#define FS2_ACC_O11(d) FS2_ACC_O10(d), FS2_O8(d, 80)
+#define FS2_ACC_O12(d) FS2_ACC_O11(d), FS2_O8(d, 88)
+#define FS2_ACC_O13(d) FS2_ACC_O12(d), FS2_O8(d, 96)
+#define FS2_ACC_O14(d) FS2_ACC_O13(d), FS2_O8(d, 104)
+#define FS2_ACC_O15(d) FS2_ACC_O14(d), FS2_O8(d, 112)
+#define FS2_ACC_O16(d) FS2_ACC_O15(d), FS2_O8(d, 120)
 #define FS2_WGMMA_SS_K(N, Q, IA, IB, IP)                                                    \
   template <>                                                                               \
   __device__ __forceinline__ void wgmma_ss_k<N>(float (&d)[N / 2], uint64_t da, uint64_t db, \
@@ -297,6 +315,8 @@ FS2_WGMMA_SS_K(80, 5, 40, 41, 42)
 FS2_WGMMA_SS_K(96, 6, 48, 49, 50)
 FS2_WGMMA_SS_K(112, 7, 56, 57, 58)
 FS2_WGMMA_SS_K(128, 8, 64, 65, 66)
+FS2_WGMMA_SS_K(192, 12, 96, 97, 98)
+FS2_WGMMA_SS_K(256, 16, 128, 129, 130)
 FS2_WGMMA_RS_K(16, 1, 8, 9, 10, 11, 12, 13)
 FS2_WGMMA_RS_K(32, 2, 16, 17, 18, 19, 20, 21)
 FS2_WGMMA_RS_K(48, 3, 24, 25, 26, 27, 28, 29)
@@ -323,6 +343,22 @@ FS2_WGMMA_RS_K(128, 8, 64, 65, 66, 67, 68, 69)
 #undef FS2_ACC_O7
 #undef FS2_ACC_S8
 #undef FS2_ACC_O8
+#undef FS2_ACC_S9
+#undef FS2_ACC_O9
+#undef FS2_ACC_S10
+#undef FS2_ACC_O10
+#undef FS2_ACC_S11
+#undef FS2_ACC_O11
+#undef FS2_ACC_S12
+#undef FS2_ACC_O12
+#undef FS2_ACC_S13
+#undef FS2_ACC_O13
+#undef FS2_ACC_S14
+#undef FS2_ACC_O14
+#undef FS2_ACC_S15
+#undef FS2_ACC_O15
+#undef FS2_ACC_S16
+#undef FS2_ACC_O16
 #undef FS2_O8
 
 #undef FS2_WGMMA_D32

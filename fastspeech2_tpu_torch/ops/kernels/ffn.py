@@ -12,7 +12,9 @@
   ``_ffn_kernel``); ``ffn_fused_apply`` calls it with a module's weights.
 
 CUDA source: ``csrc/ffn.cu`` (a k-tap conv launch writing the bf16 hidden,
-then a k=1 conv launch with the entry's epilogue).
+then a k=1 conv launch with the entry's epilogue, both wgmma kernels fed by
+a TMA weight ring). ``plan`` picks their tiling per shape; the C side makes
+the same choice (``c_plan`` reads it back on the card).
 
 Rounding points follow the TPU kernels: the masked conv input is rounded to
 the compute dtype, each conv's product is rounded and widened for its bias,
@@ -22,6 +24,9 @@ bias-only row (then +x and LN, +x, or nothing).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +43,81 @@ bare_launches = 0
 _fn = None
 _fn_pre = None
 _fn_bare = None
+_fn_plan = None
+
+#: shared memory a block may use on the H100, and each of two on one SM
+SMEM_MAX, SMEM_PAIR = 232_448, 115_712
+#: the ring's 1024-byte alignment and its mbarriers
+SLACK = 1024 + 64
+#: launch 1's (rows, hidden columns) per block, in the order tried: the
+#: second fits every shape the first does not (D up to 1,472 at k = 1)
+CONV_TILES = ((128, 256), (64, 128))
+#: launch 2's output columns per block, at most
+ROW_PASS = 512
+
+
+class FfnPlan(NamedTuple):
+    """Tiling of one FFN shape. Launch 1 (the k-tap conv): ``p`` rows x
+    ``nh`` hidden columns a block, ``st1`` ring stages of nh x 64 weights,
+    ``smem1`` bytes. Launch 2 (the k=1 conv and epilogue): ``no`` output
+    columns per warpgroup (two per block), ``passes`` column passes (blocks)
+    over O, ``st2`` stages of a 64 x 64 hidden tile plus 2*no x 64 weights,
+    ``minb2`` blocks per SM, ``smem2`` bytes (the drained ring then holds
+    the block's round(y), 64 x (2*no + 8) floats)."""
+    p: int
+    nh: int
+    st1: int
+    smem1: int
+    no: int
+    passes: int
+    st2: int
+    minb2: int
+    smem2: int
+
+
+def plan(D: int, H: int, kernel: int, O: int) -> FfnPlan:
+    """The kernels' tiling of (D, H, k, O), as ``csrc/ffn.cu:make_plan``
+    picks it: launch 1 takes the first of ``CONV_TILES`` whose x tile
+    (p + k - 1 rows, rounded up to odd, D bf16 columns) and at least two
+    ring stages fit a block's shared memory, with up to four stages;
+    launch 2 splits O into passes of at most 512 columns, rounds each
+    warpgroup's half up to 64, and takes two blocks per SM at 128 columns or
+    fewer. Raises ValueError where no tiling fits."""
+    for p, nh in CONV_TILES:
+        xb = D * ((p + kernel - 1) | 1) * 2
+        st1 = min(4, (SMEM_MAX - SLACK - xb) // (nh * 128))
+        if st1 >= 2:
+            break
+    else:
+        raise ValueError(f"ffn: D={D}, k={kernel} leave no room for the conv "
+                         "tile in shared memory")
+    passes = -(-O // ROW_PASS)
+    per = -(-O // passes)  # columns of a pass
+    no = -(-((per + 1) // 2) // 64) * 64  # a warpgroup's half, up to a multiple of 64
+    minb2 = 2 if no <= 128 else 1
+    stage = 8192 + 2 * no * 128
+    st2 = min(4, ((SMEM_PAIR if minb2 == 2 else SMEM_MAX) - SLACK) // stage)
+    return FfnPlan(p, nh, st1, xb + st1 * nh * 128 + SLACK, no, passes, st2, minb2,
+                   st2 * stage + SLACK)
+
+
+def scratch_elems(B: int, T: int, H: int, O: int) -> int:
+    """bf16 elements of the kernels' scratch: the (B, T, H) hidden, then the
+    O-float bias-only row at the next 16-byte boundary."""
+    return -(-(B * T * H) // 8) * 8 + 2 * O
+
+
+def c_plan(D: int, H: int, kernel: int, O: int) -> FfnPlan:
+    """The tiling the C side picks for a shape (``fs2_ffn_plan``; needs the
+    built library)."""
+    global _fn_plan
+    if _fn_plan is None:
+        _fn_plan = common.bind(common.load("ffn"), "fs2_ffn_plan",
+                               [common.I] * 4 + [common.P])
+    out = (ctypes.c_int * 9)()
+    if _fn_plan(D, H, kernel, O, out) != 0:
+        raise ValueError(f"ffn: no tiling fits D={D}, H={H}, k={kernel}, O={O}")
+    return FfnPlan(*out)
 
 
 def _masked(x, lengths):
@@ -94,6 +174,7 @@ def _check(name, x, w1, b1, w2, b2, lengths, kernel, D, O, x_dtype):
     if D % 32 or H % 32 or kernel % 2 != 1:
         raise ValueError(f"{name}: D={D}, H={H}, k={kernel} not supported "
                          "by the kernel (multiples of 32, odd k)")
+    plan(D, H, kernel, O)
     return B, T, H
 
 
@@ -141,7 +222,7 @@ def _launch_block(name, fn, x, w1, b1, w2, b2, g, be, lengths, kernel, eps):
     B, T, H = _check(name, x, w1, b1, w2, b2, lengths, kernel, D, D, torch.float32)
     common.check_cuda(name, x.device, [("g", g, torch.float32, (D,)),
                                        ("be", be, torch.float32, (D,))])
-    hid = torch.empty((B, T, H), dtype=torch.bfloat16, device=x.device)
+    hid = torch.empty(scratch_elems(B, T, H, D), dtype=torch.bfloat16, device=x.device)
     out = torch.empty_like(x)
     common.launch(fn, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                   b2.data_ptr(), g.data_ptr(), be.data_ptr(), lengths.data_ptr(),
@@ -168,7 +249,7 @@ def fused_ffn(x, w1, b1, w2, b2, lengths, kernel: int, out_dtype=None):
     if _fn_bare is None:
         P, I = common.P, common.I
         _fn_bare = common.bind(common.load("ffn"), "fs2_ffn", [P] * 8 + [I] * 7 + [P])
-    hid = torch.empty((B, T, H), dtype=torch.bfloat16, device=x.device)
+    hid = torch.empty(scratch_elems(B, T, H, O), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((B, T, O), dtype=out_dtype, device=x.device)
     common.launch(_fn_bare, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                   b2.data_ptr(), lengths.data_ptr(), hid.data_ptr(), out.data_ptr(),

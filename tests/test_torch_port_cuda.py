@@ -795,13 +795,13 @@ def test_ffn_block_pre(dev, B, T, D):
         n9 = KF.pre_launches
         got = KF.ffn_block_pre(x, *fp, lens, 9)
         want = KF.ffn_block_pre_plain(x, *fp, lens, 9)
+        c = _bias_row(KF, fp[:4], D, 9, dev)
         torch.cuda.synchronize()
     assert KF.pre_launches == n9 + 1
     _close(got, want)
-    # length 0: every tile past the first (whose halo reaches row 0) is dead
-    # and holds x + the one bias row (f32 rounding of the add only)
-    row = got[-1, 64:] - x[-1, 64:]
-    assert float((row - row[:1]).abs().max()) < 1e-5
+    # every row from len + 4 on, of every batch row, holds x + the one bias
+    # row (f32 rounding of the add only)
+    _dead_rows(got, lens, 9, lambda b, t0: x[b, t0:] + c)
 
 
 @pytest.mark.parametrize("O,out_dtype", [(384, torch.bfloat16), (384, torch.float32),
@@ -813,11 +813,8 @@ def test_fused_ffn(dev, O, out_dtype):
 
     g = torch.Generator().manual_seed(O)
     B, T, D, Hd, k = 3, 160, 384, 1024, 9
-    bf = torch.bfloat16
-    x = torch.randn(B, T, D, generator=g).to(bf).to(dev)
-    w1 = (torch.randn(Hd, k * D, generator=g) / (k * D) ** 0.5).to(bf).to(dev)
-    w2 = (torch.randn(O, Hd, generator=g) / Hd ** 0.5).to(bf).to(dev)
-    b1, b2 = ((0.1 * torch.randn(n, generator=g)).to(dev) for n in (Hd, O))
+    x = torch.randn(B, T, D, generator=g).to(torch.bfloat16).to(dev)
+    w1, b1, w2, b2 = _ffn_weights(D, Hd, O, k, g, dev)
     lens = _lengths_0_1(B, T, dev, g)
     n10 = KF.bare_launches
     got = KF.fused_ffn(x, w1, b1, w2, b2, lens, k, out_dtype)
@@ -826,8 +823,145 @@ def test_fused_ffn(dev, O, out_dtype):
     assert KF.bare_launches == n10 + 1
     assert got.dtype == out_dtype and got.shape == (B, T, O)
     _close(got, want)
-    # length 0: the dead tiles (all but the first) hold the one bias row
-    assert torch.equal(got[-1, 64:], got[-1, 64:65].expand(T - 64, O))
+    # every row from len + 4 on, of every batch row, is the one bias row,
+    # bit for bit
+    c = got[-1, -1]
+    _dead_rows(got, lens, k, lambda b, t0: c, exact=True)
+
+
+def _bias_row(KF, w, D, k, dev):
+    """The bias-only row c = round(relu(round(b1)) W2) + b2 of kernel 10 on
+    the FFN weights w = (w1, b1, w2, b2), in f32: row k - 1 of a length-0
+    input (past its halo)."""
+    x0 = torch.zeros(1, k, D, dtype=torch.bfloat16, device=dev)
+    lens0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    return KF.fused_ffn(x0, *w, lens0, k, torch.float32)[0, -1]
+
+
+def _dead_rows(got, lens, k, want_from, exact=False):
+    """Every row t >= len + (k - 1) / 2 of every batch row against
+    want_from(b, t0) (rows t0 on): bit for bit, or within 1e-5 (the f32
+    rounding of the residual add and the LayerNorm's)."""
+    T = got.shape[1]
+    for b, n in enumerate(lens.tolist()):
+        t0 = min(T, max(0, n) + (k - 1) // 2)
+        if t0 == T:
+            continue
+        want = want_from(b, t0).expand_as(got[b, t0:])
+        if exact:
+            assert torch.equal(got[b, t0:], want), f"dead rows of batch row {b}"
+        else:
+            err = float((got[b, t0:].float() - want.float()).abs().max())
+            assert err < 1e-5, f"dead rows of batch row {b}: {err}"
+
+
+def _ffn_weights(D, H, O, k, g, dev):
+    bf = torch.bfloat16
+    w1 = (torch.randn(H, k * D, generator=g) / (k * D) ** 0.5).to(bf).to(dev)
+    w2 = (torch.randn(O, H, generator=g) / H ** 0.5).to(bf).to(dev)
+    b1, b2 = ((0.1 * torch.randn(n, generator=g)).to(dev) for n in (H, O))
+    return w1, b1, w2, b2
+
+
+# (B, T, D, H, k): T under one 64-row tile, T no multiple of the tiles, D=512
+# (fewer ring stages), D=1024 with H=4096 (64-row conv tiles, two column
+# passes and the row LayerNorm launch), a hidden width no multiple of 64, k=1
+# and k=3 (ESPnet2's usual positionwise_conv_kernel_size)
+FFN_EDGES = [(3, 40, 256, 1024, 9), (2, 200, 384, 1024, 9), (2, 160, 512, 1024, 9),
+             (2, 100, 1024, 4096, 9), (3, 130, 256, 1056, 3), (3, 96, 384, 1024, 1),
+             (2, 70, 384, 1024, 3)]
+
+
+@pytest.mark.parametrize("B,T,D,H,k", FFN_EDGES,
+                         ids=[f"T{t}-D{d}-H{h}-k{k}" for _, t, d, h, k in FFN_EDGES])
+def test_ffn_kernels_at_tiling_edges(dev, B, T, D, H, k):
+    """Kernels 2, 9 and 10 against their plain versions at shapes the tiling
+    makes risky, with lengths 0, 1 and T; every row t >= len + (k - 1) / 2
+    is built from one bias-only row c for the call: c itself (10, bit for
+    bit), x + c (9) and LN(x + c) (2), the last two within 1e-5."""
+    from fastspeech2_tpu_torch.ops import nn
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    g = torch.Generator().manual_seed(B * T + D + k)
+    w = _ffn_weights(D, H, D, k, g, dev)
+    ln_g = (1.0 + 0.2 * torch.randn(D, generator=g)).to(dev)
+    ln_b = (0.1 * torch.randn(D, generator=g)).to(dev)
+    x = (2.0 * torch.randn(B, T, D, generator=g) + 0.5).to(dev)
+    lens = _lengths_0_1(B, T, dev, g)
+    with torch.inference_mode():
+        c = _bias_row(KF, w, D, k, dev)
+        got = KF.ffn_block(x, *w, ln_g, ln_b, lens, k)
+        _close(got, KF.ffn_block_plain(x, *w, ln_g, ln_b, lens, k))
+        _dead_rows(got, lens, k, lambda b, t0: nn.layer_norm(x[b, t0:] + c, ln_g, ln_b))
+        got = KF.ffn_block_pre(x, *w, ln_g, ln_b, lens, k)
+        _close(got, KF.ffn_block_pre_plain(x, *w, ln_g, ln_b, lens, k))
+        _dead_rows(got, lens, k, lambda b, t0: x[b, t0:] + c)
+        xb = x.to(torch.bfloat16)
+        got = KF.fused_ffn(xb, *w, lens, k, torch.float32)
+        _close(got, KF.fused_ffn_plain(xb, *w, lens, k, torch.float32))
+        _dead_rows(got, lens, k, lambda b, t0: c, exact=True)
+        torch.cuda.synchronize()
+
+
+def test_ffn_plan_of_the_c_side_is_the_python_one(dev):
+    """csrc/ffn.cu:make_plan and ops/kernels/ffn.py:plan pick the same
+    tiling (the CPU tests hold the Python one)."""
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    for D in (32, 256, 384, 512, 1024, 1472):
+        for H in (32, 1024, 4096):
+            for k in (1, 3, 9, 31):
+                for O in (1, 80, 200, D, 1025):
+                    try:
+                        want = KF.plan(D, H, k, O)
+                    except ValueError:
+                        with pytest.raises(ValueError):
+                            KF.c_plan(D, H, k, O)
+                        continue
+                    assert KF.c_plan(D, H, k, O) == want, (D, H, k, O)
+
+
+def test_two_threads_launch_the_ffn_at_two_widths(dev):
+    """The server's two threads run the FFN at D=256 (encoder) and D=384
+    (decoder): both kernels of the entry get other shared-memory sizes. Two
+    threads call the C entry back to back: no launch may be refused, and
+    each width's output stays what one thread alone gave."""
+    import threading
+
+    from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    torch.manual_seed(6)
+    jobs, keep = [], []
+    for D in (256, 384):
+        blk = FFTBlock(EncoderConfig(idim=D, attention_dim=D, linear_units=1024),
+                       device=dev)
+        x = torch.randn(1, 32, D, device=dev)
+        lens = torch.tensor([20], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            fp = blk.ffn_pack(torch.bfloat16)
+            want = KF.ffn_block(x, *fp, lens, 9)  # binds KF._fn
+        hid = torch.empty(KF.scratch_elems(1, 32, 1024, D), dtype=torch.bfloat16, device=dev)
+        out = torch.empty_like(x)
+        keep.append((blk, x, lens, fp, hid, out, want))
+        jobs.append((x.data_ptr(), *(t.data_ptr() for t in fp), lens.data_ptr(),
+                     hid.data_ptr(), out.data_ptr(), 1, 32, D, 1024, 9, 1e-5,
+                     torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    refused = {}
+
+    def run(args):
+        refused[args[12]] = sum(1 for _ in range(5000) if KF._fn(*args))
+
+    threads = [threading.Thread(target=run, args=(job,)) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert refused == {256: 0, 384: 0}, f"refused launches of 5000 per width: {refused}"
+    for *_, out, want in keep:
+        assert torch.equal(out, want)
 
 
 def test_new_kernels_refuse_the_wrong_dtype(dev):

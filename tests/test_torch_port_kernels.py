@@ -327,3 +327,51 @@ def test_resstack_pack_weights_and_tile():
         b2[2].numpy(), stacks[2].c2.bias.to(torch.bfloat16).float().detach().numpy())
     for S in (13, 64, 128, 384, 2000, 2048, 6144, 196608):
         assert KR.resstack_tile(S) == j_tile(S)
+
+
+def _parent_served(D, H, k, O):
+    """Whether the mma.sync FFN body (PR 1-8) launched this shape: D and H
+    multiples of 32, odd k, O >= 1, its conv tile (64 + k - 1 rows of D + 8
+    bf16 plus 40 KB of weight slices) and its output tile (64 hidden rows of
+    H + 8 plus 90 KB of slices) within a block's 232,448 bytes."""
+    return (D % 32 == 0 and H % 32 == 0 and k % 2 == 1 and O >= 1
+            and ((64 + k - 1) * (D + 8) + 20480) * 2 <= KF.SMEM_MAX
+            and max((64 * (H + 8) + 46080) * 2, 4 * O) <= KF.SMEM_MAX)
+
+
+@pytest.mark.parametrize("D", [32, 96, 256, 384, 512, 1024, 1440, 1472])
+def test_ffn_plan_fits_and_covers(D):
+    """ops/kernels/ffn.py:plan (the tiling csrc/ffn.cu picks the same way)
+    over every (H, k, O) of a grid that the previous kernel body served at
+    this D: a plan exists, each launch's shared memory fits a block (two
+    blocks an SM where it plans two), the conv tile holds the block's rows
+    and their halo, and the grids cover every hidden and output column with
+    wgmma widths (multiples of 16 up to 256) and TMA boxes (up to 256 rows),
+    and launch 2's drained ring holds its block's round(y)."""
+    served = 0
+    for H in (32, 64, 1024, 1056, 1088):
+        for k in (1, 3, 5, 9, 31, 101):
+            for O in sorted({1, 80, 200, 255, D, 513, 1025}):
+                if not _parent_served(D, H, k, O):
+                    continue
+                served += 1
+                pl = KF.plan(D, H, k, O)
+                assert (pl.p, pl.nh) in KF.CONV_TILES
+                rows = (pl.p + k - 1) | 1
+                assert rows >= pl.p + k - 1
+                assert pl.smem1 == D * rows * 2 + pl.st1 * pl.nh * 128 + KF.SLACK
+                assert 2 <= pl.st1 <= 4 and pl.smem1 <= KF.SMEM_MAX
+                # launch 1: warpgroups of 64 rows; nh // (3 - p // 64) columns each
+                wn = pl.nh if pl.p == 128 else pl.nh // 2
+                assert wn % 16 == 0 and wn <= 256 and pl.nh <= 256
+                assert -(-H // pl.nh) * pl.nh >= H
+                # launch 2: passes x 2 warpgroups x no columns cover O
+                assert pl.no % 64 == 0 and 64 <= pl.no <= 256
+                assert pl.passes * 2 * pl.no >= O
+                assert (pl.passes - 1) * 2 * pl.no < O  # no pass is empty
+                stage = 64 * 64 * 2 + 2 * pl.no * 64 * 2
+                assert pl.smem2 == pl.st2 * stage + KF.SLACK
+                assert 64 * (2 * pl.no + 8) * 4 <= pl.st2 * stage  # round(y) staging
+                assert 2 <= pl.st2 <= 4 and pl.minb2 in (1, 2)
+                assert pl.minb2 * (pl.smem2 + 1024) <= KF.SMEM_MAX + 1024
+    assert served > 0
