@@ -82,11 +82,6 @@ struct Geometry {
   int osr;             // its row stride
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
 // Rows [r0, r0 + 64) x DK columns of one (b, h) matrix into a 64-row tile
 // (DK / 64 swizzled sub-tiles), counted on `bar`.
 template <int DK>

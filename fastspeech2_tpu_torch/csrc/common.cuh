@@ -4,7 +4,9 @@
 // bf16 operands with f32 accumulation in registers, issued as
 // mma.sync.m16n8k16 with ldmatrix fragments from shared memory. The B
 // operand (weights) streams through shared memory in 32-deep slices, several
-// in flight with cp.async. No TMA, wgmma or warp specialisation yet.
+// in flight with cp.async. It carries the products of kernels 3 and 4
+// (adaptor.cu, postnet.cu) only; the other kernels are wgmma kernels on
+// hopper.cuh.
 //
 // Rounding helpers reproduce the JAX package's bf16 contract: products
 // accumulate in f32, are rounded to bf16 (round to nearest even), and are
@@ -31,10 +33,6 @@ __device__ __forceinline__ float bf16r(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // d += a * b for one 16x8x16 tile (a row-major 16x16, b col-major 16x8).
@@ -104,11 +102,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 // A fragment (16 x 16, row-major) of rows [0, 16) at column 0 of `tile`
 // (row stride ld elements, a multiple of 8).
@@ -123,30 +116,6 @@ __device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const bf16* tile, 
 __device__ __forceinline__ void load_b_frag2(uint32_t (&b)[4], const bf16* tile, int ld,
                                              int lane) {
   ldmatrix_x4(b, tile + ((lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8);
-}
-
-// s = A_w B^T for one warp: 16 rows of A (Qw, row stride lq, DK deep) x 64
-// rows of an n-major B (Ks, row stride lk): the score tile of attention.
-template <int DK>
-__device__ __forceinline__ void warp_scores(float (&s)[8][4], const bf16* Qw,
-                                            int lq, const bf16* Ks, int lk,
-                                            int lane) {
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) s[ni][r] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DK; kk += 16) {
-    uint32_t a[4];
-    load_a_frag(a, Qw + kk, lq, lane);
-#pragma unroll
-    for (int ni = 0; ni < 8; ni += 2) {
-      uint32_t b[4];
-      load_b_frag2(b, Ks + ni * 8 * lk + kk, lk, lane);
-      mma_bf16(s[ni], a, b[0], b[1]);
-      mma_bf16(s[ni + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // Block-cooperative C = A * W^T, bf16 operands, f32 accumulators.
@@ -250,24 +219,6 @@ struct TileGemm {
         f(r0, c0 + 1, acc[mi][ni][1]);
         f(r0 + 8, c0, acc[mi][ni][2]);
         f(r0 + 8, c0 + 1, acc[mi][ni][3]);
-      }
-  }
-
-  // f(row, col, v0, v1) for every pair of adjacent accumulators (columns
-  // col and col + 1, col even): lets the caller store two values at once.
-  template <class Fn>
-  __device__ __forceinline__ void epilogue_pairs(Fn f) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = warp / WN, wn = warp % WN;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int r0 = wm * MI * 16 + mi * 16 + g;
-        const int c0 = wn * NI * 8 + ni * 8 + 2 * t;
-        f(r0, c0, acc[mi][ni][0], acc[mi][ni][1]);
-        f(r0 + 8, c0, acc[mi][ni][2], acc[mi][ni][3]);
       }
   }
 };

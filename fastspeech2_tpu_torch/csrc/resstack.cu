@@ -96,11 +96,6 @@ __device__ __forceinline__ uint32_t opaque(uint32_t v) {
   return v;
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
 // Rows of an activation buffer [C / 8][rows][8]: at least `rows`, and one more
 // than a multiple of 8, so 8 consecutive column chunks of one row sit on 8
 // distinct 16-byte bank groups (the tile's load and store).

@@ -2,8 +2,11 @@
 
 Port of ``fastspeech2_tpu/ops/pallas/attention.py:fused_attention_packed_qkv_res_ln``
 (kernel ``_attn_kernel_packed_qkv_res_ln``). CUDA source:
-``csrc/attention.cu`` (a QKV projection launch, then one attention + out
-projection + residual + LayerNorm launch).
+``csrc/attention.cu``: three wgmma launches, the q|k|v projection (launch 1
+of ``csrc/ffn_body.cuh`` at k = 1 without the ReLU), the SERVE forward of
+``csrc/attention_fwd.cuh`` (kernel 7's) into a bf16 head-output scratch,
+and the out projection with the residual and LayerNorm (launch 2 of
+``csrc/ffn_body.cuh``). d_k 128, 192 or 256.
 
 Rounding points follow the TPU kernel: q/k/v are ``round(round(x@W) + b)``
 in the compute dtype, the softmax is f32 with ``finfo.min`` fill, re-zeroing
@@ -14,14 +17,15 @@ or past the length come out as ``LN(x + bo)``.
 ``attention_res_ln`` is the same function with q/k/v given: the port of
 ``attention.py:fused_attention_packed_res_ln`` (kernel
 ``_attn_kernel_packed_res_ln``), which the JAX package takes with
-``FS2_FUSED_ATT_QKV=off``. It is the second launch of ``csrc/attention.cu``
-alone, under its own C entry; q/k/v arrive rounded to the compute dtype and
-the residual is a separate f32 input.
+``FS2_FUSED_ATT_QKV=off``. It is the last two launches of
+``csrc/attention.cu`` alone, under their own C entry; q/k/v arrive rounded
+to the compute dtype and the residual is a separate f32 input.
 
 ``attention_res`` is the pre-LN block's attention half, ``res + MHA(q, k,
 v)·Wo + bo`` with no LayerNorm (rows at or past the length: ``res + bo``): the
 port of ``attention.py:fused_attention_packed_res`` (kernel
-``_attn_kernel_packed_res``), C entry ``fs2_attention_res``.
+``_attn_kernel_packed_res``), C entry ``fs2_attention_res`` (the same two
+launches, the out projection's epilogue without the LayerNorm).
 ``mha_fused_res_apply`` projects q/k/v and calls it, as the JAX wrapper does.
 
 ``fused_attention_packed`` and ``fused_attention`` are the bare masked
@@ -48,7 +52,7 @@ import torch
 
 from fastspeech2_tpu_torch.ops import nn
 from fastspeech2_tpu_torch.ops.attention import masked_softmax
-from fastspeech2_tpu_torch.ops.kernels import attention_train, common
+from fastspeech2_tpu_torch.ops.kernels import attention_train, common, ffn
 from fastspeech2_tpu_torch.ops.precision import current_compute_dtype, round_to
 
 #: launches of the CUDA kernel (the plain version does not count)
@@ -148,18 +152,17 @@ def attention_block(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
         ("bqkv", bqkv, f32, (3 * D,)), ("wo", wo, bf16, (D, D)),
         ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
         ("lengths", lengths, torch.int32, (B,))])
-    if D % 64 or D % n_heads or D // n_heads not in (128, 192):
-        raise ValueError(f"attention_block: D={D}, heads={n_heads} not "
-                         "supported by the kernel (d_k 128 or 192)")
+    _check_heads("attention_block", D, n_heads)
     if _fn is None:
         P, I, F = common.P, common.I, common.F
         _fn = common.bind(common.load("attention"), "fs2_attention_block",
-                          [P] * 10 + [I] * 4 + [F, F, P])
+                          [P] * 11 + [I] * 4 + [F, F, P])
     qkv = torch.empty((B, T, 3 * D), dtype=bf16, device=x.device)
+    o = torch.empty((B, T, D), dtype=bf16, device=x.device)
     out = torch.empty_like(x)
     common.launch(_fn, x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
                   wo.data_ptr(), bo.data_ptr(), g.data_ptr(), be.data_ptr(),
-                  lengths.data_ptr(), qkv.data_ptr(), out.data_ptr(),
+                  lengths.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
                   B, T, D, n_heads, 1.0 / math.sqrt(D // n_heads), eps,
                   common.stream_of(x))
     with common.count_lock:
@@ -186,9 +189,17 @@ def _qkv_stride(name, q, k, v, shape):
 
 
 def _check_heads(name, D, n_heads):
-    if D % 64 or D % n_heads or D // n_heads not in (128, 192):
-        raise ValueError(f"{name}: D={D}, heads={n_heads} not supported by the "
-                         "kernel (d_k 128 or 192)")
+    """The attention halves' shape rule: the bare kernels' head dims
+    (``check_head_dim``), and a width D whose q|k|v and out projections
+    have a tiling on ``csrc/ffn_body.cuh`` (``ffn.plan`` at k = 1, which
+    depends on D alone); raise for others."""
+    if n_heads < 1 or D % n_heads:
+        raise ValueError(f"{name}: D={D} is not a multiple of heads={n_heads}")
+    check_head_dim(name, D // n_heads)
+    try:
+        ffn.plan(D, D, 1, D)
+    except ValueError:
+        raise ValueError(f"{name}: D={D} leaves the projections no tiling") from None
 
 
 def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
@@ -214,12 +225,13 @@ def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
     if _fn_res_ln is None:
         P, I, F = common.P, common.I, common.F
         _fn_res_ln = common.bind(common.load("attention"), "fs2_attention_res_ln",
-                                 [P] * 4 + [I] + [P] * 6 + [I] * 4 + [F, F, P])
+                                 [P] * 4 + [I] + [P] * 7 + [I] * 4 + [F, F, P])
+    o = torch.empty((B, T, D), dtype=bf16, device=q.device)
     out = torch.empty_like(res)
     common.launch(_fn_res_ln, res.data_ptr(), q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), ld, wo.data_ptr(), bo.data_ptr(), g.data_ptr(),
-                  be.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, T, D,
-                  n_heads, 1.0 / math.sqrt(D // n_heads), eps,
+                  be.data_ptr(), lengths.data_ptr(), o.data_ptr(), out.data_ptr(),
+                  B, T, D, n_heads, 1.0 / math.sqrt(D // n_heads), eps,
                   common.stream_of(q))
     with common.count_lock:
         res_ln_launches += 1
@@ -244,11 +256,13 @@ def attention_res(q, k, v, res, wo, bo, lengths, n_heads: int):
     if _fn_res is None:
         P, I, F = common.P, common.I, common.F
         _fn_res = common.bind(common.load("attention"), "fs2_attention_res",
-                              [P] * 4 + [I] + [P] * 4 + [I] * 4 + [F, P])
+                              [P] * 4 + [I] + [P] * 5 + [I] * 4 + [F, P])
+    o = torch.empty((B, T, D), dtype=torch.bfloat16, device=q.device)
     out = torch.empty_like(res)
     common.launch(_fn_res, res.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  ld, wo.data_ptr(), bo.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                  B, T, D, n_heads, 1.0 / math.sqrt(D // n_heads), common.stream_of(q))
+                  ld, wo.data_ptr(), bo.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+                  out.data_ptr(), B, T, D, n_heads, 1.0 / math.sqrt(D // n_heads),
+                  common.stream_of(q))
     with common.count_lock:
         res_launches += 1
     return out

@@ -59,11 +59,12 @@ def test_attention_and_ffn_blocks(dev, B, T, D):
 
 def test_two_threads_launch_one_kernel_at_two_widths(dev):
     """A server's dispatch thread runs the encoder (D=256) while its delivery
-    thread runs the decoder (D=384): both reach ``qkv_proj_kernel`` with other
-    shared-memory sizes. Two threads call the C entry back to back (nothing of
-    Python between the calls, so they overlap inside it): no launch may be
-    refused. With a per-launch opt-in that could shrink, about one launch in
-    twenty at the wider size came back with cudaErrorInvalidValue."""
+    thread runs the decoder (D=384): kernel 1's q|k|v projection and out
+    projection launches get other shared-memory sizes at each width. Two
+    threads call the C entry back to back (nothing of Python between the
+    calls, so they overlap inside it): no launch may be refused. With a
+    per-launch opt-in that could shrink, about one launch in twenty at the
+    wider size came back with cudaErrorInvalidValue."""
     import math
     import threading
 
@@ -81,17 +82,18 @@ def test_two_threads_launch_one_kernel_at_two_widths(dev):
             ap = blk.attn_pack(torch.bfloat16)
             want = KA.attention_block(x, *ap, lens, 2)  # binds KA._fn
         qkv = torch.empty((1, 32, 3 * D), dtype=torch.bfloat16, device=dev)
+        o = torch.empty((1, 32, D), dtype=torch.bfloat16, device=dev)
         out = torch.empty_like(x)
-        keep.append((blk, x, lens, ap, qkv, out, want))
+        keep.append((blk, x, lens, ap, qkv, o, out, want))
         jobs.append((x.data_ptr(), *(t.data_ptr() for t in ap), lens.data_ptr(),
-                     qkv.data_ptr(), out.data_ptr(), 1, 32, D, 2,
+                     qkv.data_ptr(), o.data_ptr(), out.data_ptr(), 1, 32, D, 2,
                      1.0 / math.sqrt(D // 2), 1e-5,
                      torch.cuda.current_stream().cuda_stream))
     torch.cuda.synchronize()
     refused = {}
 
     def run(args):
-        refused[args[12]] = sum(1 for _ in range(50000) if KA._fn(*args))
+        refused[args[13]] = sum(1 for _ in range(50000) if KA._fn(*args))
 
     threads = [threading.Thread(target=run, args=(job,)) for job in jobs]
     for t in threads:
@@ -257,14 +259,99 @@ def test_attention_res_ln(dev, B, T, D):
     assert KA.res_ln_launches == n0 + 2
     assert torch.equal(got, packed)
     # the projections are a cuBLAS f32 product here and a tensor-core product
-    # in the fused kernel: q/k/v differ by rare one-ulp flips, which reach
+    # in the fused kernel: q/k/v may differ by rare one-ulp flips, which reach
     # many outputs through the softmax and the LayerNorm, so the two kernels
-    # agree within the band but not bit for bit
+    # are held to the band, not to the bits
     _close(got, fused)
     # (no-grad: the serving kernels refuse inputs that autograd would record,
     # and the packed LayerNorm weights are the parameters themselves)
     with torch.no_grad(), pytest.raises(ValueError, match="bfloat16"):
         KA.attention_res_ln(q.float(), k, v, x, *ap[2:], lens, 2)
+
+
+# (B, T, D, heads): d_k 128, 192 and 256 (one head and two), T off the 64-
+# and 128-row tiles; D = 768 takes the q|k|v projection's 64-row tiling and
+# the out projection's two column passes with its LayerNorm launch
+HALF_CASES = [(4, 100, 256, 2), (3, 200, 384, 2), (4, 130, 256, 1), (3, 72, 512, 2),
+              (3, 96, 768, 3)]
+
+
+@pytest.mark.parametrize("B,T,D,H", HALF_CASES,
+                         ids=[f"T{t}-D{d}-dk{d // h}" for _, t, d, h in HALF_CASES])
+def test_attention_halves_at_every_head_dim(dev, B, T, D, H):
+    """Kernels 1, 5 and 6 against their plain versions at d_k 128, 192 and
+    256 with lengths T, 1, 0 and random: 5 and 6 on q/k/v column blocks of
+    one (B, T, 3D) buffer rounded as kernel 1 rounds them, kernel 1 against
+    kernel 5 on the same x (the band: a cuBLAS f32 product and a tensor-core
+    one flip rare q/k/v ulps). Rows at or past each length bit for bit: res
+    + bo (6), and for 1 and 5 what kernel 5 gives at length 0 on the same
+    residual, itself within 1e-5 of the plain LN(res + bo)."""
+    from fastspeech2_tpu_torch.ops import nn
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+
+    g = torch.Generator().manual_seed(B * T + D + H)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+
+    x = rnd(B, T, D, scale=2.0) + 0.5
+    wqkv, wo = (rnd(3 * D, D) / D ** 0.5).to(bf), (rnd(D, D) / D ** 0.5).to(bf)
+    bqkv, bo = rnd(3 * D, scale=0.1), rnd(D, scale=0.1)
+    ln_g, ln_b = 1.0 + rnd(D, scale=0.2), rnd(D, scale=0.1)
+    lens = _lengths_0_1(B, T, dev, g)
+    with torch.inference_mode():
+        n = (KA.launches, KA.res_ln_launches, KA.res_launches)
+        got1 = KA.attention_block(x, wqkv, bqkv, wo, bo, ln_g, ln_b, lens, H)
+        want1 = KA.attention_block_plain(x, wqkv, bqkv, wo, bo, ln_g, ln_b, lens, H)
+        qkv = (x.to(bf).float() @ wqkv.float().t()).to(bf).float().add(bqkv).to(bf)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        got5 = KA.attention_res_ln(q, k, v, x, wo, bo, ln_g, ln_b, lens, H)
+        want5 = KA.attention_res_ln_plain(q, k, v, x, wo, bo, ln_g, ln_b, lens, H)
+        got6 = KA.attention_res(q, k, v, x, wo, bo, lens, H)
+        want6 = KA.attention_res_plain(q, k, v, x, wo, bo, lens, H)
+        dead = KA.attention_res_ln(q, k, v, x, wo, bo, ln_g, ln_b, torch.zeros_like(lens), H)
+        torch.cuda.synchronize()
+    assert (KA.launches, KA.res_ln_launches, KA.res_launches) == (n[0] + 1, n[1] + 2, n[2] + 1)
+    for got, want in ((got1, want1), (got5, want5), (got6, want6), (got1, got5)):
+        _close(got, want)
+    assert float((dead - nn.layer_norm(x + bo, ln_g, ln_b)).abs().max()) < 1e-5
+    for b, m in enumerate(lens.tolist()):
+        assert torch.equal(got6[b, m:], x[b, m:] + bo), b
+        assert torch.equal(got1[b, m:], dead[b, m:]), b
+        assert torch.equal(got5[b, m:], dead[b, m:]), b
+
+
+def test_attention_half_kernels_use_wgmma_and_do_not_spill(dev):
+    """attention's library holds no mma.sync kernel: beside the SERVE
+    forward, the q|k|v projection (launch 1 of ffn_body.cuh at both
+    tilings) and the out projection (its launch 2, with and without the
+    LayerNorm, at four widths) show HGMMA and no HMMA in their SASS, and no
+    ptxas spills; no ptxas note that it serialized a wgmma."""
+    import re
+    import shutil
+    import subprocess
+
+    from fastspeech2_tpu_torch.ops.kernels import common
+
+    common.load("attention")
+    log = common.ptxas_report("attention")
+    assert "serialized" not in log
+    funcs = dict((f[0], f[1:]) for f in re.findall(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes spill loads",
+        log, re.S))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(common._lib_path("attention"))],
+                          check=True, capture_output=True, text=True).stdout
+    seen = {"ffn_conv_kernel": 0, "ffn_out_kernel": 0}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        assert "HMMA" not in part.replace("HGMMA", ""), name
+        kind = next((k for k in seen if k in name), None)
+        if kind:
+            seen[kind] += 1
+            assert "HGMMA" in part and funcs.get(name) == ("0", "0"), name
+    assert seen == {"ffn_conv_kernel": 2, "ffn_out_kernel": 8}, seen
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["kernel11_packed", "kernel12"])

@@ -47,11 +47,17 @@ def _close(got, want, tier, band):
         assert d.mean() < band[0] and d.max() < band[1], (d.mean(), d.max())
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
-def test_attention_block_matches_pallas(tier, rng):
+# (tier, D, heads) of kernels 1 and 5: two heads of 32, then one head of
+# 256 (d_k 256, the widest Hopper instantiation)
+HALF_CASES = [("f32", 64, 2), ("bf16", 64, 2), ("f32", 256, 1), ("bf16", 256, 1)]
+HALF_IDS = ["f32", "bf16", "f32-dk256", "bf16-dk256"]
+
+
+@pytest.mark.parametrize("tier,D,H", HALF_CASES, ids=HALF_IDS)
+def test_attention_block_matches_pallas(tier, D, H, rng):
     """Kernel 1: LN(x + MHA(x)·Wo + bo); rows past the length give
     LN(x + bo). bf16 band: mean 2e-3, max 5e-2 (LN output, unit scale)."""
-    B, T, D, H = 3, 32, 64, 2
+    B, T = 3, 32
     x = rng.normal(size=(B, T, D)).astype(np.float32)
     w = [(rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32) for _ in range(4)]
     bqkv = (rng.normal(size=(3, D)) * 0.1).astype(np.float32)
@@ -210,12 +216,12 @@ def test_postnet_matches_pallas(tier, rng):
     np.testing.assert_allclose(got.numpy()[2, 16:], want[2, 16:], rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
-def test_attention_res_ln_matches_pallas(tier, rng):
+@pytest.mark.parametrize("tier,D,H", HALF_CASES, ids=HALF_IDS)
+def test_attention_res_ln_matches_pallas(tier, D, H, rng):
     """Kernel 5: LN(res + MHA(q, k, v)·Wo + bo) with q/k/v given in the
     compute dtype and a separate f32 residual; rows past the length give
     LN(res + bo). bf16 band: mean 2e-3, max 5e-2 (LN output, unit scale)."""
-    B, T, D, H = 3, 32, 64, 2
+    B, T = 3, 32
     jd, td = JAX_DT[tier], TORCH_DT[tier]
     q, k, v = (np.asarray(jnp.asarray(rng.normal(size=(B, T, D)), jd).astype(jnp.float32))
                for _ in range(3))  # values of the compute dtype
@@ -337,6 +343,26 @@ def _parent_served(D, H, k, O):
     return (D % 32 == 0 and H % 32 == 0 and k % 2 == 1 and O >= 1
             and ((64 + k - 1) * (D + 8) + 20480) * 2 <= KF.SMEM_MAX
             and max((64 * (H + 8) + 46080) * 2, 4 * O) <= KF.SMEM_MAX)
+
+
+@pytest.mark.parametrize("D", [256, 384, 768])
+def test_ffn_plan_fits_the_attention_projections(D):
+    """Kernels 1, 5 and 6 run their projections on the FFN body at k = 1
+    (csrc/attention.cu): the q|k|v projection is launch 1 with 3D hidden
+    columns, the out projection launch 2 with D inputs and outputs. At the
+    widths of one to three heads of 256 (and the shipped D = 256, 384) both
+    plans exist and fit a block; launch 1's row tiles are whole 64-row key
+    tiles of the attention forward (it writes every row of a live tile, so
+    the key tile that holds the length is written to its end), its columns
+    cover 3D, and launch 2's passes cover D."""
+    qkv, out = KF.plan(D, 3 * D, 1, D), KF.plan(D, D, 1, D)
+    assert qkv.p % 64 == 0 and (qkv.p, qkv.nh) in KF.CONV_TILES
+    assert qkv.smem1 == D * (qkv.p | 1) * 2 + qkv.st1 * qkv.nh * 128 + KF.SLACK  # x tile, ring
+    assert 2 <= qkv.st1 <= 4 and qkv.smem1 <= KF.SMEM_MAX
+    assert -(-3 * D // qkv.nh) * qkv.nh >= 3 * D
+    assert out.passes * 2 * out.no >= D > (out.passes - 1) * 2 * out.no
+    assert 2 <= out.st2 <= 4 and out.minb2 * (out.smem2 + 1024) <= KF.SMEM_MAX + 1024
+    assert out.no % 64 == 0 and 64 <= out.no <= 256
 
 
 @pytest.mark.parametrize("D", [32, 96, 256, 384, 512, 1024, 1440, 1472])

@@ -77,20 +77,23 @@ def _qkv(rng, shape, tier):
     return vals, [_t(np.asarray(v, np.float32), TORCH_DT[tier]) for v in vals]
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
-def test_attention_res_matches_pallas(tier, rng):
+@pytest.mark.parametrize("tier,dm,nh", [("f32", D, H), ("bf16", D, H), ("f32", 256, 1),
+                                        ("bf16", 256, 1)],
+                         ids=["f32", "bf16", "f32-dk256", "bf16-dk256"])
+def test_attention_res_matches_pallas(tier, dm, nh, rng):
     """Kernel 6: res + MHA(q, k, v)·Wo + bo, no LN; rows at or past the
-    length give res + bo (the length-0 row wholly)."""
-    (jq, jk, jv), (q, k, v) = _qkv(rng, (B, T, D), tier)
-    res = rng.normal(size=(B, T, D)).astype(np.float32)
-    wo = (rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32)  # (in, out)
-    bo = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
+    length give res + bo (the length-0 row wholly). d_k 128 at two heads,
+    then d_k 256 at one."""
+    (jq, jk, jv), (q, k, v) = _qkv(rng, (B, T, dm), tier)
+    res = rng.normal(size=(B, T, dm)).astype(np.float32)
+    wo = (rng.normal(size=(dm, dm)) / np.sqrt(dm)).astype(np.float32)  # (in, out)
+    bo = (rng.normal(size=(dm,)) * 0.1).astype(np.float32)
     jwo = jnp.asarray(wo, JAX_DT[tier])
     want = jattn.fused_attention_packed_res(
-        jq, jk, jv, jnp.asarray(res), jwo, jnp.asarray(bo[None]), jnp.asarray(LENGTHS), H,
+        jq, jk, jv, jnp.asarray(res), jwo, jnp.asarray(bo[None]), jnp.asarray(LENGTHS), nh,
         interpret=True, block_q=8)
     got = KA.attention_res(q, k, v, _t(res), _t(np.asarray(jwo, np.float32).T, TORCH_DT[tier]),
-                           _t(bo), torch.from_numpy(LENGTHS), H)
+                           _t(bo), torch.from_numpy(LENGTHS), nh)
     assert got.dtype == torch.float32
     _close(got, want, tier)
     _dead_rows_exact(got, want)
@@ -148,6 +151,19 @@ def test_bare_attention_head_dims(dk, ok):
     else:
         with pytest.raises(ValueError, match="d_k"):
             KA.check_head_dim("t", dk)
+
+
+@pytest.mark.parametrize("dk,ok", [(128, True), (160, False), (192, True), (256, True)])
+def test_attention_half_head_dims(dk, ok):
+    """The CUDA entries of kernels 1, 5 and 6 take the bare kernels' head
+    dims (128, 192, 256) at one and two heads, and refuse the others before
+    they build anything; the check needs no card."""
+    for heads in (1, 2):
+        if ok:
+            KA._check_heads("t", heads * dk, heads)
+        else:
+            with pytest.raises(ValueError, match="d_k"):
+                KA._check_heads("t", heads * dk, heads)
 
 
 def _ffn_weights(rng, D, Hd, O, k):
