@@ -12,11 +12,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernels (forward, dQ, dK/dV at d_k 128/192/256, both grid splits), the
    six SERVE instantiations of the shared forward (kernels 7 and 8, and
    launch B of 1, 5 and 6), the ten q|k|v and out projection kernels of
-   1, 5 and 6, the twelve widths of the bf16 residual stack (kernel 13) and
+   1, 5 and 6, the twelve widths of the bf16 residual stack (kernel 13),
    the 18 conv-FFN kernels (2, 9, 10: k-tap conv and k=1 conv with its
-   epilogue) must show HGMMA and no HMMA in their SASS (cuobjdump) and no
-   ptxas spills; the attention, residual-stack and FFN kernels also no
-   ptxas note of serialized wgmma.
+   epilogue), the two variance-adaptor kernels (3) and the nine postnet
+   kernels (4) must show HGMMA and no HMMA in their SASS (cuobjdump) and no
+   ptxas spills; all but the training kernels also no ptxas note of
+   serialized wgmma.
 3. kernels: each of the fourteen kernels (attention_block, ffn_block,
    variance_adaptor, postnet, resstack, attention_res_ln, attention_res,
    fused_attention_packed, fused_attention, ffn_block_pre, fused_ffn, the
@@ -45,7 +46,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    rows of the pre-LN and bare kernels against their exact constants, and of
    the FFN kernels from len + (k - 1) / 2 on against the call's one
    bias-only row c (10: c bit for bit; 9: x + c, 2: LN(x + c), within
-   1e-5); kernel
+   1e-5); kernels 3
+   and 4 with their device times by the profiler, and at the widths their
+   tilings make risky (the adaptor at D = 200, 256, 384, 512, 1024 and over
+   48 batch rows, the postnet at C = 512, C = 200 with C0 = 88 and k = 7,
+   k = 9, and 8 layers of k = 9 in two launches), dead rows exactly 0 (3)
+   and the last stage's BN of zero bit for bit (4); kernel
    7 against kernel 11's forward at rate 0, bit for bit (one body), at both
    shapes and at T = 2048, where 7 and 8 also meet their plain versions;
    kernels 1, 5 and 6 with their device times by the profiler, also at d_k
@@ -116,6 +122,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 14. d_k 256: a post-LN model with adim = ddim = 256 and one head serves a
    B=8 mel call through kernel 1 at d_k 256 (its launch counter), held
    against the CPU port fed the card's durations.
+15. wide postnet: a post-LN model with postnet_chans 512 and adim 384 serves
+   a B=8 mel call through kernels 3 (D = 384) and 4 (C = 512), held against
+   the CPU port fed the card's durations; their launch counters rise.
 
 The line before the last is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -392,6 +401,8 @@ def kernel_phase(torch, results):
         record("variance_adaptor", "fastspeech2_tpu_torch/csrc/adaptor.cu",
                "fastspeech2_tpu/ops/pallas/adaptor.py:152", err, ms, pms, flops,
                nbytes(hs, idx, out_lens, got, graw, *pack))
+        record_device_ms(torch, results, "variance_adaptor", shape_key,
+                         lambda: KAd.variance_adaptor(hs, idx, out_lens, *pack))
 
     net = Postnet(PostnetConfig(), device=dev)
     with torch.no_grad():
@@ -417,11 +428,14 @@ def kernel_phase(torch, results):
         record("postnet", "fastspeech2_tpu_torch/csrc/postnet.cu",
                "fastspeech2_tpu/ops/pallas/postnet.py:112", err, ms, pms, flops,
                nbytes(mel, mel, w, bn, out_lens))
+        record_device_ms(torch, results, "postnet", shape_key,
+                         lambda: KP.postnet(mel, w, bn, out_lens, 5, hidden, 5))
     resstack_phase(torch, results, record)
     attention_res_ln_phase(torch, results, record)
     prenorm_kernel_phase(torch, results, record)
     attention_halves_dk256(torch, results, record)
     ffn_edges_phase(torch, results)
+    adaptor_postnet_edges_phase(torch, results)
 
 
 def resstack_phase(torch, results, record):
@@ -1972,6 +1986,99 @@ def ffn_edges_phase(torch, results):
             results["fused_ffn"]["max_abs_err"] = max(results["fused_ffn"]["max_abs_err"], err)
 
 
+# (D, batch rows) of kernel 3 and (C, C0, k, layers) of kernel 4 held at
+# their tiling edges (the card tests' widths)
+ADAPTOR_EDGES = ((200, 4), (256, 4), (384, 4), (512, 4), (1024, 4), (256, 48))
+POSTNET_EDGES = ((256, 80, 5, 5), (512, 80, 5, 5), (200, 88, 7, 5), (256, 128, 9, 5),
+                 (512, 80, 9, 8))
+
+
+def adaptor_postnet_edges_phase(torch, results):
+    """Kernels 3 and 4 against their plain versions at the widths their
+    tilings make risky, on an L off every tile (331 and 301 frames) with
+    lengths L, 1 and 0 and one inside: the adaptor at D = 200 (each tap
+    zero-padded to the K step), 256 and 384 (128-column ring tiles), 512
+    (64-column tiles), 1024 (one ring stage) and over 48 batch rows; at most
+    1% of live frames one bucket off, raw within mean 1e-2, max 0.5, the
+    other live rows within mean 2e-3, max 0.1, rows past out_len exactly 0.
+    The postnet at (C, C0, k, layers) = (256, 80, 5, 5), (512, 80, 5, 5)
+    (64-row stages), (200, 88, 7, 5), (256, 128, 9, 5) and (512, 80, 9, 8)
+    (two launches through the bf16 scratch): mean 2e-3, max 0.1, and every
+    row from len + halo on the last stage's BN of zero, bit for bit."""
+    from fastspeech2_tpu_torch.models.postnet import Postnet, PostnetConfig
+    from fastspeech2_tpu_torch.models.predictors import Predictor, PredictorConfig
+    from fastspeech2_tpu_torch.ops.kernels import adaptor as KAd
+    from fastspeech2_tpu_torch.ops.kernels import postnet as KP
+    from fastspeech2_tpu_torch.ops.quantize import linear_bins, log_bins
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(11)
+    with torch.inference_mode():
+        for D, B in ADAPTOR_EDGES:
+            L, T = 331, 40
+            torch.manual_seed(D)
+            preds = [Predictor(PredictorConfig(idim=D), device=dev) for _ in range(2)]
+            embs = [torch.nn.Linear(256, D, device=dev) for _ in range(2)]
+            for p, bias in zip(preds, (200.0, 40.0)):  # spread the predictions over the bins
+                p.out.weight.mul_(8.0)
+                p.out.bias.fill_(bias)
+            lens = torch.tensor([L, 1, 0, 200] + torch.randint(0, L + 1, (B - 4,),
+                                                                generator=g).tolist(),
+                                dtype=torch.int32).to(dev)
+            hs = torch.randn(B, T, D, generator=g).to(dev)
+            idx = torch.sort(torch.randint(0, T, (B, L), generator=g, dtype=torch.int32),
+                             -1)[0].to(dev)
+            pack = KAd.pack_weights(*preds, *embs,
+                                    torch.from_numpy(log_bins(71.0, 676.0)).to(dev),
+                                    torch.from_numpy(linear_bins(0.0, 130.0)).to(dev), bf16)
+            got, graw = KAd.variance_adaptor(hs, idx, lens, *pack)
+            want, wraw = KAd.variance_adaptor_plain(hs, idx, lens, *pack)
+            torch.cuda.synchronize()
+            log(f"kernel variance_adaptor at B={B}, L={L}, D={D}: plan {tuple(KAd.plan(D))}")
+            live = torch.arange(L, device=dev)[None] < lens[:, None]
+            assert torch.all(got[~live] == 0) and torch.all(graw.transpose(0, 1)[:, ~live] == 0)
+            bins = pack[10]
+            bk = lambda r, i: (bins[i][None, None] < r[:, i][..., None]).sum(-1)  # noqa: E731
+            same = (bk(graw, 0) == bk(wraw, 0)) & (bk(graw, 1) == bk(wraw, 1))
+            flipped = int((~same & live).sum())
+            log(f"  variance_adaptor: {flipped}/{int(live.sum())} live frames one bucket off "
+                "(tolerance 1%); rows past out_len exactly 0")
+            assert flipped <= 0.01 * int(live.sum()), "too many bucket flips"
+            keep = (same & live)[..., None]
+            err = max(compare("variance_adaptor.raw", graw, wraw, 1e-2, 0.5),
+                      compare("variance_adaptor", torch.where(keep, got, 0),
+                              torch.where(keep, want, 0), 2e-3, 0.1))
+            results["variance_adaptor"]["max_abs_err"] = max(
+                results["variance_adaptor"]["max_abs_err"], err)
+        for C, C0, k, n in POSTNET_EDGES:
+            L = 301
+            torch.manual_seed(C + C0 + k)
+            net = Postnet(PostnetConfig(odim=C0, n_layers=n, n_chans=C, n_filts=k), device=dev)
+            for layer in net.layers:
+                c = layer.bn.running_mean.shape[0]
+                layer.bn.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                layer.bn.running_var.copy_(1.0 + torch.rand(c, generator=g))
+            w, bn, hidden = KP.pack_weights(net.layers, bf16)
+            lens = torch.tensor([L, 1, 0, 150], dtype=torch.int32).to(dev)
+            mel = torch.randn(4, L, C0, generator=g).to(dev)
+            got = KP.postnet(mel, w, bn, lens, n, hidden, k)
+            want = KP.postnet_plain(mel, w, bn, lens, n, hidden, k)
+            torch.cuda.synchronize()
+            pl = KP.plan(C0, C, k, n)
+            log(f"kernel postnet at L={L}, C={C}, C0={C0}, k={k}, layers={n}: plan {tuple(pl)}, "
+                f"{len(KP.launch_stages(pl, n))} launch(es)")
+            err = compare("postnet", got, want, 2e-3, 0.1)
+            s = bn[n - 1, :, :C0]
+            dead, halo, rows = ((0.0 - s[0]) * s[1]) * s[2] + s[3], n * (k - 1) // 2, 0
+            for b, m in enumerate(lens.tolist()):
+                if m + halo < L:
+                    assert torch.equal(got[b, m + halo:], dead.expand(L - m - halo, C0)), b
+                    rows += L - m - halo
+            log(f"  postnet: {rows} rows from len + {halo} on are the last stage's BN of zero, "
+                "bit for bit")
+            results["postnet"]["max_abs_err"] = max(results["postnet"]["max_abs_err"], err)
+
+
 def bare_attention_checks(torch, results):
     """Kernel 7 against kernel 11's forward at rate 0, bit for bit (one body
     in its SERVE and TRAIN modes), at the kernel phase's two shapes and at
@@ -2229,6 +2336,37 @@ def dk256_path_phase(torch, results):
     hold_b8_vs_cpu(torch, synth, cfg, "d_k 256 B=8")
 
 
+def wide_postnet_path_phase(torch, results):
+    """A post-LN model with the Tacotron-2 / ESPnet2 postnet width
+    (``postnet_chans`` 512: kernel 4's 64-row stages) and ``adim`` 384
+    (kernel 3 at D = 384; otherwise the default config, seed 0, duration
+    bias 1.87) serves a B=8 mel call through kernels 3 and 4, which their
+    launch counters show, and the served rows are held against the CPU port
+    fed the card's durations."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config, config_from_dict
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+
+    raw = Config().to_dict()
+    raw["model"].update(adim=384, postnet_chans=512)
+    cfg = config_from_dict(raw)
+    synth = Synthesizer(seeded_model(torch, cfg), bf16=True)
+    seqs = batch(8, offset=8)
+    synth.mel_from_token_batch(seqs)  # warm: packs the kernel weights
+    reset_counts()
+    mel, lens = synth.mel_from_token_batch(seqs)
+    counts = read_counts()
+    log(f"wide postnet (postnet_chans 512, adim 384) B=8 mel call: {int(lens.sum())} frames; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    assert np.isfinite(mel).all() and (lens > 0).all()
+    assert counts["variance_adaptor"] > 0 and counts["postnet"] > 0, counts
+    assert counts["attention_block"] > 0 and counts["ffn_block"] > 0, counts
+    results["variance_adaptor"]["launches_wide_b8"] = counts["variance_adaptor"]
+    results["postnet"]["launches_wide_b8"] = counts["postnet"]
+    hold_b8_vs_cpu(torch, synth, cfg, "wide postnet B=8")
+
+
 def wgmma_kernels_sass():
     """The bf16 kernels built on csrc/hopper.cuh are wgmma kernels: HGMMA in
     their SASS and no mma.sync HMMA (cuobjdump), and ptxas spills nothing in
@@ -2241,8 +2379,11 @@ def wgmma_kernels_sass():
     resstack's: the bf16 residual stack at each of its 12 widths (kernel 13;
     the f32 kernel is exempt); ffn's: the k-tap conv (3 inputs x 2 tilings)
     and the k=1 conv with its epilogue (3 entries x 4 widths) of kernels 2,
-    9 and 10. The SERVE, resstack and ffn kernels carry no ptxas note that
-    it serialized wgmma (C7514/C7515: their overlap would be gone)."""
+    9 and 10; adaptor's: kernel 3 at its two ring-tile widths (2 kernels);
+    postnet's: kernel 4 at its nine (row tiling, hidden and last widths).
+    The SERVE, resstack, ffn, adaptor and postnet kernels carry no ptxas
+    note that it serialized wgmma (C7512/C7514/C7515: their overlap would
+    be gone)."""
     import shutil
 
     from fastspeech2_tpu_torch.ops.kernels import common
@@ -2253,7 +2394,9 @@ def wgmma_kernels_sass():
                                  "train_bwd_dkv_kernel"), 14),
             ("attention", ("attn_fwd_kernel", "ffn_conv_kernel", "ffn_out_kernel"), 16),
             ("resstack", ("resstack_wgmma_kernel",), 12),
-            ("ffn", ("ffn_conv_kernel", "ffn_out_kernel"), 18)):
+            ("ffn", ("ffn_conv_kernel", "ffn_out_kernel"), 18),
+            ("adaptor", ("adaptor_kernel",), 2),
+            ("postnet", ("postnet_kernel",), 9)):
         log_text = common.ptxas_report(lib)
         for line in log_text.splitlines():
             if "serialized" in line:
@@ -2325,6 +2468,7 @@ def main() -> int:
     pre = prenorm_path_phase(torch, results)
     prenorm_concat_phase(torch, results)
     dk256_path_phase(torch, results)
+    wide_postnet_path_phase(torch, results)
     torch.cuda.empty_cache()
     train_step_vs_cpu_phase(torch)
     step_ms, step_frames = train_path_phase(torch, results)

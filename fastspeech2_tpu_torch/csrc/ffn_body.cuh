@@ -8,8 +8,8 @@
 // with the head outputs as h and Wo as W2 the out projection, residual and
 // LayerNorm).
 //
-// Design (sm_90a, primitives in hopper.cuh). The mma.sync body this
-// replaces lost on four counts: mma.sync instead of wgmma; every w1 slice
+// Design (sm_90a, primitives in hopper.cuh). The warp-MMA body this
+// replaces lost on four counts: m16n8k16 warp MMAs, not wgmma; every w1 slice
 // read from L2 once per 64 rows; the post-LN rows written to global memory
 // and read back for the LayerNorm; each dead tile recomputing the bias-only
 // row. Here two launches of two warpgroups (256 threads), both products as

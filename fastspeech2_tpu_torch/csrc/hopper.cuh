@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's redesigned
 // kernels: warpgroup MMA (wgmma) with shared-memory matrix descriptors in the
 // 128-byte swizzle or none (`desc_plain`: row-shifted views), mbarriers, TMA
-// tile and bulk loads (3-D maps of activations, 2-D maps of weights), the
-// async-proxy fence, named barriers and register reallocation (setmaxnreg).
+// tile and bulk loads (3-D maps of activations, 2-D maps of weights, 3-D
+// (in, tap, out) maps of conv weights), the async-proxy fence, named
+// barriers and register reallocation (setmaxnreg).
 // Inline PTX keeps the build to seconds (no CuTe/CUTLASS headers).
 //
 // Layout convention. A "sub-tile" is 64 rows x 64 bf16 columns (8 KB): row r
@@ -28,9 +29,9 @@
 // also at N = 192 and 256, for the conv-FFN. Accumulator
 // layout (thread t of the warpgroup, i in [0, 32)): row 16 * (t / 32) +
 // (t % 32) / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (t % 4) + i % 2,
-// i.e. mma.sync's m16n8 C fragment per warp, repeated over 8 n-tiles. The
-// register A operand of an RS product uses mma.sync's m16n8k16 A fragment per
-// warp, so a score accumulator converts to it without shuffles.
+// i.e. the m16n8 warp MMA's C fragment per warp, repeated over 8 n-tiles. The
+// register A operand of an RS product uses the m16n8k16 warp MMA's A
+// fragment per warp, so a score accumulator converts to it without shuffles.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: no -lcuda
@@ -437,6 +438,33 @@ static inline cudaError_t tma_map_bf16_2d(CUtensorMap* map, const void* base, ui
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 3-D map over conv weights laid out (out, tap, in), the input axis
+// `cols` wide at a row stride of `ld` elements (ld >= cols): (cols, taps,
+// rows), read in {64, 1, box_rows} boxes with the 128-byte swizzle, so the
+// box at (c, j, n) is tap j's input columns c .. c + 63 of output rows n ..
+// n + box_rows - 1 in `kmajor_desc`'s layout. Columns past `cols` and rows
+// past `rows` read as zeros: each tap is zero-padded to the K step, and the
+// weights need no padded copy.
+static inline cudaError_t tma_map_bf16_taps(CUtensorMap* map, const void* base, uint64_t cols,
+                                            uint64_t taps, uint64_t rows, uint64_t ld,
+                                            uint32_t box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  int dev = 0;  // a current context, as in tma_map_bf16
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[3] = {cols, taps, rows};
+  const cuuint64_t strides[2] = {ld * 2, taps * ld * 2};
+  const cuuint32_t box[3] = {64, 1, box_rows};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

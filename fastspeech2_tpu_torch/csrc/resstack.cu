@@ -42,8 +42,8 @@
 //    swizzle whose base is shifted (j - 1) * d rows for tap j: in the
 //    column-chunk-major layout any row shift is 16 bytes a row, where a
 //    swizzled tile would need its base on a 1024-byte atom. An A operand
-//    taken from registers instead (ldmatrix of shifted rows, LeakyReLU per
-//    load) cost more issue slots per k-step than an m64n64k16 product takes.
+//    taken from registers instead (8x8 matrix loads of shifted rows, LeakyReLU
+//    per load) cost more issue slots per k-step than an m64n64k16 product takes.
 //  * The hidden (K = 3C, +b1, lrelu, rounding) is formed NR columns at a time
 //    and kept in registers as the register A operand of the k=1 product (the
 //    accumulator layout is the A fragment's): it never touches shared memory.

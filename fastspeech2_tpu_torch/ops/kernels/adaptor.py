@@ -2,7 +2,12 @@
 pitch and energy predictors -> bucketize -> embeddings -> residual.
 
 Port of ``fastspeech2_tpu/ops/pallas/adaptor.py:fused_variance_adaptor``
-(kernel ``_adaptor_kernel``). CUDA source: ``csrc/adaptor.cu``.
+(kernel ``_adaptor_kernel``). CUDA source: ``csrc/adaptor.cu`` (one launch
+of wgmma products from a TMA weight ring over a gathered, row-shifted x
+tile, the epilogues in registers). ``plan`` picks its tiling per shape; the C
+side makes the same choice (``c_plan`` reads it back on the card). It takes
+C = 256 (the only predictor width of either package) and every D that is a
+multiple of 8 from 64 to 1024.
 
 Rounding points follow the TPU kernel: conv products rounded to the compute
 dtype and widened for the bias; ReLU and LayerNorm (eps 1e-12) in f32; the
@@ -14,15 +19,81 @@ bucket: the tests allow a stated share of such frames.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from fastspeech2_tpu_torch.ops import nn
 from fastspeech2_tpu_torch.ops.kernels import common
+from fastspeech2_tpu_torch.ops.kernels.ffn import SLACK, SMEM_MAX
 from fastspeech2_tpu_torch.ops.precision import round_to
 
 LN_EPS = 1e-12
 launches = 0
 _fn = None
+_fn_plan = None
+
+#: the predictors' channels, the only width the kernel takes
+CHANNELS = 256
+#: 256 weight rows x 64 bf16 columns: a ring tile holds one or two
+RING_SUB = CHANNELS * 128
+#: conv rows a block (both warpgroups, 128 channels each): it covers 62 frames
+ROWS = 64
+#: rows of the x tile and of H1: the block's rows and two convs' halo, odd
+TILE_ROWS = (ROWS + 2) | 1
+
+
+class AdaptorPlan(NamedTuple):
+    """Tiling of one shape: ``kt`` input columns a ring tile (128 or 64: two
+    or one 256 x 64 boxes), ``st`` ring stages, ``smem`` bytes (the x tile
+    and H1, TILE_ROWS rows each, the ring, the block's indices, row sums and
+    epilogue parameters)."""
+    kt: int
+    st: int
+    smem: int
+
+
+def misc_bytes(nb: int = 256) -> int:
+    """Shared memory beside the ring and the tiles: ROWS + 2 expansion
+    indices, 2 ROWS bucket indices and three row-sum exchanges of 128
+    floats, then one predictor's epilogue parameters (conv1's b1, g1, be1;
+    conv2's b2, g2, be2, wo and the nb bin edges)."""
+    idx = -(-((3 * ROWS + 2) * 4 + 3 * 128 * 4) // 16) * 16
+    return idx + 2 * 3 * CHANNELS * 4 + CHANNELS * 2 + -(-nb * 4 // 16) * 16
+
+
+def plan(D: int, NB: int = 256) -> AdaptorPlan:
+    """The kernel's tiling of D with NB bin edges, as
+    ``csrc/adaptor.cu:ad_make_plan`` picks it: ring tiles of 128 input
+    columns where two stages fit beside the x tile (D rounded up to 16
+    columns), H1, the indices and parameters, up to four; else of 64, one
+    stage at least. Raises ValueError for a shape the kernel does not take
+    (D not a multiple of 8 in 64 .. 1024, NB outside 1 .. 4096)."""
+    if D % 8 or not 64 <= D <= 1024 or not 1 <= NB <= 4096:
+        raise ValueError(f"variance_adaptor: D={D}, NB={NB} not supported by the "
+                         "kernel (D a multiple of 8 from 64 to 1024)")
+    dp = -(-D // 16) * 16
+    fixed = TILE_ROWS * dp * 2 + TILE_ROWS * CHANNELS * 2 + misc_bytes(NB) + SLACK
+    for kt in (128, 64):
+        tile = kt // 64 * RING_SUB
+        st = min(4, (SMEM_MAX - fixed) // tile)
+        if st >= (2 if kt == 128 else 1):
+            return AdaptorPlan(kt, st, fixed + st * tile)
+    raise ValueError(f"variance_adaptor: no tiling fits D={D}")
+
+
+def c_plan(D: int, NB: int = 256) -> AdaptorPlan:
+    """The tiling the C side picks for a shape (``fs2_adaptor_plan``; needs
+    the built library)."""
+    global _fn_plan
+    if _fn_plan is None:
+        _fn_plan = common.bind(common.load("adaptor"), "fs2_adaptor_plan",
+                               [common.I] * 2 + [common.P])
+    out = (ctypes.c_int * 3)()
+    if _fn_plan(D, NB, out) != 0:
+        raise ValueError(f"variance_adaptor: no tiling fits D={D}")
+    return AdaptorPlan(*out)
 
 
 def variance_adaptor_plain(hs, idx, out_lens, w1, b1, g1, be1, w2, b2, g2, be2,
@@ -84,9 +155,10 @@ def variance_adaptor(hs, idx, out_lens, w1, b1, g1, be1, w2, b2, g2, be2, wo,
         ("wo", wo, bf16, (2, C)), ("bo", bo, f32, (2,)),
         ("bins", bins, f32, (2, NB)), ("emb_w", emb_w, bf16, (2, NB, D)),
         ("emb_b", emb_b, f32, (2, D))])
-    if D % 32 or C % 32:
-        raise ValueError(f"variance_adaptor: D={D}, C={C} not supported by "
-                         "the kernel (k=3, multiples of 32)")
+    if C != CHANNELS:
+        raise ValueError(f"variance_adaptor: C={C} not supported by the kernel "
+                         f"(C = {CHANNELS})")
+    plan(D, NB)
     if _fn is None:
         P, I, F = common.P, common.I, common.F
         _fn = common.bind(common.load("adaptor"), "fs2_variance_adaptor",

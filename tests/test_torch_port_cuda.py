@@ -142,6 +142,248 @@ def test_adaptor_and_postnet(dev):
         torch.cuda.synchronize()
 
 
+def _adaptor_case(D, lens, L, dev, g, T=40):
+    """Kernel 3's inputs at width D: seeded predictors and embeddings
+    (bf16 pack), encoder states, random expansion indices and the given
+    out_lens."""
+    from fastspeech2_tpu_torch.models.predictors import Predictor, PredictorConfig
+    from fastspeech2_tpu_torch.ops.kernels import adaptor as KAd
+    from fastspeech2_tpu_torch.ops.quantize import linear_bins, log_bins
+
+    torch.manual_seed(D)
+    preds = [Predictor(PredictorConfig(idim=D), device=dev) for _ in range(2)]
+    embs = [torch.nn.Linear(256, D, device=dev) for _ in range(2)]
+    with torch.no_grad():
+        for p in preds:  # spread the predictions over the bins
+            p.out.weight.mul_(8.0)
+        preds[0].out.bias.fill_(200.0)
+        preds[1].out.bias.fill_(40.0)
+    B = len(lens)
+    hs = torch.randn(B, T, D, generator=g).to(dev)
+    idx = torch.sort(torch.randint(0, T, (B, L), generator=g, dtype=torch.int32), -1)[0]
+    out_lens = torch.tensor(lens, dtype=torch.int32)
+    pack = KAd.pack_weights(*preds, *embs, torch.from_numpy(log_bins(71.0, 676.0)).to(dev),
+                            torch.from_numpy(linear_bins(0.0, 130.0)).to(dev), torch.bfloat16)
+    return hs, idx.to(dev), out_lens.to(dev), pack
+
+
+def _hold_adaptor(got, graw, want, wraw, out_lens, bins):
+    """Kernel 3 against its plain version: at most 1% of live frames one
+    bucket off (a one-ulp change in the head moves a frame across an edge);
+    raw within mean 1e-2, max 0.5 and the other live rows within mean 2e-3,
+    max 0.1; every row at or past out_len exactly zero, raw too."""
+    L = got.shape[1]
+    live = torch.arange(L, device=got.device)[None] < out_lens[:, None]
+    assert torch.all(got[~live] == 0) and torch.all(graw[:, 0][~live] == 0)
+    assert torch.all(graw[:, 1][~live] == 0)
+    bk = lambda r, i: (bins[i][None, None] < r[:, i][..., None]).sum(-1)  # noqa: E731
+    same = (bk(graw, 0) == bk(wraw, 0)) & (bk(graw, 1) == bk(wraw, 1))
+    assert int((~same & live).sum()) <= 0.01 * int(live.sum()), int((~same & live).sum())
+    d = (graw - wraw).abs()
+    assert float(d.mean()) < 1e-2 and float(d.max()) < 0.5, (float(d.mean()), float(d.max()))
+    keep = (same & live)[..., None]
+    _close(torch.where(keep, got, 0), torch.where(keep, want, 0))
+
+
+@pytest.mark.parametrize("D,B", [(200, 4), (256, 4), (384, 4), (512, 4), (1024, 4), (256, 48)])
+def test_adaptor_at_every_width(dev, D, B):
+    """Kernel 3 at D = 200 (not a multiple of 32 or 64: each tap zero-padded
+    to the K step), 256 and 384 (128-column ring tiles), 512 (64-column
+    tiles) and 1024 (one ring stage), and at D = 256 over 48 batch rows
+    (more blocks than SMs), at an L off the 62-frame tiles, with lengths L,
+    1 and 0 (a wholly dead row) and one inside."""
+    from fastspeech2_tpu_torch.ops.kernels import adaptor as KAd
+
+    g = torch.Generator().manual_seed(D)
+    L = 331
+    lens = [L, 1, 0, 200] + torch.randint(0, L + 1, (B - 4,), generator=g).tolist()
+    hs, idx, out_lens, pack = _adaptor_case(D, lens, L, dev, g)
+    with torch.inference_mode():
+        n0 = KAd.launches
+        got, graw = KAd.variance_adaptor(hs, idx, out_lens, *pack)
+        want, wraw = KAd.variance_adaptor_plain(hs, idx, out_lens, *pack)
+        torch.cuda.synchronize()
+    assert KAd.launches == n0 + 1
+    _hold_adaptor(got, graw, want, wraw, out_lens, pack[10])
+
+
+def _postnet_case(C, C0, k, n, dev, g):
+    """Kernel 4's weights at (C, C0, k, n): a seeded Postnet with random
+    BatchNorm statistics, packed in bf16."""
+    from fastspeech2_tpu_torch.models.postnet import Postnet, PostnetConfig
+    from fastspeech2_tpu_torch.ops.kernels import postnet as KP
+
+    torch.manual_seed(C + C0 + k)
+    net = Postnet(PostnetConfig(odim=C0, n_layers=n, n_chans=C, n_filts=k), device=dev)
+    with torch.no_grad():
+        for layer in net.layers:
+            c = layer.bn.running_mean.shape[0]
+            layer.bn.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+            layer.bn.running_var.copy_(1.0 + torch.rand(c, generator=g))
+            layer.bn.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=g))
+            layer.bn.bias.copy_(0.1 * torch.randn(c, generator=g))
+    return net, KP.pack_weights(net.layers, torch.bfloat16)
+
+
+POSTNET_WIDTHS = [(256, 80, 5, 5), (512, 80, 5, 5), (200, 88, 7, 5), (256, 128, 9, 5),
+                  (512, 80, 9, 8)]
+
+
+@pytest.mark.parametrize("C,C0,k,n", POSTNET_WIDTHS,
+                         ids=[f"C{c}-C0{c0}-k{k}-n{n}" for c, c0, k, n in POSTNET_WIDTHS])
+def test_postnet_at_every_width(dev, C, C0, k, n):
+    """Kernel 4 at the default width, the Tacotron-2 / ESPnet2 width (C =
+    512: 64-row stages, the warpgroups splitting the columns), C = 200 and
+    C0 = 88 (not multiples of 32) at k = 7, k = 9 with C0 = 128, and 8
+    layers of k = 9 at C = 512 (two launches through the bf16 scratch), at
+    an L off every tile, with lengths L, 1 and 0 and one inside: within mean
+    2e-3, max 0.1 of the plain version, and every row past len + halo the
+    last stage's BatchNorm of zero, bit for bit."""
+    from fastspeech2_tpu_torch.ops.kernels import postnet as KP
+
+    g = torch.Generator().manual_seed(C + k)
+    _, (w, bn, hidden) = _postnet_case(C, C0, k, n, dev, g)
+    L = 301
+    lens = torch.tensor([L, 1, 0, 150], dtype=torch.int32, device=dev)
+    mel = torch.randn(4, L, C0, generator=g).to(dev)
+    with torch.inference_mode():
+        n0 = KP.launches
+        got = KP.postnet(mel, w, bn, lens, n, hidden, k)
+        want = KP.postnet_plain(mel, w, bn, lens, n, hidden, k)
+        torch.cuda.synchronize()
+    assert KP.launches == n0 + 1
+    _close(got, want)
+    s = bn[n - 1, :, :C0]
+    dead = ((0.0 - s[0]) * s[1]) * s[2] + s[3]
+    halo = n * (k - 1) // 2
+    for b, m in enumerate(lens.tolist()):
+        if m + halo < L:
+            assert torch.equal(got[b, m + halo:], dead.expand(L - m - halo, C0)), b
+
+
+def test_adaptor_and_postnet_plans_of_the_c_side_are_the_python_ones(dev):
+    """csrc/adaptor.cu:ad_make_plan and csrc/postnet.cu:pn_make_plan pick
+    the tilings of ops/kernels/{adaptor,postnet}.py:plan (the CPU tests
+    hold the Python ones), and refuse the same shapes."""
+    from fastspeech2_tpu_torch.ops.kernels import adaptor as KAd
+    from fastspeech2_tpu_torch.ops.kernels import postnet as KP
+
+    for D in list(range(56, 1040, 8)) + [100]:
+        for NB in (0, 16, 255, 256, 1024, 4096, 4097):
+            try:
+                want = KAd.plan(D, NB)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    KAd.c_plan(D, NB)
+                continue
+            assert KAd.c_plan(D, NB) == want, (D, NB)
+    for C in (8, 40, 128, 200, 256, 264, 512, 520):
+        for C0 in (8, 80, 88, 128, 136, 256, 264):
+            for k in (1, 3, 4, 5, 7, 9, 11):
+                for n in (1, 2, 5, 8, 9):
+                    try:
+                        want = KP.plan(C0, C, k, n)
+                    except ValueError:
+                        with pytest.raises(ValueError):
+                            KP.c_plan(C0, C, k, n)
+                        continue
+                    assert KP.c_plan(C0, C, k, n) == want, (C0, C, k, n)
+
+
+def test_adaptor_and_postnet_refuse_what_they_do_not_take(dev):
+    """A CUDA shape outside the kernels' range raises ValueError, and
+    nothing falls back to the plain version: the adaptor at D = 60 (not a
+    multiple of 8) and at C = 128, the postnet at C0 = 84 and at k = 11."""
+    from fastspeech2_tpu_torch.ops.kernels import adaptor as KAd
+    from fastspeech2_tpu_torch.ops.kernels import postnet as KP
+
+    n = (KAd.launches, KP.launches)
+    B, T, L, NB = 2, 8, 16, 16
+    bf = torch.bfloat16
+    idx = torch.zeros(B, L, dtype=torch.int32, device=dev)
+    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+    z = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt, device=dev)  # noqa: E731
+    for d, c in ((60, 256), (64, 128)):
+        with pytest.raises(ValueError, match="not supported"):
+            KAd.variance_adaptor(z(B, T, d), idx, lens, z(2, c, 3 * d, dt=bf), z(2, c), z(2, c),
+                                 z(2, c), z(2, c, 3 * c, dt=bf), z(2, c), z(2, c), z(2, c),
+                                 z(2, c, dt=bf), z(2), z(2, NB), z(2, NB, d, dt=bf), z(2, d))
+    for C0, C, k in ((84, 256, 5), (80, 256, 11)):
+        with pytest.raises(ValueError, match="not supported"):
+            KP.postnet(z(B, L, C0), z(64, dt=bf), z(3, 4, max(C, C0)), lens, 3, C, k)
+    assert (KAd.launches, KP.launches) == n
+
+
+def test_adaptor_and_postnet_use_wgmma_and_do_not_spill(dev):
+    """adaptor's and postnet's libraries hold no mma.sync kernel: kernel 3
+    at both tilings (2 kernels) and kernel 4 at its nine (row tiling, hidden
+    and last widths) show HGMMA and no HMMA in their SASS, no ptxas spills,
+    and no ptxas note that it serialized a wgmma."""
+    import re
+    import shutil
+    import subprocess
+
+    from fastspeech2_tpu_torch.ops.kernels import common
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib, kind, want in (("adaptor", "adaptor_kernel", 2), ("postnet", "postnet_kernel", 9)):
+        common.load(lib)
+        log = common.ptxas_report(lib)
+        assert "serialized" not in log, lib
+        funcs = dict((f[0], f[1:]) for f in re.findall(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads", log, re.S))
+        sass = subprocess.run([cuobjdump, "-sass", str(common._lib_path(lib))],
+                              check=True, capture_output=True, text=True).stdout
+        seen = 0
+        for part in sass.split("Function : ")[1:]:
+            name = part.split()[0]
+            assert "HMMA" not in part.replace("HGMMA", ""), name
+            if kind in name:
+                seen += 1
+                assert "HGMMA" in part and funcs.get(name) == ("0", "0"), name
+        assert seen == want, (lib, seen)
+
+
+def test_two_threads_launch_the_postnet_at_two_widths(dev):
+    """The postnet kernel at C = 256 (128-row stages) and C = 512 (64-row
+    stages) gets other shared-memory sizes: two threads call the C entry
+    back to back, and no launch may be refused; each width's output stays
+    what one thread alone gave."""
+    import threading
+
+    from fastspeech2_tpu_torch.ops.kernels import postnet as KP
+
+    g = torch.Generator().manual_seed(8)
+    jobs, keep = [], []
+    for C in (256, 512):
+        net, (w, bn, hidden) = _postnet_case(C, 80, 5, 5, dev, g)
+        x = torch.randn(1, 96, 80, generator=g).to(dev)
+        lens = torch.tensor([70], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            want = KP.postnet(x, w, bn, lens, 5, hidden, 5)  # binds KP._fn
+        out = torch.empty_like(x)
+        keep.append((net, x, lens, w, bn, out, want))
+        jobs.append((x.data_ptr(), w.data_ptr(), bn.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                     None, 1, 96, 80, C, 5, 5, bn.shape[2],
+                     torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    refused = {}
+
+    def run(args):
+        refused[args[9]] = sum(1 for _ in range(5000) if KP._fn(*args))
+
+    threads = [threading.Thread(target=run, args=(job,)) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert refused == {256: 0, 512: 0}, f"refused launches of 5000 per width: {refused}"
+    for *_, out, want in keep:
+        assert torch.equal(out, want)
+
+
 def test_wrapper_rejects_bad_inputs(dev):
     from fastspeech2_tpu_torch.ops.kernels import ffn as KF
 

@@ -135,15 +135,17 @@ def _adaptor_inputs(rng, B, T, D, C, L, nb):
     return hs, idx, out_lens, p, bins
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
-def test_variance_adaptor_matches_pallas(tier, rng):
+@pytest.mark.parametrize("tier,D", [("f32", 32), ("bf16", 32), ("f32", 40), ("bf16", 40)],
+                         ids=["f32", "bf16", "f32-D40", "bf16-D40"])
+def test_variance_adaptor_matches_pallas(tier, D, rng):
     """Kernel 3: expansion -> pitch/energy predictors -> bucketize ->
     embeddings -> residual, zeroed past out_len; raw predictions zeroed past
     out_len. bf16: the bucketize sits on a knife-edge (a one-ulp difference
     in the head moves a frame to the next bucket), so at most 5% of live
     frames may land one bucket off; all other frames agree within mean 1e-3,
-    max 2e-2, and the raw predictions within 1% relative."""
-    B, T, D, C, L, nb = 3, 10, 32, 32, 32, 16
+    max 2e-2, and the raw predictions within 1% relative. D = 40 is not a
+    multiple of 32 (nor of the K step, 16: the kernel zero-pads each tap)."""
+    B, T, C, L, nb = 3, 10, 32, 32, 16
     hs, idx, out_lens, p, bins = _adaptor_inputs(rng, B, T, D, C, L, nb)
     jd, td = JAX_DT[tier], TORCH_DT[tier]
     want, raw_want = fused_variance_adaptor(
@@ -175,14 +177,18 @@ def test_variance_adaptor_matches_pallas(tier, rng):
     assert d.mean() < 1e-3 and d.max() < 2e-2, (d.mean(), d.max())
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
-def test_postnet_matches_pallas(tier, rng):
-    """Kernel 4: 3 stages of conv k=5 -> BN -> tanh (none last), inputs
+@pytest.mark.parametrize("tier,C0,C,k,n", [("f32", 8, 32, 5, 3), ("bf16", 8, 32, 5, 3),
+                                           ("f32", 8, 40, 7, 4), ("bf16", 8, 40, 7, 4)],
+                         ids=["f32", "bf16", "f32-C40-k7", "bf16-C40-k7"])
+def test_postnet_matches_pallas(tier, C0, C, k, n, rng):
+    """Kernel 4: n stages of conv k -> BN -> tanh (none last), inputs
     re-zeroed past the length; tiles past length + halo give the last
-    stage's BN of a zero input. bf16 band: mean 2e-3, max 3e-2."""
+    stage's BN of a zero input. 3 stages of k=5 at C=32, and 4 of k=7 at
+    C=40 (not a multiple of 32; a halo of 9 rows a side past the first
+    stage). bf16 band: mean 2e-3, max 3e-2."""
     from fastspeech2_tpu_torch.models.postnet import Postnet, PostnetConfig
 
-    B, L, C0, C, k, n = 3, 48, 8, 32, 5, 3
+    B, L = 3, 48
     cfg = PostnetConfig(odim=C0, n_layers=n, n_chans=C, n_filts=k)
     net = Postnet(cfg, device="cpu")
     x = rng.normal(size=(B, L, C0)).astype(np.float32)
@@ -212,7 +218,7 @@ def test_postnet_matches_pallas(tier, rng):
     w_flat, bn, hidden = KP.pack_weights(net.layers, td)
     got = KP.postnet(_t(x), w_flat, bn, torch.from_numpy(lengths), n, hidden, k)
     _close(got, want, tier, (2e-3, 3e-2))
-    # row 2 (length 1): blocks from 16 on are past length + halo (6)
+    # row 2 (length 1): blocks from 16 on are past length + halo (6 or 12)
     np.testing.assert_allclose(got.numpy()[2, 16:], want[2, 16:], rtol=1e-6, atol=1e-6)
 
 
@@ -401,3 +407,84 @@ def test_ffn_plan_fits_and_covers(D):
                 assert 2 <= pl.st2 <= 4 and pl.minb2 in (1, 2)
                 assert pl.minb2 * (pl.smem2 + 1024) <= KF.SMEM_MAX + 1024
     assert served > 0
+
+
+def test_adaptor_plan_fits_and_covers():
+    """ops/kernels/adaptor.py:plan (the tiling csrc/adaptor.cu picks the
+    same way) at every D the kernel takes, the multiples of 8 from 64 to
+    1024: the plan fits a block's shared memory; the x tile holds the
+    block's 64 conv rows and both convs' halo (66 rows, odd, D rounded up to
+    the K step) and H1 its 64 rows and the two that conv2 reads past them;
+    the two warpgroups cover the 256 channels, 128 each (a wgmma width);
+    the ring has two stages of 128-column tiles, or at least one of 64
+    columns; the frames of a grid of 62-frame tiles cover L. Other shapes
+    raise ValueError."""
+    assert KAd.TILE_ROWS == 67 and KAd.ROWS - 2 == 62
+    assert 2 * 128 == KAd.CHANNELS
+    for D in range(64, 1025, 8):
+        pl = KAd.plan(D)
+        dp = -(-D // 16) * 16
+        assert dp >= D and dp % 16 == 0
+        tile = pl.kt // 64 * KAd.RING_SUB
+        assert pl.smem == (KAd.TILE_ROWS * (dp + KAd.CHANNELS) * 2 + KAd.misc_bytes()
+                           + KF.SLACK + pl.st * tile)
+        assert pl.smem <= KF.SMEM_MAX
+        assert (2 if pl.kt == 128 else 1) <= pl.st <= 4
+        assert pl.kt == (128 if D <= 416 else 64), D
+        for L in (1, 62, 63, 768, 1000):
+            assert -(-L // 62) * 62 >= L
+        assert KAd.plan(D, 4096).smem <= KF.SMEM_MAX
+    for D in (0, 8, 56, 60, 100, 1028, 1032, 2048):
+        with pytest.raises(ValueError):
+            KAd.plan(D)
+    for NB in (0, 4097):
+        with pytest.raises(ValueError):
+            KAd.plan(256, NB)
+
+
+def test_postnet_plan_fits_and_covers():
+    """ops/kernels/postnet.py:plan (the tiling csrc/postnet.cu picks the
+    same way) over every width the kernel takes (C a multiple of 8 up to
+    512, C0 up to 256, odd k up to 9, 2 to 8 layers): the plan fits a
+    block's shared memory with at least two ring stages; the warpgroups'
+    wgmma widths are instantiated ones and cover C and C0 rounded up to the
+    K step; the chain's buffer holds a launch's output tile plus its halo
+    (k - 1 rows a stage) at an odd row count; every launch gives at least
+    half its stage rows of output frames; the launches cover the stages in
+    order, at most two (one scratch plane). Other shapes raise ValueError."""
+    seen = set()
+    for C in range(8, 513, 8):
+        for C0 in range(8, 257, 8):
+            for k in (1, 3, 5, 7, 9):
+                for n in range(2, 9):
+                    pl = KP.plan(C0, C, k, n)
+                    cp, c0p = -(-C // 16) * 16, -(-C0 // 16) * 16
+                    m = 64 * pl.wr
+                    R = (m + k - 1) | 1
+                    assert pl.smem <= KF.SMEM_MAX and 2 <= pl.st <= 4
+                    if pl.wr == 2:
+                        assert cp <= 256 and pl.nh >= cp and pl.nl >= c0p
+                        assert pl.nh in (128, 256) and pl.nl in (80, 128, 256)
+                        tile = 2 * max(pl.nh, pl.nl) * 128
+                    else:
+                        assert cp > 256 and 2 * pl.nh >= cp and 2 * pl.nl >= c0p
+                        assert pl.nh == 256 and pl.nl in (48, 64, 128)
+                        tile = 2 * 256 * 128
+                    assert pl.smem == (max(cp, c0p) * R * 2 + 16 * max(C, C0)
+                                       + pl.st * tile + KF.SLACK)
+                    parts = KP.launch_stages(pl, n)
+                    assert [i for r in parts for i in r] == list(range(n))
+                    assert len(parts) <= 2
+                    for r in parts:
+                        P = m - (len(r) - 1) * (k - 1)
+                        assert 2 * P >= m
+                        # a block's first input rows: P frames and the
+                        # launch's halo of len(r) (k - 1) / 2 rows a side
+                        assert P + len(r) * (k - 1) == m + k - 1 <= R
+                    seen.add((pl.wr, pl.nh, pl.nl))
+    assert len(seen) == 9  # every instantiated kernel is some shape's
+    for C0, C, k, n in ((80, 520, 5, 5), (264, 256, 5, 5), (80, 256, 11, 5),
+                        (80, 256, 4, 5), (80, 256, 5, 1), (80, 256, 5, 9),
+                        (80, 36, 5, 5), (84, 256, 5, 5), (0, 256, 5, 5)):
+        with pytest.raises(ValueError):
+            KP.plan(C0, C, k, n)
