@@ -17,14 +17,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    epilogue), the two variance-adaptor kernels (3) and the nine postnet
    kernels (4) must show HGMMA and no HMMA in their SASS (cuobjdump) and no
    ptxas spills; all but the training kernels also no ptxas note of
-   serialized wgmma.
+   serialized wgmma. The f32 FFT kernel of stft_mel_energy (14) must show
+   no ptxas spill (its report lines printed, in phase 3).
 3. kernels: each of the fourteen kernels (attention_block, ffn_block,
    variance_adaptor, postnet, resstack, attention_res_ln, attention_res,
    fused_attention_packed, fused_attention, ffn_block_pre, fused_ffn, the
    training attention's two entries attention_train_packed and
    attention_train, forward and backward, and stft_mel_energy in f32 at the
-   preprocess path's (8, 229,376) and (8, 16,384) buckets, 1e-4) against its
-   plain PyTorch version on the card, on
+   preprocess path's (8, 229,376) and (8, 16,384) buckets and at 10.4 s rows
+   of hop 200 and 512, n_fft = 4 hop, 1e-4) against its plain PyTorch
+   version on the card, on
    the same bf16-tier inputs at the main paths' shapes (the FFT-block and
    decoder kernels with lengths that leave dead tiles, the MelGAN residual
    stack at the four stage shapes of a B=16, 768-frame rung (the per-layer
@@ -39,7 +41,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    H = 1056, k = 1 and 3, O = 80 and 200); max/mean abs error
    against the stated tolerance; kernel and plain times (CUDA events, median
    of 25) beside the least time the card could take for the same work (for
-   stft_mel_energy counted by an FFT and the sparse mel projection) and,
+   stft_mel_energy counted by an FFT and the sparse mel projection at the
+   shape's n_fft; its device time by the profiler beside that of the cuFFT
+   composition, torch.stft -> abs -> mel product -> log, and the float64
+   errors of the kernel, the plain version and the composition) and,
    for the training attention and the bare attention (fused_attention_packed,
    fused_attention), one scaled_dot_product_attention call (for the bare
    attention also both device times per call, by the profiler); the dead
@@ -103,7 +108,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 11. preprocess: 160 seeded synthetic wavs (16-bit, 1.5-10 s; three of
    cmd_preprocess's 64-file chunks) through cli.main(["preprocess"]) on the card and cli.main(["stats"]); one .npy of
    each kind per wav with the JAX package's shapes and dtypes, kernel 14
-   launched once per bucket batch and no other kernel, four files held
+   (the FFT kernel, one launch a batch) launched once per bucket batch (39)
+   and no other kernel, four files held
    against the CPU port (1e-4), the statistics finite with every key, the
    store read by TTSDataset; wavs/s, audio-seconds/s, shares of the wall
    time (kernel 14, host DIO, file I/O).
@@ -1530,56 +1536,131 @@ def stft_flops(frames, n_fft, n_mels, mel_nnz):
     return frames * per_frame
 
 
+def hann(win_length):
+    """The periodic hann window in float64."""
+    import numpy as np
+
+    return 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(win_length) / win_length)
+
+
+def cufft_mel_energy(torch, y, fb, n_fft, hop, win_length, clip=1e-5):
+    """Kernel 14's function composed of PyTorch calls on cuFFT, its library
+    yardstick (the port never calls it): torch.stft (center, reflect pad,
+    the periodic hann window) -> |X| -> the f32 mel product -> clamp/log, and
+    the energy."""
+    window = torch.from_numpy(hann(win_length)).float().to(y.device)
+    X = torch.stft(y, n_fft, hop_length=hop, win_length=win_length, window=window,
+                   center=True, pad_mode="reflect", return_complex=True)
+    mag = X.abs()
+    return torch.log(torch.clamp(fb @ mag, min=clip)), torch.sqrt((mag * mag).sum(1))
+
+
+def f64_errors(y, fb, hop, win_length, mel, en, clip=1e-5):
+    """Against numpy's float64 rfft of the float64-padded, float64-windowed
+    frames and the float64 mel product: the max abs log-mel error over the
+    entries whose mel exceeds 10 clip, and the max energy error over the
+    energy's peak."""
+    import numpy as np
+
+    n_fft = 4 * hop
+    yp = np.pad(y.double().cpu().numpy(), ((0, 0), (n_fft // 2, n_fft // 2)),
+                mode="reflect")
+    lpad = (n_fft - win_length) // 2
+    w = np.pad(hann(win_length), (lpad, n_fft - win_length - lpad))
+    F = y.shape[1] // hop + 1
+    frames = np.lib.stride_tricks.sliding_window_view(yp, n_fft, axis=1)[:, ::hop][:, :F]
+    mag = np.abs(np.fft.rfft(frames * w, axis=-1))
+    tmel = np.einsum("mk,bfk->bmf", fb.double().cpu().numpy(), mag)
+    te = np.sqrt((mag ** 2).sum(-1))
+    live = tmel > 10 * clip
+    lm = np.log(np.maximum(tmel, clip))
+    return (float(np.abs(mel.double().cpu().numpy() - lm)[live].max()),
+            float(np.abs(en.double().cpu().numpy() - te).max() / te.max()))
+
+
+# kernel 14's shapes: the preprocess path's longest bucket and its shortest
+# (22.05 kHz, hop 256), and 10.4 s rows at 16 kHz (hop 200) and 44.1 kHz
+# (hop 512), n_fft = 4 hop
+STFT_SHAPES = ((8, 229_376, 256, 80), (8, 16_384, 256, 80), (8, 163_840, 200, 80),
+               (8, 458_752, 512, 80))
+
+
 def stft_kernel_phase(torch, results):
-    """Kernel 14 against its plain version (full f32) at the preprocess
-    path's bucket shapes: (8, 229,376) (10.4 s rows, F = 897) and (8, 16,384),
-    row 0 silent after its first tenth (a bucket's zero tail)."""
+    """Kernel 14 against its plain version (full f32) at STFT_SHAPES, row 0
+    silent after its first tenth (a bucket's zero tail); float64 errors of
+    the kernel, the plain version and the cuFFT composition; events and
+    profiler device time beside the bound and the cuFFT composition's; no
+    ptxas spill in the library."""
     import numpy as np
 
     from fastspeech2_tpu_torch.audio.stft import mel_filterbank
+    from fastspeech2_tpu_torch.ops.kernels import common
     from fastspeech2_tpu_torch.ops.kernels import stft as KS
 
+    report = [ln.strip() for ln in common.ptxas_report("stft").splitlines()
+              if "spill" in ln or "registers" in ln]
+    for ln in report:
+        log(f"  ptxas stft: {ln}")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        "\n".join(report))
+    assert spills and all(sp == ("0", "0") for sp in spills), "ptxas spilled in stft"
     dev = torch.device("cuda")
-    fb = torch.from_numpy(mel_filterbank()).to(dev)
     g = np.random.default_rng(14)
-    for B, N in ((8, 229_376), (8, 16_384)):
-        key = f"B={B},N={N}"
+    r = results.setdefault("stft_mel_energy", {
+        "name": "stft_mel_energy", "route": "cuda",
+        "source": "fastspeech2_tpu_torch/csrc/stft.cu",
+        "replaces": "fastspeech2_tpu/ops/pallas/stft.py:68", "max_abs_err": 0.0,
+        "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}, "library_ms": {},
+        "main_shape": "B=8,N=229376,hop=256"})  # the longest bucket of the corpus
+    for B, N, hop, n_mels in STFT_SHAPES:
+        n_fft, F = 4 * hop, N // hop + 1
+        key = f"B={B},N={N},hop={hop}"
+        kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
+        fb = torch.from_numpy(mel_filterbank(22050, n_fft, n_mels)).to(dev)
         ys = np.stack([synthetic_utterance(N, g) for _ in range(B)])
         ys[0, N // 10:] = 0.0
         y = torch.from_numpy(ys).to(dev)
-        mel, en = KS.stft_mel_energy(y, fb)
-        pmel, pen = KS.stft_mel_energy_plain(y, fb)
+        mel, en = KS.stft_mel_energy(y, fb, **kw)
+        pmel, pen = KS.stft_mel_energy_plain(y, fb, **kw)
+        lmel, len_ = cufft_mel_energy(torch, y, fb, n_fft, hop, n_fft)
         torch.cuda.synchronize()
-        F = N // 256 + 1
-        assert mel.shape == (B, 80, F) and en.shape == (B, F)
-        log(f"kernel stft_mel_energy {key} (F={F})")
+        assert mel.shape == (B, n_mels, F) and en.shape == (B, F)
+        log(f"kernel stft_mel_energy {key} (F={F}, n_fft={n_fft}, {n_mels} mels)")
         # the TPU kernel's tolerance (tests/test_pallas.py): rtol 1e-4, atol
         # 1e-4 (of the peak for energy); the mean abs error under atol
         tol = 1e-4 * float(pen.abs().max())
         err = max(compare("log-mel", mel, pmel, 1e-4, 1e-4, rtol=1e-4),
                   compare("energy", en, pen, tol, tol, rtol=1e-4))
-        ms = cuda_time_ms(lambda: KS.stft_mel_energy(y, fb))
-        pms = cuda_time_ms(lambda: KS.stft_mel_energy_plain(y, fb))
+        e64 = {name: f64_errors(y, fb, hop, n_fft, m, e)
+               for name, (m, e) in (("kernel", (mel, en)), ("plain", (pmel, pen)),
+                                    ("cuFFT composition", (lmel, len_)))}
+        log("  against float64 (max abs log-mel error where mel > 10 clip, max energy "
+            "error / peak): " + "; ".join(f"{k} {a:.3e}, {b:.3e}" for k, (a, b) in e64.items()))
+        ms = cuda_time_ms(lambda: KS.stft_mel_energy(y, fb, **kw))
+        pms = cuda_time_ms(lambda: KS.stft_mel_energy_plain(y, fb, **kw))
+        lms = cuda_time_ms(lambda: cufft_mel_energy(torch, y, fb, n_fft, hop, n_fft))
+        dev_k = device_ms_by_kernel(torch, lambda: KS.stft_mel_energy(y, fb, **kw))
+        dev_l = device_ms_by_kernel(torch, lambda: cufft_mel_energy(torch, y, fb, n_fft,
+                                                                    hop, n_fft))
+        d_k, d_l = sum(dev_k.values()) or None, sum(dev_l.values()) or None
         # the bound counts what the function needs (an FFT, the sparse mel
-        # projection), not the kernel's direct DFT; bytes: the signal, both
-        # outputs and the mel basis, each once
-        flops = stft_flops(B * F, 1024, 80, int((fb != 0).sum()))
-        nb = 4 * (B * N + B * 80 * F + B * F + fb.numel())
+        # projection); bytes: the signal, both outputs and the mel basis, each once
+        flops = stft_flops(B * F, n_fft, n_mels, int((fb != 0).sum()))
+        nb = 4 * (B * N + B * n_mels * F + B * F + fb.numel())
         b_ms, by = bound_ms(flops, nb, PEAK_F32_FLOPS)
-        dft_flops = B * F * (2 * 1024 * 2 * 513 + 2 * 513 * 80)
-        log(f"  stft_mel_energy: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({by}: {flops / 1e9:.4f} GFLOP at 67 TF/s, {nb / 1e6:.2f} MB at "
-            f"3.35 TB/s), kernel {ms / b_ms:.1f}x its bound; the kernel's direct DFT does "
-            f"{dft_flops / 1e9:.3f} GFLOP, {dft_flops / ms / 1e9:.1f} TFLOP/s")
-        r = results.setdefault("stft_mel_energy", {
-            "name": "stft_mel_energy", "route": "cuda",
-            "source": "fastspeech2_tpu_torch/csrc/stft.cu",
-            "replaces": "fastspeech2_tpu/ops/pallas/stft.py:68", "max_abs_err": 0.0,
-            "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {},
-            "main_shape": "B=8,N=229376"})  # the longest bucket of the corpus
+        log(f"  stft_mel_energy: kernel {ms:.4f} ms (device {d_k} ms), plain {pms:.4f} ms, "
+            f"cuFFT composition {lms:.4f} ms (device {d_l} ms: "
+            f"{', '.join(f'{n} {v:.4f}' for n, v in dev_l.items())}), bound {b_ms:.4f} ms "
+            f"({by}: {flops / 1e9:.4f} GFLOP at 67 TF/s, {nb / 1e6:.2f} MB at 3.35 TB/s); "
+            f"kernel {(d_k or ms) / b_ms:.1f}x its bound by device time, "
+            f"{(d_k or ms) / (d_l or lms):.2f}x the cuFFT composition's")
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"][key], r["plain_ms"][key], r["bound_ms"][key], r["bound_by"][key] = (
             ms, pms, b_ms, by)
+        r["library_ms"][key] = lms
+        r.setdefault("device_ms", {})[key] = d_k
+        r.setdefault("library_device_ms", {})[key] = d_l
+        r.setdefault("f64_errors", {})[key] = e64
 
 
 def preprocess_phase(torch, results):

@@ -225,8 +225,10 @@ class MelSpectrogram:
         """(B, N) -> (log-mel (B, n_mels, F), energy (B, F)).
 
         On the card with n_fft == 4*hop this runs kernel 14
-        (``ops/kernels/stft.py``); elsewhere the matmul path, which is the
-        kernel's plain version."""
+        (``ops/kernels/stft.py``), which raises for a hop its FFT does not
+        take (``ops/kernels/stft.py:plan``), as the JAX package takes its
+        Pallas kernel for every such hop; elsewhere the matmul path, which
+        is the kernel's plain version."""
         from fastspeech2_tpu_torch.ops.kernels import stft as kernel
 
         run = (kernel.stft_mel_energy

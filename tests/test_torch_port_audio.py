@@ -10,7 +10,10 @@ error of a sum that cancels scales with the frame's level, not with the
 bin's own size); kernel 14's plain version against the Pallas kernel in interpret
 mode 1e-4, the tolerance ``tests/test_pallas.py`` holds that kernel to;
 Griffin-Lim with the JAX draw of the initial phase injected 1e-4 of the
-output's peak (its phases go through atan2 three times).
+output's peak (its phases go through atan2 three times). Kernel 14's FFT
+plan and float64 tables, through a numpy loop of its passes, against
+numpy's rfft to 1e-12 of the peak (float64 on both sides); its filterbank
+band ranges exact.
 """
 
 import jax
@@ -147,6 +150,109 @@ def test_kernel14_plain_matches_xla_path_and_pallas_interpret():
     with pytest.raises(ValueError, match="n_fft == 4"):
         kstft.stft_mel_energy(torch.from_numpy(y), torch.from_numpy(fb), n_fft=1024,
                               hop_length=128)
+
+
+def _only_2_3_5(n):
+    for p in (2, 3, 5):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+KERNEL14_HOPS = [h for h in range(32, 513) if _only_2_3_5(2 * h)]
+
+
+@pytest.mark.parametrize("hop", KERNEL14_HOPS)
+def test_kernel14_fft_plan_and_tables_give_the_rfft(hop):
+    """kstft.plan() and the wrapper's float64 tables (window, pass twiddles,
+    untangle twiddles, bin positions), run through a numpy loop of the
+    kernel's passes (in place, decimation in frequency, at the strides the
+    plan gives), then the real-FFT untangle: numpy's rfft of the windowed
+    frame to 1e-12 of its peak, for every n_fft = 4 hop the kernel takes
+    (n_fft / 2 a product of 2s, 3s and 5s, n_fft 128 to 2048); two thirds
+    of them with a window 2 or 4 samples shorter than n_fft."""
+    n_fft, n2 = 4 * hop, 2 * hop
+    radices = kstft.plan(n_fft)
+    assert int(np.prod(radices)) == n2 and set(radices) <= {2, 3, 4, 5, 8}
+    win, tw, untangle, pos = kstft.fft_tables(n_fft, n_fft - 2 * (hop % 3))
+    x = np.random.default_rng(hop).normal(size=n_fft)
+    xw = x * win
+    z = xw[0::2] + 1j * xw[1::2]
+    s = n2
+    for R in radices:
+        s //= R
+        q = np.arange(n2 // R)
+        j = q % s
+        idx = ((q - j) * R + j)[:, None] + s * np.arange(R)[None]
+        v = np.fft.fft(z[idx], axis=1)
+        v[:, 1:] *= tw[s - 1 + (np.arange(1, R)[None] - 1) * s + j[:, None]]
+        z[idx] = v
+    assert s == 1 and sorted(pos) == list(range(n2))
+    Z = z[pos]
+    k = np.arange(n2 // 2 + 1)
+    A, B = Z[k], np.conj(Z[(n2 - k) % n2])
+    E, T = (A + B) / 2, untangle * (-0.5j) * (A - B)
+    X = np.empty(n2 + 1, np.complex128)
+    X[k], X[n2 - k] = E + T, np.conj(E - T)
+    want = np.fft.rfft(xw)
+    assert np.abs(X - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("hop", [275, 28, 520, 33, 7])
+def test_kernel14_plan_refuses_other_hops(hop):
+    with pytest.raises(ValueError, match="not supported"):
+        kstft.plan(4 * hop)
+
+
+def test_kernel14_plan_refuses_other_ratios():
+    with pytest.raises(ValueError, match="not supported"):
+        kstft.plan(1022)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128, 160])
+def test_kernel14_band_ranges_cover_every_weight(n_mels):
+    """Each band's range from band_ranges(), [first, first + count), runs
+    from its first to its last nonzero weight of mel_filterbank(): it covers
+    every nonzero weight and no weight is nonzero outside the ranges. A band
+    of zeros gets (0, 0)."""
+    fb = tstft.mel_filterbank(22050, 1024, n_mels)
+    ranges = kstft.band_ranges(torch.from_numpy(fb)).numpy()
+    assert ranges.shape == (n_mels, 2) and ranges.dtype == np.int32
+    inside = np.zeros_like(fb, bool)
+    for m, (first, count) in enumerate(ranges):
+        inside[m, first:first + count] = True
+        nz = np.flatnonzero(fb[m])
+        assert count == nz[-1] - nz[0] + 1 and first == nz[0]
+    assert (fb[~inside] == 0).all()
+    empty = torch.from_numpy(fb).clone()
+    empty[3] = 0
+    assert kstft.band_ranges(empty)[3].tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("hop,n_mels", [(200, 80), (512, 80), (256, 128)])
+def test_kernel14_plain_at_the_new_hops_matches_xla_path_and_pallas_interpret(hop, n_mels):
+    """The wrapper's CPU route (the plain version) at the shapes this slice
+    opens on the card (hop 200 / n_fft 800, hop 512 / n_fft 2048, 128 mels
+    at hop 256) against the JAX package's XLA path and its Pallas kernel
+    run by the HLO interpreter (``interpret=True``), 1e-4; 0.25 s of audio,
+    two rows, one with a zero tail."""
+    from fastspeech2_tpu.ops.pallas.stft import stft_mel_energy as pallas_stft
+
+    n_fft = 4 * hop
+    y = np.stack([_voiced(5512, hop), _voiced(5512, hop + 1, f0=100.0)])
+    y[1, 3000:] = 0.0
+    fb = tstft.mel_filterbank(22050, n_fft, n_mels)
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
+    mel, en = kstft.stft_mel_energy(torch.from_numpy(y), torch.from_numpy(fb), **kw)
+    F = 5512 // hop + 1
+    assert mel.shape == (2, n_mels, F) and en.shape == (2, F)
+    ms = jstft.MelSpectrogram(n_fft=n_fft, hop_length=hop, win_length=n_fft, n_mels=n_mels)
+    jmel, jmag = ms(jnp.asarray(y))
+    _close(mel, jmel, 1e-4)
+    _close(en, jstft.energy_from_magnitude(jmag), 1e-4)
+    pmel, pen = pallas_stft(jnp.asarray(y), jnp.asarray(fb), interpret=True, **kw)
+    _close(mel, np.asarray(pmel), 1e-4)
+    _close(en, np.asarray(pen), 1e-4)
 
 
 def test_cpu_tensors_take_the_plain_paths():

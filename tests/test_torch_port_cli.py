@@ -5,7 +5,9 @@ A small ``prenorm`` checkpoint (pre-LN in both stacks) is written by the JAX
 package from a minimal override YAML, with its config embedded as
 ``hp_yaml``. ``synth`` runs the f32 tier in both packages: the port's
 ``mel.npy`` matches the JAX command's to 1e-4 (the f32 tier's tolerance,
-tests/test_torch_port_model.py) and both write ``test_tts.wav``. ``serve``
+tests/test_torch_port_model.py), both write ``test_tts.wav`` and both write
+``mel.png`` (``utils/plotting.py``; the port's utils match the JAX
+package's output on a seeded mel). ``serve``
 runs as a subprocess on the CPU: one mel request over a live socket; every
 wait has its own timeout and the process is stopped in a ``finally``.
 """
@@ -30,7 +32,11 @@ from fastspeech2_tpu import cli as jcli
 from fastspeech2_tpu.config import load_config as jload_config
 from fastspeech2_tpu.models.fastspeech2 import FastSpeech2 as JFS
 from fastspeech2_tpu.train.checkpoint import save_checkpoint as jsave_checkpoint
+from fastspeech2_tpu.utils import display as jdisplay
+from fastspeech2_tpu.utils import plotting as jplotting
 from fastspeech2_tpu_torch import cli as tcli
+from fastspeech2_tpu_torch.utils import display as tdisplay
+from fastspeech2_tpu_torch.utils import plotting as tplotting
 
 ROOT = Path(__file__).resolve().parents[1]
 PHONEMES = "HH AH0 L OW1 W ER1 L D pau DH IH1 S IH1 Z AH0 T EH1 S T"
@@ -69,6 +75,40 @@ def test_synth_matches_jax_command(prenorm_ckpt, tmp_path):
     assert sr == 22050 and wav.dtype == np.int16
     assert len(wav) == (mt.shape[1] - 1) * 256 and np.abs(wav).max() > 0
     assert (tmp_path / "jax" / "test_tts.wav").exists()
+    pt, pj = (_png(tmp_path / d / "mel.png") for d in ("port", "jax"))
+    assert pt.shape == pj.shape and pt.ndim == 3 and pt.shape[0] > 0, (pt.shape, pj.shape)
+
+
+def _png(path):
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def test_plotting_matches_jax_package(tmp_path):
+    """The port's plotting helpers give the JAX package's images on one seeded
+    mel: the rendered arrays, and the PNG files decoded, pixel for pixel."""
+    mel = np.random.default_rng(7).normal(size=(80, 120)).astype(np.float32)
+    np.testing.assert_array_equal(tplotting.plot_spectrogram_to_numpy(mel),
+                                  jplotting.plot_spectrogram_to_numpy(mel))
+    wav = np.sin(np.arange(4000) / 20.0).astype(np.float32)
+    np.testing.assert_array_equal(tplotting.plot_waveform_to_numpy(wav),
+                                  jplotting.plot_waveform_to_numpy(wav))
+    tplotting.save_spectrogram_png(mel, str(tmp_path / "port.png"))
+    jplotting.save_spectrogram_png(mel, str(tmp_path / "jax.png"))
+    np.testing.assert_array_equal(_png(tmp_path / "port.png"), _png(tmp_path / "jax.png"))
+    np.testing.assert_array_equal(tplotting._colormap_fallback(mel),
+                                  jplotting._colormap_fallback(mel))
+
+
+def test_display_matches_jax_package():
+    rows = [("steps", 12), ("batch", "16 x 4"), ("lr", 1e-3)]
+    assert tdisplay.simple_table(rows) == jdisplay.simple_table(rows)
+    for i, n in ((0, 100), (25, 100), (7, 7), (3, 0)):
+        assert tdisplay.progbar(i, n) == jdisplay.progbar(i, n)
+    t0 = time.time() - 3725
+    assert tdisplay.time_since(t0) == jdisplay.time_since(t0) == "1h 2m"
 
 
 def test_synth_refuses_a_pth_checkpoint(tmp_path):

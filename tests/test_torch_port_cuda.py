@@ -11,6 +11,10 @@ full rows, and tiles wholly past the length. Tolerance (bf16 tier, both
 sides round at the same points): mean abs < 2e-3, max abs < 0.1.
 """
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -890,25 +894,75 @@ def _speechlike(B, N, g):
     return y.float()
 
 
-@pytest.mark.parametrize("B,N", [(8, 229_376), (8, 16_384), (3, 700), (1, 300)])
-def test_stft_mel_energy(dev, B, N):
+@functools.lru_cache(maxsize=1)
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _f64_errors(y, fb, hop, win, mel, en):
+    """chip_smoke.py's float64 comparison: the max abs log-mel error over the
+    entries whose float64 mel exceeds 10 clip, and the max energy error over
+    the energy's peak, against numpy's float64 rfft."""
+    return _smoke().f64_errors(y, fb, hop, win, mel, en)
+
+
+STFT_CASES = [(8, 229_376, 256, 80), (8, 16_384, 256, 80), (3, 700, 256, 80),
+              (1, 300, 256, 80), (2, 5_000, 64, 80), (3, 9_000, 128, 80),
+              (2, 12_000, 200, 80), (2, 12_000, 300, 80), (2, 24_000, 512, 80),
+              (3, 6_000, 256, 128), (2, 24_000, 512, 160), (2, 250, 200, 128)]
+
+
+@pytest.mark.parametrize("B,N,hop,n_mels", STFT_CASES)
+def test_stft_mel_energy(dev, B, N, hop, n_mels):
     """Kernel 14 against its plain version (full f32 on both sides) at the
-    preprocess path's bucket shapes and at a short row, including one no
-    longer than the reflect pad. Tolerance 1e-4 (rtol and atol; the energy's
-    atol 1e-4 of its peak), the one the TPU kernel is held to."""
+    preprocess path's bucket shapes, at short rows (one no longer than the
+    reflect pad), at hop 64 to 512 (n_fft = 4 hop, win_length = n_fft) and
+    128 and 160 mels. Tolerance 1e-4 (rtol and atol; the energy's atol 1e-4
+    of its peak), the one the TPU kernel is held to. Against float64 truth
+    the kernel's energy is no less accurate than the plain version's, and
+    its log-mel within twice the plain version's max error: an FFT of 128
+    points, or a row of 1-3 frames, may land a few f32 steps of the log
+    past the direct DFT's; from n_fft 800 up it is more accurate."""
     from fastspeech2_tpu_torch.audio.stft import mel_filterbank
     from fastspeech2_tpu_torch.ops.kernels import stft as KS
 
-    g = torch.Generator().manual_seed(N)
+    n_fft = 4 * hop
+    g = torch.Generator().manual_seed(N + hop)
     y = _speechlike(B, N, g).to(dev)
-    fb = torch.from_numpy(mel_filterbank()).to(dev)
+    fb = torch.from_numpy(mel_filterbank(22050, n_fft, n_mels)).to(dev)
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
     n0 = KS.launches
-    mel, en = KS.stft_mel_energy(y, fb)
-    pm, pe = KS.stft_mel_energy_plain(y, fb)
+    mel, en = KS.stft_mel_energy(y, fb, **kw)
+    pm, pe = KS.stft_mel_energy_plain(y, fb, **kw)
     torch.cuda.synchronize()
     assert KS.launches == n0 + 1
-    F = N // 256 + 1
-    assert mel.shape == pm.shape == (B, 80, F) and en.shape == pe.shape == (B, F)
+    F = N // hop + 1
+    assert mel.shape == pm.shape == (B, n_mels, F) and en.shape == pe.shape == (B, F)
+    torch.testing.assert_close(mel, pm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(en, pe, rtol=1e-4, atol=1e-4 * float(pe.abs().max()))
+    k_mel, k_en = _f64_errors(y, fb, hop, n_fft, mel, en)
+    p_mel, p_en = _f64_errors(y, fb, hop, n_fft, pm, pe)
+    assert k_en <= p_en and k_mel <= 2 * p_mel, (k_mel, p_mel, k_en, p_en)
+
+
+@pytest.mark.parametrize("hop", [200, 240, 300, 512])
+def test_stft_mel_spectrogram_runs_the_kernel_at_other_hops(dev, hop):
+    """MelSpectrogram.mel_and_energy with n_fft = 4 hop (the 16, 24 and 44.1
+    kHz recipes' hops) launches kernel 14 on a CUDA tensor, and meets the
+    matmul path."""
+    from fastspeech2_tpu_torch.audio.stft import MelSpectrogram
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    y = _speechlike(2, 8_000, torch.Generator().manual_seed(hop)).to(dev)
+    ms = MelSpectrogram(n_fft=4 * hop, hop_length=hop, win_length=4 * hop, device=dev)
+    n0 = KS.launches
+    mel, en = ms.mel_and_energy(y)
+    assert KS.launches == n0 + 1
+    pm, pe = KS.stft_mel_energy_plain(y, ms.mel_basis, 4 * hop, hop, 4 * hop)
     torch.testing.assert_close(mel, pm, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(en, pe, rtol=1e-4, atol=1e-4 * float(pe.abs().max()))
 
@@ -923,10 +977,31 @@ def test_stft_mel_energy_rejects_what_it_does_not_cover(dev):
         KS.stft_mel_energy(y, fb, n_fft=1024, hop_length=128)
     with pytest.raises(ValueError, match="dtype"):
         KS.stft_mel_energy(y.double(), fb)
-    # another ratio takes the matmul path on the card, as in the JAX package
+    # hops the kernel's FFT does not take raise; nothing falls back
     n0 = KS.launches
+    for hop in (275, 28, 520):
+        fbh = torch.from_numpy(mel_filterbank(22050, 4 * hop, 80)).to(dev)
+        with pytest.raises(ValueError, match="not supported"):
+            KS.stft_mel_energy(y, fbh, n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
+        with pytest.raises(ValueError, match="not supported"):
+            MelSpectrogram(n_fft=4 * hop, hop_length=hop, win_length=4 * hop,
+                           device=dev).mel_and_energy(y)
+    assert KS.launches == n0
+    # another ratio takes the matmul path on the card, as in the JAX package
     mel, en = MelSpectrogram(hop_length=128, device=dev).mel_and_energy(y)
     assert KS.launches == n0 and mel.shape == (2, 80, 33)
+
+
+def test_stft_library_does_not_spill(dev):
+    """ptxas reports no spill in kernel 14's library."""
+    import re
+
+    from fastspeech2_tpu_torch.ops.kernels import common
+
+    common.load("stft")  # builds the library
+    report = common.ptxas_report("stft")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+    assert spills and all(s == ("0", "0") for s in spills), report
 
 
 def _lengths_0_1(B, T, dev, g):

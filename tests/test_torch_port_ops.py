@@ -62,7 +62,8 @@ need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
         "models.encoder", "models.fastspeech2", "compat.from_jax",
         "ops.kernels.attention_train", "models.init", "train.loop", "train.step",
         "train.optimizer", "train.checkpoint", "train.metrics", "train.seeds",
-        "data.filelist", "data.dataset", "data.batching", "data.prefetch"}
+        "data.filelist", "data.dataset", "data.batching", "data.prefetch",
+        "utils", "utils.plotting", "utils.display"}
 missing = {pkg.__name__ + "." + n for n in need} - set(names)
 assert not missing, missing
 print(len(names))
