@@ -131,6 +131,17 @@ Phases, each printing its own lines; any failure exits non-zero:
 15. wide postnet: a post-LN model with postnet_chans 512 and adim 384 serves
    a B=8 mel call through kernels 3 (D = 384) and 4 (C = 512), held against
    the CPU port fed the card's durations; their launch counters rise.
+16. CLI train (after 9, on its store): `python -m fastspeech2_tpu_torch
+   train` at full width in bf16 (4 steps of 16 x 4; validation sample and
+   saves every 2 steps; --profile_dir) in a subprocess: two checkpoints, the
+   four validation tags in the TensorBoard events, one Chrome trace, kernel
+   11's launches from its log (32 a step); `train -p` one step with
+   FS2_FUSED_ATT_TRAIN_PACKED=off (kernel 12, 32 a step); `evaluate` held
+   to the CPU port's evaluate_predictors; `average` of the two checkpoints;
+   `convert` .npz -> .pth -> .npz bit for bit; `synth` of the .pth and the
+   .npz (the same mel.npy); `gta` of 16 utterances held to the CPU port's;
+   the bucketed B=32 mel call (3 buckets) against the unbucketed rows of the
+   batch (kernels 1-4 counted; the two calls' times).
 
 The line before the last is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -899,10 +910,28 @@ def train_step_vs_cpu_phase(torch):
     assert d < 1e-6  # lr(1) = 2.5e-7 per unit of Adam's normalised first step
 
 
-def train_path_phase(torch, results):
-    """train() at full width and depth, bf16, batch 16 x accum 4, on a seeded
-    feature store at real lengths; then two more steps with
-    FUSED_ATT_TRAIN_PACKED off; then timed steps and a profile."""
+def seeded_store(work):
+    """The train paths' feature store in ``work``: 160 seeded utterances at
+    real lengths; (root, filelist)."""
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset, write_fake_feature_store
+
+    root = f"{work}/store"
+    t0 = time.perf_counter()
+    fl = write_fake_feature_store(root, n_utts=160, seed=0, min_tokens=80,
+                                  max_tokens=170, min_dur=3, max_dur=7)
+    ds = TTSDataset(root, fl)
+    fr, tk = ds.frame_lengths(), ds.token_lengths()
+    log(f"train path: store of {len(ds)} utterances in {time.perf_counter() - t0:.1f} s, "
+        f"tokens {tk.min()}-{tk.max()}, frames {fr.min()}-{fr.max()} "
+        f"({int((fr > 870).sum())} over 870 are dropped)")
+    assert len(ds) >= 64 and tk.min() >= 60 and fr.min() >= 240
+    return root, fl
+
+
+def train_path_phase(torch, results, store):
+    """train() at full width and depth, bf16, batch 16 x accum 4, on the
+    seeded feature store; then two more steps with FUSED_ATT_TRAIN_PACKED
+    off; then timed steps and a profile."""
     import dataclasses
     import shutil
     import tempfile
@@ -911,7 +940,7 @@ def train_path_phase(torch, results):
 
     from fastspeech2_tpu_torch.config import Config, DataConfig
     from fastspeech2_tpu_torch.data.batching import BucketBatcher
-    from fastspeech2_tpu_torch.data.dataset import TTSDataset, write_fake_feature_store
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset
     from fastspeech2_tpu_torch.data.prefetch import batch_to_device
     from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
     from fastspeech2_tpu_torch.ops import flags
@@ -920,19 +949,10 @@ def train_path_phase(torch, results):
     from fastspeech2_tpu_torch.train.seeds import SeedSchedule
     from fastspeech2_tpu_torch.train.step import make_train_step
 
-    (ROOT / "build").mkdir(exist_ok=True)
     work = tempfile.mkdtemp(prefix="fs2_train_", dir=str(ROOT / "build"))
     try:
-        root = f"{work}/store"
-        t0 = time.perf_counter()
-        fl = write_fake_feature_store(root, n_utts=160, seed=0, min_tokens=80,
-                                      max_tokens=170, min_dur=3, max_dur=7)
+        root, fl = store
         ds = TTSDataset(root, fl)
-        fr, tk = ds.frame_lengths(), ds.token_lengths()
-        log(f"train path: store of {len(ds)} utterances in {time.perf_counter() - t0:.1f} s, "
-            f"tokens {tk.min()}-{tk.max()}, frames {fr.min()}-{fr.max()} "
-            f"({int((fr > 870).sum())} over 870 are dropped)")
-        assert len(ds) >= 64 and tk.min() >= 60 and fr.min() >= 240
         cfg = Config()
         steps, accum, bsz = 10, cfg.train.accum_grad, cfg.train.batch_size
         assert (accum, bsz) == (4, 16)
@@ -1038,6 +1058,219 @@ def train_path_phase(torch, results):
         return ms, frames
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def tb_tags(log_dir):
+    """{tag: steps} of the summaries (non-scalar) in log_dir's TensorBoard
+    event files (TFRecord framing; the tensorboard package's Event proto)."""
+    from tensorboard.compat.proto.event_pb2 import Event
+
+    tags = {}
+    for f in sorted(Path(log_dir).glob("events.out.tfevents*")):
+        data, pos = f.read_bytes(), 0
+        while pos < len(data):
+            (n,) = struct.unpack("<Q", data[pos: pos + 8])
+            ev = Event.FromString(data[pos + 12: pos + 12 + n])
+            pos += 16 + n
+            for v in ev.summary.value:
+                if not v.HasField("simple_value"):
+                    tags.setdefault(v.tag, []).append(ev.step)
+    return tags
+
+
+def run_cli(args, what, env=None, timeout=600):
+    """``python -m fastspeech2_tpu_torch ARGS`` in its own process; (stderr,
+    seconds). Fails with the tail of its output unless it exits 0."""
+    import os
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "fastspeech2_tpu_torch", *args], cwd=str(ROOT),
+                       env={**os.environ, "PYTHONPATH": str(ROOT), **(env or {})},
+                       capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{what} exited {r.returncode}:\n{r.stderr[-3000:]}")
+    return r.stderr, secs
+
+
+def cli_main(torch, args):
+    """cli.main(ARGS) in this process: (standard output, seconds)."""
+    import io
+
+    from fastspeech2_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_train_phase(torch, results, store, smi):
+    """The training and checkpoint commands on the card, at full width in
+    bf16 on the train path's store: ``train`` (subprocess; 4 steps of 16 x 4,
+    validation sample and saves every 2 steps, --profile_dir), ``train -p``
+    one step with FS2_FUSED_ATT_TRAIN_PACKED=off (subprocess, kernel 12),
+    ``evaluate`` (against the CPU port), ``average``, ``convert`` .npz ->
+    .pth -> .npz, ``synth`` of the .pth and the .npz, ``gta`` on 16
+    utterances (against the CPU port), and the bucketed B=32 mel call
+    against the unbucketed one."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config, DataConfig
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from fastspeech2_tpu_torch.train.gta import generate_gta
+    from fastspeech2_tpu_torch.train.loop import evaluate_predictors
+
+    root, fl = store
+    work = Path(tempfile.mkdtemp(prefix="fs2_cli_train_", dir=str(ROOT / "build")))
+    try:
+        valid = work / "valid16.txt"
+        valid.write_text("".join(open(fl).readlines()[:16]))
+        cfg = Config()
+        cfg = dataclasses.replace(
+            cfg, data=DataConfig(data_dir=root, train_filelist=fl, valid_filelist=str(valid)),
+            train=dataclasses.replace(cfg.train, bf16=True, summary_interval=1,
+                                      validation_step=2, save_interval=2, keep_ckpts=5))
+        (work / "train.yaml").write_text(cfg.to_yaml())
+        out, prof = work / "out", work / "prof"
+        err, secs = run_cli(["train", "-c", str(work / "train.yaml"), "-n", "smoke", "-o",
+                             str(out), "--max_steps", "4", "--profile_dir", str(prof)],
+                            "CLI train")
+        counts = json.loads(re.findall(r"kernel launches: (\{.*\})", err)[-1])
+        recs = [json.loads(ln) for ln in open(out / "logs/smoke/train_metrics.jsonl")]
+        walls = [r["main/wall_s"] * 1e3 for r in recs if "main/loss" in r]
+        assert len(walls) == 4 and all(np.isfinite(r["main/loss"]) for r in recs
+                                       if "main/loss" in r)
+        log(f"CLI train: 4 steps (16 x 4, bf16) in {secs:.1f} s of process (start, build, "
+            f"two validations with the sample, two saves with evaluation, the trace); host "
+            f"clock between step summaries {', '.join(f'{w:.0f}' for w in walls)} ms (step 2 "
+            f"alone; steps 1, 3 and 4 also hold the first step's set-up, step 2's "
+            f"validation and save, the profiler) on {smi}")
+        want = 8 * 4 * 4
+        got = (counts["attention_train_packed"], counts["attention_train_packed.bwd"])
+        log(f"CLI train launches: { {k: v for k, v in counts.items() if v} }")
+        assert got == (want, want) and counts["attention_train"] == 0, counts
+        results["attention_train_packed"]["launches_cli_train_step"] = got[0] // 4
+        ckpts = sorted(p.name for p in (out / "checkpoints/smoke").glob("ckpt_*.npz"))
+        assert ckpts == ["ckpt_00000002.npz", "ckpt_00000004.npz"], ckpts
+        tags = tb_tags(out / "logs/smoke")
+        sample = {"validation/mel_target", "validation/mel_predicted",
+                  "validation/audio_predicted", "validation/audio_target"}
+        assert all(tags.get(t) == [2, 4] for t in sample), tags
+        traces = sorted(prof.glob("trace_steps_*.json"))
+        assert [t.name for t in traces] == ["trace_steps_4-4.json"], traces
+        log(f"CLI train: validation tags {sorted(tags)} at steps 2 and 4; trace "
+            f"{traces[0].name} ({traces[0].stat().st_size / 2 ** 20:.1f} MiB)")
+        ck2, ck4 = (str(out / "checkpoints/smoke" / c) for c in ckpts)
+
+        err, secs = run_cli(["train", "-c", str(work / "train.yaml"), "-n", "smoke", "-o",
+                             str(out), "--max_steps", "1", "-p", ck4], "CLI train -p",
+                            env={"FS2_FUSED_ATT_TRAIN_PACKED": "off"})
+        counts = json.loads(re.findall(r"kernel launches: (\{.*\})", err)[-1])
+        got = (counts["attention_train"], counts["attention_train.bwd"])
+        log(f"CLI train -p (FS2_FUSED_ATT_TRAIN_PACKED=off): 1 step from step 4 in "
+            f"{secs:.1f} s of process on {smi}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert got == (8 * 4,) * 2 and counts["attention_train_packed"] == 0, counts
+        assert (out / "checkpoints/smoke/ckpt_00000005.npz").exists()
+        results["attention_train"]["launches_cli_train_step"] = got[0]
+
+        stdout, secs = cli_main(torch, ["evaluate", "-p", ck4])
+        card = json.loads(stdout)
+        cpu_model = FastSpeech2(cfg, device="cpu")
+        load_checkpoint(ck4, cpu_model)
+        vds = TTSDataset(root, str(valid))
+        cpu = evaluate_predictors(cpu_model, vds)
+        log(f"CLI evaluate (16 utterances): {secs:.2f} s on {smi}; card {card}, CPU port "
+            f"{cpu}")
+        assert sorted(card) == ["Dur_Loss", "Energy_Loss", "Pitch_Loss"]
+        for k, v in cpu.items():  # f32 both sides, TF32 off on the card
+            assert np.isfinite(card[k]) and abs(card[k] - v) <= 1e-4 * abs(v) + 1e-5, (k, card, cpu)
+
+        avg = str(work / "avg.npz")
+        _, secs = cli_main(torch, ["average", ck2, ck4, "-o", avg])
+        log(f"CLI average of 2 checkpoints: {secs:.2f} s on {smi}")
+        # a deployable model: the duration bias of the smoke's serving models
+        model = FastSpeech2(cfg)
+        step, _ = load_checkpoint(avg, model)
+        assert step == 4
+        with torch.no_grad():
+            model.duration_predictor.out.bias.fill_(1.87)
+        deploy = str(work / "deploy.npz")
+        save_checkpoint(deploy, model, None, step, cfg)
+        pth, back = str(work / "deploy.pth"), str(work / "back.npz")
+        _, s1 = cli_main(torch, ["convert", "-p", deploy, "-o", pth])
+        _, s2 = cli_main(torch, ["convert", "-p", pth, "-o", back])
+        with np.load(deploy) as a, np.load(back) as b:
+            keys = sorted(k for k in a.files if k != "__meta__")
+            assert keys == sorted(k for k in b.files if k != "__meta__")
+            for k in keys:
+                assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+        log(f"CLI convert .npz -> .pth {s1:.2f} s, .pth -> .npz {s2:.2f} s on {smi}: "
+            f"{len(keys)} arrays bit for bit")
+        mels = {}
+        for src in (deploy, pth):
+            d = work / ("synth_" + Path(src).suffix[1:])
+            _, secs = cli_main(torch, ["synth", "-p", src, "--phonemes", "--text", SENTENCES[0],
+                                "-o", str(d)])
+            mels[src] = np.load(d / "mel.npy")
+            log(f"CLI synth -p {Path(src).name}: mel {mels[src].shape} in {secs:.2f} s on {smi}")
+        assert mels[deploy].shape[1] > 5 and np.array_equal(mels[deploy], mels[pth])
+
+        _, secs = cli_main(torch, ["gta", "-p", ck4, "-o", str(work / "gta"),
+                                   "--filelist", str(valid)])
+        n = generate_gta(cpu_model, vds, str(work / "gta_cpu"))
+        names = sorted(p.name for p in (work / "gta").glob("*.npy"))
+        assert n == len(names) == 16
+        worst = 0.0
+        for name in names:
+            a, b = np.load(work / "gta" / name), np.load(work / "gta_cpu" / name)
+            assert a.shape == b.shape and a.shape[0] == 80 and np.isfinite(a).all()
+            worst = max(worst, float(np.abs(a - b).max()))
+        log(f"CLI gta: 16 utterances in {secs:.2f} s on {smi} ({secs / 16 * 1e3:.1f} ms an "
+            f"utterance, process-internal, model load included); max abs against the CPU "
+            f"port {worst:.2e} (tolerance 1e-3, f32 both sides)")
+        assert worst < 1e-3
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the bucketed B=32 mel call against the unbucketed rows of the batch
+    synth = Synthesizer(seeded_model(torch, Config()), bf16=True)
+    b32 = batch(32)
+    synth.mel_from_token_batch(b32)
+    synth.mel_from_token_batch_bucketed(b32, max_buckets=3)
+    torch.cuda.synchronize()
+    reset_counts()
+    mel_b, lens_b = synth.mel_from_token_batch_bucketed(b32, max_buckets=3)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    plan = synth._bucket_plan([len(x) for x in b32], 3, 1.0)
+    log(f"bucketed B=32 (max_buckets 3): buckets of {[len(g) for g in plan]} rows; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for k in ("attention_block", "ffn_block", "variance_adaptor", "postnet"):
+        assert counts[k] > 0, f"kernel {k} was not launched by the bucketed call"
+        results[k]["launches_bucketed_b32"] = counts[k]
+    mel_u, lens_u = synth.mel_from_token_batch(b32)
+    assert np.array_equal(lens_b, lens_u), "bucketed and unbucketed out_lens differ"
+    L = min(mel_b.shape[1], mel_u.shape[1])
+    live = np.arange(L)[None] < lens_b[:, None]
+    for i in range(len(b32)):
+        compare(f"bucketed B=32 row {i} ({int(lens_b[i])} frames) vs unbucketed",
+                torch.from_numpy(mel_b[i, :L][live[i]]),
+                torch.from_numpy(mel_u[i, :L][live[i]]), 0.02, 0.2)
+    ms_b, _ = timed_calls(torch, lambda: synth.mel_from_token_batch_bucketed(b32, max_buckets=3))
+    ms_u, _ = timed_calls(torch, lambda: synth.mel_from_token_batch(b32))
+    log(f"B=32 mel call: bucketed {ms_b:.3f} ms, unbucketed {ms_u:.3f} ms (median of 5, CUDA "
+        f"events) on {smi}")
 
 
 def batch(n: int, offset: int = 0):
@@ -2552,7 +2785,20 @@ def main() -> int:
     wide_postnet_path_phase(torch, results)
     torch.cuda.empty_cache()
     train_step_vs_cpu_phase(torch)
-    step_ms, step_frames = train_path_phase(torch, results)
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    store_dir = tempfile.mkdtemp(prefix="fs2_store_", dir=str(ROOT / "build"))
+    try:
+        store = seeded_store(store_dir)
+        step_ms, step_frames = train_path_phase(torch, results, store)
+        torch.cuda.empty_cache()
+        t_cli = time.perf_counter()
+        cli_train_phase(torch, results, store, smi)
+        log(f"CLI train phase: {time.perf_counter() - t_cli:.1f} s")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
     wavs_per_s, pre_secs_per_s = preprocess_phase(torch, results)
     assert "jax" not in sys.modules and not any(
         m == "fastspeech2_tpu" or m.startswith("fastspeech2_tpu.") for m in sys.modules)
@@ -2569,6 +2815,7 @@ def main() -> int:
             "bound_by": r["bound_by"][key],
             "library_ms": r["library_ms"][key] if "library_ms" in r else None,
             "shape": key, **({"note": r["note"]} if "note" in r else {}),
+            **{k: r[k] for k in ("launches_cli_train_step", "launches_bucketed_b32") if k in r},
             **({"device_ms": r["device_ms"][key],
                 "library_device_ms": r.get("library_device_ms", {}).get(key)}
                if "device_ms" in r else {}),

@@ -1,5 +1,5 @@
-"""``python -m fastspeech2_tpu_torch {preprocess,stats,synth,serve} ...``: see
-``cli.py``."""
+"""``python -m fastspeech2_tpu_torch {preprocess,stats,train,evaluate,average,gta,
+convert,synth,serve} ...``: see ``cli.py``."""
 
 import logging
 import sys

@@ -2,24 +2,37 @@
 
     python -m fastspeech2_tpu_torch preprocess -d WAV_DIR -c CONFIG [--device cpu]
     python -m fastspeech2_tpu_torch stats -c CONFIG [-d DATA_DIR]
+    python -m fastspeech2_tpu_torch train -c CONFIG -n NAME -o OUTDIR [-p CKPT] [--device cpu]
+    python -m fastspeech2_tpu_torch evaluate -p CKPT [-c CONFIG] [--device cpu]
+    python -m fastspeech2_tpu_torch average CKPT CKPT ... -o OUT.npz [--device cpu]
+    python -m fastspeech2_tpu_torch gta -p CKPT -o OUT_DIR [--filelist FL] [--device cpu]
+    python -m fastspeech2_tpu_torch convert -p SRC -o DST [-c CONFIG] [--device cpu]
     python -m fastspeech2_tpu_torch synth -p CKPT --text "..." [--phonemes] -o OUT [--device cpu]
     python -m fastspeech2_tpu_torch serve -p CKPT [--port 8000] [--warmup] [--device cpu]
 
 ``preprocess`` turns a folder of wavs into the feature store that
-``data/dataset.py`` and ``train.loop.train`` read (``mels/``, ``energy/``,
-``pitch/`` .npy per utterance); ``stats`` prints the energy and pitch
-statistics of that store for the config's ``data:`` section. ``synth``
-writes one sentence's mel (``mel.npy``, (n_mels, L)) and wav
-(``test_tts.wav``, Griffin-Lim or ``--vocoder`` MelGAN) in the f32 tier;
-``serve`` runs the micro-batching HTTP server (``infer/server.py``), bf16 on
-the card. Both load a ``.npz`` checkpoint of either package with its
-embedded config (``-p``), or build a seeded random model from ``-c``
-without one. The other subcommands of the JAX package are not ported yet.
+``data/dataset.py`` and ``train`` read (``mels/``, ``energy/``, ``pitch/``
+.npy per utterance); ``stats`` prints the energy and pitch statistics of that
+store for the config's ``data:`` section. ``train`` runs
+``train/loop.py:train`` (``-p`` resumes), ``evaluate`` prints the predictors'
+teacher-forced L1 losses on the validation set, ``average`` writes the
+uniform average of checkpoints, ``gta`` dumps ground-truth-aligned mels for a
+vocoder (``train/gta.py``), and ``convert`` moves weights between the
+``.npz`` checkpoints and the reference's ``.pth``/``.pyt`` format by file
+extension (``compat/``). ``synth`` writes one sentence's mel (``mel.npy``,
+(n_mels, L)) and wav (``test_tts.wav``, Griffin-Lim or ``--vocoder`` MelGAN)
+in the f32 tier, from a ``.npz`` checkpoint of either package or a reference
+``.pth``; ``serve`` runs the micro-batching HTTP server (``infer/server.py``),
+bf16 on the card, from a ``.npz`` only (as the JAX package's ``serve``). Both
+build a seeded random model from ``-c`` without ``-p``. Every command but
+``stats`` takes ``--device``: the card unless ``--device cpu`` is given, and
+without a GPU it raises. ``golden`` and ``export`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import logging
@@ -134,10 +147,41 @@ def cmd_stats(args):
     print(json.dumps(out, indent=1))
 
 
-def _load_model(args, device):
+TORCH_EXTS = (".pth", ".pyt", ".pt")
+
+
+@contextlib.contextmanager
+def _log_to_file(outdir: str, name: str):
+    """Also log to ``outdir/name.log`` (the JAX command's run log)."""
+    os.makedirs(outdir, exist_ok=True)
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    handler = logging.FileHandler(os.path.join(outdir, f"{name}.log"))
+    handler.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s"))
+    root.addHandler(handler)
+    try:
+        yield
+    finally:
+        root.removeHandler(handler)
+        handler.close()
+
+
+def _config(args):
+    """The ``-c`` config, else the one embedded in the ``.npz`` checkpoint."""
+    from fastspeech2_tpu_torch.config import Config, load_config
+    from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint_meta
+
+    if args.config:
+        return load_config(args.config)
+    return Config.from_yaml(load_checkpoint_meta(args.checkpoint_path)["hp_yaml"])
+
+
+def _load_model(args, device, reference_format: bool):
     """(cfg, model on ``device``): a ``.npz`` checkpoint of either package
-    with its embedded config (``-p``), else a random init from seed 0 of the
-    ``-c`` config (smoke runs)."""
+    with its embedded config (``-p``); with ``reference_format`` also a
+    reference ``.pth``/``.pyt``/``.pt`` (config from ``-c``, else its
+    ``hp_str``); else a random init from seed 0 of the ``-c`` config (smoke
+    runs)."""
     import torch
 
     from fastspeech2_tpu_torch.config import Config, load_config
@@ -145,11 +189,17 @@ def _load_model(args, device):
     from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint, load_checkpoint_meta
 
     path = args.checkpoint_path
-    if path and path.endswith((".pth", ".pyt", ".pt")):
-        raise NotImplementedError(
-            f"{path}: reference .pth checkpoints are not loaded by the port yet "
-            "(ROADMAP.md, queue 1: weights); convert them to .npz with the JAX package")
-    if path:
+    if path and path.endswith(TORCH_EXTS):
+        if not reference_format:
+            raise SystemExit(
+                f"{path}: serve reads .npz checkpoints only, as the JAX package's serve "
+                f"does; convert it first: python -m fastspeech2_tpu_torch convert -p {path} "
+                "-o model.npz")
+        from fastspeech2_tpu_torch.compat.torch_loader import load_torch_model
+
+        cfg, _, model = load_torch_model(
+            path, load_config(args.config) if args.config else None, device)
+    elif path:
         cfg = Config.from_yaml(load_checkpoint_meta(path)["hp_yaml"])
         model = FastSpeech2(cfg, device=device)
         load_checkpoint(path, model)
@@ -159,6 +209,105 @@ def _load_model(args, device):
     return cfg, model
 
 
+def cmd_train(args):
+    """``train/loop.py:train`` from a config (train_fastspeech.py); ``-p``
+    resumes. On the card the run ends with the kernels' launch counts."""
+    from fastspeech2_tpu_torch.config import load_config
+    from fastspeech2_tpu_torch.device import resolve_device
+    from fastspeech2_tpu_torch.ops.kernels import launch_counts
+    from fastspeech2_tpu_torch.train.loop import train
+
+    device = resolve_device(args.device)
+    with _log_to_file(args.outdir, args.name):
+        train(load_config(args.config), args.name, args.outdir,
+              resume_path=args.checkpoint_path, max_steps=args.max_steps,
+              data_dir=args.data_dir, profile_dir=args.profile_dir, device=device)
+        if device.type == "cuda":
+            logging.info("kernel launches: %s", json.dumps(launch_counts()))
+
+
+def cmd_evaluate(args):
+    """Teacher-forced L1 of the duration, energy and pitch predictions over
+    the validation set (evaluation.py), printed as JSON."""
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset
+    from fastspeech2_tpu_torch.device import resolve_device
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint
+    from fastspeech2_tpu_torch.train.loop import evaluate_predictors
+
+    device = resolve_device(args.device)
+    model = FastSpeech2(_config(args), device=device)
+    _, cfg = load_checkpoint(args.checkpoint_path, model)
+    valid = TTSDataset(args.data_dir or cfg.data.data_dir, cfg.data.valid_filelist,
+                       cfg.train.use_phonemes, cfg.data.tts_cleaner_names)
+    print(json.dumps(evaluate_predictors(model, valid), indent=1))
+
+
+def cmd_gta(args):
+    """Ground-truth-aligned mels, (n_mels, L) .npy per utterance, for vocoder
+    finetuning (train/gta.py)."""
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset
+    from fastspeech2_tpu_torch.device import resolve_device
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint
+    from fastspeech2_tpu_torch.train.gta import generate_gta
+
+    device = resolve_device(args.device)
+    model = FastSpeech2(_config(args), device=device)
+    _, cfg = load_checkpoint(args.checkpoint_path, model)
+    ds = TTSDataset(args.data_dir or cfg.data.data_dir,
+                    args.filelist or cfg.data.train_filelist,
+                    cfg.train.use_phonemes, cfg.data.tts_cleaner_names)
+    generate_gta(model, ds, args.out)
+
+
+def cmd_convert(args):
+    """Checkpoint conversion by extension: .npz <-> .pth/.pyt (compat/), so
+    models trained here deploy on the reference and back."""
+    from fastspeech2_tpu_torch.config import Config, load_config
+    from fastspeech2_tpu_torch.device import resolve_device
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.train.checkpoint import (load_checkpoint, load_checkpoint_meta,
+                                                        save_checkpoint)
+
+    device = resolve_device(args.device)
+    src, dst = args.checkpoint_path, args.out
+    if src.endswith(".npz") and dst.endswith(TORCH_EXTS):
+        from fastspeech2_tpu_torch.compat.torch_saver import save_torch_checkpoint
+
+        cfg = Config.from_yaml(load_checkpoint_meta(src)["hp_yaml"])
+        model = FastSpeech2(cfg, device=device)
+        step, _ = load_checkpoint(src, model)
+        save_torch_checkpoint(dst, model, cfg, step=step)
+        logging.info("wrote reference-format checkpoint %s (step %d)", dst, step)
+    elif src.endswith(TORCH_EXTS) and dst.endswith(".npz"):
+        from fastspeech2_tpu_torch.compat.torch_loader import load_torch_model
+
+        cfg, step, model = load_torch_model(
+            src, load_config(args.config) if args.config else None, device)
+        save_checkpoint(dst, model, None, step, cfg)
+        logging.info("wrote native checkpoint %s (step %d)", dst, step)
+    else:
+        raise SystemExit(
+            f"unsupported conversion {src} -> {dst}: use .npz <-> .pth/.pyt")
+
+
+def cmd_average(args):
+    """Uniform average of N same-config checkpoints into one deployment
+    checkpoint (train/checkpoint.py:average_checkpoints). The average is
+    taken in float64 on the host whatever the device."""
+    from fastspeech2_tpu_torch.device import resolve_device
+    from fastspeech2_tpu_torch.train.checkpoint import average_checkpoints
+
+    resolve_device(args.device)
+    if len(args.checkpoints) < 2:  # a 1-file glob is a usage error, not a bug
+        raise SystemExit("average: need at least 2 checkpoints "
+                         f"(got {args.checkpoints})")
+    step = average_checkpoints(args.checkpoints, args.out)
+    logging.info("wrote %s (uniform average of %d checkpoints, step %d)",
+                 args.out, len(args.checkpoints), step)
+
+
 def cmd_synth(args):
     """One sentence -> mel.npy (n_mels, L) and test_tts.wav (inference.py),
     in the f32 tier: the Synthesizer gets no bf16, so no kernel runs."""
@@ -166,7 +315,7 @@ def cmd_synth(args):
     from fastspeech2_tpu_torch.infer.synthesize import Synthesizer, vocode, write_wav
 
     device = resolve_device(args.device)
-    cfg, model = _load_model(args, device)
+    cfg, model = _load_model(args, device, reference_format=True)
     synth = Synthesizer(model, device=device)
     if args.phonemes:
         mel = synth.synth_phonemes(args.text, alpha=args.alpha)
@@ -205,7 +354,7 @@ def cmd_serve(args):
     from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
 
     device = resolve_device(args.device)
-    cfg, model = _load_model(args, device)
+    cfg, model = _load_model(args, device, reference_format=False)
     on_card = device.type == "cuda"
     synth = Synthesizer(model, bf16=on_card, device=device)
     vocoder_path = args.vocoder or cfg.train.vocoder_checkpoint
@@ -245,9 +394,32 @@ def main(argv=None):
     sp.add_argument("-d", "--data_dir", default=None)
     sp.set_defaults(fn=cmd_stats)
 
+    sp = sub.add_parser("train")
+    sp.add_argument("-c", "--config", default=None)
+    sp.add_argument("-n", "--name", default="fastspeech2")
+    sp.add_argument("-o", "--outdir", default="./out")
+    sp.add_argument("-p", "--checkpoint_path", default=None,
+                    help=".npz checkpoint of either package to resume from")
+    sp.add_argument("-d", "--data_dir", default=None)
+    sp.add_argument("--max_steps", type=int, default=None)
+    sp.add_argument("--profile_dir", default=None,
+                    help="write a torch.profiler Chrome trace of a few warm steps here")
+    sp.add_argument("--device", default=None, help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("gta")
+    sp.add_argument("-p", "--checkpoint_path", required=True)
+    sp.add_argument("-c", "--config", default=None)
+    sp.add_argument("-d", "--data_dir", default=None)
+    sp.add_argument("--filelist", default=None)
+    sp.add_argument("-o", "--out", required=True)
+    sp.add_argument("--device", default=None, help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_gta)
+
     sp = sub.add_parser("synth")
     sp.add_argument("-p", "--checkpoint_path", default=None,
-                    help=".npz checkpoint; its embedded config is used")
+                    help=".npz checkpoint (its embedded config is used) or a "
+                         "reference .pth/.pyt (config from -c, else its hp_str)")
     sp.add_argument("-c", "--config", default=None,
                     help="config of a random init from seed 0 (without -p)")
     sp.add_argument("--text", required=True)
@@ -279,6 +451,29 @@ def main(argv=None):
     sp.add_argument("--device", default=None,
                     help="torch device (default: cuda, in bf16; cpu runs f32)")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("evaluate")
+    sp.add_argument("-p", "--checkpoint_path", required=True)
+    sp.add_argument("-c", "--config", default=None)
+    sp.add_argument("-d", "--data_dir", default=None)
+    sp.add_argument("--device", default=None, help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("convert")
+    sp.add_argument("-p", "--checkpoint_path", required=True)
+    sp.add_argument("-o", "--out", required=True)
+    sp.add_argument("-c", "--config", default=None,
+                    help="override config for .pth sources (default: the "
+                         "checkpoint's embedded hp_str)")
+    sp.add_argument("--device", default=None, help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_convert)
+
+    sp = sub.add_parser("average")
+    sp.add_argument("checkpoints", nargs="+",
+                    help="two or more .npz checkpoints of the same config")
+    sp.add_argument("-o", "--out", required=True)
+    sp.add_argument("--device", default=None, help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_average)
 
     args = p.parse_args(argv)
     args.fn(args)

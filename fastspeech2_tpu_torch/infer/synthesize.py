@@ -292,6 +292,62 @@ class Synthesizer:
             return mel, out_lens, trunc
         return mel, out_lens
 
+    def _bucket_plan(self, lens: Sequence[int], max_buckets: int, a_max: float
+                     ) -> List[List[int]]:
+        """Partition the length-sorted rows into <= max_buckets contiguous
+        segments minimizing the total padded frame cost sum(|seg| * l_pad(seg
+        max)): exact O(n^2 k) dynamic program (n is a serving batch)."""
+        order = sorted(range(len(lens)), key=lambda i: lens[i])
+        n = len(order)
+
+        def seg_cost(i, j):  # ranks [i, j)
+            t_pad = _round_up(lens[order[j - 1]], self.token_multiple)
+            return (j - i) * self._l_pad(t_pad, a_max)
+
+        INF = float("inf")
+        best = [[INF] * (max_buckets + 1) for _ in range(n + 1)]
+        cut = [[0] * (max_buckets + 1) for _ in range(n + 1)]
+        best[0][0] = 0.0
+        for j in range(1, n + 1):
+            for k in range(1, max_buckets + 1):
+                for i in range(j):
+                    if best[i][k - 1] == INF:
+                        continue
+                    c = best[i][k - 1] + seg_cost(i, j)
+                    if c < best[j][k]:
+                        best[j][k] = c
+                        cut[j][k] = i
+        k = min(range(1, max_buckets + 1), key=lambda k: best[n][k])
+        bounds, j = [], n
+        while j > 0:
+            i = cut[j][k]
+            bounds.append((i, j))
+            j, k = i, k - 1
+        return [[order[r] for r in range(i, j)] for i, j in reversed(bounds)]
+
+    def mel_from_token_batch_bucketed(self, token_seqs: Sequence[np.ndarray],
+                                      alpha=1.0, max_buckets: int = 3
+                                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """Like mel_from_token_batch, but the batch is split into up to
+        max_buckets length-sorted sub-batches (``_bucket_plan``), each served
+        by mel_from_token_batch with its own padded shapes; rows come back in
+        the caller's order, zero-padded to the longest sub-batch's frames."""
+        B = len(token_seqs)
+        if B <= 1 or max_buckets <= 1:
+            return self.mel_from_token_batch(token_seqs, alpha)
+        alphas, a_max = self._alphas(alpha, B, B)
+        groups = self._bucket_plan([len(s) for s in token_seqs], max_buckets, a_max)
+        mels, out_lens = [None] * B, np.zeros((B,), np.int64)
+        for g in groups:
+            mel_g, lens_g = self.mel_from_token_batch([token_seqs[i] for i in g], alphas[g])
+            for row, i in enumerate(g):
+                mels[i] = mel_g[row]
+                out_lens[i] = lens_g[row]
+        out = np.zeros((B, max(m.shape[0] for m in mels), mels[0].shape[1]), mels[0].dtype)
+        for i, m in enumerate(mels):
+            out[i, : m.shape[0]] = m
+        return out, out_lens
+
     def wav_from_token_batch_async(self, token_seqs: Sequence[np.ndarray],
                                    alpha=1.0):
         """Enqueue the text->wav call without waiting for its result;

@@ -2,14 +2,14 @@
 
 Structure per epoch: bucketed batches (prefetched and copied to the device on
 a background thread) -> accumulate + clip + Noam-Adam step -> periodic scalar
-metrics (summary_interval), teacher-forced validation (validation_step),
-asynchronous checkpoint + predictor evaluation (save_interval); a final
-checkpoint + prune at ``max_steps``; a checkpoint at the next step boundary on
-SIGTERM/SIGINT.
+metrics (summary_interval), teacher-forced validation with a free-running
+sample's mel images and audio (validation_step), asynchronous checkpoint +
+predictor evaluation (save_interval); a final checkpoint + prune at
+``max_steps``; a checkpoint at the next step boundary on SIGTERM/SIGINT. With
+``profile_dir``, one torch.profiler trace of a few warm steps.
 
-Not ported yet (ROADMAP.md): validation sample images and audio, the profiler
-hook, multi-host and multi-device code (``dp_size``, ``tensor_parallel``),
-GTA mel dumping and the CLI ``train`` command.
+Not ported yet (ROADMAP.md queue 1 item 8): multi-host and multi-device
+training (``dp_size``, ``tensor_parallel``, ``num_hosts``).
 """
 
 from __future__ import annotations
@@ -108,17 +108,97 @@ def evaluate_predictors(model: FastSpeech2, valid_ds: TTSDataset) -> dict:
     return {"Dur_Loss": d, "Energy_Loss": e, "Pitch_Loss": p}
 
 
+@torch.no_grad()
+def _log_validation_sample(model: FastSpeech2, valid_ds: TTSDataset,
+                           metrics: MetricsWriter, step: int, cfg: Config,
+                           audio_steps: int = 0, vocoder=None) -> None:
+    """Free-running inference (f32) on the first validation utterance: its
+    target and predicted mel images and, with ``audio_steps``, both as audio
+    to TensorBoard (reference train_fastspeech.py:167-219). The audio comes
+    from ``vocoder`` (MelGAN) when given, else Griffin-Lim of
+    ``audio_steps`` iterations on the model's device."""
+    from fastspeech2_tpu_torch.infer.synthesize import vocode
+    from fastspeech2_tpu_torch.utils.plotting import plot_spectrogram_to_numpy
+
+    u = valid_ds[0]
+    T = len(u.tokens)
+    L = max(u.mel.shape[0] * 2, 64)
+    dev = model.device
+    mel, out_lens, _ = model.inference(
+        torch.from_numpy(np.asarray(u.tokens, np.int64)[None]).to(dev),
+        torch.tensor([T], dtype=torch.int32, device=dev), out_maxlen=L)
+    n = int(out_lens[0])
+    if n >= L:
+        # out_lens is clipped to the buffer; an untrained or duration-exploding
+        # model would otherwise truncate silently
+        log.warning("validation sample filled its %d-frame buffer (target %d frames): "
+                    "predicted durations likely exploding, sample image/audio "
+                    "truncated", L, u.mel.shape[0])
+    pred = mel[0, :n].float().cpu().numpy().T
+    metrics.image(step, "validation/mel_target", plot_spectrogram_to_numpy(u.mel.T))
+    if pred.shape[1] > 0:
+        metrics.image(step, "validation/mel_predicted", plot_spectrogram_to_numpy(pred))
+    if audio_steps > 0 and pred.shape[1] > 0:
+        sr = cfg.audio.sample_rate
+        metrics.audio(step, "validation/audio_predicted",
+                      vocode(pred.T, cfg, vocoder=vocoder, gl_iters=audio_steps,
+                             device=dev), sr)
+        metrics.audio(step, "validation/audio_target",
+                      vocode(u.mel, cfg, vocoder=vocoder, gl_iters=audio_steps,
+                             device=dev), sr)
+
+
+class _Profiler:
+    """One torch.profiler trace of ``n_steps`` steps, started once the step
+    is warm (3 steps after the start or resume) and written into ``out_dir``
+    as a Chrome trace when they are done, or when the run ends first."""
+
+    def __init__(self, out_dir: Optional[str], n_steps: int, step0: int,
+                 device: torch.device):
+        self.out_dir, self.n_steps, self.step0, self.device = out_dir, n_steps, step0, device
+        self.prof = None
+        self.first = self.stop_at = -1
+
+    def before_step(self, step: int) -> None:
+        if self.out_dir and self.prof is None and step >= self.step0 + 3:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.start()
+            self.first, self.stop_at = step + 1, step + self.n_steps
+
+    def after_step(self, step: int) -> None:
+        if self.prof is not None and self.out_dir and step >= self.stop_at:
+            self.close(step)
+
+    def close(self, step: int) -> None:
+        """Stop and write the trace, if one is running."""
+        if self.prof is None or not self.out_dir:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, f"trace_steps_{self.first}-{step}.json")
+        self.prof.export_chrome_trace(path)
+        self.out_dir = None  # once
+        log.info("profiler trace of steps %d-%d written to %s", self.first, step, path)
+
+
 def resolve_dp(cfg: Config, n_dev: int, tp: int) -> int:
     """Data-parallel degree. The port trains on ONE device: anything else
     that is asked for raises, naming what is still to port."""
     if tp > 1:
         raise NotImplementedError(
             f"train.tensor_parallel={tp}: tensor parallelism is not ported yet "
-            "(ROADMAP.md queue 1 item 7: parallel/, shard_train_step)")
+            "(ROADMAP.md queue 1 item 8: parallel/, shard_train_step)")
     if cfg.train.dp_size > 1:
         raise NotImplementedError(
             f"train.dp_size={cfg.train.dp_size}: data parallelism is not ported "
-            "yet (ROADMAP.md queue 1 item 7: parallel/, shard_train_step)")
+            "yet (ROADMAP.md queue 1 item 8: parallel/, shard_train_step)")
     return 1
 
 
@@ -126,9 +206,14 @@ def train(cfg: Config, name: str, outdir: str,
           resume_path: Optional[str] = None,
           max_steps: Optional[int] = None,
           data_dir: Optional[str] = None,
-          device: Union[str, torch.device, None] = None) -> TrainState:
+          device: Union[str, torch.device, None] = None,
+          profile_dir: Optional[str] = None,
+          profile_steps: int = 5) -> TrainState:
     """Run training; returns the final TrainState. ``device`` None means the
     CUDA card and raises without one; the CPU must be asked for.
+
+    With ``profile_dir``, a torch.profiler trace of ``profile_steps`` steps
+    is written there once the step is warm (``_Profiler``).
 
     Preemption-safe: SIGTERM/SIGINT during setup OR the loop checkpoints the
     in-flight state at the next step boundary and returns; the guard wraps
@@ -136,11 +221,12 @@ def train(cfg: Config, name: str, outdir: str,
     preempt = {"hit": False}
     with _preemption_guard(preempt):
         return _train(cfg, name, outdir, resume_path, max_steps, data_dir,
-                      device, preempt)
+                      device, profile_dir, profile_steps, preempt)
 
 
 def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
            max_steps: Optional[int], data_dir: Optional[str], device,
+           profile_dir: Optional[str], profile_steps: int,
            preempt: dict) -> TrainState:
     device = resolve_device(device)
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -148,7 +234,7 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
     if cfg.train.num_hosts > 1:
         raise NotImplementedError(
             "train.num_hosts > 1: multi-host training is not ported yet "
-            "(ROADMAP.md queue 1 item 7)")
+            "(ROADMAP.md queue 1 item 8)")
 
     data_dir = data_dir or cfg.data.data_dir
     train_ds = TTSDataset(data_dir, cfg.data.train_filelist,
@@ -188,6 +274,17 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
     log_dir = os.path.normpath(os.path.join(outdir, cfg.train.log_dir, name))
     metrics = MetricsWriter(log_dir)
     tput = Throughput(cfg.audio.hop_length, cfg.audio.sample_rate)
+    profiler = _Profiler(profile_dir, profile_steps, step0, device)
+
+    vocoder = None  # neural validation audio (reference train_fastspeech.py:446)
+    if cfg.train.melgan_vocoder and cfg.train.vocoder_checkpoint:
+        try:
+            from fastspeech2_tpu_torch.vocoder import load_melgan
+
+            vocoder = load_melgan(cfg.train.vocoder_checkpoint, device=device)
+            log.info("validation audio via MelGAN %s", cfg.train.vocoder_checkpoint)
+        except Exception as e:  # audio is best-effort, as in the JAX loop
+            log.warning("MelGAN load failed (%s); Griffin-Lim audio", e)
 
     def to_device(item):
         batch, _shape = item
@@ -202,9 +299,11 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
             step_before = ts.step
             for batch, n_frames in prefetch(batcher.epoch(epoch), depth=2,
                                             transform=to_device):
+                profiler.before_step(ts.step)
                 ts, report = step_fn(ts, batch, [seeds.draw() for _ in range(accum)])
                 step = ts.step
                 tput.add(n_frames)
+                profiler.after_step(step)
 
                 if preempt["hit"]:
                     _drain_writer(ckpt_writer)  # don't race the periodic writer
@@ -231,6 +330,11 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
                         metrics.scalars(
                             step, {"loss": float(torch.stack(vloss).mean())},
                             prefix="validation")
+                        try:
+                            _log_validation_sample(model, valid_ds, metrics, step, cfg,
+                                                   audio_steps=30, vocoder=vocoder)
+                        except Exception as e:  # images are best-effort
+                            log.warning("validation sample logging failed: %s", e)
 
                 if step % cfg.train.save_interval == 0:
                     # async: snapshot to host now, npz write + retention prune
@@ -258,4 +362,5 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
                 ckpt_writer.wait()
                 return ts
     finally:
+        profiler.close(ts.step)
         metrics.close()

@@ -1,8 +1,11 @@
 """Training observability (the port's own copy of
-``fastspeech2_tpu/train/metrics.py``; it touches no tensor library): scalar metrics to JSONL (always) and TensorBoard
-(when tensorboardX is available), matching the reference's reporting surface
+``fastspeech2_tpu/train/metrics.py``): scalar metrics to JSONL (always) and
+TensorBoard, matching the reference's reporting surface
 (``train_fastspeech.py:133-226``: per-interval train scalars, validation
-scalars, evaluation losses)."""
+scalars and sample images and audio, evaluation losses). The TensorBoard
+writer is tensorboardX's where it is installed, else the one torch ships
+(``torch.utils.tensorboard``, which needs the tensorboard package), else
+none."""
 
 from __future__ import annotations
 
@@ -17,14 +20,9 @@ class MetricsWriter:
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{name}_metrics.jsonl")
         self._f = open(self.path, "a", encoding="utf-8")
-        self.tb = None
+        self.tb = self._summary = None
         if use_tensorboard:
-            try:
-                from tensorboardX import SummaryWriter  # type: ignore
-
-                self.tb = SummaryWriter(log_dir)
-            except Exception:
-                self.tb = None
+            self.tb, self._summary = _summary_writer(log_dir)
 
     def scalars(self, step: int, values: Dict[str, float], prefix: str = "main"):
         rec = {"step": int(step), "time": time.time(),
@@ -37,22 +35,22 @@ class MetricsWriter:
 
     def image(self, step: int, tag: str, img_chw):
         """CHW uint8 image to TensorBoard (mel/waveform plots, reference
-        train_fastspeech.py:167-219). No-op without tensorboardX."""
+        train_fastspeech.py:167-219). No-op without a writer."""
         if self.tb is not None:
             self.tb.add_image(tag, img_chw, step)
 
     def audio(self, step: int, tag: str, wav, sample_rate: int):
         """Float waveform to TensorBoard. Encodes the WAV with the stdlib
-        (tensorboardX's add_audio requires soundfile, which this image lacks)
-        and emits the Summary.Audio proto directly."""
+        (add_audio needs soundfile, which may be absent) and emits the
+        writer's own Summary.Audio proto directly."""
         if self.tb is None:
             return
         import io
         import wave as wave_mod
 
         import numpy as np
-        from tensorboardX.proto.summary_pb2 import Summary
 
+        Summary = self._summary
         pcm = (np.clip(np.asarray(wav).reshape(-1), -1, 1) * 32767).astype("<i2")
         buf = io.BytesIO()
         with wave_mod.open(buf, "wb") as w:
@@ -71,6 +69,23 @@ class MetricsWriter:
         self._f.close()
         if self.tb is not None:
             self.tb.close()
+
+
+def _summary_writer(log_dir: str):
+    """(SummaryWriter, its Summary proto class), or (None, None)."""
+    try:
+        from tensorboardX import SummaryWriter  # type: ignore
+        from tensorboardX.proto.summary_pb2 import Summary  # type: ignore
+    except ImportError:
+        try:
+            from tensorboard.compat.proto.summary_pb2 import Summary  # type: ignore
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return None, None
+    try:
+        return SummaryWriter(log_dir), Summary
+    except Exception:
+        return None, None
 
 
 class Throughput:

@@ -111,10 +111,11 @@ def test_display_matches_jax_package():
     assert tdisplay.time_since(t0) == jdisplay.time_since(t0) == "1h 2m"
 
 
-def test_synth_refuses_a_pth_checkpoint(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli.main(["synth", "-p", str(tmp_path / "ref.pth"), "--text", "hi",
-                   "-o", str(tmp_path), "--device", "cpu"])
+def test_serve_refuses_a_pth_checkpoint(tmp_path):
+    """``serve`` reads .npz only, as the JAX package's serve does (``synth``
+    reads a .pth: tests/test_torch_port_compat.py)."""
+    with pytest.raises(SystemExit, match="convert"):
+        tcli.main(["serve", "-p", str(tmp_path / "ref.pth"), "--device", "cpu"])
 
 
 def _free_port():

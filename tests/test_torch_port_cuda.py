@@ -1402,3 +1402,53 @@ def test_new_kernels_refuse_the_wrong_dtype(dev):
         KF.fused_ffn(q.to(torch.bfloat16), w1, b1, w2, b2, lens, 9, torch.float16)
     assert (KA.res_launches, KA.packed_launches, KA.bhtd_launches, KF.pre_launches,
             KF.bare_launches) == n
+
+
+def test_pth_weights_serve_on_the_card_like_the_cpu(dev, tmp_path):
+    """A default-width model written as a reference .pth by the port's saver
+    loads onto the card with the same weights and serves a B=8 bf16 batch
+    within chip_smoke.py's band of the CPU port (``hold_b8_vs_cpu``)."""
+    from fastspeech2_tpu_torch.compat.torch_loader import load_torch_model
+    from fastspeech2_tpu_torch.compat.torch_saver import save_torch_checkpoint
+    from fastspeech2_tpu_torch.config import Config
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+
+    cfg = Config()
+    src = FastSpeech2(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        src.duration_predictor.out.bias.fill_(1.87)
+    path = str(tmp_path / "model.pth")
+    save_torch_checkpoint(path, src, cfg, step=3)
+    cfg2, step, model = load_torch_model(path, device=dev)
+    assert step == 3 and cfg2.to_dict() == cfg.to_dict()
+    for (n, a), (_, b) in zip(src.state_dict().items(), model.state_dict().items()):
+        assert torch.equal(a, b.cpu()), n
+    _smoke().hold_b8_vs_cpu(torch, Synthesizer(model, bf16=True, device=dev), cfg2, ".pth model")
+
+
+def test_bucketed_b32_matches_the_unbucketed_rows(dev):
+    """``mel_from_token_batch_bucketed`` at B=32 (three buckets) through
+    kernels 1-4 against the unbucketed call on the same batch: the same
+    lengths, every row's live frames within ``hold_b8_vs_cpu``'s band."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.ops.kernels import adaptor, attention, ffn, postnet
+
+    smoke = _smoke()
+    synth = Synthesizer(smoke.seeded_model(torch, Config()), bf16=True, device=dev)
+    b32 = smoke.batch(32)
+    plan = synth._bucket_plan([len(s) for s in b32], 3, 1.0)
+    assert len(plan) == 3 and sorted(i for g in plan for i in g) == list(range(32))
+    n0 = [m.launches for m in (attention, ffn, adaptor, postnet)]
+    mel_b, lens_b = synth.mel_from_token_batch_bucketed(b32, max_buckets=3)
+    torch.cuda.synchronize()
+    assert all(m.launches > n for m, n in zip((attention, ffn, adaptor, postnet), n0))
+    mel_u, lens_u = synth.mel_from_token_batch(b32)
+    np.testing.assert_array_equal(lens_b, lens_u)
+    for i in range(32):  # hold_b8_vs_cpu's band: mean < 0.02, max < 0.2
+        n = int(lens_b[i])
+        smoke.compare(f"row {i}", torch.from_numpy(mel_b[i, :n]),
+                      torch.from_numpy(mel_u[i, :n]), 0.02, 0.2)

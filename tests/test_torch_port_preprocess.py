@@ -15,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -42,9 +43,28 @@ def _utterance(n, seed):
     return y
 
 
+def _same_pitch_branch():
+    """Both packages must take the same pitch branch. The JAX package
+    compiles its native library in place, not atomically: in a fresh
+    checkout, a test worker can load the library while another worker is
+    still writing it, take that for a missing toolchain and use the
+    autocorrelation tracker for the rest of its process. Load it again once
+    the writer is done (its module state only; nothing of it is edited)."""
+    from fastspeech2_tpu import native as jnative
+    from fastspeech2_tpu_torch import native as tnative
+
+    for _ in range(60):
+        if jnative.available() or not tnative.available():
+            break
+        time.sleep(1.0)
+        jnative._build_failed = False
+    assert jnative.available() == tnative.available()
+
+
 @pytest.fixture(scope="module")
 def stores(tmp_path_factory):
     """Four wavs (one in a subfolder), preprocessed by both packages."""
+    _same_pitch_branch()
     root = tmp_path_factory.mktemp("pre")
     wavs = root / "wavs"
     (wavs / "sub").mkdir(parents=True)

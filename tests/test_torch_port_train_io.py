@@ -74,10 +74,21 @@ def _batch(seed, B=4, T=12, L=64):
                 ps=(g.uniform(71, 600, (B, L)) * mask).astype(np.float32))
 
 
+_INIT = {}
+
+
+def _jax_init(cfg):
+    """The JAX init from PRNGKey(0), as numpy: every test here builds the same
+    model (``_cfg`` varies the train section only), so one jit compile."""
+    if "params" not in _INIT:
+        _INIT["params"] = jax.device_get(jax.jit(JFS(cfg).init)(jax.random.PRNGKey(0)))
+    return jax.tree.map(jnp.asarray, _INIT["params"])
+
+
 def _jax_side(cfg, n_steps):
     """A JAX model trained n_steps (accum 2): (model, TrainState, step fn)."""
     jm = JFS(cfg)
-    params, state = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    params, state = _jax_init(cfg)
     jopt = make_optimizer(cfg)
     ts = JTrainState(params, state, jopt.init(params), jnp.asarray(0, jnp.int32))
     step = jax.jit(jmake_train_step(jm, jopt, 2))
@@ -136,8 +147,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     path = str(tmp_path / "ckpt_00000002.npz")
     tckpt.save_checkpoint(path, tm, topt, ts.step, tm.cfg)
 
-    jm = JFS(cfg)
-    p0, s0 = jax.jit(jm.init)(jax.random.PRNGKey(9))
+    p0, s0 = _jax_init(cfg)  # templates: the loaded values replace them
     o0 = make_optimizer(cfg).init(p0)
     params, state, opt, step, loaded = jckpt.load_checkpoint(path, p0, s0, o0)
     assert step == 2 and loaded.to_dict() == cfg.to_dict()
@@ -332,7 +342,7 @@ def test_sigterm_leaves_a_checkpoint(tmp_path):
 @pytest.mark.parametrize("kw", [dict(dp_size=2), dict(tensor_parallel=2), dict(num_hosts=2)])
 def test_what_is_not_ported_raises(tmp_path, kw):
     cfg = _store_cfg(tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         train(cfg, "x", str(tmp_path / "out"), max_steps=1, device="cpu")
     assert resolve_dp(_store_cfg(tmp_path), 4, 1) == 1
 

@@ -83,9 +83,24 @@ def _assert_changes_match(got, want, start, rel, noise_leaves=()):
         assert gap <= rel * norm, f"{k}: change off by {gap / max(norm, 1e-30):.3g} of its norm"
 
 
+# the JAX init of each (model shapes and init scheme, seed), as numpy: the
+# draws do not depend on the dropout rates, the loss masking or the train
+# section, so the tests' variants of small_cfg share one jit compile
+_INITS = {}
+
+
+def _jax_init(cfg, seed):
+    m = {k: v for k, v in dataclasses.asdict(cfg.model).items()
+         if "dropout" not in k and k not in ("use_masking", "use_weighted_masking")}
+    key = (repr(sorted(m.items())), cfg.audio.num_mels, seed)
+    if key not in _INITS:
+        _INITS[key] = jax.device_get(jax.jit(JFS(cfg).init)(jax.random.PRNGKey(seed)))
+    return jax.tree.map(jnp.asarray, _INITS[key])
+
+
 def _pair(cfg, seed=0):
     jm = JFS(cfg)
-    params, state = jax.jit(jm.init)(jax.random.PRNGKey(seed))
+    params, state = _jax_init(cfg, seed)
     tm = TFS(config_from_dict(cfg.to_dict()), device="cpu")
     load_jax_params(tm, jax.device_get(params), jax.device_get(state))
     return jm, params, state, tm
