@@ -165,6 +165,14 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
+# WaveGlow bf16 against f32 at the waveglow_256channels width, relative to
+# the f32 output: (mean gap / rms, max gap / peak). The JAX package's own
+# gap there (scripts/waveglow_bf16_gap.py --frames 96 on the CPU, seeds 0
+# and 1) is 0.00701 and 0.00722 of rms, 0.01279 and 0.01254 of peak; the
+# port's CPU route gives 0.00702 / 0.00720 and 0.01198 / 0.01419 on the same
+# inputs: the statistic itself moves by up to 15% between seeds and between
+# the packages, so the band is 1.25 x the larger JAX value.
+WAVEGLOW_BAND = (0.00903, 0.0160)
 
 # fixed ARPAbet sentences (stress digits are remapped by the frontend)
 SENTENCES = [
@@ -1287,11 +1295,12 @@ def batch(n: int, offset: int = 0):
     return seqs
 
 
-def hold_b8_vs_cpu(torch, synth, cfg, what):
+def hold_b8_vs_cpu(torch, synth, cfg, what, cpu_model=None):
     """One B=8 batch served through the timed path with the 2-way split
     engaged; every served row is held against the same port on the CPU
-    (plain versions) fed the card's durations (live frames do not depend on
-    the decode rung, so one CPU decode at the longer rung covers both)."""
+    (plain versions; ``cpu_model``, default a CPU copy of the served model)
+    fed the card's durations (live frames do not depend on the decode rung,
+    so one CPU decode at the longer rung covers both)."""
     import numpy as np
 
     from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
@@ -1311,8 +1320,9 @@ def hold_b8_vs_cpu(torch, synth, cfg, what):
     assert len(groups) == 2, "the 2-way split did not engage on the B=8 batch"
     rung = max(r for _, r in groups)
     assert mel_s.shape[1] == rung, (mel_s.shape, rung)
-    cpu_model = FastSpeech2(cfg, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    if cpu_model is None:
+        cpu_model = FastSpeech2(cfg, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     xs_c, il_c, d_g = xs_g.cpu(), il_g.cpu(), d_g.cpu()
     with compute_dtype(torch.bfloat16), torch.inference_mode():
         hs_c, d_c = cpu_model.encode(xs_c, il_c)
@@ -2455,12 +2465,15 @@ def override_config(work, name, model_keys):
 PRENORM_KEYS = ("encoder_normalize_before", "decoder_normalize_before")
 
 
-def cli_server_phase(ckpt, work):
-    """`python -m fastspeech2_tpu_torch serve -p CKPT --warmup` as a
-    subprocess on the card (no -c: the config comes from the checkpoint):
-    two requests, two rounds of 16 concurrent mel requests (the second
-    reported), a Griffin-Lim wav request; its launch counts from /healthz.
-    The process is stopped in every case."""
+def cli_server_phase(ckpt, work, what="prenorm CLI server", extra_args=("--warmup",),
+                     rounds=2, expect=("attention_res", "ffn_block_pre"),
+                     absent=("attention_block", "ffn_block")):
+    """`python -m fastspeech2_tpu_torch serve -p CKPT [extra_args]` (default
+    ``--warmup``) as a subprocess on the card (no -c: the config comes from
+    the checkpoint): two requests, ``rounds`` rounds of 16 concurrent mel
+    requests (the last reported), a Griffin-Lim wav request; its launch
+    counts from /healthz: every kernel of ``expect`` launched, none of
+    ``absent``. The process is stopped in every case."""
     import os
     import socket
 
@@ -2473,7 +2486,7 @@ def cli_server_phase(ckpt, work):
     with open(log_path, "wb") as logf:
         proc = subprocess.Popen(
             [sys.executable, "-m", "fastspeech2_tpu_torch", "serve", "-p", ckpt,
-             "--host", "127.0.0.1", "--port", str(port), "--max_batch", "16", "--warmup"],
+             "--host", "127.0.0.1", "--port", str(port), "--max_batch", "16", *extra_args],
             cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=logf,
             stderr=subprocess.STDOUT)
     try:
@@ -2486,28 +2499,29 @@ def cli_server_phase(ckpt, work):
             except OSError:
                 assert time.perf_counter() - t0 < 300, "the CLI server did not come up in 300 s"
                 time.sleep(0.25)
-        log(f"prenorm CLI server: up in {time.perf_counter() - t0:.1f} s (process start, "
-            f"checkpoint load, --warmup)")
+        log(f"{what}: up in {time.perf_counter() - t0:.1f} s (process start, "
+            f"checkpoint load{', ' + ' '.join(extra_args) if extra_args else ''})")
         first = []
         for text in TEXTS[:2]:
             t1 = time.perf_counter()
             http_post(url, "/synthesize", {"text": text})
             first.append((time.perf_counter() - t1) * 1e3)
-        wall1 = concurrent_round(url, 16, "mel")[0]
+        walls = [concurrent_round(url, 16, "mel")[0] for _ in range(rounds - 1)]
         wall, lat, nb, frames, _ = concurrent_round(url, 16, "mel")
         rps, med = 16 / wall, statistics.median(lat) * 1e3
-        log(f"prenorm CLI server: first two requests {first[0]:.1f}, {first[1]:.1f} ms; round 1 "
-            f"{16 / wall1:.1f} requests/s; round 2: 16 concurrent mel requests in {nb} batches, "
+        log(f"{what}: first two requests {first[0]:.1f}, {first[1]:.1f} ms; "
+            + "".join(f"round {i + 1} {16 / w:.1f} requests/s; " for i, w in enumerate(walls))
+            + f"round {rounds}: 16 concurrent mel requests in {nb} batches, "
             f"{frames} frames, {rps:.1f} requests/s, median latency {med:.1f} ms, max "
             f"{max(lat) * 1e3:.1f} ms")
         headers, body = http_post(url, "/synthesize", {"phonemes": SENTENCES[2], "format": "wav"})
         assert headers["Content-Type"] == "audio/wav"
         n = riff_samples(body)
         launches = healthz(url)["launches"]
-        log(f"prenorm CLI server: Griffin-Lim wav request {n} samples; the server's launches "
+        log(f"{what}: Griffin-Lim wav request {n} samples; the server's launches "
             f"{ {k: v for k, v in launches.items() if v} }")
-        assert launches["attention_res"] > 0 and launches["ffn_block_pre"] > 0, launches
-        assert launches["attention_block"] == launches["ffn_block"] == 0, launches
+        assert all(launches[k] > 0 for k in expect), launches
+        assert not any(launches[k] for k in absent), launches
         return rps, med
     finally:
         proc.terminate()
@@ -2516,7 +2530,7 @@ def cli_server_phase(ckpt, work):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=30)
-        log(f"prenorm CLI server: stopped (exit code {proc.returncode})")
+        log(f"{what}: stopped (exit code {proc.returncode})")
 
 
 def prenorm_path_phase(torch, results):
@@ -2681,6 +2695,355 @@ def wide_postnet_path_phase(torch, results):
     hold_b8_vs_cpu(torch, synth, cfg, "wide postnet B=8")
 
 
+def held_bytes(torch, modules):
+    """Bytes of every tensor the modules hold: parameters, buffers and
+    cached kernel packs, each storage once."""
+    seen, total = set(), 0
+
+    def add(t):
+        nonlocal total
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+        elif isinstance(t, (tuple, list)):
+            for x in t:
+                add(x)
+        elif isinstance(t, dict):
+            for x in t.values():
+                add(x)
+
+    for m in modules:
+        for sub in m.modules():
+            for t in (*sub.parameters(recurse=False), *sub.buffers(recurse=False)):
+                add(t)
+            add(sub.__dict__.get("_kernel_pack"))
+    return total
+
+
+def quant8_device_ms(torch, call):
+    """Device time of one call's int8 work, by ``ops/quant8.py`` function:
+    each wrapped in a profiler range for the call, the device time of the
+    kernels launched inside it summed (ranges nest: int8_conv1d holds its
+    dynamic_quantize and int_mm). {name: (ms, calls)}."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fastspeech2_tpu_torch.ops import quant8
+
+    names = ("dynamic_quantize", "int_mm", "int8_conv1d", "int8_linear",
+             "dequantize_attention")
+    real = {n: getattr(quant8, n) for n in names}
+
+    def wrapped(n):
+        def fn(*a, **k):
+            with record_function(f"quant8.{n}"):
+                return real[n](*a, **k)
+        return fn
+
+    try:
+        for n in names:
+            setattr(quant8, n, wrapped(n))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in real.items():
+            setattr(quant8, n, fn)
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith("quant8."):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            out[e.key[len("quant8."):]] = (us / 1e3, e.count)
+    return out
+
+
+def int8_path_phase(torch, smi):
+    """The int8 (W8A8) tier at the default config, full width and depth,
+    bf16, seed 0, duration bias 1.87: ``Synthesizer(bf16=True, int8=True)``
+    beside the bf16 Synthesizer of the same model; launch counts, B=8 held
+    against the CPU port's int8, the tiers' mel gap, resident memory, the
+    B=32 call in both tiers; the pre-LN int8 route; ``serve --int8`` in its
+    own process; ``synth --int8`` at both precisions. Returns (the bf16
+    Synthesizer, a scratch dir, the default config's checkpoint) for the
+    WaveGlow phase; the caller removes the dir."""
+    import tempfile
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch import cli
+    from fastspeech2_tpu_torch.config import Config
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops import flags, make_non_pad_mask, quant8
+    from fastspeech2_tpu_torch.text import phonemes_to_sequence
+    from fastspeech2_tpu_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    model = seeded_model(torch, cfg)
+    bf = Synthesizer(model, bf16=True)
+    b32 = batch(32)
+    bf.mel_from_token_batch(b32)  # warm: packs, handles, allocator
+    torch.cuda.synchronize()
+    m_bf = torch.cuda.memory_allocated() - m0
+    i8 = Synthesizer(model, bf16=True, int8=True)
+    assert i8.model is not model and quant8.attention_is_quantized(i8.model.decoder.layers[0].attn)
+    i8.mel_from_token_batch(b32)
+    torch.cuda.synchronize()
+    m_i8 = torch.cuda.memory_allocated() - m0 - m_bf
+    fft_bf = held_bytes(torch, [model.encoder, model.decoder])
+    fft_i8 = held_bytes(torch, [i8.model.encoder, i8.model.decoder])
+    log(f"int8 tier, resident memory after warmup (torch.cuda.memory_allocated, {smi}): "
+        f"bf16 tier {m_bf / 2**20:.1f} MiB, int8 tier {m_i8 / 2**20:.1f} MiB; of it the "
+        f"encoder + decoder FFT blocks (weights and cached packs): bf16 {fft_bf / 2**20:.1f} "
+        f"MiB, int8 {fft_i8 / 2**20:.1f} MiB")
+    assert fft_i8 < 0.5 * fft_bf, (fft_i8, fft_bf)
+
+    reset_counts()
+    i8.mel_from_token_batch(b32)
+    per = read_counts()
+    log(f"int8 launches per B=32 mel call: { {k: v for k, v in per.items() if v} }")
+    # 4 encoder + 4 decoder blocks x 2 decode groups; no FFN kernel under int8
+    assert per["attention_block"] == 12 and per["variance_adaptor"] == per["postnet"] == 2, per
+    assert per["ffn_block"] == per["ffn_block_pre"] == per["fused_ffn"] == 0, per
+
+    cpu = FastSpeech2(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    hold_b8_vs_cpu(torch, i8, cfg, "int8 B=8", cpu_model=quant8.quantize_model(cpu))
+    del cpu
+
+    # the tiers' gap on the card: one B=8 batch, both decodes fed the bf16
+    # tier's durations
+    seqs = batch(8, offset=8)
+    B, t_pad, _, xs, ilens, alphas = bf._pad_batch(seqs, 1.0)
+    with bf._cd():
+        hb, db = bf.model.encode(xs, ilens)
+        mb, lb = bf.model.decode_frames(hb, db, ilens, out_maxlen=1024, alpha=alphas)
+        hq, dq = i8.model.encode(xs, ilens)
+        mq, lq = i8.model.decode_frames(hq, db, ilens, out_maxlen=1024, alpha=alphas)
+    tok = make_non_pad_mask(ilens, t_pad)
+    same = float((dq == db)[tok].float().mean())
+    assert torch.equal(lq, lb)
+    live = torch.arange(mb.shape[1], device=mb.device)[None] < lb[:, None]
+    d = (mq - mb).abs()[live]
+    log(f"int8 vs bf16 tier on the card, B=8 ({int(live.sum())} live frames, the bf16 "
+        f"durations fed to both): mel gap mean {float(d.mean()):.4e}, max "
+        f"{float(d.max()):.4e}; the tiers' own durations agree on {same:.4f} of tokens")
+    assert torch.isfinite(mq).all()
+
+    # the switches under int8: kernel 5 behind dequantized projections,
+    # kernel 7 inside W8A8 projections; never an FFN kernel
+    for flag, kernel in (("FUSED_ATT_QKV", "attention_res_ln"),
+                         ("FUSED_ATT_RES", "fused_attention_packed")):
+        setattr(flags, flag, False)
+        try:
+            reset_counts()
+            mel, lens = i8.mel_from_token_batch(seqs)
+            counts = read_counts()
+        finally:
+            setattr(flags, flag, True)
+        log(f"int8 B=8 mel call with {flag} off: {int(lens.sum())} frames, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert np.isfinite(mel).all() and counts[kernel] > 0, counts
+        assert counts["attention_block"] == counts["ffn_block"] == 0, counts
+
+    ms_bf, _ = timed_calls(torch, lambda: bf.mel_from_token_batch(b32))
+    ms_i8, (_, lens) = timed_calls(torch, lambda: i8.mel_from_token_batch(b32))
+    frames = int(lens.sum())
+    by = quant8_device_ms(torch, lambda: i8.mel_from_token_batch(b32))
+    log(f"B=32 mel call ({smi}), CUDA events, median of 5: bf16 tier {ms_bf:.3f} ms, "
+        f"int8 tier {ms_i8:.3f} ms ({frames} frames, {frames / ms_i8 * 1e3:.0f} "
+        f"mel-frames/s); int8 work by function, device ms per call (calls): "
+        + ", ".join(f"{n} {v[0]:.3f} ({v[1]})" for n, v in sorted(by.items())))
+    assert by.get("int_mm", (0, 0))[1] > 0, by
+    profile_phase(torch, lambda: bf.mel_from_token_batch(b32), "bf16 tier B=32 mel call")
+    profile_phase(torch, lambda: i8.mel_from_token_batch(b32), "int8 tier B=32 mel call")
+    del i8, hb, hq, mb, mq
+    torch.cuda.empty_cache()
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fs2_int8_", dir=str(ROOT / "build"))
+    pcfg = override_config(work, "prenorm", PRENORM_KEYS)
+    p8 = Synthesizer(seeded_model(torch, pcfg), bf16=True, int8=True)
+    reset_counts()
+    mel, lens = p8.mel_from_token_batch(batch(8, offset=8))
+    counts = read_counts()
+    log(f"int8 prenorm B=8 mel call: {int(lens.sum())} frames, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    assert np.isfinite(mel).all() and (lens > 0).all()
+    assert counts["attention_res"] > 0 and counts["ffn_block_pre"] == 0, counts
+    assert counts["attention_block"] == counts["ffn_block"] == 0, counts
+    del p8
+    torch.cuda.empty_cache()
+
+    ckpt = f"{work}/default.npz"
+    save_checkpoint(ckpt, model, None, 0, cfg)
+    cli_server_phase(ckpt, work, what="int8 CLI server", extra_args=("--int8",), rounds=1,
+                     expect=("attention_block", "variance_adaptor", "postnet"),
+                     absent=("ffn_block", "ffn_block_pre", "fused_ffn"))
+
+    mels = {}
+    for prec in ("highest", "default"):
+        out = Path(work, f"synth_{prec}")
+        cli.main(["synth", "-p", ckpt, "--int8", "--precision", prec, "--phonemes",
+                  "--text", SENTENCES[3], "-o", str(out)])
+        mels[prec] = np.load(out / "mel.npy")
+        assert np.isfinite(mels[prec]).all() and (out / "test_tts.wav").exists()
+    assert not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+    durs = {}
+    toks = np.asarray(phonemes_to_sequence(SENTENCES[3]), np.int64)  # what synth reads
+    for prec in mels:
+        s8 = Synthesizer(model, int8=True, matmul_precision=prec)
+        _, _, _, xs1, il1, _ = s8._pad_batch([toks], 1.0)
+        with s8._cd():
+            durs[prec] = s8.model.encode(xs1, il1)[1][0, :len(toks)].cpu()
+        del s8
+    a, b = mels["highest"], mels["default"]
+    gap = (f"max {np.abs(a - b).max():.4e}, mean {np.abs(a - b).mean():.4e}"
+           if a.shape == b.shape else f"frames differ ({a.shape[1]} against {b.shape[1]})")
+    log(f"synth --int8 (f32 tier) --precision highest against default (TF32): mel.npy "
+        f"{a.shape} and {b.shape}, gap {gap}; durations "
+        f"{'equal' if torch.equal(durs['highest'], durs['default']) else 'differ'} "
+        f"({int((durs['highest'] != durs['default']).sum())} tokens of "
+        f"{durs['highest'].numel()})")
+    log(f"int8 phase: {time.perf_counter() - t_phase:.1f} s")
+    return bf, work, ckpt
+
+
+def waveglow_phase(torch, bf, work, ckpt, smi):
+    """WaveGlow at the widths of NVIDIA's waveglow_256channels checkpoint,
+    seeded random weights written in NVIDIA's weight-normed key format: a
+    B=8 wav call through attach_vocoder_fn (bf16 mel kernels, bf16
+    WaveGlow), bf16 against f32 on the card with pinned noise, ``serve
+    --vocoder`` and ``synth --vocoder``."""
+    import numpy as np
+    from scipy.io.wavfile import read as read_wav
+
+    from fastspeech2_tpu_torch import cli
+    from fastspeech2_tpu_torch.vocoder import detect_vocoder_kind
+    from fastspeech2_tpu_torch.vocoder import waveglow as W
+
+    t_phase = time.perf_counter()
+    cfg = W.WaveGlowConfig(wn_channels=256)
+    path = str(Path(work, "waveglow_256channels.pt"))
+    wg_cpu = W.init_waveglow(cfg, seed=0, device="cpu")
+    n_params = sum(p.numel() for p in wg_cpu.parameters())
+    torch.save(W.nvidia_state_dict(wg_cpu), path)
+    del wg_cpu
+    assert detect_vocoder_kind(path) == "waveglow"
+    voc = W.load_waveglow(path, bf16=True)
+    assert voc.waveglow.cfg == cfg and voc.hop_length == 256
+    log(f"waveglow: {n_params / 1e6:.1f} M parameters ({cfg.n_flows} flows, {cfg.wn_layers} "
+        f"WN layers of {cfg.wn_channels} channels), written weight-normed and loaded in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    bf.attach_vocoder_fn(voc)
+    seqs = batch(8, offset=8)
+    bf.wav_from_token_batch(seqs)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, (mel, wav, wav_lens) = timed_calls(torch, lambda: bf.wav_from_token_batch(seqs), n=3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    secs = float(wav_lens.sum()) / 22050.0
+    log(f"waveglow B=8 wav call ({smi}): {ms:.3f} ms median of 3, {secs:.1f} s of audio, "
+        f"{secs / ms * 1e3:.1f} audio-seconds/s, mel {mel.shape}, peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches (3 calls) "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for k in ("attention_block", "ffn_block", "variance_adaptor", "postnet"):
+        assert counts[k] > 0, f"kernel {k} was not launched on the WaveGlow wav path"
+    live = np.arange(wav.shape[1])[None] < wav_lens[:, None]
+    assert wav.dtype == np.int16 and np.abs(wav[live]).max() > 0 and not wav[~live].any()
+
+    # bf16 against f32 on the card, one served mel, the same pinned noise,
+    # relative to the f32 output, within WAVEGLOW_BAND
+    wf = W.load_waveglow_params(path)
+    L = int(wav_lens[0] // 256)
+    m = torch.from_numpy(mel[:1, :L]).cuda()
+    g = torch.Generator().manual_seed(1)
+    Lg = L * 256 // cfg.n_group
+    zs = [torch.randn((1, Lg, c), generator=g)
+          for c in [cfg.n_remaining] + [cfg.n_early_size] * (cfg.n_draws - 1)]
+    a32, a16 = wf.infer(m, zs=zs), voc.waveglow.infer(m, zs=zs)
+    d = (a16 - a32).abs()
+    rel_mean = float(d.mean() / a32.pow(2).mean().sqrt())
+    rel_max = float(d.max() / a32.abs().max())
+    log(f"waveglow bf16 vs f32 on the card, {L} frames, pinned noise: mean {float(d.mean()):.4e}"
+        f" ({rel_mean:.5f} of rms), max {float(d.max()):.4e} ({rel_max:.5f} of peak); band "
+        f"{WAVEGLOW_BAND[0]} / {WAVEGLOW_BAND[1]}")
+    assert torch.isfinite(a16).all() and rel_mean < WAVEGLOW_BAND[0] and rel_max < WAVEGLOW_BAND[1]
+    del wf, a32, a16, d
+
+    out = Path(work, "synth_waveglow")
+    t0 = time.perf_counter()
+    cli.main(["synth", "-p", ckpt, "--phonemes", "--text", SENTENCES[0], "--vocoder", path,
+              "-o", str(out)])
+    mel1 = np.load(out / "mel.npy")
+    sr, wav1 = read_wav(str(out / "test_tts.wav"))
+    assert sr == 22050 and len(wav1) == mel1.shape[1] * 256 and np.abs(wav1).max() > 0
+    log(f"synth --vocoder (WaveGlow, f32 tier): mel.npy {mel1.shape}, test_tts.wav "
+        f"{len(wav1)} samples in {time.perf_counter() - t0:.1f} s")
+    waveglow_server_round(ckpt, path, work)
+    log(f"waveglow phase: {time.perf_counter() - t_phase:.1f} s")
+    return secs / ms * 1e3
+
+
+def waveglow_server_round(ckpt, voc_path, work):
+    """`serve -p CKPT --vocoder WAVEGLOW` in its own process: two requests,
+    then one round of 16 concurrent wav requests."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    log_path = Path(work, "serve_waveglow.log")
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fastspeech2_tpu_torch", "serve", "-p", ckpt, "--vocoder",
+             voc_path, "--host", "127.0.0.1", "--port", str(port), "--max_batch", "16"],
+            cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=logf,
+            stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError("the WaveGlow server exited:\n"
+                                     + log_path.read_text()[-3000:])
+            try:
+                healthz(url)
+                break
+            except OSError:
+                assert time.perf_counter() - t0 < 300, "the WaveGlow server did not come up"
+                time.sleep(0.25)
+        up = time.perf_counter() - t0
+        for text in TEXTS[:2]:
+            riff_samples(http_post(url, "/synthesize", {"text": text, "format": "wav"})[1])
+        wall, lat, nb, total, stats = concurrent_round(url, 16, "wav")
+        assert "WaveGlow" in log_path.read_text()
+        log(f"WaveGlow CLI server: up in {up:.1f} s; 16 concurrent wav requests in {nb} "
+            f"batches, {total / 22050.0:.1f} s of audio, {16 / wall:.1f} requests/s, median "
+            f"latency {statistics.median(lat) * 1e3:.1f} ms; launches "
+            f"{ {k: v for k, v in stats['launches'].items() if v} }")
+        assert stats["launches"]["attention_block"] > 0, stats["launches"]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log(f"WaveGlow CLI server: stopped (exit code {proc.returncode})")
+
+
 def wgmma_kernels_sass():
     """The bf16 kernels built on csrc/hopper.cuh are wgmma kernels: HGMMA in
     their SASS and no mma.sync HMMA (cuobjdump), and ptxas spills nothing in
@@ -2784,8 +3147,16 @@ def main() -> int:
     dk256_path_phase(torch, results)
     wide_postnet_path_phase(torch, results)
     torch.cuda.empty_cache()
-    train_step_vs_cpu_phase(torch)
     import shutil
+
+    bf, work, ckpt = int8_path_phase(torch, smi)
+    try:
+        wg_secs_per_s = waveglow_phase(torch, bf, work, ckpt, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del bf
+    torch.cuda.empty_cache()
+    train_step_vs_cpu_phase(torch)
     import tempfile
 
     (ROOT / "build").mkdir(exist_ok=True)
@@ -2828,7 +3199,8 @@ def main() -> int:
         f"mel-frames/s, {wav_secs / wav_ms * 1e3:.0f} audio-seconds/s, train step "
         f"{step_ms:.1f} ms ({step_frames / step_ms * 1e3:.0f} mel-frames/s), preprocess "
         f"{wavs_per_s:.1f} wavs/s ({pre_secs_per_s:.1f} audio-seconds/s), Griffin-Lim "
-        f"{gl_secs / gl_ms * 1e3:.1f} audio-seconds/s; prenorm B=32 mel call {pre['ms']:.3f} ms "
+        f"{gl_secs / gl_ms * 1e3:.1f} audio-seconds/s, WaveGlow B=8 wav call "
+        f"{wg_secs_per_s:.1f} audio-seconds/s; prenorm B=32 mel call {pre['ms']:.3f} ms "
         f"({pre['frames'] / pre['ms'] * 1e3:.0f} mel-frames/s), its CLI server "
         f"{pre['rps']:.1f} requests/s, median {pre['median_ms']:.1f} ms on {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,10 @@
     python -m fastspeech2_tpu_torch average CKPT CKPT ... -o OUT.npz [--device cpu]
     python -m fastspeech2_tpu_torch gta -p CKPT -o OUT_DIR [--filelist FL] [--device cpu]
     python -m fastspeech2_tpu_torch convert -p SRC -o DST [-c CONFIG] [--device cpu]
-    python -m fastspeech2_tpu_torch synth -p CKPT --text "..." [--phonemes] -o OUT [--device cpu]
-    python -m fastspeech2_tpu_torch serve -p CKPT [--port 8000] [--warmup] [--device cpu]
+    python -m fastspeech2_tpu_torch synth -p CKPT --text "..." [--phonemes] -o OUT [--int8]
+        [--precision {default,highest}] [--vocoder VOC] [--device cpu]
+    python -m fastspeech2_tpu_torch serve -p CKPT [--port 8000] [--warmup] [--int8]
+        [--vocoder VOC] [--device cpu]
 
 ``preprocess`` turns a folder of wavs into the feature store that
 ``data/dataset.py`` and ``train`` read (``mels/``, ``energy/``, ``pitch/``
@@ -24,7 +26,9 @@ extension (``compat/``). ``synth`` writes one sentence's mel (``mel.npy``,
 in the f32 tier, from a ``.npz`` checkpoint of either package or a reference
 ``.pth``; ``serve`` runs the micro-batching HTTP server (``infer/server.py``),
 bf16 on the card, from a ``.npz`` only (as the JAX package's ``serve``). Both
-build a seeded random model from ``-c`` without ``-p``. Every command but
+build a seeded random model from ``-c`` without ``-p``, take ``--int8`` (the
+W8A8 tier, ``ops/quant8.py``) and a MelGAN or WaveGlow ``--vocoder``;
+``synth --precision default`` lets its f32 products use TF32. Every command but
 ``stats`` takes ``--device``: the card unless ``--device cpu`` is given, and
 without a GPU it raises. ``golden`` and ``export`` are not ported yet.
 """
@@ -316,7 +320,8 @@ def cmd_synth(args):
 
     device = resolve_device(args.device)
     cfg, model = _load_model(args, device, reference_format=True)
-    synth = Synthesizer(model, device=device)
+    synth = Synthesizer(model, device=device, matmul_precision=args.precision,
+                        int8=args.int8)
     if args.phonemes:
         mel = synth.synth_phonemes(args.text, alpha=args.alpha)
         stats = {"frames": int(mel.shape[0])}
@@ -356,18 +361,22 @@ def cmd_serve(args):
     device = resolve_device(args.device)
     cfg, model = _load_model(args, device, reference_format=False)
     on_card = device.type == "cuda"
-    synth = Synthesizer(model, bf16=on_card, device=device)
+    synth = Synthesizer(model, bf16=on_card, device=device, int8=args.int8)
     vocoder_path = args.vocoder or cfg.train.vocoder_checkpoint
     if vocoder_path:
         from fastspeech2_tpu_torch.vocoder import (detect_vocoder_kind, load_melgan_params,
-                                                   load_vocoder)
+                                                   load_waveglow)
 
         kind = detect_vocoder_kind(vocoder_path)
-        if kind != "melgan":
-            load_vocoder(vocoder_path, kind=kind)  # raises: WaveGlow is not ported
-        # fused text->wav: MelGAN runs on the device right after the model
-        synth.attach_vocoder(load_melgan_params(vocoder_path, bf16=on_card, device=device))
-        logging.info("serving wav fused with MelGAN checkpoint %s", vocoder_path)
+        if kind == "melgan":
+            # fused text->wav: MelGAN runs on the device right after the model
+            synth.attach_vocoder(load_melgan_params(vocoder_path, bf16=on_card, device=device))
+            logging.info("serving wav fused with MelGAN checkpoint %s", vocoder_path)
+        else:
+            # WaveGlow draws noise per request: it runs after the acoustic
+            # model on the finished mels, not fused
+            synth.attach_vocoder_fn(load_waveglow(vocoder_path, bf16=on_card, device=device))
+            logging.info("serving wav with WaveGlow checkpoint %s", vocoder_path)
     if args.warmup:
         t0 = time.perf_counter()
         n = synth.warmup(batch_sizes=(1, args.max_batch))
@@ -426,9 +435,17 @@ def main(argv=None):
     sp.add_argument("--phonemes", action="store_true",
                     help="treat --text as a space-joined phoneme string")
     sp.add_argument("--alpha", type=float, default=1.0)
+    sp.add_argument("--int8", action="store_true",
+                    help="W8A8 int8 serving: quantize encoder/decoder matmul "
+                         "weights to int8")
+    sp.add_argument("--precision", default="highest",
+                    choices=("default", "highest"),
+                    help="matmul precision for f32 inference; 'highest' keeps "
+                         "f32 products in full f32 for reference-grade mel "
+                         "parity, 'default' lets them use TF32 (no-op on CPU)")
     sp.add_argument("--vocoder", default=None,
-                    help="local seungwonpark-format MelGAN checkpoint "
-                         "(else Griffin-Lim)")
+                    help="local seungwonpark-format MelGAN or NVIDIA-format "
+                         "WaveGlow checkpoint (else Griffin-Lim)")
     sp.add_argument("-o", "--out", default="./synth_out")
     sp.add_argument("--device", default=None, help="torch device (default: cuda)")
     sp.set_defaults(fn=cmd_synth)
@@ -442,9 +459,11 @@ def main(argv=None):
     sp.add_argument("--port", type=int, default=8000)
     sp.add_argument("--max_batch", type=int, default=16)
     sp.add_argument("--max_wait_ms", type=float, default=5.0)
+    sp.add_argument("--int8", action="store_true",
+                    help="W8A8 int8 serving for the acoustic model")
     sp.add_argument("--vocoder", default=None,
-                    help="local MelGAN checkpoint for wav responses "
-                         "(else Griffin-Lim)")
+                    help="local MelGAN or WaveGlow checkpoint for wav "
+                         "responses (else Griffin-Lim)")
     sp.add_argument("--warmup", action="store_true",
                     help="run every pow2 batch bucket up to --max_batch at "
                          "common token lengths before binding the port")

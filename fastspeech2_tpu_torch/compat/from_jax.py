@@ -11,8 +11,8 @@ are (k, in, out), torch (out, in, k). Leaf names map ``w`` -> ``weight``,
 ``b`` -> ``bias``, ``g`` -> ``weight`` (norms); the postnet BatchNorm running
 statistics come from ``state["postnet"]["bn"]``.
 
-``load_jax_melgan_params(gen, params)`` does the same for the MelGAN
-generator.
+``load_jax_melgan_params(gen, params)`` and ``load_jax_waveglow_params(wg,
+params)`` do the same for the MelGAN generator and for WaveGlow.
 
 The inverse, for checkpoints: ``flat_to_jax(model, tensors)`` turns tensors
 named like the model's parameters (the parameters themselves, or an
@@ -116,6 +116,37 @@ def load_jax_melgan_params(gen: tnn.Module, params) -> tnn.Module:
                              f"shape {tuple(own[name].shape)}")
     gen.load_state_dict(sd, strict=True)
     return gen
+
+
+def load_jax_waveglow_params(wg: tnn.Module, params) -> tnn.Module:
+    """Fill a ``vocoder.waveglow.WaveGlow`` in place from the JAX WaveGlow
+    params tree (``init_waveglow`` / ``waveglow_params_from_torch``).
+
+    WN conv weights (k, in, out) become (out, in, k); the upsampler keeps
+    torch's ConvTranspose1d (in, out, k) in both packages; ``inv_w`` is the
+    same matrix in both. The JAX ``in`` list is the port's ``in_layers``.
+    Strict, as ``load_jax_params``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, a in _flatten(params):
+        parts = path.split(".")
+        leaf = parts[-1]
+        if parts[0] == "upsample" or leaf == "inv_w":
+            name = path if leaf == "inv_w" else f"upsample.{_LEAF[leaf]}"
+        elif leaf in ("w", "b"):
+            parts = ["in_layers" if p == "in" else p for p in parts[:-1]]
+            name = ".".join(parts + [_LEAF[leaf]])
+            if leaf == "w":
+                a = a.transpose(2, 1, 0)
+        else:
+            raise KeyError(f"unexpected JAX leaf {path!r}")
+        sd[name] = torch.from_numpy(np.array(a, order="C"))
+    own = wg.state_dict()
+    for name, t in sd.items():
+        if name in own and tuple(own[name].shape) != tuple(t.shape):
+            raise ValueError(f"{name}: JAX shape {tuple(t.shape)} != port "
+                             f"shape {tuple(own[name].shape)}")
+    wg.load_state_dict(sd, strict=True)
+    return wg
 
 
 def _jax_key(model: tnn.Module, name: str):

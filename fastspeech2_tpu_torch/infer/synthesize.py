@@ -19,6 +19,10 @@ decode, assemble mel and wav there, and cross to the host once. A host-level
 vocoder callable (``attach_vocoder_fn``) runs on the finished mels instead.
 With neither, ``vocode`` turns a finished mel into audio by Griffin-Lim
 (``audio/griffin_lim.py``) on the given device.
+
+``int8=True`` serves a W8A8-quantized copy of the model (``ops/quant8.py``);
+``matmul_precision="default"`` lets the calls' f32 products use TF32
+(``device.py``), ``"highest"`` (the default) keeps them full f32.
 """
 
 from __future__ import annotations
@@ -32,11 +36,12 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from fastspeech2_tpu_torch.device import resolve_device
+from fastspeech2_tpu_torch.device import matmul_precision, resolve_device
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from fastspeech2_tpu_torch.ops import flags, make_non_pad_mask
 from fastspeech2_tpu_torch.ops.length_regulator import frame_demand, scale_durations
 from fastspeech2_tpu_torch.ops.precision import compute_dtype
+from fastspeech2_tpu_torch.ops.quant8 import quantize_model
 from fastspeech2_tpu_torch.text import phonemes_to_sequence
 from fastspeech2_tpu_torch.text.g2p import preprocess_text, process_paragraph
 from fastspeech2_tpu_torch.vocoder.melgan import MEL_FLOOR
@@ -71,9 +76,21 @@ class Synthesizer:
     def __init__(self, model: FastSpeech2, token_multiple: int = 32,
                  frames_per_token: int = 12, max_frames: int = 2048,
                  bf16: bool = False, demand_sized: Optional[bool] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 matmul_precision: str = "highest", int8: bool = False):
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        if int8:
+            # W8A8 tier: a quantized copy of the model (ops/quant8.py); the
+            # caller's module is left as it is. A weight-memory lever, not a
+            # speed tier (the JAX package measured parity with bf16).
+            self.model = quantize_model(model).to(self.device)
+        else:
+            self.model = model.to(self.device).eval()
+        self.int8 = int8
+        # "highest": full f32 products (device.py); "default": TF32 for the
+        # f32 matmuls and convolutions of each call, then the flags restored
+        # (JAX's DEFAULT precision on this hardware). No-op on the CPU.
+        self.matmul_precision = matmul_precision
         self.token_multiple = token_multiple
         self.frames_per_token = frames_per_token
         self.max_frames = max_frames
@@ -114,6 +131,7 @@ class Synthesizer:
     @contextlib.contextmanager
     def _cd(self):
         with compute_dtype(torch.bfloat16 if self.bf16 else None), \
+                matmul_precision(self.matmul_precision, self.device), \
                 torch.inference_mode():
             yield
 

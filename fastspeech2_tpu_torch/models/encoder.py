@@ -21,6 +21,12 @@ so both packages take the same path. Routes served:
 - serving, FFN half (conv FFN with odd k, a conv mask given): the post-LN
   kernel or the pre-LN kernel ``ffn_block_pre``. These kernels take no
   gradient.
+- the int8 tier (``ops/quant8.py:quantize_model``): the three attention-half
+  routes above take the int8 attention weights dequantized for the call;
+  the bare-kernel route gets them still quantized, so its projections are
+  W8A8; int8 FFNs never take the FFN kernels and run W8A8 convs; in the f32
+  tier every projection and conv is W8A8 (``encoder.py:260-350`` of the JAX
+  package).
 - training (not deterministic, seeds given, bf16, d_k >= 128, T <= 1024):
   q/k/v projections, the training attention kernels with in-kernel hash
   dropout (``ops/kernels/attention_train.py``; head-packed up to T = 896
@@ -47,7 +53,7 @@ import torch
 from torch import nn as tnn
 from torch.utils.checkpoint import checkpoint
 
-from fastspeech2_tpu_torch.ops import flags, nn
+from fastspeech2_tpu_torch.ops import flags, nn, quant8
 from fastspeech2_tpu_torch.ops.attention import mha_apply
 from fastspeech2_tpu_torch.ops.kernels import attention as attn_kernel
 from fastspeech2_tpu_torch.ops.kernels import attention_train
@@ -137,10 +143,17 @@ class FFTBlock(tnn.Module):
         if cfg.concat_after:
             self.concat = tnn.Linear(2 * d, d, device=device)
 
-    def attn_pack(self, cd):
+    def attn_pack(self, cd, attn=None):
+        """The attention half's kernel-layout weights. ``attn``: the
+        projections to pack, default this block's; the int8 tier passes
+        them dequantized for the call (``quant8.dequantize_attention``), and
+        the pack is cached on that object, so it goes with it."""
+        attn = self.attn if attn is None else attn
+        lins = [getattr(attn, n) for n in ("q", "k", "v", "out")]
         return common.cached_pack(
-            self.attn, [p for p in self.attn.parameters()] + [self.norm1.weight, self.norm1.bias],
-            lambda: attn_kernel.pack_weights(self.attn, self.norm1, cd))
+            attn, [t for lin in lins for t in (lin.weight, lin.bias)]
+            + [self.norm1.weight, self.norm1.bias],
+            lambda: attn_kernel.pack_weights(attn, self.norm1, cd))
 
     def ffn_pack(self, cd):
         return ffn_kernel.block_pack(self.ffn, self.norm2, cd)
@@ -232,22 +245,26 @@ class Encoder(tnn.Module):
             residual = x
             y = (nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)
                  if cfg.normalize_before else x)
+            a = layer.attn
+            if use_fused_res and quant8.attention_is_quantized(a):
+                # int8 tier: the attention-half kernels take the weights
+                # dequantized for this call (W8, activations unquantized)
+                a = quant8.dequantize_attention(a)
             if use_fused_res and cfg.normalize_before:
-                x = attn_kernel.mha_fused_res_apply(layer.attn, y, residual, lengths,
+                x = attn_kernel.mha_fused_res_apply(a, y, residual, lengths,
                                                     cfg.attention_heads)
                 ran_fused_res = True
             elif use_fused_res and flags.FUSED_ATT_QKV:
-                x = attn_kernel.attention_block(x, *layer.attn_pack(cd), lengths,
+                x = attn_kernel.attention_block(x, *layer.attn_pack(cd, a), lengths,
                                                 cfg.attention_heads)
                 ran_fused_res = True
             elif use_fused_res:
                 # split route: projections as plain ops (the JAX package
                 # leaves them to XLA), then the q/k/v-given kernel
-                a = layer.attn
                 q, k, v = (nn.linear(x, p.weight, p.bias, out_dtype=cd)
                            for p in (a.q, a.k, a.v))
                 x = attn_kernel.attention_res_ln(
-                    q, k, v, x, *layer.attn_pack(cd)[2:], lengths,
+                    q, k, v, x, *layer.attn_pack(cd, a)[2:], lengths,
                     cfg.attention_heads)
                 ran_fused_res = True
             elif use_fused:
@@ -272,9 +289,11 @@ class Encoder(tnn.Module):
                                               deterministic=deterministic)
                 if not cfg.normalize_before:
                     x = nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)
-            if use_fused_ffn and cfg.normalize_before:
+            # int8 FFN weights never take the FFN kernels: W8A8 convs
+            fuse_ffn = use_fused_ffn and not quant8.is_quantized(layer.ffn.w1)
+            if fuse_ffn and cfg.normalize_before:
                 return ffn_kernel.ffn_block_fused_apply(layer.norm2, layer.ffn, x, lengths)
-            if use_fused_ffn:
+            if fuse_ffn:
                 return ffn_kernel.ffn_block(x, *layer.ffn_pack(cd), lengths,
                                             cfg.positionwise_conv_kernel_size)
             residual = x

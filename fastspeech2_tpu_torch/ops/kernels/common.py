@@ -179,8 +179,9 @@ def cached_pack(owner: torch.nn.Module, sources: Sequence[torch.Tensor],
                 build):
     """Kernel-layout copies of a module's weights, rebuilt only when a source
     tensor is replaced or modified in place (keyed on storage pointer and
-    version counter). Safe to call from several threads."""
-    key = tuple((t.data_ptr(), t._version) for t in sources)
+    version counter; an inference tensor, which keeps no counter, by its
+    pointer alone). Safe to call from several threads."""
+    key = tuple((t.data_ptr(), 0 if t.is_inference() else t._version) for t in sources)
     with _pack_lock:  # two serving threads may ask for the same pack
         hit = owner.__dict__.get("_kernel_pack")
         if hit is None or hit[0] != key:

@@ -34,12 +34,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from fastspeech2_tpu_torch.ops import quant8
 from fastspeech2_tpu_torch.ops.precision import current_compute_dtype, round_to
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
            *, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x @ w.T + b over the last axis; w is (out, in)."""
+    """x @ w.T + b over the last axis; w is (out, in), or an int8
+    ``quant8.Int8Weight``, which takes the W8A8 product whatever the tier."""
+    if isinstance(w, quant8.Int8Weight):
+        return quant8.int8_linear(x, w, b, out_dtype=out_dtype)
     dt = current_compute_dtype()
     if dt is None:
         y = x.float() @ w.float().t()
@@ -54,9 +58,12 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     return y.to(out_dtype or x.dtype)
 
 
-def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+def conv1d(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
            *, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """SAME 1-D convolution over NLC activations; w is (out, in, k), k odd."""
+    """SAME 1-D convolution over NLC activations; w is (out, in, k), k odd,
+    or an int8 ``quant8.Int8Weight`` (W8A8, as in ``linear``)."""
+    if isinstance(w, quant8.Int8Weight):
+        return quant8.int8_conv1d(x, w, b, out_dtype=out_dtype)
     dt = current_compute_dtype()
     pad = (w.shape[2] - 1) // 2
     if dt is not None and x.is_cuda:

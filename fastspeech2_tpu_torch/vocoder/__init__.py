@@ -1,9 +1,8 @@
 """Neural vocoder stage, downstream of text -> mel
 (``fastspeech2_tpu/vocoder``).
 
-MelGAN is ported (``vocoder/melgan.py``); ``load_vocoder`` sniffs which
-family a torch checkpoint belongs to, and a WaveGlow checkpoint raises until
-``fastspeech2_tpu/vocoder/waveglow.py`` is ported.
+MelGAN (``vocoder/melgan.py``) and WaveGlow (``vocoder/waveglow.py``);
+``load_vocoder`` sniffs which family a torch checkpoint belongs to.
 """
 
 from fastspeech2_tpu_torch.vocoder.melgan import (  # noqa: F401
@@ -13,6 +12,15 @@ from fastspeech2_tpu_torch.vocoder.melgan import (  # noqa: F401
     load_melgan_params,
     load_melgan_state_dict,
     melgan_config_from_checkpoint,
+)
+from fastspeech2_tpu_torch.vocoder.waveglow import (  # noqa: F401
+    WaveGlow,
+    WaveGlowConfig,
+    init_waveglow,
+    load_waveglow,
+    load_waveglow_params,
+    nvidia_state_dict,
+    waveglow_params_from_torch,
 )
 
 
@@ -40,11 +48,11 @@ def detect_vocoder_kind(path: str) -> str:
 
 
 def load_vocoder(path: str, kind: str = "auto", **kw):
-    """Load a vocoder checkpoint as a ``(L, n_mels) log-mel -> (L*hop,)
-    waveform`` callable."""
+    """Load either vocoder family as a ``(L, n_mels) log-mel -> (L*hop,)
+    waveform`` callable for ``infer.synthesize.vocode`` (f32 unless
+    ``bf16=True`` is passed)."""
     if kind == "auto":
         kind = detect_vocoder_kind(path)
     if kind == "waveglow":
-        raise NotImplementedError(
-            "WaveGlow (fastspeech2_tpu/vocoder/waveglow.py) is not ported yet")
+        return load_waveglow(path, **kw)
     return load_melgan(path, **kw)

@@ -159,3 +159,70 @@ def test_serve_answers_a_mel_request(prenorm_ckpt, tmp_path):
             proc.kill()
             proc.wait(timeout=30)
         log.close()
+
+
+def test_synth_int8_precision_default_matches_jax_command(prenorm_ckpt, tmp_path):
+    """``synth --int8 --precision default`` in both packages (the f32 int8
+    tier; the precision is a no-op on the CPU): the same frames, the mel
+    within the int8 f32-tier bound of tests/test_torch_port_int8.py (2e-2),
+    and other numbers than the f32 tier's."""
+    args = ["synth", "-p", prenorm_ckpt, "--phonemes", "--text", PHONEMES, "--int8",
+            "--precision", "default"]
+    tcli.main(args + ["-o", str(tmp_path / "port"), "--device", "cpu"])
+    jcli.main(args + ["-o", str(tmp_path / "jax")])
+    mt = np.load(tmp_path / "port" / "mel.npy")
+    mj = np.load(tmp_path / "jax" / "mel.npy")
+    assert mt.shape == mj.shape and mt.shape[1] > 5, (mt.shape, mj.shape)
+    assert np.abs(mt - mj).max() < 2e-2, np.abs(mt - mj).max()
+    assert (tmp_path / "port" / "test_tts.wav").exists()
+    tcli.main(args[:-3] + ["-o", str(tmp_path / "f32"), "--device", "cpu"])
+    mf = np.load(tmp_path / "f32" / "mel.npy")
+    assert mf.shape != mt.shape or np.abs(mf - mt).max() > 1e-3
+    with pytest.raises(SystemExit):
+        tcli.main(args[:-1] + ["fast", "-o", str(tmp_path / "x"), "--device", "cpu"])
+
+
+def _tiny_waveglow(path):
+    """A WaveGlow checkpoint that reads the 80-channel mels, in NVIDIA's
+    weight-normed format."""
+    from fastspeech2_tpu_torch.vocoder import waveglow as W
+
+    cfg = W.WaveGlowConfig(n_flows=2, n_early_every=2, wn_layers=1, wn_channels=8,
+                           upsample_kernel=1024, hop_length=256)
+    import torch
+
+    torch.save(W.nvidia_state_dict(W.init_waveglow(cfg, seed=2, device="cpu")), path)
+    return str(path)
+
+
+def test_synth_with_waveglow_vocoder(prenorm_ckpt, tmp_path):
+    """``synth --vocoder`` with a WaveGlow checkpoint writes ``test_tts.wav``
+    (L * 256 samples), where it used to raise."""
+    voc = _tiny_waveglow(tmp_path / "wg.pt")
+    tcli.main(["synth", "-p", prenorm_ckpt, "--phonemes", "--text", PHONEMES,
+               "--vocoder", voc, "-o", str(tmp_path / "out"), "--device", "cpu"])
+    mel = np.load(tmp_path / "out" / "mel.npy")
+    sr, wav = read_wav(str(tmp_path / "out" / "test_tts.wav"))
+    assert sr == 22050 and wav.dtype == np.int16
+    assert len(wav) == mel.shape[1] * 256 and np.abs(wav).max() > 0
+
+
+def test_serve_int8_with_waveglow(prenorm_ckpt, tmp_path, monkeypatch):
+    """``serve --int8 --vocoder <WaveGlow>``: the command builds an int8
+    Synthesizer (the checkpoint's model quantized) with the WaveGlow callable
+    attached (not fused), and hands it to the server; the server itself is
+    replaced here by a recorder (tests/test_torch_port_server.py drives it)."""
+    from fastspeech2_tpu_torch.infer import server
+    from fastspeech2_tpu_torch.ops import quant8
+
+    got = {}
+    monkeypatch.setattr(server, "serve", lambda synth, cfg, **kw: got.update(synth=synth, **kw))
+    voc = _tiny_waveglow(tmp_path / "wg.pt")
+    tcli.main(["serve", "-p", prenorm_ckpt, "--int8", "--vocoder", voc, "--port", "0",
+               "--device", "cpu"])
+    synth = got["synth"]
+    assert synth.int8 and quant8.attention_is_quantized(synth.model.encoder.layers[0].attn)
+    assert synth._voc is None and synth._voc_fn is not None and synth.hop_length == 256
+    mel, wav16, lens = synth.wav_from_token_batch(
+        [np.arange(1, 12, dtype=np.int64), np.arange(3, 9, dtype=np.int64)])
+    assert wav16.shape == (2, mel.shape[1] * 256) and np.abs(wav16).max() > 0

@@ -1452,3 +1452,44 @@ def test_bucketed_b32_matches_the_unbucketed_rows(dev):
         n = int(lens_b[i])
         smoke.compare(f"row {i}", torch.from_numpy(mel_b[i, :n]),
                       torch.from_numpy(mel_u[i, :n]), 0.02, 0.2)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 37, 45), (16, 256, 768), (6144, 3456, 1024),
+                                   (40, 9, 1)])
+def test_int8_product_on_the_card(dev, m, k, n):
+    """The int8 tier's product (``ops/quant8.py:int_mm``, ``torch._int_mm``
+    on operands padded to its shapes) equals the exact integer product at
+    widths it takes as they are and at widths it must pad."""
+    from fastspeech2_tpu_torch.ops import quant8
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    bt = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = quant8.int_mm(a.to(dev), bt.to(dev))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), quant8.int_mm(a, bt))
+
+
+def test_int8_layers_on_the_card(dev):
+    """W8A8 linear and conv (k = 9) on the card against the CPU, step by
+    step: the same quantized weights, activations and scales, the same
+    integer product, and so the same output bits."""
+    from fastspeech2_tpu_torch.ops import quant8
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(3, 45, 384, generator=g)
+    xq, sx = quant8.dynamic_quantize(x)
+    xqd, sxd = quant8.dynamic_quantize(x.to(dev))
+    assert float(sxd) == float(sx), (float(sxd), float(sx))
+    assert torch.equal(xqd.cpu(), xq), int((xqd.cpu() != xq).sum())
+    for w, k in ((torch.randn(1024, 384, 9, generator=g) * 0.05, 9),
+                 (torch.randn(200, 384, generator=g) * 0.05, None)):
+        dims = (1, 2) if k else (1,)
+        q, qd = quant8.quantize_weight(w, dims), quant8.quantize_weight(w.to(dev), dims)
+        assert torch.equal(qd.s.cpu(), q.s), float((qd.s.cpu() - q.s).abs().max())
+        assert torch.equal(qd.q.cpu(), q.q), int((qd.q.cpu() != q.q).sum())
+        b = torch.randn(w.shape[0], generator=g)
+        fn = quant8.int8_conv1d if k else quant8.int8_linear
+        got, want = fn(x.to(dev), qd, b.to(dev)).cpu(), fn(x, q, b)
+        assert torch.equal(got, want), (k, float((got - want).abs().max()),
+                                        int((got != want).sum()), got.numel())

@@ -52,7 +52,7 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "fastspeech2_tpu"
        or m.startswith("fastspeech2_tpu.")]
 assert not bad, bad
-assert len(names) >= 56, names
+assert len(names) >= 58, names
 need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
         "audio", "audio.stft", "audio.pitch", "audio.griffin_lim",
         "audio.processing", "native", "cli", "__main__", "ops.kernels.stft",
@@ -64,7 +64,7 @@ need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
         "train.optimizer", "train.checkpoint", "train.metrics", "train.seeds",
         "data.filelist", "data.dataset", "data.batching", "data.prefetch",
         "utils", "utils.plotting", "utils.display", "compat.torch_loader",
-        "compat.torch_saver", "train.gta"}
+        "compat.torch_saver", "train.gta", "ops.quant8", "vocoder.waveglow"}
 missing = {pkg.__name__ + "." + n for n in need} - set(names)
 assert not missing, missing
 print(len(names))

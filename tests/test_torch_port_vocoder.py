@@ -216,12 +216,15 @@ def test_load_melgan_matches_jax_loader(rng, ckpt):
 
 
 def test_load_vocoder_refuses_waveglow(tmp_path):
+    """WaveGlow is ported (tests/test_torch_port_waveglow.py): a checkpoint
+    with WaveGlow keys is taken for one, and one that is not a complete
+    WaveGlow raises, with no fall back to MelGAN."""
     path = tmp_path / "wg.pt"
     torch.save({"state_dict": {"WN.0.in_layers.0.weight": torch.zeros(1),
                                "convinv.0.conv.weight": torch.zeros(1)}}, path)
     assert PV.detect_vocoder_kind(str(path)) == "waveglow"
-    with pytest.raises(NotImplementedError, match="waveglow.py"):
-        PV.load_vocoder(str(path))
+    with pytest.raises(ValueError, match="not a complete WaveGlow checkpoint"):
+        PV.load_vocoder(str(path), device="cpu")
 
 
 def test_load_jax_melgan_params_is_strict(jparams):
