@@ -142,6 +142,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    .npz (the same mel.npy); `gta` of 16 utterances held to the CPU port's;
    the bucketed B=32 mel call (3 buckets) against the unbucketed rows of the
    batch (kernels 1-4 counted; the two calls' times).
+17. parallel (last; parallel/): two gloo ranks share the card (worker
+   processes: `chip_smoke.py --parallel-worker ...`) for a dp=2 and a tp=2
+   pair of full-width bf16 steps (dropout 0, two seeded 64-row windows),
+   each held to the single-process steps on the same windows: every term of
+   the report (the mel L1 terms as well as the pitch term that dominates
+   the loss), each module group's summed gradient (norm and four seeded
+   projections: each stack's attention and the rest of it, the variance
+   adaptor, feat_out, the postnet) and the postnet's BatchNorm running
+   statistics (equal across ranks); kernel 12 launched 32 / 32 times per
+   rank per step and kernel 11 never; TP=2 inference at B=8 (kernel 7, 8
+   launches per rank, kernels 1-4 none) held to the unsharded model, and
+   Synthesizer(mesh=) serving the TP model; a formed NCCL group of one takes
+   the same steps; Synthesizer(mesh=) over two entries of the card: a B=32
+   mel call (kernels 1-4 per shard) and a B=8 wav call (13) held to the
+   unsharded calls; `serve` under `torch.distributed.run` with two gloo
+   ranks: mel and Griffin-Lim wav requests, rank 0's launches.
+   `python3 chip_smoke.py --parallel-only` builds the kernels and runs this
+   phase alone (no result lines).
 
 The line before the last is a JSON object listing the kernels; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -3100,7 +3118,548 @@ def wgmma_kernels_sass():
         assert seen == want, f"expected {want} bf16 wgmma kernels in {lib}, found {seen}"
 
 
-def main() -> int:
+
+# -- data and tensor parallelism (parallel/) on the one card --------------------
+
+PARALLEL_STEPS = 2
+PARALLEL_FLAG = "--parallel-worker"
+#: the parallel routes against the single process (bf16). On the H100 the
+#: unchanged code read at most 6.6e-6 in a report term other than the
+#: duration's (relative), 1.4e-4 in the duration term, 5.7e-3 in a module
+#: group's gradient (the largest error of its norm and projections, over its
+#: norm) and 1.4e-4 in the BatchNorm running statistics (over their largest
+#: magnitude; equal across ranks), in two runs. Trees with a fault read far above the
+#: bands: the decoder's TP attention all-reduce dropped, mel terms 3.1e-3 and
+#: decoder gradients 0.32; the gradients after the encoder's left unsummed
+#: over the data group, 0.22 and more; BatchNorm statistics over a rank's
+#: rows, ranks 6.2e-3 apart and 4.7e-3 off.
+PARALLEL_LOSS_BAND = 1e-4
+PARALLEL_DURATION_BAND = 1e-3
+PARALLEL_GRAD_BAND = 5e-2
+PARALLEL_BN_BAND = 1e-3
+
+
+def parallel_cfg():
+    """configs/default.yaml at full width, bf16 training, dropout rates 0 so
+    that the parallel routes and the single-process step compute one
+    function."""
+    import dataclasses
+
+    from fastspeech2_tpu_torch.config import load_config
+
+    cfg = load_config(str(ROOT / "configs" / "default.yaml"))
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(
+            cfg.model, transformer_dropout_rate=0.0, postnet_dropout_rate=0.0,
+            duration_predictor_dropout_rate=0.0, variance_predictor_dropout_rate=0.0),
+        train=dataclasses.replace(cfg.train, bf16=True))
+
+
+def parallel_windows(cfg, T=96, L=640, seed=7):
+    """PARALLEL_STEPS seeded global windows of batch_size x accum_grad rows
+    of T tokens and L frames, numpy."""
+    import numpy as np
+
+    rows = cfg.train.batch_size * cfg.train.accum_grad
+    odim = cfg.audio.num_mels
+    g = np.random.default_rng(seed)
+    out = []
+    for _ in range(PARALLEL_STEPS):
+        ilens = g.integers(T // 2, T + 1, rows).astype(np.int32)
+        xs, ds = np.zeros((rows, T), np.int32), np.zeros((rows, T), np.int32)
+        olens = np.zeros(rows, np.int32)
+        ys = np.zeros((rows, L, odim), np.float32)
+        es, ps = np.zeros((rows, L), np.float32), np.zeros((rows, L), np.float32)
+        for b in range(rows):
+            n = ilens[b]
+            xs[b, :n] = g.integers(1, 68, n)
+            d = g.integers(1, L // T + 1, n)
+            ds[b, :n] = d
+            olens[b] = f = d.sum()
+            ys[b, :f] = g.normal(-5, 2, (f, odim))
+            es[b, :f] = g.uniform(0.02, 100, f)
+            ps[b, :f] = g.uniform(71, 600, f)
+        out.append(dict(xs=xs, ilens=ilens, ys=ys, olens=olens, ds=ds, es=es, ps=ps))
+    return out
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+#: the report's terms, each held to the single process on its own
+LOSS_TERMS = ("loss", "before_loss", "after_loss", "duration_loss", "energy_loss",
+              "pitch_loss")
+GRAD_PROJECTIONS = 4
+
+
+def module_group(name: str) -> str:
+    """The group of a parameter in the gradient check: each stack's attention
+    and the rest of it, the variance adaptor, feat_out, the postnet."""
+    top = name.split(".")[0]
+    if top in ("encoder", "decoder"):
+        return f"{top}.attn" if ".attn." in name else f"{top}.other"
+    return top if top in ("postnet", "feat_out") else "variance_adaptor"
+
+
+def grad_fingerprint(torch, names, grads, mesh):
+    """Per module group of the window's summed gradient: [norm, GRAD_PROJECTIONS
+    dot products with seeded normal vectors of each leaf's full shape]. A
+    tensor-parallel rank dots its shard with its block of the vector and sums
+    over the model group, so every route yields the single process's numbers
+    without moving the gradients; a dot product's error over the norm reads
+    the gradient's relative error."""
+    from fastspeech2_tpu_torch.parallel.mesh import all_reduce
+    from fastspeech2_tpu_torch.parallel.sharding import shard_dim
+
+    keys = sorted({module_group(n) for n in names})
+    tp = mesh.tp if mesh is not None else 1
+    acc = torch.zeros((2, len(keys), 1 + GRAD_PROJECTIONS), dtype=torch.float64,
+                      device=grads[0].device)
+    for i, (n, g) in enumerate(zip(names, grads)):
+        d = shard_dim(n) if tp > 1 else None
+        full = list(g.shape)
+        if d is not None:
+            full[d] *= tp
+        gen = torch.Generator(device=g.device).manual_seed(1000 + i)
+        r = torch.randn((GRAD_PROJECTIONS, *full), generator=gen, device=g.device)
+        if d is not None:
+            r = r.narrow(d + 1, mesh.model_index * g.shape[d], g.shape[d])
+        g64 = g.detach().double()
+        dots = (r.double() * g64).reshape(GRAD_PROJECTIONS, -1).sum(1)
+        acc[int(d is not None), keys.index(module_group(n))] += torch.cat(
+            [g64.square().sum()[None], dots])
+    if tp > 1:
+        all_reduce(acc[1], mesh.model_group)
+    tot = acc.sum(0)
+    tot[:, 0] = tot[:, 0].sqrt()
+    return dict(zip(keys, tot.tolist()))
+
+
+def parallel_steps(torch, cfg, windows, device, mesh=None):
+    """PARALLEL_STEPS train steps from the seed-0 model (this rank's part of
+    ``mesh``): per step the report's terms, the gradient's fingerprint per
+    module group and the launches; then the postnet's BatchNorm running
+    statistics."""
+    from fastspeech2_tpu_torch.models.fastspeech2 import Batch, FastSpeech2
+    from fastspeech2_tpu_torch.parallel.mesh import window_rows
+    from fastspeech2_tpu_torch.parallel.sharding import shard_model
+    from fastspeech2_tpu_torch.train.optimizer import NoamAdam
+    from fastspeech2_tpu_torch.train.seeds import SeedSchedule
+    from fastspeech2_tpu_torch.train.step import TrainState, make_train_step, trainable
+
+    accum = cfg.train.accum_grad
+    model = FastSpeech2(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    opt = NoamAdam(trainable(model), cfg)
+    if mesh is not None and mesh.tp > 1:
+        shard_model(model, mesh, opt)
+    names = [n for n, _ in model.named_parameters()]
+    prints = []
+    apply = opt.step
+
+    def step_and_print(grads):  # the summed gradients, before clipping
+        prints.append(grad_fingerprint(torch, names, grads, mesh))
+        return apply(grads)
+
+    opt.step = step_and_print
+    step = make_train_step(model, opt, accum, bf16=True, mesh=mesh)
+    ts, seeds = TrainState(model, opt, 0), SeedSchedule(model.dropout_sites(), seed=0)
+    rows = window_rows(mesh, accum, cfg.train.batch_size)
+    out = []
+    for w in windows:
+        b = Batch(**{k: torch.from_numpy(v[rows]).to(device) for k, v in w.items()})
+        reset_counts()
+        ts, rep = step(ts, b, [seeds.draw() for _ in range(accum)])
+        sync(torch, device)
+        counts = read_counts()
+        out.append({"report": {k: float(rep[k]) for k in (*LOSS_TERMS, "grad_norm")},
+                    "grads": prints[-1], "launches": counts})
+    bn = torch.cat([t.flatten() for n, t in model.named_buffers() if ".running_" in n])
+    return {"steps": out, "bn": bn.tolist()}
+
+
+def parallel_tp_inference(torch, cfg, device, mesh):
+    """TP inference of the seed-0 model (duration bias 1.87) at B=8 on this
+    rank's head shard, held to the same model unsharded on this device: the
+    encoder output and durations, then both decoders fed the unsharded
+    durations (so the frames align); then ``Synthesizer(mesh=)`` serving the
+    sharded model beside the unsharded Synthesizer (frames, launches).
+    Returns (errors, launches of the forward)."""
+    import copy
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops.precision import compute_dtype
+    from fastspeech2_tpu_torch.parallel.sharding import shard_model
+
+    model = FastSpeech2(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.duration_predictor.out.bias.fill_(1.87)
+    ref = copy.deepcopy(model)
+    shard_model(model, mesh)
+    seqs = batch(8, offset=3)
+    T = -(-max(len(s) for s in seqs) // 32) * 32
+    xs = torch.zeros((8, T), dtype=torch.int64)
+    for i, s in enumerate(seqs):
+        xs[i, :len(s)] = torch.from_numpy(s)
+    xs = xs.to(device)
+    il = torch.tensor([len(s) for s in seqs], dtype=torch.int32, device=device)
+    with compute_dtype(torch.bfloat16), torch.inference_mode():
+        hs_r, d_r = ref.encode(xs, il)
+        L = -(-int(d_r.sum(1).max()) // 256) * 256
+        mel_r, lens_r = ref.decode_frames(hs_r, d_r, il, out_maxlen=L)
+        reset_counts()
+        hs_t, d_t = model.encode(xs, il)
+        mel_t, lens_t = model.decode_frames(hs_t, d_r, il, out_maxlen=L)
+        sync(torch, device)
+        counts = read_counts()
+    valid = torch.arange(T, device=device)[None] < il[:, None]
+    live = torch.arange(L, device=device)[None] < lens_r[:, None]
+    dh = (hs_t - hs_r)[valid].abs()
+    dm = (mel_t - mel_r)[live].abs()
+    _, lens_1 = Synthesizer(ref, bf16=True, device=device).mel_from_token_batch(seqs)
+    reset_counts()
+    mel_s, lens_s = Synthesizer(model, bf16=True, device=device,
+                                mesh=mesh).mel_from_token_batch(seqs)
+    sync(torch, device)
+    synth = read_counts()
+    return {"dur_agree": float((d_t == d_r)[valid].float().mean()),
+            "lens_equal": bool(torch.equal(lens_t, lens_r)),
+            "hs_max": float(dh.max()), "hs_mean": float(dh.mean()),
+            "mel_max": float(dm.max()), "mel_mean": float(dm.mean()),
+            "frames": int(lens_r.sum()),
+            "synth_frames": int(lens_s.sum()), "synth_frames_one": int(lens_1.sum()),
+            "synth_finite": bool(np.isfinite(mel_s).all()),
+            "synth_sum": float(mel_s.astype(np.float64).sum()),
+            "synth_launches": {k: v for k, v in synth.items() if v}}, counts
+
+
+def parallel_worker(argv) -> int:
+    """One rank of the parallel phase (``chip_smoke.py --parallel-worker
+    TASK RANK WORLD PORT WORK DEVICE``), the config and windows from WORK:
+    ``gloo2``: a data-parallel then a tensor-parallel pair of steps and TP
+    inference, two gloo ranks sharing the device; ``nccl1``: the pair of
+    steps over a formed NCCL group of one."""
+    task, rank, world, port, work, device = argv[:6]
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fastspeech2_tpu_torch.config import load_config
+    from fastspeech2_tpu_torch.device import resolve_device
+    from fastspeech2_tpu_torch.parallel.mesh import Mesh, initialize_multihost, make_mesh_2d
+
+    device = resolve_device(device)
+    cfg = load_config(f"{work}/cfg.yaml")
+    w = np.load(f"{work}/windows.npz")
+    windows = [{k.split("/", 1)[1]: w[k] for k in w.files if k.startswith(f"{i}/")}
+               for i in range(PARALLEL_STEPS)]
+    res = {}
+    if task == "gloo2":
+        assert initialize_multihost(f"localhost:{port}", world, rank, backend="gloo",
+                                    device=device) == world
+        res["dp"] = parallel_steps(torch, cfg, windows, device, make_mesh_2d(world, 1, device))
+        res["tp"] = parallel_steps(torch, cfg, windows, device, make_mesh_2d(1, world, device))
+        res["tp_infer"] = parallel_tp_inference(torch, cfg, device, make_mesh_2d(1, world, device))
+    else:  # a formed group of one: the step's all-reduces go through NCCL
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0)
+        mesh = Mesh([device], 1, data_group=dist.group.WORLD)
+        res["nccl"] = parallel_steps(torch, cfg, windows, device, mesh)
+        res["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+        res["backend"] = dist.get_backend()
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "fastspeech2_tpu" or m.startswith("fastspeech2_tpu.")]
+    assert not bad, bad
+    json.dump(res, open(f"{work}/{task}.{rank}.json", "w"))
+    dist.destroy_process_group()
+    return 0
+
+
+def two_rank_serve_phase(work, device):
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    fastspeech2_tpu_torch serve --backend gloo`` sharing the one card: rank
+    0 answers, each batch is split over both ranks. Requests, /healthz
+    launch counts; the process group is stopped in every case."""
+    import os
+    import signal
+    import socket
+
+    def free():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    port = free()
+    url = f"http://127.0.0.1:{port}"
+    log_path = Path(work, "serve2.log")
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+             "--nproc_per_node", "2", "--master_addr", "localhost", "--master_port",
+             str(free()), "-m", "fastspeech2_tpu_torch", "serve", "-c",
+             f"{work}/cfg.yaml", "--backend", "gloo", "--host", "127.0.0.1", "--port",
+             str(port), "--max_batch", "16", "--device", str(device)],
+            cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=logf,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError("the two-rank server exited:\n"
+                                     + log_path.read_text()[-3000:])
+            try:
+                healthz(url)
+                break
+            except OSError:
+                assert time.perf_counter() - t0 < 300, "the two-rank server did not come up"
+                time.sleep(0.25)
+        log(f"two-rank serve: up in {time.perf_counter() - t0:.1f} s")
+        http_post(url, "/synthesize", {"text": TEXTS[0]})
+        wall, lat, nb, frames, _ = concurrent_round(url, 8, "mel")
+        headers, body = http_post(url, "/synthesize", {"phonemes": SENTENCES[1],
+                                                        "format": "wav"})
+        assert headers["Content-Type"] == "audio/wav" and riff_samples(body) > 0
+        launches = healthz(url)["launches"]
+        log(f"two-rank serve: 8 concurrent mel requests in {nb} batches, {frames} frames, "
+            f"{wall * 1e3:.1f} ms wall; a Griffin-Lim wav request; rank 0's launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if torch_device_type(device) == "cuda":
+            for k in ("attention_block", "ffn_block", "variance_adaptor", "postnet"):
+                assert launches[k] > 0, (k, launches)
+        text = log_path.read_text()
+        for r in (0, 1):
+            assert f"serving data-parallel over 2 ranks (rank {r})" in text, text[-2000:]
+        return launches
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGTERM)
+            proc.wait(timeout=30)
+        except (ProcessLookupError, subprocess.TimeoutExpired):
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait(timeout=30)
+        log(f"two-rank serve: stopped (exit code {proc.returncode})")
+
+
+def torch_device_type(device) -> str:
+    return str(device).split(":")[0]
+
+
+def parallel_phase(torch, results, device="cuda", cfg=None, windows=None):
+    """parallel/ on the one card. Two gloo ranks share it: a data-parallel
+    pair of steps at full width (default config, bf16, dropout 0) and the
+    same at tensor_parallel=2 (one head per rank), both held to the
+    single-process steps on the same windows within the bf16 band, kernel
+    12's launches per rank per step logged; TP inference (kernel 7 per head
+    shard) held to the unsharded model. A formed NCCL group of one takes the
+    same steps. ``Synthesizer(mesh=)`` over a two-entry mesh of the card at
+    B=32 against the unsharded call (and a B=8 wav call, kernel 13 per
+    shard), then ``serve`` under two ranks. ``device``/``cfg``/``windows``
+    other than the defaults rehearse the phase (gloo only) on the CPU."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cfg = cfg or parallel_cfg()
+    on_card = torch_device_type(device) == "cuda"
+    accum = cfg.train.accum_grad
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fs2_parallel_", dir=str(ROOT / "build"))
+    try:
+        windows = windows or parallel_windows(cfg)
+        open(f"{work}/cfg.yaml", "w").write(cfg.to_yaml())
+        np.savez(f"{work}/windows.npz", **{f"{i}/{k}": v for i, w in enumerate(windows)
+                                           for k, v in w.items()})
+        procs = []
+
+        def start(task, world):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            for r in range(world):
+                logf = open(f"{work}/{task}.{r}.log", "wb")
+                procs.append((task, r, logf, subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), PARALLEL_FLAG, task,
+                     str(r), str(world), str(port), work, str(device)], cwd=str(ROOT),
+                    env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=logf,
+                    stderr=subprocess.STDOUT)))
+
+        start("gloo2", 2)
+        if on_card:
+            start("nccl1", 1)
+        try:
+            # meanwhile, in this process: the single-process reference steps
+            ref = parallel_steps(torch, cfg, windows, device)
+            mesh_synth_phase(torch, results, device, cfg)
+            for task, r, logf, p in procs:
+                try:
+                    rc = p.wait(timeout=600)
+                finally:
+                    logf.close()
+                if rc != 0:
+                    raise AssertionError(f"parallel worker {task} rank {r} failed ({rc}):\n"
+                                         + Path(f"{work}/{task}.{r}.log").read_text()[-4000:])
+        finally:
+            for _, _, logf, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        g = [json.load(open(f"{work}/gloo2.{r}.json")) for r in (0, 1)]
+        runs = [("dp=2", [x["dp"] for x in g]), ("tp=2", [x["tp"] for x in g])]
+        if on_card:
+            n1 = json.load(open(f"{work}/nccl1.0.json"))
+            log(f"parallel: NCCL {n1['nccl_version']} group of one, backend {n1['backend']}")
+            runs.append(("NCCL world of one", [n1["nccl"]]))
+        want = 8 * accum if on_card else 0  # kernel 11's single-process count per step
+        bad = []
+        for s, ref_s in enumerate(ref["steps"]):
+            rr, counts = ref_s["report"], ref_s["launches"]
+            assert counts["attention_train_packed"] == want, counts
+            log(f"parallel step {s + 1} single process: "
+                + ", ".join(f"{k} {rr[k]:.6g}" for k in (*LOSS_TERMS, "grad_norm"))
+                + f"; kernel 11 {counts['attention_train_packed']}")
+            log("  gradient norms: " + ", ".join(
+                f"{k} {v[0]:.4g}" for k, v in ref_s["grads"].items()))
+            for name, per_rank in runs:
+                for r, run in enumerate(per_rank):
+                    got = run["steps"][s]
+                    c2 = got["launches"]
+                    terms = {k: (got["report"][k] - rr[k]) / abs(rr[k]) for k in LOSS_TERMS}
+                    grads = {k: max(abs(a - b) for a, b in zip(v, ref_s["grads"][k]))
+                             / ref_s["grads"][k][0] for k, v in got["grads"].items()}
+                    log(f"  {name} rank {r}: relative error " + ", ".join(
+                        f"{k} {v:+.2e}" for k, v in terms.items())
+                        + "; gradient (max over norm and projections, over the norm) "
+                        + ", ".join(f"{k} {v:.2e}" for k, v in grads.items())
+                        + f"; kernel 12 {c2['attention_train']}/"
+                        f"{c2['attention_train.bwd']} fwd/bwd, kernel 11 "
+                        f"{c2['attention_train_packed']}")
+                    bad += [(name, r, s, k, v) for k, v in terms.items()
+                            if not abs(v) <= (PARALLEL_DURATION_BAND if k == "duration_loss"
+                                              else PARALLEL_LOSS_BAND)]
+                    bad += [(name, r, s, k, v) for k, v in grads.items()
+                            if not v <= PARALLEL_GRAD_BAND]
+                    if name.startswith("NCCL"):
+                        assert c2["attention_train_packed"] == want, c2
+                    else:
+                        assert c2["attention_train"] == c2["attention_train.bwd"] == want, c2
+                        assert c2["attention_train_packed"] == 0, c2
+        bn_ref = np.asarray(ref["bn"])
+        for name, per_rank in runs:
+            bns = [np.asarray(run["bn"]) for run in per_rank]
+            across = max(float(np.abs(b - bns[0]).max()) for b in bns)
+            err = float(np.abs(bns[0] - bn_ref).max() / np.abs(bn_ref).max())
+            log(f"  {name}: BatchNorm running statistics after {PARALLEL_STEPS} steps, "
+                f"max difference across ranks {across:.3g}, against the single "
+                f"process {err:.2e} of its largest")
+            if across != 0 or not err <= PARALLEL_BN_BAND:
+                bad.append((name, "bn", across, err))
+        assert not bad, f"parallel routes off the single process: {bad}"
+        for r, x in enumerate(g):
+            err, counts = x["tp_infer"]
+            log(f"parallel TP=2 inference rank {r} vs unsharded (B=8, {err['frames']} "
+                f"frames): durations agree on {err['dur_agree']:.4f} of tokens; encoder "
+                f"max {err['hs_max']:.3e} mean {err['hs_mean']:.3e}; mel (unsharded "
+                f"durations) max {err['mel_max']:.3e} mean {err['mel_mean']:.3e}; "
+                f"launches {({k: v for k, v in counts.items() if v})}")
+            log(f"parallel Synthesizer(mesh=tp 2) rank {r}: {err['synth_frames']} frames "
+                f"(unsharded Synthesizer {err['synth_frames_one']}), launches "
+                f"{err['synth_launches']}")
+            assert err["lens_equal"] and err["dur_agree"] >= 0.97, err
+            assert err["mel_mean"] < 0.02 and err["mel_max"] < 0.2, err
+            assert err["hs_mean"] < 0.02, err
+            assert counts["fused_attention_packed"] == (8 if on_card else 0), counts
+            for k in ("attention_block", "ffn_block", "variance_adaptor", "postnet"):
+                assert counts[k] == 0, (k, counts)
+                assert k not in err["synth_launches"], (k, err)
+            assert err["synth_finite"] and err["synth_sum"] == g[0]["tp_infer"][0]["synth_sum"]
+            assert (abs(err["synth_frames"] - err["synth_frames_one"])
+                    <= 0.02 * err["synth_frames_one"]), err
+            if on_card:
+                assert err["synth_launches"]["fused_attention_packed"] >= 8, err
+        if on_card:
+            results["attention_train"]["launches_dp2_rank_step"] = (
+                g[0]["dp"]["steps"][0]["launches"]["attention_train"])
+            results["attention_train"]["launches_tp2_rank_step"] = (
+                g[0]["tp"]["steps"][0]["launches"]["attention_train"])
+            results["fused_attention_packed"]["launches_tp2_infer"] = (
+                g[0]["tp_infer"][1]["fused_attention_packed"])
+        two_rank_serve_phase(work, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_synth_phase(torch, results, device, cfg):
+    """``Synthesizer(mesh=)`` over a two-entry local mesh of the one card: a
+    B=32 mel call held to the unsharded call (lengths exact, live frames in
+    the bf16 band), kernels 1-4 launched per shard; a B=8 wav call with
+    MelGAN attached, kernel 13 per shard."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.parallel.mesh import make_mesh
+    from fastspeech2_tpu_torch.vocoder.melgan import MelGANGenerator
+
+    on_card = torch_device_type(device) == "cuda"
+    model = FastSpeech2(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.duration_predictor.out.bias.fill_(1.87)
+    one = Synthesizer(model, bf16=True, device=device)
+    entry = "cuda:0" if on_card else "cpu"
+    sharded = Synthesizer(model, bf16=True, device=device,
+                          mesh=make_mesh(devices=[entry, entry]))
+    b32 = batch(32)
+    mel1, lens1 = one.mel_from_token_batch(b32)
+    sharded.mel_from_token_batch(b32)  # warm
+    reset_counts()
+    mel2, lens2 = sharded.mel_from_token_batch(b32)
+    counts = read_counts()
+    log(f"Synthesizer(mesh=2 entries of {entry}) B=32: mel {mel2.shape} (unsharded "
+        f"{mel1.shape}), launches {({k: v for k, v in counts.items() if v})}")
+    assert np.array_equal(lens1, lens2), "sharded out_lens differ"
+    L = min(mel1.shape[1], mel2.shape[1])
+    live = torch.from_numpy(np.arange(L)[None] < lens1[:, None])
+    compare("Synthesizer(mesh=) B=32 vs unsharded, live frames",
+            torch.from_numpy(mel2[:, :L])[live], torch.from_numpy(mel1[:, :L])[live],
+            0.02, 0.2)
+    if on_card:
+        for k in ("attention_block", "ffn_block", "variance_adaptor", "postnet"):
+            assert counts[k] > 0, (k, counts)
+            results[k]["launches_mesh2_b32"] = counts[k]
+    gen = MelGANGenerator(bf16=True, seed=0, device=device)
+    one.attach_vocoder(gen)
+    sharded.attach_vocoder(gen)
+    b8 = batch(8, offset=5)
+    _, w1, wl1 = one.wav_from_token_batch(b8)
+    reset_counts()
+    _, w2, wl2 = sharded.wav_from_token_batch(b8)
+    counts = read_counts()
+    assert np.array_equal(wl1, wl2), (wl1, wl2)
+    n = min(w1.shape[1], w2.shape[1])
+    live = torch.from_numpy(np.arange(n)[None] < wl1[:, None])
+    compare("Synthesizer(mesh=) B=8 wav vs unsharded (int16 PCM / 32768, live samples)",
+            torch.from_numpy(w2[:, :n].astype(np.float32) / 32768)[live],
+            torch.from_numpy(w1[:, :n].astype(np.float32) / 32768)[live], 0.02, 0.5)
+    if on_card:
+        assert counts["resstack"] > 0, counts
+        results["resstack"]["launches_mesh2_wav_b8"] = counts["resstack"]
+    log(f"Synthesizer(mesh=) B=8 wav: launches {({k: v for k, v in counts.items() if v})}")
+
+def main(parallel_only: bool = False) -> int:
     try:
         import torch
     except ImportError:
@@ -3129,6 +3688,12 @@ def main() -> int:
         for line in common.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    if parallel_only:
+        import collections
+
+        parallel_phase(torch, collections.defaultdict(dict))
+        log(f"parallel phase alone: {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     wgmma_kernels_sass()
 
     results = {}
@@ -3171,6 +3736,8 @@ def main() -> int:
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     wavs_per_s, pre_secs_per_s = preprocess_phase(torch, results)
+    torch.cuda.empty_cache()
+    parallel_phase(torch, results)
     assert "jax" not in sys.modules and not any(
         m == "fastspeech2_tpu" or m.startswith("fastspeech2_tpu.") for m in sys.modules)
 
@@ -3186,7 +3753,10 @@ def main() -> int:
             "bound_by": r["bound_by"][key],
             "library_ms": r["library_ms"][key] if "library_ms" in r else None,
             "shape": key, **({"note": r["note"]} if "note" in r else {}),
-            **{k: r[k] for k in ("launches_cli_train_step", "launches_bucketed_b32") if k in r},
+            **{k: r[k] for k in ("launches_cli_train_step", "launches_bucketed_b32",
+                                 "launches_dp2_rank_step", "launches_tp2_rank_step",
+                                 "launches_tp2_infer", "launches_mesh2_b32",
+                                 "launches_mesh2_wav_b8") if k in r},
             **({"device_ms": r["device_ms"][key],
                 "library_device_ms": r.get("library_device_ms", {}).get(key)}
                if "device_ms" in r else {}),
@@ -3211,4 +3781,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) > 1 and sys.argv[1] == PARALLEL_FLAG:
+        sys.exit(parallel_worker(sys.argv[2:]))
+    sys.exit(main(parallel_only=sys.argv[1:] == ["--parallel-only"]))

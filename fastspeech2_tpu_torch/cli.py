@@ -31,6 +31,15 @@ W8A8 tier, ``ops/quant8.py``) and a MelGAN or WaveGlow ``--vocoder``;
 ``synth --precision default`` lets its f32 products use TF32. Every command but
 ``stats`` takes ``--device``: the card unless ``--device cpu`` is given, and
 without a GPU it raises. ``golden`` and ``export`` are not ported yet.
+
+``train`` and ``serve`` also run under ``python -m torch.distributed.run
+--nproc_per_node N -m fastspeech2_tpu_torch ...``: one rank per device,
+NCCL on the cards unless ``--backend gloo`` is given (several ranks on one
+card), gloo on the CPU. ``train`` then trains its part of the (dp, tp) mesh
+(``train.dp_size``, ``train.tensor_parallel``, ``train.sequence_parallel``,
+``train/loop.py``); ``serve`` answers on rank 0 and shards each batch over
+the ranks (``infer/synthesize.py``). A single ``serve`` process shards over
+every local card when there are several.
 """
 
 from __future__ import annotations
@@ -213,21 +222,44 @@ def _load_model(args, device, reference_format: bool):
     return cfg, model
 
 
+def _join_group(args, device) -> bool:
+    """Join the process group that ``python -m torch.distributed.run`` set
+    up (``WORLD_SIZE`` > 1) with ``--backend`` (default: NCCL on the card,
+    gloo on the CPU); returns whether this call formed it."""
+    import torch.distributed as dist
+
+    from fastspeech2_tpu_torch.parallel.mesh import initialize_multihost
+
+    if dist.is_initialized():
+        return False
+    return initialize_multihost(backend=args.backend, device=device) > 1
+
+
 def cmd_train(args):
     """``train/loop.py:train`` from a config (train_fastspeech.py); ``-p``
-    resumes. On the card the run ends with the kernels' launch counts."""
+    resumes. On the card the run ends with the kernels' launch counts. Under
+    ``python -m torch.distributed.run`` every rank trains its part of the
+    (dp, tp) mesh (``train.dp_size``, ``train.tensor_parallel``)."""
+    import torch.distributed as dist
+
     from fastspeech2_tpu_torch.config import load_config
     from fastspeech2_tpu_torch.device import resolve_device
     from fastspeech2_tpu_torch.ops.kernels import launch_counts
+    from fastspeech2_tpu_torch.parallel.mesh import local_device
     from fastspeech2_tpu_torch.train.loop import train
 
-    device = resolve_device(args.device)
-    with _log_to_file(args.outdir, args.name):
-        train(load_config(args.config), args.name, args.outdir,
-              resume_path=args.checkpoint_path, max_steps=args.max_steps,
-              data_dir=args.data_dir, profile_dir=args.profile_dir, device=device)
-        if device.type == "cuda":
-            logging.info("kernel launches: %s", json.dumps(launch_counts()))
+    device = local_device(resolve_device(args.device))
+    formed = _join_group(args, device)
+    try:
+        with _log_to_file(args.outdir, args.name):
+            train(load_config(args.config), args.name, args.outdir,
+                  resume_path=args.checkpoint_path, max_steps=args.max_steps,
+                  data_dir=args.data_dir, profile_dir=args.profile_dir, device=device)
+            if device.type == "cuda":
+                logging.info("kernel launches: %s", json.dumps(launch_counts()))
+    finally:
+        if formed:
+            dist.destroy_process_group()
 
 
 def cmd_evaluate(args):
@@ -351,17 +383,33 @@ def cmd_synth(args):
 
 def cmd_serve(args):
     """Micro-batching HTTP synthesis server (infer/server.py), bf16 on the
-    card; blocks until the process is stopped."""
+    card; blocks until the process is stopped. Data-parallel over every
+    local card when there are several (JAX ``cli.py:260-267``); under
+    ``python -m torch.distributed.run`` over the ranks, rank 0 taking the
+    requests and the others serving their shards of each batch."""
     import time
+
+    import torch
+    import torch.distributed as dist
 
     from fastspeech2_tpu_torch.device import resolve_device
     from fastspeech2_tpu_torch.infer.server import serve
     from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.parallel.mesh import local_device, make_mesh
 
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
+    formed = _join_group(args, device)
     cfg, model = _load_model(args, device, reference_format=False)
     on_card = device.type == "cuda"
-    synth = Synthesizer(model, bf16=on_card, device=device, int8=args.int8)
+    mesh = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_mesh(device=device)
+        logging.info("serving data-parallel over %d ranks (rank %d)", mesh.size,
+                     dist.get_rank())
+    elif on_card and torch.cuda.device_count() > 1:
+        mesh = make_mesh(torch.cuda.device_count())
+        logging.info("serving data-parallel over %d cards", mesh.size)
+    synth = Synthesizer(model, bf16=on_card, device=device, int8=args.int8, mesh=mesh)
     vocoder_path = args.vocoder or cfg.train.vocoder_checkpoint
     if vocoder_path:
         from fastspeech2_tpu_torch.vocoder import (detect_vocoder_kind, load_melgan_params,
@@ -381,8 +429,20 @@ def cmd_serve(args):
         t0 = time.perf_counter()
         n = synth.warmup(batch_sizes=(1, args.max_batch))
         logging.info("warmed %d serving shapes in %.1fs", n, time.perf_counter() - t0)
-    serve(synth, cfg, host=args.host, port=args.port, max_batch=args.max_batch,
-          max_wait_ms=args.max_wait_ms)
+    try:
+        if mesh is not None and mesh.distributed and dist.get_rank() != 0:
+            synth.follow()
+            return
+        if mesh is not None and mesh.distributed:
+            synth.lead()
+        try:
+            serve(synth, cfg, host=args.host, port=args.port, max_batch=args.max_batch,
+                  max_wait_ms=args.max_wait_ms)
+        finally:
+            synth.stop_followers()
+    finally:
+        if formed:
+            dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -414,6 +474,10 @@ def main(argv=None):
     sp.add_argument("--profile_dir", default=None,
                     help="write a torch.profiler Chrome trace of a few warm steps here")
     sp.add_argument("--device", default=None, help="torch device (default: cuda)")
+    sp.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend under torch.distributed.run "
+                         "(default: nccl on the card, gloo on the CPU; gloo "
+                         "lets several ranks share one card)")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("gta")
@@ -469,6 +533,9 @@ def main(argv=None):
                          "common token lengths before binding the port")
     sp.add_argument("--device", default=None,
                     help="torch device (default: cuda, in bf16; cpu runs f32)")
+    sp.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend under torch.distributed.run "
+                         "(default: nccl on the card, gloo on the CPU)")
     sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser("evaluate")

@@ -110,6 +110,46 @@ class BucketBatcher:
         n = len(self.dataset) // self.batch_size
         return n // self.num_hosts
 
+    def _plan(self, epoch: int):
+        """(token lengths, frame lengths, utterance order, shuffled batch
+        starts) of an epoch, identical on every host."""
+        tok_lens = np.asarray(self.dataset.token_lengths())
+        frame_lens = np.asarray(self.dataset.frame_lengths())
+        order = self._order(epoch, tok_lens)
+        order = order[frame_lens[order] <= self.max_frames]
+        g = np.random.default_rng((self.seed, epoch, 1))
+        starts = np.arange(0, len(order) - self.batch_size + 1, self.batch_size)
+        g.shuffle(starts)
+        return tok_lens, frame_lens, order, starts
+
+    def _windows(self, epoch: int) -> Iterator[Tuple[np.ndarray, int, int]]:
+        """Per step: the utterance indices of the global window (the
+        ``num_hosts`` batches of one stride group, in host order) and its pad
+        shape (the max over the group)."""
+        tok_lens, frame_lens, order, starts = self._plan(epoch)
+        # all hosts compute the same permutation; each takes its stride
+        n_usable = (len(starts) // self.num_hosts) * self.num_hosts
+        groups = starts[:n_usable].reshape(-1, self.num_hosts)
+        for grp in groups:
+            gidx = np.concatenate(
+                [order[int(x) : int(x) + self.batch_size] for x in grp])
+            t_pad = _round_up(int(tok_lens[gidx].max()), self.token_multiple)
+            l_pad = _round_up(int(frame_lens[gidx].max()), self.frame_multiple)
+            yield gidx, t_pad, l_pad
+
+    def epoch_rows(self, epoch: int, rows: Sequence[int]
+                   ) -> Iterator[Tuple[Batch, Tuple[int, int], int]]:
+        """Yield (batch, (t_pad, l_pad), window frames) per step: the given
+        ``rows`` of the global window (``_windows``), padded to its shape, and
+        the mel frames of the whole window. Only those rows' features are
+        read: each data-parallel rank forms its own rows of every host's
+        batch (``parallel/mesh.py:window_rows``)."""
+        frame_lens = np.asarray(self.dataset.frame_lengths())
+        for gidx, t_pad, l_pad in self._windows(epoch):
+            utts = [self.dataset[int(gidx[r])] for r in rows]
+            yield (pad_batch(utts, t_pad, l_pad), (t_pad, l_pad),
+                   int(frame_lens[gidx].sum()))
+
     def epoch(self, epoch: int) -> Iterator[Tuple[Batch, Tuple[int, int]]]:
         """Yield (batch, (t_pad, l_pad)) for this host's share of the epoch.
 
@@ -121,25 +161,12 @@ class BucketBatcher:
         (t_pad, l_pad) shapes in step).
         Lengths come from cached token counts / npy headers -- no feature IO.
         """
-        tok_lens = np.asarray(self.dataset.token_lengths())
-        frame_lens = np.asarray(self.dataset.frame_lengths())
-        order = self._order(epoch, tok_lens)
-        order = order[frame_lens[order] <= self.max_frames]
-        g = np.random.default_rng((self.seed, epoch, 1))
-        starts = np.arange(0, len(order) - self.batch_size + 1, self.batch_size)
-        g.shuffle(starts)
-        # all hosts compute the same permutation; each takes its stride
-        n_usable = (len(starts) // self.num_hosts) * self.num_hosts
-        groups = starts[:n_usable].reshape(-1, self.num_hosts)
-        for grp in groups:
-            s = int(grp[self.host_id])
-            utts = [self.dataset[int(i)] for i in order[s : s + self.batch_size]]
-            gidx = np.concatenate(
-                [order[int(x) : int(x) + self.batch_size] for x in grp])
-            t_pad = _round_up(int(tok_lens[gidx].max()), self.token_multiple)
-            l_pad = _round_up(int(frame_lens[gidx].max()), self.frame_multiple)
+        for gidx, t_pad, l_pad in self._windows(epoch):
+            lo = self.host_id * self.batch_size
+            utts = [self.dataset[int(i)] for i in gidx[lo : lo + self.batch_size]]
             yield pad_batch(utts, t_pad, l_pad), (t_pad, l_pad)
         if not self.drop_remainder and self.num_hosts == 1:
+            tok_lens, frame_lens, order, starts = self._plan(epoch)
             # tail utterances beyond the last full batch: yield them as one
             # smaller batch (exact -- no duplicate-weighting)
             tail_idx = order[len(starts) * self.batch_size:]

@@ -23,13 +23,32 @@ With neither, ``vocode`` turns a finished mel into audio by Griffin-Lim
 ``int8=True`` serves a W8A8-quantized copy of the model (``ops/quant8.py``);
 ``matmul_precision="default"`` lets the calls' f32 products use TF32
 (``device.py``), ``"highest"`` (the default) keeps them full f32.
+
+``mesh`` (``parallel/mesh.py``) serves data-parallel, as the JAX package's
+sharded ``Synthesizer``: the batch is padded to a multiple of the mesh's
+data shards and split into contiguous row shards, each runs the
+demand-sized dispatch (and its kernels) on its own replica, and the outputs
+come back in order, padded to the longest shard's frames. This is the port's
+one sharded inference path. A local mesh keeps one replica per device of its
+list (entries may repeat); a process mesh serves this rank's shard and
+all-gathers every shard over the data group, each rank calling with the same
+batch. A process mesh with a model axis (``tp > 1``) serves a model that
+``parallel.sharding.shard_model`` cut over it (the counterpart of the JAX
+package's ``shard_inference_fn_tp``): the ranks of a model group compute
+their data shard together, the fused attention per head shard. Behind
+``serve``, rank 0 leads (``lead``: it sends each call's batch to every other
+rank) and the others ``follow``. The int8 tier (data meshes only) and a
+host-level vocoder take the same shard path; an int8 row's activation scale
+then sees its shard, not the whole batch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import logging
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -77,8 +96,9 @@ class Synthesizer:
                  frames_per_token: int = 12, max_frames: int = 2048,
                  bf16: bool = False, demand_sized: Optional[bool] = None,
                  device: Union[str, torch.device, None] = None,
-                 matmul_precision: str = "highest", int8: bool = False):
-        self.device = resolve_device(device)
+                 matmul_precision: str = "highest", int8: bool = False,
+                 mesh=None):
+        self.device = _indexed(resolve_device(device))
         if int8:
             # W8A8 tier: a quantized copy of the model (ops/quant8.py); the
             # caller's module is left as it is. A weight-memory lever, not a
@@ -100,6 +120,21 @@ class Synthesizer:
         self._voc = None           # fused text->wav: set by attach_vocoder
         self._voc_fn = None        # host-level text->wav: attach_vocoder_fn
         self._voc_fn_hop = 256
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and self.mesh.tp > 1:
+            if int8:
+                raise ValueError("the int8 tier serves no tensor-parallel model")
+            if model.encoder.mesh is not self.mesh:
+                raise ValueError("a tensor-parallel mesh serves a model sharded over "
+                                 "it: parallel.sharding.shard_model(model, mesh)")
+        self._replicas = {}
+        self._lock = threading.Lock()
+        self._leading = False
+        if self.mesh is not None and not self.mesh.distributed:
+            for dev in dict.fromkeys(_indexed(torch.device(d)) for d in self.mesh.devices):
+                self._replicas[dev] = self if dev == self.device else Synthesizer(
+                    copy.deepcopy(model), token_multiple, frames_per_token, max_frames,
+                    bf16, demand_sized, dev, matmul_precision, int8)
 
     def attach_vocoder(self, gen) -> None:
         """Enable the fused text->wav path: the acoustic model, the MelGAN
@@ -107,6 +142,9 @@ class Synthesizer:
         the mel never crosses to the host between them. gen: a
         ``vocoder.MelGANGenerator`` (its weights move to this device)."""
         self._voc = gen.to(self.device).eval()
+        for r in self._replicas.values():
+            if r is not self:
+                r.attach_vocoder(copy.deepcopy(gen))
 
     def attach_vocoder_fn(self, fn, hop_length: Optional[int] = None) -> None:
         """Enable text->wav via a host-level vocoder callable
@@ -130,9 +168,13 @@ class Synthesizer:
 
     @contextlib.contextmanager
     def _cd(self):
+        # the kernels launch on the current card: a replica of a local mesh
+        # on another card makes its own card current for its calls
+        card = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
         with compute_dtype(torch.bfloat16 if self.bf16 else None), \
                 matmul_precision(self.matmul_precision, self.device), \
-                torch.inference_mode():
+                torch.inference_mode(), card:
             yield
 
     def _b_pad(self, B: int) -> int:
@@ -181,11 +223,13 @@ class Synthesizer:
                         "input)", self.max_frames, int(trunc.sum()), B)
         return trunc
 
-    def _pad_batch(self, token_seqs: Sequence[np.ndarray], alpha):
+    def _pad_host(self, token_seqs: Sequence[np.ndarray], alpha, multiple: int = 1):
+        """(B, t_pad, alpha max, xs, ilens, alphas) as host arrays, the rows
+        padded to a power of two, then to a multiple of ``multiple``."""
         if not token_seqs or not all(len(s) for s in token_seqs):
             raise ValueError("empty token sequence: input produced no phonemes")
         B = len(token_seqs)
-        B_pad = self._b_pad(B)
+        B_pad = _round_up(self._b_pad(B), multiple)
         alphas, a_max = self._alphas(alpha, B, B_pad)
         t_pad = _round_up(max(len(s) for s in token_seqs), self.token_multiple)
         xs = np.zeros((B_pad, t_pad), np.int64)
@@ -193,9 +237,11 @@ class Synthesizer:
         for i, s in enumerate(token_seqs):
             xs[i, : len(s)] = s
             ilens[i] = len(s)
-        dev = self.device
-        return (B, t_pad, a_max, torch.from_numpy(xs).to(dev),
-                torch.from_numpy(ilens).to(dev), torch.from_numpy(alphas).to(dev))
+        return B, t_pad, a_max, xs, ilens, alphas
+
+    def _pad_batch(self, token_seqs: Sequence[np.ndarray], alpha):
+        B, t_pad, a_max, *arrays = self._pad_host(token_seqs, alpha)
+        return (B, t_pad, a_max, *(torch.from_numpy(a).to(self.device) for a in arrays))
 
     def mel_from_token_batch_async(self, token_seqs: Sequence[np.ndarray],
                                    alpha=1.0):
@@ -207,7 +253,74 @@ class Synthesizer:
     def _dispatch(self, token_seqs, alpha, wav: bool):
         """Enqueue the first device work of a mel (wav=False) or fused wav
         call and return its finisher."""
-        B, t_pad, a_max, xs, ilens, alphas = self._pad_batch(token_seqs, alpha)
+        if self.mesh is not None:
+            return self._dispatch_sharded(token_seqs, alpha, wav)
+        return self._run(*self._pad_batch(token_seqs, alpha), wav)
+
+    def _dispatch_sharded(self, token_seqs, alpha, wav: bool):
+        """The mesh's row shards, each through its replica's ``_run`` (a
+        model group's ranks run the same shard)."""
+        n = self.mesh.dp
+        B, t_pad, a_max, *arrays = self._pad_host(token_seqs, alpha, n)
+        b = len(arrays[0]) // n
+
+        def rows(rep, s):
+            return (torch.from_numpy(a[s * b:(s + 1) * b]).to(rep.device) for a in arrays)
+
+        if not self.mesh.distributed:
+            fins = []
+            for s, dev in enumerate(self.mesh.devices):
+                rep = self._replicas[_indexed(torch.device(dev))]
+                fins.append(rep._run(b, t_pad, a_max, *rows(rep, s), wav))
+            return lambda: _merge([f() for f in fins], B)
+        import torch.distributed as dist
+
+        # one call at a time on this process: the collectives of two calls
+        # (the server's dispatch and delivery threads) must not interleave
+        with self._lock:
+            if self._leading:
+                dist.broadcast_object_list([(wav, list(token_seqs), alpha)], src=0)
+            part = self._run(b, t_pad, a_max, *rows(self, self.mesh.data_index), wav)()
+            parts = [part]
+            if n > 1:
+                parts = [None] * n
+                dist.all_gather_object(parts, part, group=self.mesh.data_group)
+        out = _merge(parts, B)
+        return lambda: out
+
+    def lead(self) -> None:
+        """This rank, rank 0, takes the requests (behind ``serve``): each
+        call first sends its batch to the ranks that ``follow``."""
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            raise ValueError("rank 0 leads the serving ranks")
+        self._leading = True
+
+    def follow(self) -> None:
+        """Serve the leader's calls on this rank's shard until it stops
+        (``stop_followers``)."""
+        import torch.distributed as dist
+
+        while True:
+            req = [None]
+            dist.broadcast_object_list(req, src=0)
+            if req[0] is None:
+                return
+            wav, seqs, alpha = req[0]
+            self._dispatch(seqs, alpha, wav)()
+
+    def stop_followers(self) -> None:
+        """Release the following ranks (the leader's last call)."""
+        import torch.distributed as dist
+
+        if self._leading:
+            with self._lock:
+                dist.broadcast_object_list([None], src=0)
+            self._leading = False
+
+    def _run(self, B, t_pad, a_max, xs, ilens, alphas, wav: bool):
+        """The demand-sized (or heuristic) call on padded device rows."""
         if not self.demand_sized:
             return self._heuristic(B, t_pad, a_max, xs, ilens, alphas, wav)
         with self._cd():
@@ -443,7 +556,8 @@ class Synthesizer:
                     self.mel_from_token_batch(seqs)
                 calls += 1
                 if self.demand_sized:
-                    calls += self._warm_dec_rungs(t, b, alpha_max)
+                    for r in (list(self._replicas.values()) or [self]):
+                        calls += r._warm_dec_rungs(t, b, alpha_max)
         return calls
 
     def _warm_dec_rungs(self, t: int, b: int, alpha_max: float = 1.0) -> int:
@@ -501,6 +615,27 @@ class Synthesizer:
             "msec_per_frame": 1000.0 * t_model / max(full.shape[0], 1),
         }
         return full, stats
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """A CUDA device with its index (``cuda`` means the current card)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _merge(parts, B: int):
+    """Row shards' results, (mel, [pcm,] lens, trunc) each, in order: the
+    frame axis zero-padded to the longest shard's, then the first B rows."""
+    out = []
+    for j in range(len(parts[0])):
+        arrs = [p[j] for p in parts]
+        if arrs[0].ndim >= 2:
+            w = max(a.shape[1] for a in arrs)
+            arrs = [np.pad(a, [(0, 0), (0, w - a.shape[1])] + [(0, 0)] * (a.ndim - 2))
+                    for a in arrs]
+        out.append(np.concatenate(arrs)[:B])
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=4)

@@ -34,6 +34,17 @@ so both packages take the same path. Routes served:
   dropout sites and the FFN as plain ops. ``remat`` checkpoints each block.
 - everything else (the f32 tier, small heads, the CPU tests): plain ops,
   ``ops.attention.mha_apply`` with its dropout branch.
+- a data shard of a multi-device mesh (``parallel/mesh.py:data_shard``)
+  trains through kernel 12, never the head-packed kernel 11, with the
+  shard's seed (``attention_train.shard_seed``), as the JAX package does.
+- tensor parallelism (``parallel/sharding.py:shard_model`` binds a mesh of
+  tp > 1 to the stack; ``_tp_block``, JAX ``encoder.py:193-225``): q/k/v and
+  w1 column-parallel, out and w2 row-parallel with their all-reduce before
+  the bias and the residual; when tp divides the heads, kernel 7 in serving
+  and kernel 12 in training per head shard, else plain attention over the
+  gathered heads; kernels 1, 5, 6 and the FFN kernels stay off. Sequence
+  parallelism (the training shard's ``sequence_parallel``, when tp divides
+  T) splits the residual stream on time between blocks.
 
 Dropout sites, in the JAX package's fixed order: ``input`` (linear input
 layer only), ``pos``, then per block i ``{i}/attn``, ``{i}/res``, ``{i}/ffn``,
@@ -54,12 +65,14 @@ from torch import nn as tnn
 from torch.utils.checkpoint import checkpoint
 
 from fastspeech2_tpu_torch.ops import flags, nn, quant8
-from fastspeech2_tpu_torch.ops.attention import mha_apply
+from fastspeech2_tpu_torch.ops.attention import masked_softmax, mha_apply
 from fastspeech2_tpu_torch.ops.kernels import attention as attn_kernel
 from fastspeech2_tpu_torch.ops.kernels import attention_train
 from fastspeech2_tpu_torch.ops.kernels import common
 from fastspeech2_tpu_torch.ops.kernels import ffn as ffn_kernel
 from fastspeech2_tpu_torch.ops.precision import compute_dtype, current_compute_dtype
+from fastspeech2_tpu_torch.parallel import sharding
+from fastspeech2_tpu_torch.parallel.mesh import chunk, current_shard, data_shard
 
 
 @dataclass(frozen=True)
@@ -178,6 +191,8 @@ class Encoder(tnn.Module):
                                      for _ in range(cfg.num_blocks))
         if cfg.normalize_before:
             self.after_norm = tnn.LayerNorm(d, device=device)
+        #: the tensor-parallel mesh (``parallel/sharding.py:shard_model``)
+        self.mesh = None
 
     def _positional_encode(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -215,16 +230,26 @@ class Encoder(tnn.Module):
             raise ValueError("training mode needs the dropout seeds")
         seed = (lambda name: None) if deterministic else seeds.__getitem__
         d_k = cfg.attention_dim // cfg.attention_heads
+        mesh = self.mesh
+        tp = 1 if mesh is None else mesh.tp
+        shard = current_shard()
         speed_path = (fused_attention and lengths is not None
                       and current_compute_dtype() == torch.bfloat16)
-        fusable = speed_path and d_k >= 128
+        fusable = (speed_path and d_k >= 128
+                   and (tp == 1 or cfg.attention_heads % tp == 0))
         use_fused = fusable and deterministic
-        use_fused_res = use_fused and not cfg.concat_after and flags.FUSED_ATT_RES
+        use_fused_res = (use_fused and not cfg.concat_after and flags.FUSED_ATT_RES
+                         and tp == 1)
         use_fused_ffn = (speed_path and deterministic and conv_mask is not None
                          and cfg.positionwise_layer_type == "conv1d"
-                         and cfg.positionwise_conv_kernel_size % 2 == 1)
+                         and cfg.positionwise_conv_kernel_size % 2 == 1 and tp == 1)
         use_fused_train = (fusable and not deterministic
                            and xs.shape[1] <= attention_train.MAX_T)
+        # a shard of a multi-device mesh: kernel 12 with the shard's seed
+        shard_index = (shard.shard_index if shard is not None and shard.mesh.size > 1
+                       else None)
+        sp = (tp > 1 and shard is not None and shard.sequence_parallel
+              and xs.shape[1] % tp == 0)
 
         if cfg.input_layer == "embed":
             x = nn.embedding(self.embed.weight, xs)
@@ -237,10 +262,18 @@ class Encoder(tnn.Module):
         x = self._positional_encode(x)
         x = nn.dropout(x, cfg.positional_dropout_rate, seed("pos"),
                        deterministic=deterministic)
+        if sp:
+            x = sharding.split_seq(x, mesh)
 
         cd = current_compute_dtype()
 
         def fft_block(i: int, layer: FFTBlock, x: torch.Tensor) -> torch.Tensor:
+            if tp > 1:
+                return self._tp_block(
+                    i, layer, x, mask=mask, conv_mask=conv_mask, lengths=lengths,
+                    seed=seed, deterministic=deterministic, fused=use_fused,
+                    fused_train=use_fused_train, sp=sp,
+                    shard_index=0 if shard_index is None else shard_index)
             ran_fused_res = False
             residual = x
             y = (nn.layer_norm(x, layer.norm1.weight, layer.norm1.bias)
@@ -273,7 +306,8 @@ class Encoder(tnn.Module):
             elif use_fused_train:
                 att = attention_train.mha_fused_train_apply(
                     layer.attn, y, lengths, cfg.attention_heads,
-                    seed(f"{i}/attn"), cfg.attention_dropout_rate)
+                    seed(f"{i}/attn"), cfg.attention_dropout_rate,
+                    shard_index=shard_index)
             else:
                 att = mha_apply(layer.attn, y, y, y, mask, cfg.attention_heads,
                                 dropout_rate=cfg.attention_dropout_rate,
@@ -309,8 +343,8 @@ class Encoder(tnn.Module):
 
         def replayed_block(i: int, layer: FFTBlock, x: torch.Tensor) -> torch.Tensor:
             # the backward pass replays the block outside the caller's
-            # compute-dtype context: enter it again
-            with compute_dtype(cd):
+            # compute-dtype and data-shard contexts: enter them again
+            with compute_dtype(cd), data_shard(shard):
                 return fft_block(i, layer, x)
 
         for i, layer in enumerate(self.layers):
@@ -318,6 +352,114 @@ class Encoder(tnn.Module):
                 x = checkpoint(replayed_block, i, layer, x, use_reentrant=False)
             else:
                 x = fft_block(i, layer, x)
+        if sp:
+            x = sharding.unsplit_seq(x, mesh)
         if cfg.normalize_before:
             x = nn.layer_norm(x, self.after_norm.weight, self.after_norm.bias)
         return x
+
+    def _tp_block(self, i: int, layer: FFTBlock, x: torch.Tensor, *, mask, conv_mask,
+                  lengths, seed, deterministic: bool, fused: bool, fused_train: bool,
+                  sp: bool, shard_index: int) -> torch.Tensor:
+        """One FFT block over the model group (Megatron; ``sp``: x is this
+        rank's time chunk of the residual stream). Dropout masks are the
+        blocks of the single-device masks (``nn.dropout``'s ``split``)."""
+        cfg, mesh = self.cfg, self.mesh
+        H = cfg.attention_heads
+        cd = current_compute_dtype()
+        dt = cd or x.dtype
+        B = x.shape[0]
+        T = x.shape[1] * (mesh.tp if sp else 1)
+        stream = (1, mesh.model_index * x.shape[1], T) if sp else None
+
+        def P(t):  # a replicated parameter used on the (split) stream
+            return sharding.sp_param(t, mesh) if sp else t
+
+        def enter(t):  # into a column-parallel product
+            return sharding.gather_seq(t, mesh) if sp else sharding.copy_to_model(t, mesh)
+
+        def leave(t):  # out of a row-parallel product, then its bias
+            return (sharding.reduce_scatter_seq(t, mesh) if sp
+                    else sharding.reduce_from_model(t, mesh))
+
+        def site(name):
+            return None if deterministic else seed(f"{i}/{name}")
+
+        # -- attention half
+        a = layer.attn
+        residual = x
+        y = (nn.layer_norm(x, P(layer.norm1.weight), P(layer.norm1.bias))
+             if cfg.normalize_before else x)
+        yf = enter(y)
+        # the kernels take their operands in the compute dtype; plain
+        # attention keeps mha_apply's f32 projections
+        pdt = dt if (fused or fused_train) else x.dtype
+        q, k, v = (nn.linear(yf, p.weight, p.bias, out_dtype=pdt) for p in (a.q, a.k, a.v))
+        Dl = q.shape[-1]
+        if H % mesh.tp == 0:
+            hl = H // mesh.tp
+            h0, dk = mesh.model_index * hl, Dl // hl
+            if fused:  # kernel 7 on this rank's heads
+                o = attn_kernel.fused_attention_packed(q, k, v, lengths, hl)
+            elif fused_train:  # kernel 12 on this rank's heads
+                qh, kh, vh = (t.reshape(B, T, hl, dk).transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                o = attention_train.fused_attention_train(
+                    qh, kh, vh, lengths,
+                    attention_train.shard_seed(site("attn"), shard_index),
+                    cfg.attention_dropout_rate)
+                o = o.transpose(1, 2).reshape(B, T, Dl)
+            else:
+                o = _heads_attention(q, k, v, mask, hl, cfg.attention_dropout_rate,
+                                     site("attn"), deterministic, (1, h0, H))
+        else:
+            # heads straddle the shards: every rank attends over all heads
+            # (the gathered q/k/v) and keeps its own columns
+            qf, kf, vf = (sharding.gather_cols(t, mesh) for t in (q, k, v))
+            o = _heads_attention(qf, kf, vf, mask, H, cfg.attention_dropout_rate,
+                                 site("attn"), deterministic, None)
+            o = chunk(o, mesh.model_group, 2)
+        att = leave(nn.linear(o.to(dt), a.out.weight, None, out_dtype=torch.float32))
+        att = att + P(a.out.bias)
+        if cfg.concat_after:
+            x = residual + nn.linear(torch.cat([y, att], dim=-1),
+                                     P(layer.concat.weight), P(layer.concat.bias))
+        else:
+            x = residual + nn.dropout(att, cfg.dropout_rate, site("res"),
+                                      deterministic=deterministic, split=stream)
+        if not cfg.normalize_before:
+            x = nn.layer_norm(x, P(layer.norm1.weight), P(layer.norm1.bias))
+
+        # -- FFN half
+        f = layer.ffn
+        residual = x
+        y = (nn.layer_norm(x, P(layer.norm2.weight), P(layer.norm2.bias))
+             if cfg.normalize_before else x)
+        yf = enter(y)
+        op = nn.conv1d if f.kind == "conv1d" else nn.linear
+        if f.kind == "conv1d" and conv_mask is not None:
+            yf = torch.where(conv_mask[..., None], yf, torch.zeros_like(yf))
+        h = torch.relu(op(yf, f.w1.weight, f.w1.bias, out_dtype=dt))
+        hl = h.shape[-1]
+        h = nn.dropout(h, cfg.dropout_rate, site("ffn"), deterministic=deterministic,
+                       split=(2, mesh.model_index * hl, hl * mesh.tp))
+        out = leave(op(h, f.w2.weight, None, out_dtype=torch.float32)) + P(f.w2.bias)
+        x = residual + nn.dropout(out, cfg.dropout_rate, site("ffn_res"),
+                                  deterministic=deterministic, split=stream)
+        if not cfg.normalize_before:
+            x = nn.layer_norm(x, P(layer.norm2.weight), P(layer.norm2.bias))
+        return x
+
+
+def _heads_attention(q, k, v, mask, n_heads: int, rate: float, seed,
+                     deterministic: bool, split) -> torch.Tensor:
+    """Masked attention of projected (B, T, n_heads * dk) q, k, v
+    (``ops.attention.mha_apply`` without its projections); ``split`` places
+    the heads' dropout mask in the single-device one."""
+    B, T, D = q.shape
+    dk = D // n_heads
+    qh, kh, vh = (t.float().reshape(B, T, n_heads, dk).transpose(1, 2) for t in (q, k, v))
+    scores = (qh @ kh.transpose(-1, -2)) / math.sqrt(dk)
+    w = masked_softmax(scores, None if mask is None else mask[:, None])
+    w = nn.dropout(w, rate, seed, deterministic=deterministic, split=split)
+    return (w @ vh).transpose(1, 2).reshape(B, T, D)

@@ -48,6 +48,7 @@ from fastspeech2_tpu_torch.ops.length_regulator import (expansion_indices,
                                                          scale_durations)
 from fastspeech2_tpu_torch.ops.precision import compute_dtype, current_compute_dtype
 from fastspeech2_tpu_torch.ops.quantize import linear_bins, log_bins, to_one_hot
+from fastspeech2_tpu_torch.parallel.mesh import current_shard, data_total
 from fastspeech2_tpu_torch.text.symbols import NUM_PHONEMES
 
 
@@ -179,6 +180,14 @@ class FastSpeech2(tnn.Module):
     def device(self) -> torch.device:
         return self.feat_out.weight.device
 
+    @property
+    def tp(self) -> int:
+        """Tensor-parallel degree of the FFT stacks (``parallel/sharding.py:
+        shard_model``); the adaptor and postnet kernels stay off under TP, as
+        in the JAX package."""
+        mesh = self.encoder.mesh
+        return 1 if mesh is None else mesh.tp
+
     def _use_fused_attention(self) -> bool:
         fa = self.cfg.model.fused_attention
         if fa == "on":
@@ -258,14 +267,26 @@ class FastSpeech2(tnn.Module):
         L1/MSE maps before the reduction, so every sequence counts equally in
         the l1 and duration losses whatever its length (energy and pitch keep
         the plain masked mean); ``use_masking`` takes means over the valid
-        positions; neither takes plain means over the padded batch."""
+        positions; neither takes plain means over the padded batch.
+
+        Inside a data shard (``parallel/mesh.py:data_shard``) the batch is a
+        block of rows of the global micro-batch: every denominator (the
+        valid-position counts, the weighted form's B, the full-tensor
+        sizes) is the global one, so each term is this rank's part of the
+        global-batch loss and the data group's sum of the terms, and of
+        their gradients, is the single-device value."""
         m = self.cfg.model
         mel_m3 = mel_mask[..., None].float()
         tok_m = tok_mask.float()
         log_d = torch.log(batch.ds.float() + 1.0)
+        sh = current_shard()
+        rows = before.shape[0] if sh is None else sh.rows
+
+        def mean(t):  # the mean over the global tensor
+            return t.mean() if sh is None else t.sum() / (t.numel() // t.shape[0] * rows)
 
         if m.use_weighted_masking:
-            B = before.shape[0]
+            B = rows
             frames = mel_m3.sum(dim=1, keepdim=True).clamp_min(1.0)
             out_w = mel_m3 / frames / (B * self.odim)
             before_loss = ((before - batch.ys).abs() * out_w).sum()
@@ -273,25 +294,26 @@ class FastSpeech2(tnn.Module):
             toks = tok_m.sum(dim=1, keepdim=True).clamp_min(1.0)
             duration_loss = ((d_outs - log_d).square() * (tok_m / toks / B)).sum()
         elif m.use_masking:
-            n_mel = mel_m3.sum().clamp_min(1.0) * self.odim
+            n_mel, n_tok = data_total([mel_m3.sum(), tok_m.sum()])
+            n_mel = n_mel.clamp_min(1.0) * self.odim
             before_loss = ((before - batch.ys).abs() * mel_m3).sum() / n_mel
             after_loss = ((after - batch.ys).abs() * mel_m3).sum() / n_mel
             duration_loss = (((d_outs - log_d).square() * tok_m).sum()
-                             / tok_m.sum().clamp_min(1.0))
+                             / n_tok.clamp_min(1.0))
         else:
-            before_loss = (before - batch.ys).abs().mean()
-            after_loss = (after - batch.ys).abs().mean()
-            duration_loss = (d_outs - log_d).square().mean()
+            before_loss = mean((before - batch.ys).abs())
+            after_loss = mean((after - batch.ys).abs())
+            duration_loss = mean((d_outs - log_d).square())
         l1_loss = before_loss + after_loss
 
         if m.use_masking or m.use_weighted_masking:
             mel_m = mel_mask.float()
-            n_frames = mel_m.sum().clamp_min(1.0)
+            n_frames = data_total([mel_m.sum()])[0].clamp_min(1.0)
             energy_loss = ((e_outs - batch.es).square() * mel_m).sum() / n_frames
             pitch_loss = ((p_outs - batch.ps).square() * mel_m).sum() / n_frames
         else:
-            energy_loss = (e_outs - batch.es).square().mean()
-            pitch_loss = (p_outs - batch.ps).square().mean()
+            energy_loss = mean((e_outs - batch.es).square())
+            pitch_loss = mean((p_outs - batch.ps).square())
 
         loss = l1_loss + duration_loss + energy_loss + pitch_loss
         return loss, {
@@ -313,7 +335,7 @@ class FastSpeech2(tnn.Module):
             return before
         cd = current_compute_dtype()
         if (fused and cd == torch.bfloat16 and self.postnet_cfg.use_batch_norm
-                and self.postnet_cfg.n_filts % 2 == 1):
+                and self.postnet_cfg.n_filts % 2 == 1 and self.tp == 1):
             resid = self.postnet.fused(before, lengths, cd)
         else:
             resid = self.postnet(before, conv_mask)
@@ -361,7 +383,7 @@ class FastSpeech2(tnn.Module):
         cd = current_compute_dtype()
         if (self._use_fused_attention() and cd == torch.bfloat16
                 and vcfg.n_layers == 2 and vcfg.kernel_size == 3
-                and vcfg.idim == hs.shape[-1] and flags.FUSED_ADAPTOR):
+                and vcfg.idim == hs.shape[-1] and flags.FUSED_ADAPTOR and self.tp == 1):
             idx, frame_mask, out_lens = expansion_indices(d_scaled, tok_mask,
                                                           out_maxlen, T)
             hs2, _ = adaptor_kernel.variance_adaptor(

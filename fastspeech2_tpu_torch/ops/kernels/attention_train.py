@@ -69,6 +69,8 @@ _fns = {}
 
 _GOLDEN = 0x9E3779B9
 _M32 = 0xFFFFFFFF
+#: seed offset between mesh shards (``shard_seed``)
+SHARD_SEED_STRIDE = 0x9E37
 
 
 def _keep_mask(seed: int, B: int, H: int, T: int, rate: float,
@@ -246,12 +248,24 @@ def fused_attention_train(q, k, v, lengths, seed: int, rate: float = 0.0):
     return _AttentionTrainFn.apply(q, k, v, lengths, seed, rate, 0)
 
 
+def shard_seed(seed: int, shard_index: int) -> int:
+    """The seed a mesh shard's kernel takes: ``seed + shard_index * 0x9E37``
+    in uint32 (the JAX package's ``fused_attention_train_tp``, shard index =
+    data index * tp + model index). The kernel's hash runs over the shard's
+    local b and h, so the offset keeps two shards' masks apart."""
+    return (int(seed) + shard_index * SHARD_SEED_STRIDE) & _M32
+
+
 def mha_fused_train_apply(attn, x: torch.Tensor, lengths: torch.Tensor,
-                          n_heads: int, seed: int, rate: float) -> torch.Tensor:
+                          n_heads: int, seed: int, rate: float,
+                          shard_index: Optional[int] = None) -> torch.Tensor:
     """Projections + training attention kernel + output projection: the
     training-mode self-attention with a lengths mask
     (``attention_train.py:mha_fused_train_apply`` of the JAX package). attn
-    has ``q``, ``k``, ``v``, ``out`` linears; seed feeds the in-kernel dropout."""
+    has ``q``, ``k``, ``v``, ``out`` linears; seed feeds the in-kernel dropout.
+    ``shard_index``: x is one shard of a multi-device mesh; as in the JAX
+    package the (B, H, T, dk) kernel 12 then runs, never the head-packed
+    one, with the shard's seed (``shard_seed``)."""
     B, T, D = x.shape
     dk = D // n_heads
     dt = current_compute_dtype() or x.dtype
@@ -259,13 +273,15 @@ def mha_fused_train_apply(attn, x: torch.Tensor, lengths: torch.Tensor,
     def proj(lin):
         return nn.linear(x, lin.weight, lin.bias, out_dtype=dt)
 
-    if flags.FUSED_ATT_TRAIN_PACKED and T <= PACKED_MAX_T:
+    if shard_index is not None:
+        seed = shard_seed(seed, shard_index)
+    elif flags.FUSED_ATT_TRAIN_PACKED and T <= PACKED_MAX_T:
         # head-packed: the projection outputs feed the kernel as they are
         o = fused_attention_train_packed(proj(attn.q), proj(attn.k), proj(attn.v),
                                          lengths, seed, n_heads, rate)
-    else:
-        q, k, v = (proj(lin).reshape(B, T, n_heads, dk).transpose(1, 2).contiguous()
-                   for lin in (attn.q, attn.k, attn.v))
-        o = fused_attention_train(q, k, v, lengths, seed, rate)
-        o = o.transpose(1, 2).reshape(B, T, D)
+        return nn.linear(o, attn.out.weight, attn.out.bias, out_dtype=x.dtype)
+    q, k, v = (proj(lin).reshape(B, T, n_heads, dk).transpose(1, 2).contiguous()
+               for lin in (attn.q, attn.k, attn.v))
+    o = fused_attention_train(q, k, v, lengths, seed, rate)
+    o = o.transpose(1, 2).reshape(B, T, D)
     return nn.linear(o, attn.out.weight, attn.out.bias, out_dtype=x.dtype)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from fastspeech2_tpu_torch.ops import quant8
 from fastspeech2_tpu_torch.ops.precision import current_compute_dtype, round_to
+from fastspeech2_tpu_torch.parallel.mesh import all_reduce_sum, current_shard
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
@@ -105,10 +106,22 @@ def batch_norm_train(x: torch.Tensor, running_mean: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
     """Training-form BatchNorm over (B, T, C): normalises with the batch mean
     and the biased batch variance, and updates the running statistics IN
-    PLACE with torch's convention (unbiased variance, momentum 0.1)."""
-    n = x.shape[0] * x.shape[1]
-    mean = x.mean(dim=(0, 1))
-    var = (x - mean).square().mean(dim=(0, 1))
+    PLACE with torch's convention (unbiased variance, momentum 0.1).
+
+    Inside a data shard (``parallel/mesh.py:data_shard``) the statistics are
+    those of the global (B, T), as GSPMD takes them in the JAX package: the
+    per-rank sums are all-reduced over the data group (differentiably), and
+    the global count enters the unbiased correction, so every rank keeps the
+    same running statistics."""
+    sh = current_shard()
+    if sh is None or sh.group is None:
+        n = x.shape[0] * x.shape[1]
+        mean = x.mean(dim=(0, 1))
+        var = (x - mean).square().mean(dim=(0, 1))
+    else:
+        n = sh.rows * x.shape[1]
+        mean = all_reduce_sum(x.sum(dim=(0, 1)), sh.group) / n
+        var = all_reduce_sum((x - mean).square().sum(dim=(0, 1)), sh.group) / n
     with torch.no_grad():
         running_mean.mul_(1 - momentum).add_(momentum * mean)
         running_var.mul_(1 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
@@ -135,15 +148,31 @@ def dropout_threshold(rate: float) -> int:
     return min(int(rate * 4294967296.0), 4294967295)
 
 
-def _hash_keep_mask(seed: int, shape, rate: float, device=None) -> torch.Tensor:
+def _hash_keep_mask(seed: int, shape, rate: float, device=None,
+                    origin=None, global_shape=None) -> torch.Tensor:
     """Counter-based keep mask of the JAX package, bit for bit: keep where
     ``lowbias32(linear index ^ lowbias32(seed))`` clears the rate threshold.
-    The linear index follows ``shape`` as given, pad included."""
+    The linear index follows ``shape`` as given, pad included; with
+    ``origin`` and ``global_shape`` the tensor is the block of a global one
+    starting at ``origin``, and the index is the global one (uint32 wrap
+    kept), so the blocks of all ranks draw the single-device mask."""
     n = 1
     for d in shape:
         n *= d
-    idx = torch.arange(n, device=device, dtype=torch.int64).reshape(tuple(shape))
-    if n > _M32:  # the uint32 index wraps
+    if origin is None or (not any(origin) and tuple(global_shape) == tuple(shape)):
+        idx = torch.arange(n, device=device, dtype=torch.int64).reshape(tuple(shape))
+        if n > _M32:  # the uint32 index wraps
+            idx = idx & _M32
+    else:
+        idx = torch.zeros((), device=device, dtype=torch.int64)
+        stride = 1
+        for ax in range(len(shape) - 1, -1, -1):
+            a = torch.arange(origin[ax], origin[ax] + shape[ax], device=device,
+                             dtype=torch.int64)
+            view = [1] * len(shape)
+            view[ax] = shape[ax]
+            idx = idx + a.reshape(view) * stride
+            stride *= global_shape[ax]
         idx = idx & _M32
     # the seed is a host integer: its mix costs no launch and no copy
     bits = _hash_mix(idx ^ _hash_mix(int(seed) & _M32))
@@ -151,20 +180,41 @@ def _hash_keep_mask(seed: int, shape, rate: float, device=None) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, seed: Optional[int], *,
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, split=None) -> torch.Tensor:
     """Inverted dropout (scale by 1/(1-rate) at train time). ``seed`` is the
     site's uint32 seed (``train.seeds.SeedSchedule``). bf16 tier: the hash
     mask; f32 tier: uniform numbers from a generator on x's device seeded
     with ``seed``. Either way the mask is a pure function of (seed, shape),
-    so a checkpointed block replays it."""
+    so a checkpointed block replays it.
+
+    x may be a block of the single-device tensor: rows ``row0..`` of a data
+    shard's global micro-batch (``parallel/mesh.py:current_shard``), and
+    ``split = (axis, start, size)`` when another axis is split too (tensor
+    or sequence parallelism). The mask is then that block of the global
+    tensor's mask: the hash over the global index (the block's own indices
+    only), or the block of the global uniform draw. The f32 tier draws the
+    whole global tensor on every rank and keeps its block: a torch generator
+    stream cannot be entered at a rank's first element (mt19937 on the CPU;
+    on the card Philox's element-to-counter map follows the launch grid), so
+    this tier pays dp times the draw to keep the single-device mask."""
     if deterministic or rate == 0.0:
         return x
     if seed is None:
         raise ValueError("dropout in training mode needs the site's seed")
     keep = 1.0 - rate
+    origin, gshape = [0] * x.ndim, list(x.shape)
+    sh = current_shard()
+    if sh is not None:
+        origin[0], gshape[0] = sh.row0, sh.rows
+    if split is not None:
+        ax, start, size = split
+        origin[ax], gshape[ax] = start, size
     if current_compute_dtype() is not None:
-        mask = _hash_keep_mask(seed, x.shape, rate, x.device)
+        mask = _hash_keep_mask(seed, x.shape, rate, x.device, origin, gshape)
     else:
         g = torch.Generator(device=x.device).manual_seed(int(seed))
-        mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+        mask = torch.rand(gshape, generator=g, device=x.device) < keep
+        if gshape != list(x.shape):
+            for ax, (o, n) in enumerate(zip(origin, x.shape)):
+                mask = mask.narrow(ax, o, n)
     return torch.where(mask, x / keep, torch.zeros_like(x))

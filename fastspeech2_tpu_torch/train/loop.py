@@ -8,13 +8,24 @@ predictor evaluation (save_interval); a final checkpoint + prune at
 ``max_steps``; a checkpoint at the next step boundary on SIGTERM/SIGINT. With
 ``profile_dir``, one torch.profiler trace of a few warm steps.
 
-Not ported yet (ROADMAP.md queue 1 item 8): multi-host and multi-device
-training (``dp_size``, ``tensor_parallel``, ``num_hosts``).
+In a process group (``parallel/mesh.py:initialize_multihost``, e.g. under
+``python -m torch.distributed.run``) every rank runs this loop on its own
+device over a (dp, tp) mesh of the whole world: ``dp_size`` 0 takes the
+world size over ``tensor_parallel`` (``resolve_dp``), and ``dp x tp`` must
+be the world. The global window is the ``num_hosts`` hosts' batches of one
+stride group (``BucketBatcher``), each rank reading only its rows of it
+(``mesh.window_rows``); the step keeps the JAX step's global-batch numbers
+(``train/step.py``). Rank 0 alone writes checkpoints, metrics, the
+validation sample and the profiler trace; under tensor parallelism every
+rank first joins the gather of the shards (``sharding.gather_full``). The
+preemption flag is agreed across ranks every ``_PREEMPT_SYNC_STEPS`` steps,
+so every rank stops at the same step and rank 0 writes the one checkpoint.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import os
 import signal
@@ -32,6 +43,10 @@ from fastspeech2_tpu_torch.device import resolve_device
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from fastspeech2_tpu_torch.ops import attention_mask, make_non_pad_mask
 from fastspeech2_tpu_torch.ops.length_regulator import regulate_length
+from fastspeech2_tpu_torch.parallel import mesh as pmesh
+from fastspeech2_tpu_torch.parallel.sharding import (check_tp_divisibility,
+                                                     gather_full, make_mesh_2d,
+                                                     shard_model)
 from fastspeech2_tpu_torch.train.checkpoint import (AsyncCheckpointer,
                                                     load_checkpoint,
                                                     prune_checkpoints,
@@ -43,6 +58,9 @@ from fastspeech2_tpu_torch.train.step import (TrainState, make_eval_step,
                                               make_train_step, trainable)
 
 log = logging.getLogger("fastspeech2_tpu_torch.train")
+
+#: steps between the ranks' agreements on the preemption flag (one collective)
+_PREEMPT_SYNC_STEPS = 10
 
 
 def _drain_writer(ckpt_writer: AsyncCheckpointer) -> None:
@@ -189,17 +207,40 @@ class _Profiler:
 
 
 def resolve_dp(cfg: Config, n_dev: int, tp: int) -> int:
-    """Data-parallel degree. The port trains on ONE device: anything else
-    that is asked for raises, naming what is still to port."""
-    if tp > 1:
-        raise NotImplementedError(
-            f"train.tensor_parallel={tp}: tensor parallelism is not ported yet "
-            "(ROADMAP.md queue 1 item 8: parallel/, shard_train_step)")
-    if cfg.train.dp_size > 1:
-        raise NotImplementedError(
-            f"train.dp_size={cfg.train.dp_size}: data parallelism is not ported "
-            "yet (ROADMAP.md queue 1 item 8: parallel/, shard_train_step)")
-    return 1
+    """Data-parallel degree over ``n_dev`` devices (processes here, one
+    device each), as the JAX package picks it: ``train.dp_size`` > 0 pins it
+    (errors if it cannot be honoured); 0 takes the largest dp <= n_dev / tp
+    that divides ``batch_size`` (the data shards split each micro-batch)."""
+    if tp > n_dev:
+        raise ValueError(f"train.tensor_parallel={tp} needs {tp} devices but "
+                         f"only {n_dev} are visible")
+    if cfg.train.dp_size > 0:
+        dp = cfg.train.dp_size
+        if dp * tp > n_dev:
+            raise ValueError(
+                f"train.dp_size={dp} x tensor_parallel={tp} needs "
+                f"{dp * tp} devices but only {n_dev} are visible")
+        if cfg.train.batch_size % dp != 0:
+            raise ValueError(
+                f"train.dp_size={dp} must divide train.batch_size="
+                f"{cfg.train.batch_size} (the batch shards over 'data')")
+        return dp
+    return next(d for d in range(min(n_dev // tp, cfg.train.batch_size), 0, -1)
+                if cfg.train.batch_size % d == 0)
+
+
+def resolve_hosts(cfg: Config, world: int, rank: int):
+    """(num_hosts, host_id): ``train.num_hosts`` when it is > 1, else the
+    world over torchrun's ``LOCAL_WORLD_SIZE`` (one host when it is unset).
+    Each host contributes one ``batch_size * accum_grad`` batch of a stride
+    group to the global window, as a JAX process does."""
+    n = cfg.train.num_hosts
+    if n <= 1:
+        n = world // int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if n < 1 or world % n:
+        raise ValueError(f"train.num_hosts={n} does not divide the world of "
+                         f"{world} processes")
+    return n, rank // (world // n)
 
 
 def train(cfg: Config, name: str, outdir: str,
@@ -229,12 +270,27 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
            profile_dir: Optional[str], profile_steps: int,
            preempt: dict) -> TrainState:
     device = resolve_device(device)
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    resolve_dp(cfg, n_dev, max(1, cfg.train.tensor_parallel))
-    if cfg.train.num_hosts > 1:
-        raise NotImplementedError(
-            "train.num_hosts > 1: multi-host training is not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
+    world, rank = pmesh.world_size(), pmesh.rank()
+    if world > 1:
+        device = pmesh.local_device(device)
+    is_rank0 = rank == 0
+    tp = max(1, cfg.train.tensor_parallel)
+    if tp > 1:
+        check_tp_divisibility(cfg, tp)
+        if cfg.model.aheads % tp != 0 and cfg.model.fused_attention != "off":
+            # a head would straddle the shards: no fused attention kernel
+            log.info("tensor_parallel=%d does not divide aheads=%d: fused "
+                     "attention off", tp, cfg.model.aheads)
+            cfg = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, fused_attention="off"))
+    dp = resolve_dp(cfg, world, tp)
+    if dp * tp != world:
+        raise ValueError(
+            f"dp={dp} x tensor_parallel={tp} uses {dp * tp} of {world} processes: "
+            f"launch dp x tp processes, one device each (batch_size "
+            f"{cfg.train.batch_size})")
+    num_hosts, host_id = resolve_hosts(cfg, world, rank)
+    mesh = make_mesh_2d(dp, tp, device) if world > 1 else None
 
     data_dir = data_dir or cfg.data.data_dir
     train_ds = TTSDataset(data_dir, cfg.data.train_filelist,
@@ -257,27 +313,34 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
             ts.step, _ = load_checkpoint(resume_path, model)
         log.info("resumed from %s at step %d", resume_path, ts.step)
     step0 = ts.step
+    if tp > 1:  # resume reads the single-device tree, then cuts it
+        shard_model(model, mesh, opt)
+    if mesh is not None:
+        log.info("rank %d of %d: dp=%d x tp=%d, host %d of %d", rank, world, dp, tp,
+                 host_id, num_hosts)
 
     accum = cfg.train.accum_grad
-    step_fn = make_train_step(model, opt, accum, bf16=cfg.train.bf16)
-    eval_fn = make_eval_step(model)
-    # the dropout seeds of a resumed run must not repeat the first run's
+    step_fn = make_train_step(model, opt, accum, bf16=cfg.train.bf16, mesh=mesh,
+                              sequence_parallel=cfg.train.sequence_parallel and tp > 1)
+    # the dropout seeds of a resumed run must not repeat the first run's; the
+    # same on every rank (the masks are blocks of the global ones)
     seeds = SeedSchedule(model.dropout_sites(), seed=cfg.train.seed + step0)
 
     batcher = BucketBatcher(
         train_ds, batch_size=cfg.train.batch_size * accum,
         max_frames=cfg.train.tts_max_mel_len, seed=cfg.train.seed,
-        bin_lengths=cfg.train.tts_bin_lengths)
+        num_hosts=num_hosts, bin_lengths=cfg.train.tts_bin_lengths)
+    rows = pmesh.window_rows(mesh, accum, num_hosts * cfg.train.batch_size)
 
     ckpt_dir = os.path.normpath(os.path.join(outdir, cfg.train.chkpt_dir, name))
     ckpt_writer = AsyncCheckpointer()  # periodic saves overlap the loop
     log_dir = os.path.normpath(os.path.join(outdir, cfg.train.log_dir, name))
-    metrics = MetricsWriter(log_dir)
+    metrics = MetricsWriter(log_dir) if is_rank0 else None
     tput = Throughput(cfg.audio.hop_length, cfg.audio.sample_rate)
-    profiler = _Profiler(profile_dir, profile_steps, step0, device)
+    profiler = _Profiler(profile_dir if is_rank0 else None, profile_steps, step0, device)
 
     vocoder = None  # neural validation audio (reference train_fastspeech.py:446)
-    if cfg.train.melgan_vocoder and cfg.train.vocoder_checkpoint:
+    if is_rank0 and cfg.train.melgan_vocoder and cfg.train.vocoder_checkpoint:
         try:
             from fastspeech2_tpu_torch.vocoder import load_melgan
 
@@ -287,17 +350,23 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
             log.warning("MelGAN load failed (%s); Griffin-Lim audio", e)
 
     def to_device(item):
-        batch, _shape = item
-        return batch_to_device(batch, device), int(np.sum(batch.olens))
+        batch, _shape, frames = item
+        return batch_to_device(batch, device), frames
 
     def ckpt_path(step: int) -> str:
         return os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
+
+    def full_state():
+        """The single-device (model, optimizer): a collective under TP."""
+        if tp > 1:
+            return gather_full(model, opt, mesh)
+        return model, opt
 
     try:
         for epoch in range(10 ** 9):
             t_epoch = time.time()
             step_before = ts.step
-            for batch, n_frames in prefetch(batcher.epoch(epoch), depth=2,
+            for batch, n_frames in prefetch(batcher.epoch_rows(epoch, rows), depth=2,
                                             transform=to_device):
                 profiler.before_step(ts.step)
                 ts, report = step_fn(ts, batch, [seeds.draw() for _ in range(accum)])
@@ -305,13 +374,21 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
                 tput.add(n_frames)
                 profiler.after_step(step)
 
-                if preempt["hit"]:
-                    _drain_writer(ckpt_writer)  # don't race the periodic writer
-                    save_checkpoint(ckpt_path(step), model, opt, step, cfg)
-                    log.warning("preempted at step %d: saved %s", step, ckpt_path(step))
+                stop = preempt["hit"]
+                if world > 1:
+                    # every rank reaches the agreement at the same step, so
+                    # the gathers after it cannot deadlock
+                    stop = (step % _PREEMPT_SYNC_STEPS == 0
+                            and pmesh.any_rank(preempt["hit"], device))
+                if stop:
+                    fm, fo = full_state()
+                    if is_rank0:
+                        _drain_writer(ckpt_writer)  # don't race the periodic writer
+                        save_checkpoint(ckpt_path(step), fm, fo, step, cfg)
+                        log.warning("preempted at step %d: saved %s", step, ckpt_path(step))
                     return ts
 
-                if step % cfg.train.summary_interval == 0:
+                if is_rank0 and step % cfg.train.summary_interval == 0:
                     # the one read of device scalars: every summary_interval steps
                     scalars = {k: float(v) for k, v in report.items()}
                     scalars.update(tput.report())
@@ -319,8 +396,13 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
                     tput.reset()
                     log.info("step %d loss %.4f", step, scalars["loss"])
 
-                if step % cfg.train.validation_step == 0:
+                do_valid = step % cfg.train.validation_step == 0
+                do_save = step % cfg.train.save_interval == 0
+                if do_valid or do_save:
+                    fm, fo = full_state()
+                if do_valid and is_rank0:
                     vloss = []
+                    eval_fn = make_eval_step(fm)
                     for vb, _ in BucketBatcher(
                             valid_ds, batch_size=min(len(valid_ds), 2),
                             seed=0, drop_remainder=False).epoch(0):
@@ -331,16 +413,16 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
                             step, {"loss": float(torch.stack(vloss).mean())},
                             prefix="validation")
                         try:
-                            _log_validation_sample(model, valid_ds, metrics, step, cfg,
+                            _log_validation_sample(fm, valid_ds, metrics, step, cfg,
                                                    audio_steps=30, vocoder=vocoder)
                         except Exception as e:  # images are best-effort
                             log.warning("validation sample logging failed: %s", e)
 
-                if step % cfg.train.save_interval == 0:
+                if do_save and is_rank0:
                     # async: snapshot to host now, npz write + retention prune
                     # on the writer thread while the loop keeps stepping
-                    ckpt_writer.save(ckpt_path(step), model, opt, step, cfg)
-                    metrics.scalars(step, evaluate_predictors(model, valid_ds),
+                    ckpt_writer.save(ckpt_path(step), fm, fo, step, cfg)
+                    metrics.scalars(step, evaluate_predictors(fm, valid_ds),
                                     prefix="evaluation")
                     log.info("saving %s (async)", ckpt_path(step))
 
@@ -348,9 +430,11 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
                     # sync final save: wait for any in-flight async write (the
                     # same path when max_steps lands on save_interval), then
                     # write + prune on this thread before returning
-                    _drain_writer(ckpt_writer)
-                    save_checkpoint(ckpt_path(step), model, opt, step, cfg)
-                    prune_checkpoints(ckpt_dir, cfg.train.keep_ckpts)
+                    fm, fo = full_state()
+                    if is_rank0:
+                        _drain_writer(ckpt_writer)
+                        save_checkpoint(ckpt_path(step), fm, fo, step, cfg)
+                        prune_checkpoints(ckpt_dir, cfg.train.keep_ckpts)
                     return ts
             if ts.step == step_before:
                 raise ValueError(
@@ -363,4 +447,6 @@ def _train(cfg: Config, name: str, outdir: str, resume_path: Optional[str],
                 return ts
     finally:
         profiler.close(ts.step)
-        metrics.close()
+        if metrics is not None:
+            metrics.close()
+        pmesh.release(mesh)

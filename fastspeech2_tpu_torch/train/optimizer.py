@@ -15,6 +15,12 @@ state on a skipped step without reading the norm on the host, so the update
 is written here with ``torch._foreach_*`` ops and ``torch.where`` on a device
 scalar: no ``.item()`` and no host sync in the step.
 
+Under tensor parallelism (``parallel/sharding.py:shard_model``) the global
+norm sums the squares of the sharded leaves over the model group and counts
+each replicated leaf once; the moments are sharded like their parameters.
+Under data parallelism the step hands in gradients already summed over the
+data group, so every rank takes the same norm and the same skip decision.
+
 The state mirrors the JAX package's optimizer state leaf for leaf
 (``state_dict`` / ``load_state_dict`` speak its checkpoint keys), so a
 checkpoint of either package resumes in the other.
@@ -58,13 +64,30 @@ class NoamAdam:
         self.sched_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.grad_norm = torch.zeros((), dtype=torch.float32, device=dev)
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
+        self._sharded: List[bool] = [False] * len(self.params)
+        self._model_group = None
+
+    def model_parallel(self, sharded: Sequence[bool], group) -> None:
+        """Mark which parameters are split over the model ``group``."""
+        self._sharded, self._model_group = list(sharded), group
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        if self._model_group is None:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        from fastspeech2_tpu_torch.parallel.mesh import all_reduce
+
+        sq = torch.stack(torch._foreach_norm(grads)).square()
+        mask = torch.tensor(self._sharded, device=sq.device)
+        split = all_reduce(torch.where(mask, sq, torch.zeros_like(sq)).sum(),
+                           self._model_group)
+        return torch.sqrt(torch.where(mask, torch.zeros_like(sq), sq).sum() + split)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """One update from the (accumulated) gradients; returns the global
         gradient norm before clipping, a device scalar."""
         grads = list(grads)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self._global_norm(grads)
         finite = torch.isfinite(norm)
         scale = torch.clamp_max(self.max_norm / torch.clamp_min(norm, 1e-12), 1.0)
         g = torch._foreach_mul(grads, scale)

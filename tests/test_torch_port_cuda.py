@@ -1493,3 +1493,96 @@ def test_int8_layers_on_the_card(dev):
         got, want = fn(x.to(dev), qd, b.to(dev)).cpu(), fn(x, q, b)
         assert torch.equal(got, want), (k, float((got - want).abs().max()),
                                         int((got != want).sum()), got.numel())
+
+
+# -- parallel/: collectives on the card ----------------------------------------
+
+_RANK_SCRIPT = r'''
+import json, sys
+backend, rank, world, port, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+import torch
+import torch.distributed as dist
+from fastspeech2_tpu_torch.parallel import mesh as pm
+from fastspeech2_tpu_torch.train.step import sum_over_group
+
+dev = torch.device("cuda", 0)
+if world == 1:  # a formed group of one (initialize_multihost forms none)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+else:
+    assert pm.initialize_multihost(f"localhost:{port}", world, rank, backend=backend,
+                                   device="cuda") == world
+assert dist.get_backend() == backend
+group = dist.group.WORLD
+x = (torch.arange(6, dtype=torch.float32, device=dev) + 10 * rank).requires_grad_()
+y = pm.all_reduce_sum(x * (rank + 1), group)
+y.square().sum().backward()
+grads = [torch.full((3,), float(rank + 1), device=dev), torch.ones(5, device=dev)]
+sum_over_group(grads, group, bucket=4)
+res = {"sum": y.tolist(), "grad": x.grad.tolist(),
+       "gather": pm.all_gather(torch.full((2, 1), float(rank), device=dev), group).tolist(),
+       "buckets": [g.tolist() for g in grads], "any": pm.any_rank(rank == world - 1, dev),
+       "on_card": y.is_cuda and x.grad.is_cuda}
+json.dump(res, open(f"{out}.{rank}.json", "w"))
+dist.destroy_process_group()
+'''
+
+
+def _run_ranks(tmp_path, backend, world):
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    script = tmp_path / "rank.py"
+    script.write_text(_RANK_SCRIPT)
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = str(Path(__file__).resolve().parents[1])
+    procs = [subprocess.Popen([sys.executable, str(script), backend, str(r), str(world),
+                               str(port), str(tmp_path / "out")],
+                              env={**os.environ, "PYTHONPATH": root},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(p.returncode == 0 for p in procs), [o[-2000:] for o in outs]
+    return [json.load(open(f"{tmp_path / 'out'}.{r}.json")) for r in range(world)]
+
+
+def test_two_rank_gloo_collectives_of_cuda_tensors(dev, tmp_path):
+    """Two gloo ranks share the card (NCCL refuses two ranks on one device):
+    the differentiable sum over the group and its gradient, the bucketed
+    gradient sum of the training step, the all-gather and the flag
+    agreement, all on CUDA tensors."""
+    r0, r1 = _run_ranks(tmp_path, "gloo", 2)
+    base = [float(i) for i in range(6)]
+    want = [a * 1 + (a + 10) * 2 for a in base]  # rank 0 x*1 + rank 1 x*2
+    for r, res in enumerate((r0, r1)):
+        assert res["on_card"]
+        assert res["sum"] == want
+        # d/dx_r sum_ranks sum(y^2) = 2 y * (r + 1) * world
+        assert res["grad"] == [2 * w * (r + 1) * 2 for w in want]
+        assert res["gather"] == [[0.0], [0.0], [1.0], [1.0]]
+        assert res["buckets"] == [[3.0] * 3, [2.0] * 5] and res["any"] is True
+
+
+def test_world_of_one_nccl_group(dev, tmp_path):
+    """A formed NCCL group of one on the card: every collective of
+    ``parallel/`` runs through NCCL and leaves the values as they are."""
+    (res,) = _run_ranks(tmp_path, "nccl", 1)
+    assert res["on_card"]
+    assert res["sum"] == [float(i) for i in range(6)]
+    assert res["grad"] == [2.0 * i for i in range(6)]
+    assert res["gather"] == [[0.0], [0.0]]
+    assert res["buckets"] == [[1.0] * 3, [1.0] * 5] and res["any"] is True

@@ -64,7 +64,8 @@ need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
         "train.optimizer", "train.checkpoint", "train.metrics", "train.seeds",
         "data.filelist", "data.dataset", "data.batching", "data.prefetch",
         "utils", "utils.plotting", "utils.display", "compat.torch_loader",
-        "compat.torch_saver", "train.gta", "ops.quant8", "vocoder.waveglow"}
+        "compat.torch_saver", "train.gta", "ops.quant8", "vocoder.waveglow",
+        "parallel", "parallel.mesh", "parallel.sharding"}
 missing = {pkg.__name__ + "." + n for n in need} - set(names)
 assert not missing, missing
 print(len(names))

@@ -341,10 +341,15 @@ def test_sigterm_leaves_a_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(dp_size=2), dict(tensor_parallel=2), dict(num_hosts=2)])
 def test_what_is_not_ported_raises(tmp_path, kw):
+    """Data and tensor parallelism and several hosts are ported
+    (``parallel/``, ``tests/test_torch_port_parallel*.py``); asked of a
+    world of one process they raise before any step, as the JAX loop does
+    when the devices are missing, and ``resolve_dp`` follows the JAX rule."""
     cfg = _store_cfg(tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="dp_size=2|tensor_parallel=2|num_hosts=2"):
         train(cfg, "x", str(tmp_path / "out"), max_steps=1, device="cpu")
-    assert resolve_dp(_store_cfg(tmp_path), 4, 1) == 1
+    assert not os.path.exists(tmp_path / "out" / "checkpoints")
+    assert resolve_dp(_store_cfg(tmp_path), 4, 1) == 2
 
 
 def test_train_refuses_to_fall_back_to_the_cpu(tmp_path):
