@@ -142,6 +142,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    .npz (the same mel.npy); `gta` of 16 utterances held to the CPU port's;
    the bucketed B=32 mel call (3 buckets) against the unbucketed rows of the
    batch (kernels 1-4 counted; the two calls' times).
+18. export, golden, demo (after WaveGlow): the CLI `export --bf16` of the
+   main path's model with and without a baked MelGAN (seungwonpark format,
+   seed 0), of a pre-LN checkpoint, and `--bf16 --int8`; each artifact
+   loaded and called at B=8 (128 tokens, 1024 frames): the launches of
+   kernels 1-4 (6 and 9 pre-LN, 13 with MelGAN) from the counters, mel and
+   wav against Synthesizer's at the same precision (lengths equal, bf16
+   band), both calls timed; `golden` on a stand-in reference .pth of that
+   model (mel within 1e-4 of the CPU port's f32 run, which writes the
+   golden files; with --vocoder kernels 13 in f32 and 14 counted);
+   examples/demo_torch.py on the card in its own process. In phase 3 the
+   custom op's cost against the direct launch for kernels 1 and 2.
 17. parallel (last; parallel/): two gloo ranks share the card (worker
    processes: `chip_smoke.py --parallel-worker ...`) for a dp=2 and a tp=2
    pair of full-width bf16 steps (dropout 0, two seeded 64-row windows),
@@ -153,8 +164,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    statistics (equal across ranks); kernel 12 launched 32 / 32 times per
    rank per step and kernel 11 never; TP=2 inference at B=8 (kernel 7, 8
    launches per rank, kernels 1-4 none) held to the unsharded model, and
-   Synthesizer(mesh=) serving the TP model; a formed NCCL group of one takes
-   the same steps; Synthesizer(mesh=) over two entries of the card: a B=32
+   Synthesizer(mesh=) serving the TP model; the single process's steps
+   run twice, bit for bit; a formed NCCL group of one takes the same steps,
+   within 1e-6 of them at both; Synthesizer(mesh=) over two entries of the card: a B=32
    mel call (kernels 1-4 per shard) and a B=8 wav call (13) held to the
    unsharded calls; `serve` under `torch.distributed.run` with two gloo
    ranks: mel and Griffin-Lim wav requests, rank 0's launches.
@@ -317,6 +329,29 @@ def record_device_ms(torch, results, name, key, fn):
         f"({', '.join(f'{n} {v:.4f}' for n, v in by.items())})")
 
 
+def op_dispatch(torch, results, name, key, op_fn, direct_fn, n=200):
+    """What the custom op (``ops/kernels/library.py``) adds to a launch: the
+    wrapper's call through its ``fs2::`` op against the direct ctypes launch
+    on the same inputs, by CUDA events (median of 25) and by the host's time
+    to enqueue one call (n calls back to back, then one synchronize)."""
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e6
+
+    got = {"op_ms": cuda_time_ms(op_fn), "direct_ms": cuda_time_ms(direct_fn),
+           "op_host_us": host_us(op_fn), "direct_host_us": host_us(direct_fn)}
+    results[name].setdefault("op_dispatch", {})[key] = got
+    log(f"  {name} {key} through its custom op: {got['op_ms']:.4f} ms against "
+        f"{got['direct_ms']:.4f} ms direct (events); host enqueue {got['op_host_us']:.1f} "
+        f"us against {got['direct_host_us']:.1f} us a call")
+
+
 def kernel_phase(torch, results):
     """Each kernel against its plain version at the serving path's shapes."""
     from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
@@ -383,6 +418,9 @@ def kernel_phase(torch, results):
                    nbytes(x, x, *ap))
             record_device_ms(torch, results, "attention_block", shape_key,
                              lambda: KA.attention_block(x, *ap, lens, 2))
+            op_dispatch(torch, results, "attention_block", shape_key,
+                        lambda: KA.attention_block(x, *ap, lens, 2),
+                        lambda: KA.launch_block(x, *ap, lens, 2, 1e-5))
             fp = blk.ffn_pack(bf16)
             got = KF.ffn_block(x, *fp, lens, 9)
             want = KF.ffn_block_plain(x, *fp, lens, 9)
@@ -400,6 +438,9 @@ def kernel_phase(torch, results):
                    nbytes(x, x, *fp))
             record_device_ms(torch, results, "ffn_block", shape_key,
                              lambda: KF.ffn_block(x, *fp, lens, 9))
+            op_dispatch(torch, results, "ffn_block", shape_key,
+                        lambda: KF.ffn_block(x, *fp, lens, 9),
+                        lambda: KF.launch_block(False, x, *fp, lens, 9, 1e-5))
 
     # kernel 3 and 4: a decoder rung shape
     B, T, L, D, C, NB = 16, 128, 768, 256, 256, 256
@@ -2713,6 +2754,207 @@ def wide_postnet_path_phase(torch, results):
     hold_b8_vs_cpu(torch, synth, cfg, "wide postnet B=8")
 
 
+#: the export phase's artifact signature (the batch, and the JAX defaults'
+#: max_frames; 128 tokens cover the longest of the B=8 rows)
+EXPORT_B, EXPORT_T, EXPORT_L = 8, 128, 1024
+
+
+def export_phase(torch, results, smi):
+    """``infer/export.py`` on the card, through the CLI ``export`` (the JAX
+    command's flags): the main path's model (post-LN, seed 0, duration bias
+    1.87) with ``--bf16``, with and without a baked MelGAN (the default
+    generator, seed 0, written in the seungwonpark format), a pre-LN
+    checkpoint, and one ``--bf16 --int8`` export. Each artifact is loaded
+    (``load_exported``) and called at B=8: the kernels' launches from the
+    counters (the expected numbers, one call); the mel (and wav) held to
+    ``Synthesizer``'s on the same rows, lengths equal, live frames in
+    ``hold_b8_vs_cpu``'s bf16 band (``Synthesizer`` at the artifact's
+    matmul precision, the CLI's default); the artifact's call (outputs
+    copied to the host) and ``Synthesizer``'s timed with CUDA events,
+    median of 5.
+    Returns (work directory, the MelGAN checkpoint, the post-LN model) for
+    the golden phase; the caller removes the directory."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fs2_export_", dir=str(ROOT / "build"))
+    try:
+        return _export_cases(torch, results, smi, work, t_phase)
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
+def _export_cases(torch, results, smi, work, t_phase):
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config
+    from fastspeech2_tpu_torch.infer.export import load_exported
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.train.checkpoint import save_checkpoint
+    from fastspeech2_tpu_torch.vocoder import (MelGANGenerator, load_melgan_params,
+                                               melgan_state_dict)
+
+    voc = f"{work}/melgan.pt"
+    torch.save({"model_g": melgan_state_dict(MelGANGenerator(seed=0, device="cpu"))}, voc)
+    seqs = batch(EXPORT_B, offset=8)
+    xs = np.zeros((EXPORT_B, EXPORT_T), np.int32)
+    ilens = np.asarray([len(s) for s in seqs], np.int32)
+    for i, s in enumerate(seqs):
+        xs[i, :len(s)] = s
+    post = {"attention_block": 8, "ffn_block": 8, "variance_adaptor": 1, "postnet": 1}
+    cases = (("post-LN", None, [], post),
+             ("post-LN + MelGAN", None, ["--vocoder", voc], {**post, "resstack": 4}),
+             ("pre-LN", PRENORM_KEYS, [],
+              {"attention_res": 8, "ffn_block_pre": 8, "variance_adaptor": 1, "postnet": 1,
+               "attention_block": 0, "ffn_block": 0}),
+             ("int8", None, ["--int8"], {**post, "ffn_block": 0}))
+    models = {}
+    for name, keys, flags, want in cases:
+        if keys not in models:
+            cfg = override_config(work, "prenorm", keys) if keys else Config()
+            models[keys] = seeded_model(torch, cfg)
+            save_checkpoint(f"{work}/{'pre' if keys else 'post'}.npz", models[keys], None, 0,
+                            cfg)
+        model = models[keys]
+        out = f"{work}/{name.replace(' ', '').replace('+', '_')}.pt2"
+        _, secs = cli_main(torch, ["export", "-p", f"{work}/{'pre' if keys else 'post'}.npz",
+                                   "-o", out, "--batch", str(EXPORT_B), "--max_tokens",
+                                   str(EXPORT_T), "--max_frames", str(EXPORT_L), "--bf16",
+                                   *flags])
+        call = load_exported(out)
+        call(xs, ilens)  # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = [t.cpu().numpy() for t in call(xs, ilens)]
+        counts = read_counts()
+        log(f"export {name}: traced and saved in {secs:.1f} s "
+            f"({Path(out).stat().st_size / 2**20:.1f} MiB); B=8 launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+        assert not bad, f"export {name}: launches (got, want) {bad}"
+        if name in ("post-LN + MelGAN", "pre-LN"):
+            for k, n in want.items():
+                if n:
+                    results[k]["launches_export_b8"] = counts[k]
+        # the artifact's precision: the CLI's default, TF32 for its f32 products
+        # (the duration head) as Synthesizer(matmul_precision="default")
+        synth = Synthesizer(model, bf16=True, int8="--int8" in flags,
+                            matmul_precision="default")
+        if flags and flags[0] == "--vocoder":
+            synth.attach_vocoder(load_melgan_params(voc, bf16=True))
+            s_mel, s_wav, s_wl = synth.wav_from_token_batch(seqs)
+            s_lens = s_wl // 256
+        else:
+            s_mel, s_lens = synth.mel_from_token_batch(seqs)
+        mel, lens = outs[0], outs[-1]
+        assert np.array_equal(lens, s_lens), (name, lens, s_lens)
+        assert mel.shape == (EXPORT_B, EXPORT_L, 80) and np.isfinite(mel).all()
+        n = min(mel.shape[1], s_mel.shape[1])
+        live = torch.from_numpy(np.arange(n)[None] < lens[:, None])
+        compare(f"export {name} B=8 mel vs Synthesizer, live frames",
+                torch.from_numpy(mel[:, :n])[live], torch.from_numpy(s_mel[:, :n])[live],
+                0.02, 0.2)
+        if len(outs) == 3:
+            wav = outs[1]
+            assert wav.dtype == np.int16 and wav.shape == (EXPORT_B, EXPORT_L * 256)
+            n = min(wav.shape[1], s_wav.shape[1])
+            live = torch.from_numpy(np.arange(n)[None] < s_wl[:, None])
+            compare(f"export {name} B=8 wav vs Synthesizer (int16 PCM / 32768, live samples)",
+                    torch.from_numpy(wav[:, :n].astype(np.float32) / 32768)[live],
+                    torch.from_numpy(s_wav[:, :n].astype(np.float32) / 32768)[live],
+                    0.02, 0.5)
+        art_ms, _ = timed_calls(torch, lambda: [t.cpu() for t in call(xs, ilens)])
+        syn = (synth.wav_from_token_batch if len(outs) == 3 else synth.mel_from_token_batch)
+        syn_ms, _ = timed_calls(torch, lambda: syn(seqs))
+        log(f"export {name} B=8 call: artifact {art_ms:.3f} ms (every row decoded at "
+            f"{EXPORT_L} frames), Synthesizer {syn_ms:.3f} ms (demand rungs), median of 5 "
+            f"on {smi}")
+        del synth, call
+        torch.cuda.empty_cache()
+    log(f"export phase: {time.perf_counter() - t_phase:.1f} s")
+    return work, voc, models[None]
+
+
+GOLDEN_PHONEMES = (SENTENCES[0], SENTENCES[1])
+
+
+def golden_phase(torch, results, work, voc, model):
+    """``compat/golden.py`` on the card: a stand-in reference ``.pth`` at the
+    default widths (the main path's model, through ``compat/torch_saver.py``)
+    and the export phase's MelGAN. The CPU port's f32 run of the same
+    functions writes the golden mel and wav. ``golden`` (``cli.main``) on
+    the card in mel mode holds its mel to the CPU's within 1e-4 (max over
+    the overlap, frames equal); in wav mode (``--vocoder``) it runs kernel
+    13 in f32 and kernel 14 (its log-mel distance), both counted."""
+    import numpy as np
+    from scipy.io.wavfile import write as write_wav
+
+    from fastspeech2_tpu_torch.compat import golden
+    from fastspeech2_tpu_torch.compat.torch_saver import save_torch_checkpoint
+
+    t_phase = time.perf_counter()
+    pth = f"{work}/standin_58k.pth"
+    save_torch_checkpoint(pth, model, model.cfg, step=58000)
+    mel_cpu, _, _ = golden.synth_with_torch_checkpoint(pth, phoneme_strs=list(GOLDEN_PHONEMES),
+                                                       device="cpu")
+    np.save(f"{work}/golden.npy", mel_cpu)
+    wav_cpu, sr, _ = golden.synth_wav_with_torch_checkpoints(
+        pth, voc, phoneme_strs=list(GOLDEN_PHONEMES), device="cpu")
+    write_wav(f"{work}/golden.wav", sr, (np.clip(wav_cpu, -1, 1) * 32768).clip(
+        -32768, 32767).astype(np.int16))
+    t_cpu = time.perf_counter() - t_phase
+    args = ["golden", "-p", pth, "--phonemes", "|".join(GOLDEN_PHONEMES)]
+    out, secs = cli_main(torch, args + ["--golden", f"{work}/golden.npy"])
+    rep = json.loads(out)
+    log(f"golden (mel) on the card vs the CPU port's f32 mel ({mel_cpu.shape}): "
+        f"{ {k: rep[k] for k in ('mel_shape', 'frames_match', 'mae_overlap', 'max_abs_overlap')} }"
+        f" in {secs:.1f} s (CPU reference {t_cpu:.1f} s)")
+    assert rep["frames_match"] and rep["max_abs_overlap"] <= 1e-4, rep
+    reset_counts()
+    out, secs = cli_main(torch, args + ["--vocoder", voc, "--golden_wav", f"{work}/golden.wav",
+                                        "--out_wav", f"{work}/out.wav"])
+    counts = read_counts()
+    rep = json.loads(out)
+    keys = ("samples", "golden_samples", "duration_ratio", "log_mel_l1", "log_mel_rms")
+    log(f"golden (wav, MelGAN f32) on the card vs the CPU port's wav: "
+        f"{ {k: rep[k] for k in keys} } in {secs:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    assert rep["duration_ratio"] == 1.0 and rep["log_mel_l1"] < 0.05, rep
+    assert counts["resstack"] > 0 and counts["stft_mel_energy"] > 0, counts
+    results["resstack"]["launches_golden_f32"] = counts["resstack"]
+    results["stft_mel_energy"]["launches_golden"] = counts["stft_mel_energy"]
+    log(f"golden phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def demo_phase():
+    """``examples/demo_torch.py`` on the card (its default device), in its
+    own process: a few train steps, reload, synthesis, Griffin-Lim wav."""
+    import tempfile
+
+    import numpy as np
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fs2_demo_", dir=str(ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "examples" / "demo_torch.py"),
+                            "--workdir", work, "--steps", "4"], cwd=str(ROOT),
+                           capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, f"demo_torch.py exited {r.returncode}:\n{r.stderr[-3000:]}"
+        assert "trained 4 steps on cuda" in r.stdout, r.stdout
+        mel = np.load(f"{work}/mel.npy")
+        assert mel.shape[0] == 80 and np.isfinite(mel).all() and Path(work, "demo.wav").exists()
+        log(f"examples/demo_torch.py on the card: {r.stdout.strip().splitlines()[-1]} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def held_bytes(torch, modules):
     """Bytes of every tensor the modules hold: parameters, buffers and
     cached kernel packs, each storage once."""
@@ -3137,6 +3379,10 @@ PARALLEL_LOSS_BAND = 1e-4
 PARALLEL_DURATION_BAND = 1e-3
 PARALLEL_GRAD_BAND = 5e-2
 PARALLEL_BN_BAND = 1e-3
+#: the NCCL group of one runs the single process's route: with a
+#: reproducible step (the length regulator's deterministic backward) every
+#: report term and gradient reading agrees within this, at both steps
+PARALLEL_NCCL_BAND = 1e-6
 
 
 def parallel_cfg():
@@ -3459,8 +3705,10 @@ def parallel_phase(torch, results, device="cuda", cfg=None, windows=None):
     same at tensor_parallel=2 (one head per rank), both held to the
     single-process steps on the same windows within the bf16 band, kernel
     12's launches per rank per step logged; TP inference (kernel 7 per head
-    shard) held to the unsharded model. A formed NCCL group of one takes the
-    same steps. ``Synthesizer(mesh=)`` over a two-entry mesh of the card at
+    shard) held to the unsharded model. The single process's steps run
+    twice and must agree bit for bit; a formed NCCL group of one takes the
+    same steps, held to them within ``PARALLEL_NCCL_BAND``.
+    ``Synthesizer(mesh=)`` over a two-entry mesh of the card at
     B=32 against the unsharded call (and a B=8 wav call, kernel 13 per
     shard), then ``serve`` under two ranks. ``device``/``cfg``/``windows``
     other than the defaults rehearse the phase (gloo only) on the CPU."""
@@ -3502,6 +3750,7 @@ def parallel_phase(torch, results, device="cuda", cfg=None, windows=None):
         try:
             # meanwhile, in this process: the single-process reference steps
             ref = parallel_steps(torch, cfg, windows, device)
+            again = parallel_steps(torch, cfg, windows, device)
             mesh_synth_phase(torch, results, device, cfg)
             for task, r, logf, p in procs:
                 try:
@@ -3523,6 +3772,12 @@ def parallel_phase(torch, results, device="cuda", cfg=None, windows=None):
             log(f"parallel: NCCL {n1['nccl_version']} group of one, backend {n1['backend']}")
             runs.append(("NCCL world of one", [n1["nccl"]]))
         want = 8 * accum if on_card else 0  # kernel 11's single-process count per step
+        for s, (ref_s, again_s) in enumerate(zip(ref["steps"], again["steps"])):
+            same = (ref_s["report"] == again_s["report"] and ref_s["grads"] == again_s["grads"])
+            log(f"parallel step {s + 1} single process run twice: report and gradient "
+                f"readings {'bit-equal' if same else 'DIFFER'}")
+            assert same, (ref_s, again_s)
+        assert ref["bn"] == again["bn"], "BatchNorm statistics differ run to run"
         bad = []
         for s, ref_s in enumerate(ref["steps"]):
             rr, counts = ref_s["report"], ref_s["launches"]
@@ -3551,6 +3806,9 @@ def parallel_phase(torch, results, device="cuda", cfg=None, windows=None):
                                               else PARALLEL_LOSS_BAND)]
                     bad += [(name, r, s, k, v) for k, v in grads.items()
                             if not v <= PARALLEL_GRAD_BAND]
+                    if name.startswith("NCCL"):
+                        bad += [(name, r, s, k, v) for k, v in {**terms, **grads}.items()
+                                if not abs(v) <= PARALLEL_NCCL_BAND]
                     if name.startswith("NCCL"):
                         assert c2["attention_train_packed"] == want, c2
                     else:
@@ -3721,6 +3979,14 @@ def main(parallel_only: bool = False) -> int:
         shutil.rmtree(work, ignore_errors=True)
     del bf
     torch.cuda.empty_cache()
+    export_work, voc, export_model = export_phase(torch, results, smi)
+    try:
+        golden_phase(torch, results, export_work, voc, export_model)
+    finally:
+        shutil.rmtree(export_work, ignore_errors=True)
+    del export_model
+    torch.cuda.empty_cache()
+    demo_phase()
     train_step_vs_cpu_phase(torch)
     import tempfile
 
@@ -3756,7 +4022,9 @@ def main(parallel_only: bool = False) -> int:
             **{k: r[k] for k in ("launches_cli_train_step", "launches_bucketed_b32",
                                  "launches_dp2_rank_step", "launches_tp2_rank_step",
                                  "launches_tp2_infer", "launches_mesh2_b32",
-                                 "launches_mesh2_wav_b8") if k in r},
+                                 "launches_mesh2_wav_b8", "launches_export_b8",
+                                 "launches_golden_f32", "launches_golden",
+                                 "op_dispatch") if k in r},
             **({"device_ms": r["device_ms"][key],
                 "library_device_ms": r.get("library_device_ms", {}).get(key)}
                if "device_ms" in r else {}),

@@ -11,6 +11,11 @@
         [--precision {default,highest}] [--vocoder VOC] [--device cpu]
     python -m fastspeech2_tpu_torch serve -p CKPT [--port 8000] [--warmup] [--int8]
         [--vocoder VOC] [--device cpu]
+    python -m fastspeech2_tpu_torch golden [-p CKPT.pth] [--text "..."] [--phonemes "A B|C D"]
+        [--golden MEL.npy] [--vocoder VOC --golden_wav WAV --out_wav OUT.wav] [--device cpu]
+    python -m fastspeech2_tpu_torch export [-p CKPT] [-c CONFIG] -o OUT.pt2 [--batch 1]
+        [--max_tokens 192] [--max_frames 1024] [--bf16] [--precision {default,highest}]
+        [--int8] [--vocoder MELGAN] [--device cpu]
 
 ``preprocess`` turns a folder of wavs into the feature store that
 ``data/dataset.py`` and ``train`` read (``mels/``, ``energy/``, ``pitch/``
@@ -28,9 +33,15 @@ in the f32 tier, from a ``.npz`` checkpoint of either package or a reference
 bf16 on the card, from a ``.npz`` only (as the JAX package's ``serve``). Both
 build a seeded random model from ``-c`` without ``-p``, take ``--int8`` (the
 W8A8 tier, ``ops/quant8.py``) and a MelGAN or WaveGlow ``--vocoder``;
-``synth --precision default`` lets its f32 products use TF32. Every command but
-``stats`` takes ``--device``: the card unless ``--device cpu`` is given, and
-without a GPU it raises. ``golden`` and ``export`` are not ported yet.
+``synth --precision default`` lets its f32 products use TF32. ``golden``
+synthesizes the reference's README sentence from a released reference
+checkpoint in the f32 parity tier and reports its distance to the
+reference's golden mel, or with ``--vocoder`` to its published sample wav
+(``compat/golden.py``). ``export`` traces the inference function with its
+weights baked in through ``torch.export`` (``infer/export.py``; the serving
+kernels as custom ops) into a ``.pt2`` artifact that ``load_exported``
+calls. Every command but ``stats`` takes ``--device``: the card unless
+``--device cpu`` is given, and without a GPU it raises.
 
 ``train`` and ``serve`` also run under ``python -m torch.distributed.run
 --nproc_per_node N -m fastspeech2_tpu_torch ...``: one rank per device,
@@ -160,9 +171,6 @@ def cmd_stats(args):
     print(json.dumps(out, indent=1))
 
 
-TORCH_EXTS = (".pth", ".pyt", ".pt")
-
-
 @contextlib.contextmanager
 def _log_to_file(outdir: str, name: str):
     """Also log to ``outdir/name.log`` (the JAX command's run log)."""
@@ -190,36 +198,19 @@ def _config(args):
 
 
 def _load_model(args, device, reference_format: bool):
-    """(cfg, model on ``device``): a ``.npz`` checkpoint of either package
-    with its embedded config (``-p``); with ``reference_format`` also a
-    reference ``.pth``/``.pyt``/``.pt`` (config from ``-c``, else its
-    ``hp_str``); else a random init from seed 0 of the ``-c`` config (smoke
-    runs)."""
-    import torch
-
-    from fastspeech2_tpu_torch.config import Config, load_config
-    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
-    from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint, load_checkpoint_meta
+    """(cfg, model on ``device``): ``train/checkpoint.py:load_model`` of
+    ``-p`` and ``-c`` (a ``.npz`` checkpoint of either package, a reference
+    ``.pth``/``.pyt``/``.pt`` where ``reference_format``, else a random init
+    from seed 0 of the ``-c`` config for smoke runs)."""
+    from fastspeech2_tpu_torch.train.checkpoint import TORCH_EXTS, load_model
 
     path = args.checkpoint_path
-    if path and path.endswith(TORCH_EXTS):
-        if not reference_format:
-            raise SystemExit(
-                f"{path}: serve reads .npz checkpoints only, as the JAX package's serve "
-                f"does; convert it first: python -m fastspeech2_tpu_torch convert -p {path} "
-                "-o model.npz")
-        from fastspeech2_tpu_torch.compat.torch_loader import load_torch_model
-
-        cfg, _, model = load_torch_model(
-            path, load_config(args.config) if args.config else None, device)
-    elif path:
-        cfg = Config.from_yaml(load_checkpoint_meta(path)["hp_yaml"])
-        model = FastSpeech2(cfg, device=device)
-        load_checkpoint(path, model)
-    else:
-        cfg = load_config(args.config)
-        model = FastSpeech2(cfg, device=device, generator=torch.Generator().manual_seed(0))
-    return cfg, model
+    if path and path.endswith(TORCH_EXTS) and not reference_format:
+        raise SystemExit(
+            f"{path}: serve reads .npz checkpoints only, as the JAX package's serve "
+            f"does; convert it first: python -m fastspeech2_tpu_torch convert -p {path} "
+            "-o model.npz")
+    return load_model(path, args.config, device)
 
 
 def _join_group(args, device) -> bool:
@@ -303,7 +294,8 @@ def cmd_convert(args):
     from fastspeech2_tpu_torch.config import Config, load_config
     from fastspeech2_tpu_torch.device import resolve_device
     from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
-    from fastspeech2_tpu_torch.train.checkpoint import (load_checkpoint, load_checkpoint_meta,
+    from fastspeech2_tpu_torch.train.checkpoint import (TORCH_EXTS, load_checkpoint,
+                                                        load_checkpoint_meta,
                                                         save_checkpoint)
 
     device = resolve_device(args.device)
@@ -379,6 +371,70 @@ def cmd_synth(args):
     wav = vocode(mel, cfg, vocoder=vocoder, device=device)
     write_wav(os.path.join(args.out, "test_tts.wav"), wav, cfg.audio.sample_rate)
     logging.info("wrote %s", os.path.join(args.out, "test_tts.wav"))
+
+
+def cmd_golden(args):
+    """Released-checkpoint golden comparison (``compat/golden.py``): load a
+    reference .pth/.pyt, synthesize the README sentence as the reference's
+    inference.py does, and print the MAE against
+    sample/generated_mel_58k.npy as JSON; with ``--vocoder``, the fused
+    text->wav path's spectral distance to the published sample wav."""
+    from fastspeech2_tpu_torch.compat.golden import (GOLDEN_TEXT, GOLDEN_WAVS,
+                                                     compare_to_golden,
+                                                     compare_to_golden_wav,
+                                                     find_released_checkpoint,
+                                                     synth_wav_with_torch_checkpoints,
+                                                     synth_with_torch_checkpoint)
+    from fastspeech2_tpu_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    ckpt = args.checkpoint_path or find_released_checkpoint()
+    if not ckpt:
+        raise SystemExit(
+            "no released checkpoint found: pass -p, set FS2_RELEASED_CKPT, "
+            "or drop one under checkpoints/released/")
+    phoneme_strs = args.phonemes.split("|") if args.phonemes else None
+    text = args.text or GOLDEN_TEXT
+    if args.vocoder:
+        from fastspeech2_tpu_torch.vocoder import detect_vocoder_kind
+
+        kind = detect_vocoder_kind(args.vocoder)
+        if not (args.golden_wav or GOLDEN_WAVS.get(kind)):
+            raise SystemExit("no golden wav: pass --golden_wav or set FS2_REFERENCE_DIR")
+        wav, sr, step = synth_wav_with_torch_checkpoints(
+            ckpt, args.vocoder, kind=kind, text=text, phoneme_strs=phoneme_strs,
+            device=device)
+        if args.out_wav:
+            from scipy.io.wavfile import write as write_wav
+
+            write_wav(args.out_wav, sr, (np.clip(wav, -1.0, 1.0) * 32767).astype(np.int16))
+        report = compare_to_golden_wav(wav, sr, kind, golden_path=args.golden_wav,
+                                       device=device)
+        report.update(ckpt=ckpt, vocoder=args.vocoder, kind=kind, step=step)
+        if args.out_wav:
+            report["out_wav"] = args.out_wav
+    else:
+        if not args.golden:
+            raise SystemExit("no golden mel: pass --golden or set FS2_REFERENCE_DIR")
+        mel, _, step = synth_with_torch_checkpoint(ckpt, text=text,
+                                                   phoneme_strs=phoneme_strs,
+                                                   device=device)
+        report = compare_to_golden(mel, args.golden)
+        report.update(ckpt=ckpt, step=step)
+    print(json.dumps(report, indent=1))
+
+
+def cmd_export(args):
+    """The inference function with its weights baked in, traced by
+    ``torch.export`` for a fixed (batch, max_tokens, max_frames) signature
+    (``infer/export.py``); ``--vocoder`` bakes a MelGAN in."""
+    from fastspeech2_tpu_torch.infer.export import export_inference
+
+    export_inference(args.checkpoint_path, args.out, config_path=args.config,
+                     batch=args.batch, max_tokens=args.max_tokens,
+                     max_frames=args.max_frames, bf16=args.bf16,
+                     matmul_precision=args.precision, int8=args.int8,
+                     vocoder_path=args.vocoder, device=args.device)
 
 
 def cmd_serve(args):
@@ -560,6 +616,58 @@ def main(argv=None):
     sp.add_argument("-o", "--out", required=True)
     sp.add_argument("--device", default=None, help="torch device (default: cuda)")
     sp.set_defaults(fn=cmd_average)
+
+    sp = sub.add_parser("golden")
+    sp.add_argument("-p", "--checkpoint_path", default=None,
+                    help="released reference .pth/.pyt (default: search "
+                         "FS2_RELEASED_CKPT / checkpoints/released/)")
+    sp.add_argument("--text", default=None,
+                    help="input text (default: the README golden sentence)")
+    sp.add_argument("--phonemes", default=None,
+                    help="'|'-separated per-sentence phoneme strings to "
+                         "bypass g2p (reproduce the exact 2020 g2p_en "
+                         "tokenization)")
+    from fastspeech2_tpu_torch.compat.golden import GOLDEN_MEL_PATH
+
+    sp.add_argument("--golden", default=GOLDEN_MEL_PATH,
+                    help="golden mel .npy (default: the reference tree's, "
+                         "from FS2_REFERENCE_DIR)")
+    sp.add_argument("--vocoder", default=None,
+                    help="MelGAN/WaveGlow checkpoint: compare the fused "
+                         "text->wav output against the published sample wav "
+                         "instead of the golden mel")
+    sp.add_argument("--golden_wav", default=None,
+                    help="override the published sample wav to compare "
+                         "against (default: sample_74k_{melgan,waveglow}.wav)")
+    sp.add_argument("--out_wav", default=None,
+                    help="also write the synthesized wav here")
+    sp.add_argument("--device", default=None, help="torch device (default: cuda)")
+    sp.set_defaults(fn=cmd_golden)
+
+    sp = sub.add_parser("export")
+    sp.add_argument("-p", "--checkpoint_path", default=None)
+    sp.add_argument("-c", "--config", default=None)
+    sp.add_argument("-o", "--out", required=True)
+    sp.add_argument("--batch", type=int, default=1)
+    sp.add_argument("--max_tokens", type=int, default=192)
+    sp.add_argument("--max_frames", type=int, default=1024)
+    sp.add_argument("--bf16", action="store_true",
+                    help="bake the bf16 tier (the serving kernels on the card) "
+                         "into the artifact")
+    sp.add_argument("--precision", default="default",
+                    choices=("default", "highest"),
+                    help="matmul precision of the artifact's f32 products on "
+                         "the card; 'highest' = full f32 (the parity tier)")
+    sp.add_argument("--int8", action="store_true",
+                    help="bake W8A8 int8 encoder/decoder matmuls into the "
+                         "artifact")
+    sp.add_argument("--vocoder", default=None,
+                    help="MelGAN checkpoint to bake in: the artifact then "
+                         "emits (mel, wav int16, out_lens) as one graph")
+    sp.add_argument("--device", default=None,
+                    help="torch device the artifact is traced for and runs on "
+                         "(default: cuda)")
+    sp.set_defaults(fn=cmd_export)
 
     args = p.parse_args(argv)
     args.fn(args)

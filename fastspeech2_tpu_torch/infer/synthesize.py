@@ -26,20 +26,25 @@ With neither, ``vocode`` turns a finished mel into audio by Griffin-Lim
 
 ``mesh`` (``parallel/mesh.py``) serves data-parallel, as the JAX package's
 sharded ``Synthesizer``: the batch is padded to a multiple of the mesh's
-data shards and split into contiguous row shards, each runs the
-demand-sized dispatch (and its kernels) on its own replica, and the outputs
-come back in order, padded to the longest shard's frames. This is the port's
-one sharded inference path. A local mesh keeps one replica per device of its
-list (entries may repeat); a process mesh serves this rank's shard and
-all-gathers every shard over the data group, each rank calling with the same
-batch. A process mesh with a model axis (``tp > 1``) serves a model that
-``parallel.sharding.shard_model`` cut over it (the counterpart of the JAX
-package's ``shard_inference_fn_tp``): the ranks of a model group compute
-their data shard together, the fused attention per head shard. Behind
-``serve``, rank 0 leads (``lead``: it sends each call's batch to every other
-rank) and the others ``follow``. The int8 tier (data meshes only) and a
-host-level vocoder take the same shard path; an int8 row's activation scale
-then sees its shard, not the whole batch.
+data shards, and the outputs come back in order. This is the port's one
+sharded inference path. A process mesh runs one sharded call, each rank
+calling with the same batch, as the JAX package's sharded programs do: each
+rank encodes its contiguous row shard, the demand (with the encoder states)
+is all-gathered over the data group, the decode groups and their rungs come
+from the whole batch's demand, each rank decodes its contiguous share of
+every group's rows, and each group's outputs are all-gathered. Every
+activation quantization of the int8 tier takes the max over the data group
+(``ops/quant8.py:dynamic_quantize`` inside ``data_shard``), so an int8 row's
+scale sees its whole group, not its shard. A process mesh with a model axis
+(``tp > 1``) serves a model that ``parallel.sharding.shard_model`` cut over
+it (the counterpart of the JAX package's ``shard_inference_fn_tp``): the
+ranks of a model group compute their data shard together, the fused
+attention per head shard. Behind ``serve``, rank 0 leads (``lead``: it sends
+each call's batch to every other rank) and the others ``follow``. A local
+mesh keeps one replica per device of its list (entries may repeat) and runs
+the row shards one after another, each the demand-sized dispatch on its own
+replica, the outputs padded to the longest shard's frames. Its replicas
+cannot share an activation scale, so it refuses the int8 tier.
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ from fastspeech2_tpu_torch.ops import flags, make_non_pad_mask
 from fastspeech2_tpu_torch.ops.length_regulator import frame_demand, scale_durations
 from fastspeech2_tpu_torch.ops.precision import compute_dtype
 from fastspeech2_tpu_torch.ops.quant8 import quantize_model
+from fastspeech2_tpu_torch.parallel.mesh import (DataShard, all_gather, current_shard,
+                                                 data_shard)
 from fastspeech2_tpu_torch.text import phonemes_to_sequence
 from fastspeech2_tpu_torch.text.g2p import preprocess_text, process_paragraph
 from fastspeech2_tpu_torch.vocoder.melgan import MEL_FLOOR
@@ -121,6 +128,10 @@ class Synthesizer:
         self._voc_fn = None        # host-level text->wav: attach_vocoder_fn
         self._voc_fn_hop = 256
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and not self.mesh.distributed and int8:
+            raise ValueError("the int8 tier is not served over a local mesh: its "
+                             "replicas run apart and cannot share an activation "
+                             "scale (serve it over a process mesh)")
         if self.mesh is not None and self.mesh.tp > 1:
             if int8:
                 raise ValueError("the int8 tier serves no tensor-parallel model")
@@ -203,10 +214,12 @@ class Synthesizer:
 
     def _decode_groups(self, dem_all: np.ndarray) -> List[Tuple[np.ndarray, int]]:
         """[(rows, rung)]: split at the demand median when that shrinks the
-        short half's rung; one group for tiny batches."""
+        short half's rung; one group for tiny batches, or where a process
+        mesh's data shards would not divide the halves."""
         B_pad = len(dem_all)
         rung_all = self._l_rung(int(dem_all.max()))
-        if B_pad < 4:
+        shards = self.mesh.dp if self.mesh is not None and self.mesh.distributed else 1
+        if B_pad < 4 or (B_pad // 2) % shards:
             return [(np.arange(B_pad), rung_all)]
         order = np.argsort(dem_all, kind="stable")
         short, long_ = order[: B_pad // 2], order[B_pad // 2:]
@@ -258,20 +271,19 @@ class Synthesizer:
         return self._run(*self._pad_batch(token_seqs, alpha), wav)
 
     def _dispatch_sharded(self, token_seqs, alpha, wav: bool):
-        """The mesh's row shards, each through its replica's ``_run`` (a
-        model group's ranks run the same shard)."""
+        """A local mesh: the row shards, each through its replica's ``_run``.
+        A process mesh: ``_run`` of the whole batch as this rank's part of
+        one sharded call (a model group's ranks run the same part)."""
         n = self.mesh.dp
         B, t_pad, a_max, *arrays = self._pad_host(token_seqs, alpha, n)
         b = len(arrays[0]) // n
-
-        def rows(rep, s):
-            return (torch.from_numpy(a[s * b:(s + 1) * b]).to(rep.device) for a in arrays)
-
         if not self.mesh.distributed:
             fins = []
             for s, dev in enumerate(self.mesh.devices):
                 rep = self._replicas[_indexed(torch.device(dev))]
-                fins.append(rep._run(b, t_pad, a_max, *rows(rep, s), wav))
+                rows = (torch.from_numpy(a[s * b:(s + 1) * b]).to(rep.device)
+                        for a in arrays)
+                fins.append(rep._run(b, t_pad, a_max, *rows, wav))
             return lambda: _merge([f() for f in fins], B)
         import torch.distributed as dist
 
@@ -280,12 +292,10 @@ class Synthesizer:
         with self._lock:
             if self._leading:
                 dist.broadcast_object_list([(wav, list(token_seqs), alpha)], src=0)
-            part = self._run(b, t_pad, a_max, *rows(self, self.mesh.data_index), wav)()
-            parts = [part]
-            if n > 1:
-                parts = [None] * n
-                dist.all_gather_object(parts, part, group=self.mesh.data_group)
-        out = _merge(parts, B)
+            shard = DataShard(self.mesh, self.mesh.data_index * b, n * b)
+            with data_shard(shard):
+                out = self._run(B, t_pad, a_max, *(torch.from_numpy(a).to(self.device)
+                                                   for a in arrays), wav)()
         return lambda: out
 
     def lead(self) -> None:
@@ -320,13 +330,17 @@ class Synthesizer:
             self._leading = False
 
     def _run(self, B, t_pad, a_max, xs, ilens, alphas, wav: bool):
-        """The demand-sized (or heuristic) call on padded device rows."""
+        """The demand-sized (or heuristic) call on padded device rows. Inside
+        a data shard (``_dispatch_sharded``) the rows are the whole batch and
+        this rank computes its part of each step (``_Part``)."""
         if not self.demand_sized:
             return self._heuristic(B, t_pad, a_max, xs, ilens, alphas, wav)
+        part = _Part(current_shard())
         with self._cd():
-            hs, d_outs = self.model.encode(xs, ilens)
-            demand = frame_demand(scale_durations(d_outs, alphas),
-                                  make_non_pad_mask(ilens, t_pad))
+            hs, d_outs = self.model.encode(part.mine(xs), part.mine(ilens))
+            demand = frame_demand(scale_durations(d_outs, part.mine(alphas)),
+                                  make_non_pad_mask(part.mine(ilens), t_pad))
+            hs, d_outs, demand = (part.whole(t) for t in (hs, d_outs, demand))
 
         def finish_demand():
             dem_all = demand.cpu().numpy()
@@ -348,15 +362,16 @@ class Synthesizer:
                 out_lens = torch.zeros((len(dem_all),), dtype=torch.int32,
                                        device=self.device)
                 for gi, (_, rung) in zip(idx, groups):
-                    args = ((hs, d_outs, ilens, alphas) if len(groups) == 1 else
-                            tuple(t.index_select(0, gi)
+                    args = ((hs, d_outs, ilens, alphas)
+                            if len(groups) == 1 and part.shards == 1 else
+                            tuple(t.index_select(0, part.mine(gi))
                                   for t in (hs, d_outs, ilens, alphas)))
                     mel_g, lens_g = self.model.decode_frames(
                         args[0], args[1], args[2], out_maxlen=rung, alpha=args[3])
-                    mel[gi, :rung] = mel_g
-                    out_lens[gi] = lens_g
+                    mel[gi, :rung] = part.whole(mel_g)
+                    out_lens[gi] = part.whole(lens_g)
                     if wav:
-                        pcm[gi, :rung * hop] = self._vocode_pcm(mel_g, lens_g)
+                        pcm[gi, :rung * hop] = part.whole(self._vocode_pcm(mel_g, lens_g))
             lens = out_lens[:B].cpu().numpy().astype(np.int64)
             if wav:
                 return (mel[:B].cpu().numpy(), pcm[:B].cpu().numpy(),
@@ -383,19 +398,23 @@ class Synthesizer:
     def _heuristic(self, B, t_pad, a_max, xs, ilens, alphas, wav: bool = False):
         """One call on the frames-per-token buffer; while a row's demand
         exceeds it and max_frames allows, re-run on a grown buffer (the wav
-        buffer grows with it)."""
+        buffer grows with it). Inside a data shard every rank runs its rows
+        and decides on the whole batch's demand."""
+        part = _Part(current_shard())
+        xs, ilens, alphas = (part.mine(t) for t in (xs, ilens, alphas))
+
         def run(l_pad):
             with self._cd():
                 mel, out_lens, d_outs = self.model.inference(
                     xs, ilens, out_maxlen=l_pad, alpha=alphas)
-                pcm = self._vocode_pcm(mel, out_lens) if wav else None
-            return mel, out_lens, d_outs, pcm
+                pcm = part.whole(self._vocode_pcm(mel, out_lens)) if wav else None
+            return part.whole(mel), part.whole(out_lens), d_outs, pcm
 
         l_pad = self._l_pad(t_pad, a_max)
         mel, out_lens, d_outs, pcm = run(l_pad)
         with self._cd():
-            demand = frame_demand(scale_durations(d_outs, alphas),
-                                  make_non_pad_mask(ilens, t_pad))
+            demand = part.whole(frame_demand(scale_durations(d_outs, alphas),
+                                             make_non_pad_mask(ilens, t_pad)))
 
         def finish_heuristic(mel=mel, out_lens=out_lens, pcm=pcm, l_pad=l_pad):
             dem = demand.cpu().numpy()[:B]
@@ -622,6 +641,31 @@ def _indexed(dev: torch.device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+class _Part:
+    """This rank's part of a sharded call (``shard``: the data shard of
+    ``_dispatch_sharded``, or None: the whole call on this process)."""
+
+    def __init__(self, shard: Optional[DataShard]):
+        self.shard = shard
+        self.shards = 1 if shard is None else shard.mesh.dp
+
+    def mine(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous share of the rows of ``t``."""
+        if self.shard is None:
+            return t
+        n = t.shape[0] // self.shards
+        return t[self.shard.mesh.data_index * n:(self.shard.mesh.data_index + 1) * n]
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The data group's shares of ``t``, in row order (int16 PCM crosses
+        as int32: the collectives take no int16)."""
+        if self.shard is None or self.shard.group is None:
+            return t
+        if t.dtype == torch.int16:
+            return all_gather(t.int(), self.shard.group).to(torch.int16)
+        return all_gather(t, self.shard.group)
 
 
 def _merge(parts, B: int):

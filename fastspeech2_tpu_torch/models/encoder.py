@@ -196,9 +196,14 @@ class Encoder(tnn.Module):
 
     def _positional_encode(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        pe = torch.from_numpy(
-            sinusoid_table(cfg.max_pos_len, cfg.attention_dim)[: x.shape[1]]
-        ).to(device=x.device, dtype=x.dtype)
+        rows = sinusoid_table(cfg.max_pos_len, cfg.attention_dim)[: x.shape[1]]
+        if x.device.type == "cpu" or torch.compiler.is_compiling():
+            # rows of their own: the cached table is shared by every stack
+            # of one width, and ``torch.export`` lifts the array a tensor is
+            # made from as a constant, saving one storage for constants
+            # that alias (a CUDA tensor copies them anyway)
+            rows = rows.copy()
+        pe = torch.from_numpy(rows).to(device=x.device, dtype=x.dtype)
         if cfg.use_scaled_pos_enc:
             return x + self.alpha * pe
         return x * math.sqrt(cfg.attention_dim) + pe

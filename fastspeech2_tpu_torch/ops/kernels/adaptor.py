@@ -135,30 +135,41 @@ def variance_adaptor(hs, idx, out_lens, w1, b1, g1, be1, w2, b2, g2, be2, wo,
     int32; w1 (2, C, k*D) and w2 (2, C, k*C) laid out (out, tap, in) and
     wo (2, C) in the compute dtype; b1/g1/be1/b2/g2/be2 (2, C), bo (2,) f32;
     bins (2, NB) f32 with +inf as the last edge; emb_w (2, NB, D) in the
-    compute dtype, emb_b (2, D) f32. Index 0 is pitch, 1 energy."""
+    compute dtype, emb_b (2, D) f32. Index 0 is pitch, 1 energy. Through
+    the op ``fs2::variance_adaptor`` (``library.py``): CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if hs.device.type != "cpu":
+        B, T, D = hs.shape
+        L = idx.shape[1]
+        C = w1.shape[1]
+        NB = bins.shape[1]
+        bf16, f32 = torch.bfloat16, torch.float32
+        common.check_cuda("variance_adaptor", hs.device, [
+            ("hs", hs, f32, None), ("idx", idx, torch.int32, (B, L)),
+            ("out_lens", out_lens, torch.int32, (B,)),
+            ("w1", w1, bf16, (2, C, 3 * D)), ("b1", b1, f32, (2, C)),
+            ("g1", g1, f32, (2, C)), ("be1", be1, f32, (2, C)),
+            ("w2", w2, bf16, (2, C, 3 * C)), ("b2", b2, f32, (2, C)),
+            ("g2", g2, f32, (2, C)), ("be2", be2, f32, (2, C)),
+            ("wo", wo, bf16, (2, C)), ("bo", bo, f32, (2,)),
+            ("bins", bins, f32, (2, NB)), ("emb_w", emb_w, bf16, (2, NB, D)),
+            ("emb_b", emb_b, f32, (2, D))])
+        if C != CHANNELS:
+            raise ValueError(f"variance_adaptor: C={C} not supported by the kernel "
+                             f"(C = {CHANNELS})")
+        plan(D, NB)
+    return torch.ops.fs2.variance_adaptor.default(hs, idx, out_lens, w1, b1, g1, be1, w2,
+                                                  b2, g2, be2, wo, bo, bins, emb_w, emb_b)
+
+
+def launch(hs, idx, out_lens, w1, b1, g1, be1, w2, b2, g2, be2, wo, bo, bins, emb_w,
+           emb_b):
+    """The CUDA implementation of ``fs2::variance_adaptor`` on checked
+    inputs."""
     global launches, _fn
-    if hs.device.type == "cpu":
-        return variance_adaptor_plain(hs, idx, out_lens, w1, b1, g1, be1, w2,
-                                      b2, g2, be2, wo, bo, bins, emb_w, emb_b)
     B, T, D = hs.shape
-    L = idx.shape[1]
-    C = w1.shape[1]
-    NB = bins.shape[1]
-    bf16, f32 = torch.bfloat16, torch.float32
-    common.check_cuda("variance_adaptor", hs.device, [
-        ("hs", hs, f32, None), ("idx", idx, torch.int32, (B, L)),
-        ("out_lens", out_lens, torch.int32, (B,)),
-        ("w1", w1, bf16, (2, C, 3 * D)), ("b1", b1, f32, (2, C)),
-        ("g1", g1, f32, (2, C)), ("be1", be1, f32, (2, C)),
-        ("w2", w2, bf16, (2, C, 3 * C)), ("b2", b2, f32, (2, C)),
-        ("g2", g2, f32, (2, C)), ("be2", be2, f32, (2, C)),
-        ("wo", wo, bf16, (2, C)), ("bo", bo, f32, (2,)),
-        ("bins", bins, f32, (2, NB)), ("emb_w", emb_w, bf16, (2, NB, D)),
-        ("emb_b", emb_b, f32, (2, D))])
-    if C != CHANNELS:
-        raise ValueError(f"variance_adaptor: C={C} not supported by the kernel "
-                         f"(C = {CHANNELS})")
-    plan(D, NB)
+    L, C, NB = idx.shape[1], w1.shape[1], bins.shape[1]
+    f32 = torch.float32
     if _fn is None:
         P, I, F = common.P, common.I, common.F
         _fn = common.bind(common.load("adaptor"), "fs2_variance_adaptor",
@@ -206,3 +217,8 @@ def pack_weights(pitch, energy, pitch_embed, energy_embed, pitch_bins,
             bins.contiguous(), emb_w.to(cd).contiguous(),
             torch.stack([pitch_embed.bias, energy_embed.bias]).float()
             .contiguous())
+
+
+# the ops' CUDA kernels (``library.py``, which imports this module)
+from fastspeech2_tpu_torch.ops.kernels import library  # noqa: E402
+library.register_cuda("variance_adaptor", launch)

@@ -139,20 +139,27 @@ def attention_block(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
                     eps: float = 1e-5):
     """x (B, T, D) f32; wqkv (3D, D) [q|k|v rows, (out, in)] and wo (D, D) in
     the compute dtype; bqkv (3D,), bo/g/be (D,) f32; lengths (B,) int32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    global launches, _fn
+    Through the op ``fs2::attention_block`` (``library.py``): CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
     common.refuse_grad("attention_block", x, wqkv, bqkv, wo, bo, g, be)
-    if x.device.type == "cpu":
-        return attention_block_plain(x, wqkv, bqkv, wo, bo, g, be, lengths,
-                                     n_heads, eps)
+    if x.device.type != "cpu":
+        B, T, D = x.shape
+        bf16, f32 = torch.bfloat16, torch.float32
+        common.check_cuda("attention_block", x.device, [
+            ("x", x, f32, None), ("wqkv", wqkv, bf16, (3 * D, D)),
+            ("bqkv", bqkv, f32, (3 * D,)), ("wo", wo, bf16, (D, D)),
+            ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
+            ("lengths", lengths, torch.int32, (B,))])
+        _check_heads("attention_block", D, n_heads)
+    return torch.ops.fs2.attention_block.default(x, wqkv, bqkv, wo, bo, g, be, lengths,
+                                                 n_heads, eps)
+
+
+def launch_block(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int, eps: float):
+    """The CUDA implementation of ``fs2::attention_block`` on checked inputs."""
+    global launches, _fn
     B, T, D = x.shape
-    bf16, f32 = torch.bfloat16, torch.float32
-    common.check_cuda("attention_block", x.device, [
-        ("x", x, f32, None), ("wqkv", wqkv, bf16, (3 * D, D)),
-        ("bqkv", bqkv, f32, (3 * D,)), ("wo", wo, bf16, (D, D)),
-        ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
-        ("lengths", lengths, torch.int32, (B,))])
-    _check_heads("attention_block", D, n_heads)
+    bf16 = torch.bfloat16
     if _fn is None:
         P, I, F = common.P, common.I, common.F
         _fn = common.bind(common.load("attention"), "fs2_attention_block",
@@ -173,19 +180,25 @@ def attention_block(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
 def _qkv_stride(name, q, k, v, shape):
     """The common row stride of q, k, v: bf16 tensors of ``shape`` on one
     device, each contiguous or a column block of one wider buffer (unit
-    column stride, a row stride that is a multiple of 8, 16-byte aligned
-    bases): no re-packing copy is made."""
+    column stride, a row stride that is a multiple of 8; 16-byte aligned
+    bases, which the launch checks: a traced tensor has no address): no
+    re-packing copy is made."""
     B, T, _ = shape
     ld = q.stride(1)
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} must be a {shape} bfloat16 tensor on "
                              f"{q.device}")
-        if (t.stride(2) != 1 or t.stride(1) != ld or ld % 8 or t.data_ptr() % 16
+        if (t.stride(2) != 1 or t.stride(1) != ld or ld % 8
                 or (B > 1 and t.stride(0) != T * ld)):
             raise ValueError(f"{name}: {arg} needs unit column stride, the common "
                              "row stride (a multiple of 8) and a 16-byte aligned base")
     return ld
+
+
+def _check_aligned(name, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: inputs need 16-byte aligned bases")
 
 
 def _check_heads(name, D, n_heads):
@@ -207,21 +220,30 @@ def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
     """q, k, v (B, T, D) in the compute dtype, each contiguous or a column
     block of one wider buffer (a common row stride, unit column stride: no
     re-packing copy is made); res (B, T, D) f32; wo (D, D) in the compute
-    dtype; bo/g/be (D,) f32; lengths (B,) int32. CPU tensors take the plain
+    dtype; bo/g/be (D,) f32; lengths (B,) int32. Through the op
+    ``fs2::attention_res_ln`` (``library.py``): CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    global res_ln_launches, _fn_res_ln
     common.refuse_grad("attention_res_ln", q, k, v, res, wo, bo, g, be)
-    if q.device.type == "cpu":
-        return attention_res_ln_plain(q, k, v, res, wo, bo, g, be, lengths,
-                                      n_heads, eps)
+    if q.device.type != "cpu":
+        B, T, D = q.shape
+        bf16, f32 = torch.bfloat16, torch.float32
+        common.check_cuda("attention_res_ln", q.device, [
+            ("res", res, f32, (B, T, D)), ("wo", wo, bf16, (D, D)),
+            ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
+            ("lengths", lengths, torch.int32, (B,))])
+        _qkv_stride("attention_res_ln", q, k, v, (B, T, D))
+        _check_heads("attention_res_ln", D, n_heads)
+    return torch.ops.fs2.attention_res_ln.default(q, k, v, res, wo, bo, g, be, lengths,
+                                                  n_heads, eps)
+
+
+def launch_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int, eps: float):
+    """The CUDA implementation of ``fs2::attention_res_ln`` on checked inputs."""
+    global res_ln_launches, _fn_res_ln
     B, T, D = q.shape
-    bf16, f32 = torch.bfloat16, torch.float32
-    common.check_cuda("attention_res_ln", q.device, [
-        ("res", res, f32, (B, T, D)), ("wo", wo, bf16, (D, D)),
-        ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
-        ("lengths", lengths, torch.int32, (B,))])
-    ld = _qkv_stride("attention_res_ln", q, k, v, (B, T, D))
-    _check_heads("attention_res_ln", D, n_heads)
+    bf16 = torch.bfloat16
+    ld = q.stride(1)
+    _check_aligned("attention_res_ln", q, k, v)
     if _fn_res_ln is None:
         P, I, F = common.P, common.I, common.F
         _fn_res_ln = common.bind(common.load("attention"), "fs2_attention_res_ln",
@@ -241,18 +263,26 @@ def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
 def attention_res(q, k, v, res, wo, bo, lengths, n_heads: int):
     """Pre-LN attention half ``res + MHA(q, k, v)·Wo + bo``: q, k, v as in
     ``attention_res_ln``; res (B, T, D) f32; wo (D, D) in the compute dtype;
-    bo (D,) f32; lengths (B,) int32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    global res_launches, _fn_res
+    bo (D,) f32; lengths (B,) int32. Through the op ``fs2::attention_res``
+    (``library.py``): CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     common.refuse_grad("attention_res", q, k, v, res, wo, bo)
-    if q.device.type == "cpu":
-        return attention_res_plain(q, k, v, res, wo, bo, lengths, n_heads)
+    if q.device.type != "cpu":
+        B, T, D = q.shape
+        common.check_cuda("attention_res", q.device, [
+            ("res", res, torch.float32, (B, T, D)), ("wo", wo, torch.bfloat16, (D, D)),
+            ("bo", bo, torch.float32, (D,)), ("lengths", lengths, torch.int32, (B,))])
+        _qkv_stride("attention_res", q, k, v, (B, T, D))
+        _check_heads("attention_res", D, n_heads)
+    return torch.ops.fs2.attention_res.default(q, k, v, res, wo, bo, lengths, n_heads)
+
+
+def launch_res(q, k, v, res, wo, bo, lengths, n_heads: int):
+    """The CUDA implementation of ``fs2::attention_res`` on checked inputs."""
+    global res_launches, _fn_res
     B, T, D = q.shape
-    common.check_cuda("attention_res", q.device, [
-        ("res", res, torch.float32, (B, T, D)), ("wo", wo, torch.bfloat16, (D, D)),
-        ("bo", bo, torch.float32, (D,)), ("lengths", lengths, torch.int32, (B,))])
-    ld = _qkv_stride("attention_res", q, k, v, (B, T, D))
-    _check_heads("attention_res", D, n_heads)
+    ld = q.stride(1)
+    _check_aligned("attention_res", q, k, v)
     if _fn_res is None:
         P, I, F = common.P, common.I, common.F
         _fn_res = common.bind(common.load("attention"), "fs2_attention_res",
@@ -275,12 +305,10 @@ def check_head_dim(name: str, dk: int) -> None:
         raise ValueError(f"{name}: d_k={dk} not supported by the kernel (128, 192 or 256)")
 
 
-def _bare(name, q, k, v, lengths, n_heads=None):
-    """Launch the bare attention: bf16 through ``fs2_attention``, f32
-    through the training kernels' f32 forward at rate 0. ``n_heads`` given:
-    (B, T, D) operands, heads packed along D; None: (B, H, T, dk). The output
-    is contiguous."""
-    global _fn_bare
+def _bare_shape(name, q, n_heads=None):
+    """(packed, B, H, T, dk) of a bare attention's q, raising for what the
+    kernels do not take. ``n_heads`` given: (B, T, D) operands, heads
+    packed along D; None: (B, H, T, dk)."""
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: the kernel takes bfloat16 or float32, got {q.dtype}")
     packed = n_heads is not None
@@ -292,6 +320,15 @@ def _bare(name, q, k, v, lengths, n_heads=None):
     else:
         B, H, T, dk = q.shape
     check_head_dim(name, dk)
+    return packed, B, H, T, dk
+
+
+def _bare(name, q, k, v, lengths, n_heads=None):
+    """Launch the bare attention: bf16 through ``fs2_attention``, f32
+    through the training kernels' f32 forward at rate 0 (``_bare_shape``
+    gives the layouts). The output is contiguous."""
+    global _fn_bare
+    packed, B, H, T, dk = _bare_shape(name, q, n_heads)
     if q.dtype == torch.float32:
         q, k, v = (t.contiguous() for t in (q, k, v))
         attention_train._check(name, q, k, v, lengths, B, dk)
@@ -308,9 +345,8 @@ def _bare(name, q, k, v, lengths, n_heads=None):
     else:
         common.check_cuda(name, q.device, [
             (n, t, torch.bfloat16, (B, H, T, dk)) for n, t in (("q", q), ("k", k), ("v", v))])
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError(f"{name}: inputs need 16-byte aligned bases")
         ld = dk
+    _check_aligned(name, q, k, v)
     common.check_cuda(name, q.device, [("lengths", lengths, torch.int32, (B,))])
     if _fn_bare is None:
         P, I, F = common.P, common.I, common.F
@@ -328,12 +364,18 @@ def fused_attention_packed(q, k, v, lengths, n_heads: int):
     """Bare masked attention, heads packed along D: q, k, v (B, T, D) (bf16
     on the card: contiguous or column blocks of one buffer, as in
     ``attention_res_ln``; or f32), lengths (B,) int32 -> (B, T, D) in q's
-    dtype, rows at or past the length zero. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    global packed_launches
+    dtype, rows at or past the length zero. Through the op
+    ``fs2::fused_attention_packed`` (``library.py``): CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     common.refuse_grad("fused_attention_packed", q, k, v)
-    if q.device.type == "cpu":
-        return fused_attention_packed_plain(q, k, v, lengths, n_heads)
+    if q.device.type != "cpu":
+        _bare_shape("fused_attention_packed", q, n_heads)
+    return torch.ops.fs2.fused_attention_packed.default(q, k, v, lengths, n_heads)
+
+
+def launch_packed(q, k, v, lengths, n_heads: int):
+    """The CUDA implementation of ``fs2::fused_attention_packed``."""
+    global packed_launches
     out = _bare("fused_attention_packed", q, k, v, lengths, n_heads)
     with common.count_lock:
         packed_launches += 1
@@ -390,3 +432,11 @@ def pack_weights(attn, norm, cd: torch.dtype):
     return (wqkv.contiguous(), bqkv.contiguous(),
             attn.out.weight.to(cd).contiguous(), attn.out.bias.float(),
             norm.weight.float(), norm.bias.float())
+
+
+# the ops' CUDA kernels (``library.py``, which imports this module)
+from fastspeech2_tpu_torch.ops.kernels import library  # noqa: E402
+library.register_cuda("attention_block", launch_block)
+library.register_cuda("attention_res_ln", launch_res_ln)
+library.register_cuda("attention_res", launch_res)
+library.register_cuda("fused_attention_packed", launch_packed)

@@ -180,7 +180,18 @@ def cached_pack(owner: torch.nn.Module, sources: Sequence[torch.Tensor],
     """Kernel-layout copies of a module's weights, rebuilt only when a source
     tensor is replaced or modified in place (keyed on storage pointer and
     version counter; an inference tensor, which keeps no counter, by its
-    pointer alone). Safe to call from several threads."""
+    pointer alone). Safe to call from several threads.
+
+    A pack that ``freeze_packs`` froze is the owner's buffers. A traced call
+    (``torch.export``) has no address to key on: a pack not frozen is then
+    built in the traced graph, as the int8 tier's per-call dequantized
+    attention weights are."""
+    frozen = owner.__dict__.get("_frozen_pack")
+    if frozen is not None:
+        return _thaw(owner, frozen)
+    if torch.compiler.is_compiling():
+        with torch.no_grad():
+            return build()
     key = tuple((t.data_ptr(), 0 if t.is_inference() else t._version) for t in sources)
     with _pack_lock:  # two serving threads may ask for the same pack
         hit = owner.__dict__.get("_kernel_pack")
@@ -189,3 +200,44 @@ def cached_pack(owner: torch.nn.Module, sources: Sequence[torch.Tensor],
                 hit = (key, build())
             owner.__dict__["_kernel_pack"] = hit
     return hit[1]
+
+
+class _PackBuffer(str):
+    """The name of a frozen pack's tensor among its owner's buffers."""
+
+
+def _thaw(owner: torch.nn.Module, frozen):
+    if isinstance(frozen, _PackBuffer):
+        return getattr(owner, frozen)
+    if isinstance(frozen, tuple):
+        return tuple(_thaw(owner, f) for f in frozen)
+    return frozen
+
+
+def freeze_packs(root: torch.nn.Module) -> int:
+    """Make every kernel pack that ``cached_pack`` holds on a module of
+    ``root`` that module's non-persistent buffers, and ``cached_pack`` return
+    them from then on without reading an address: what ``torch.export``
+    traces (``infer/export.py``), which then saves the packs with the
+    graph. Run the model once first, so its packs exist. The frozen packs
+    no longer follow the weights. Each is a copy that shares no storage
+    with a parameter (a pack may hold a parameter itself, such as an f32
+    bias). Returns the number of packs frozen."""
+    n = 0
+    for mod in root.modules():
+        hit = mod.__dict__.pop("_kernel_pack", None)
+        if hit is None:
+            continue
+        names = []
+
+        def freeze(v):
+            if isinstance(v, torch.Tensor):
+                name = _PackBuffer(f"_kernel_pack_{len(names)}")
+                mod.register_buffer(name, v.detach().clone(), persistent=False)
+                names.append(name)
+                return name
+            return tuple(freeze(x) for x in v) if isinstance(v, tuple) else v
+
+        mod.__dict__["_frozen_pack"] = freeze(hit[1])
+        n += 1
+    return n

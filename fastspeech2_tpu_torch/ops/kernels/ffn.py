@@ -26,6 +26,7 @@ bias-only row (then +x and LN, +x, or nothing).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -181,54 +182,62 @@ def _check(name, x, w1, b1, w2, b2, lengths, kernel, D, O, x_dtype):
 def ffn_block(x, w1, b1, w2, b2, g, be, lengths, kernel: int,
               eps: float = 1e-5):
     """Post-LN: x (B, T, D) f32; w1 (H, k*D) and w2 (D, H) in the compute
-    dtype; b1 (H,), b2/g/be (D,) f32; lengths (B,) int32."""
-    global launches, _fn
+    dtype; b1 (H,), b2/g/be (D,) f32; lengths (B,) int32. Through the op
+    ``fs2::ffn_block`` (``library.py``): CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
     common.refuse_grad("ffn_block", x, w1, b1, w2, b2, g, be)
-    if x.device.type == "cpu":
-        return ffn_block_plain(x, w1, b1, w2, b2, g, be, lengths, kernel, eps)
-    if _fn is None:
-        _fn = _bind_block("fs2_ffn_block")
-    out = _launch_block("ffn_block", _fn, x, w1, b1, w2, b2, g, be, lengths, kernel, eps)
-    with common.count_lock:
-        launches += 1
-    return out
+    if x.device.type != "cpu":
+        _check_block("ffn_block", x, w1, b1, w2, b2, g, be, lengths, kernel)
+    return torch.ops.fs2.ffn_block.default(x, w1, b1, w2, b2, g, be, lengths, kernel,
+                                           eps)
 
 
 def ffn_block_pre(x, w1, b1, w2, b2, g, be, lengths, kernel: int,
                   eps: float = 1e-5):
     """Pre-LN: ``x + FFN(mask(LN(x)))``, arguments as ``ffn_block`` (g/be the
-    LayerNorm on the conv input). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    global pre_launches, _fn_pre
+    LayerNorm on the conv input). Through the op ``fs2::ffn_block_pre``
+    (``library.py``): CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     common.refuse_grad("ffn_block_pre", x, w1, b1, w2, b2, g, be)
-    if x.device.type == "cpu":
-        return ffn_block_pre_plain(x, w1, b1, w2, b2, g, be, lengths, kernel, eps)
-    if _fn_pre is None:
+    if x.device.type != "cpu":
+        _check_block("ffn_block_pre", x, w1, b1, w2, b2, g, be, lengths, kernel)
+    return torch.ops.fs2.ffn_block_pre.default(x, w1, b1, w2, b2, g, be, lengths, kernel,
+                                               eps)
+
+
+def _check_block(name, x, w1, b1, w2, b2, g, be, lengths, kernel):
+    D = x.shape[-1]
+    _check(name, x, w1, b1, w2, b2, lengths, kernel, D, D, torch.float32)
+    common.check_cuda(name, x.device, [("g", g, torch.float32, (D,)),
+                                       ("be", be, torch.float32, (D,))])
+
+
+def launch_block(pre: bool, x, w1, b1, w2, b2, g, be, lengths, kernel: int, eps: float):
+    """The CUDA implementation of ``fs2::ffn_block`` (``pre`` False) and
+    ``fs2::ffn_block_pre`` (True) on checked inputs."""
+    global launches, pre_launches, _fn, _fn_pre
+    if pre and _fn_pre is None:
         _fn_pre = _bind_block("fs2_ffn_block_pre")
-    out = _launch_block("ffn_block_pre", _fn_pre, x, w1, b1, w2, b2, g, be, lengths,
-                        kernel, eps)
+    if not pre and _fn is None:
+        _fn = _bind_block("fs2_ffn_block")
+    (B, T, D), H = x.shape, w1.shape[0]
+    hid = torch.empty(scratch_elems(B, T, H, D), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    common.launch(_fn_pre if pre else _fn, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                  w2.data_ptr(), b2.data_ptr(), g.data_ptr(), be.data_ptr(),
+                  lengths.data_ptr(), hid.data_ptr(), out.data_ptr(), B, T, D, H,
+                  kernel, eps, common.stream_of(x))
     with common.count_lock:
-        pre_launches += 1
+        if pre:
+            pre_launches += 1
+        else:
+            launches += 1
     return out
 
 
 def _bind_block(symbol):
     P, I, F = common.P, common.I, common.F
     return common.bind(common.load("ffn"), symbol, [P] * 10 + [I] * 5 + [F, P])
-
-
-def _launch_block(name, fn, x, w1, b1, w2, b2, g, be, lengths, kernel, eps):
-    D = x.shape[-1]
-    B, T, H = _check(name, x, w1, b1, w2, b2, lengths, kernel, D, D, torch.float32)
-    common.check_cuda(name, x.device, [("g", g, torch.float32, (D,)),
-                                       ("be", be, torch.float32, (D,))])
-    hid = torch.empty(scratch_elems(B, T, H, D), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty_like(x)
-    common.launch(fn, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                  b2.data_ptr(), g.data_ptr(), be.data_ptr(), lengths.data_ptr(),
-                  hid.data_ptr(), out.data_ptr(), B, T, D, H, kernel, eps,
-                  common.stream_of(x))
-    return out
 
 
 def fused_ffn(x, w1, b1, w2, b2, lengths, kernel: int, out_dtype=None):
@@ -299,3 +308,9 @@ def ffn_fused_apply(ffn, x, lengths, out_dtype=None):
     xc = x.to(cd)
     return fused_ffn(xc, *pack_ffn(ffn, cd), lengths, ffn.w1.weight.shape[2],
                      out_dtype or xc.dtype)
+
+
+# the ops' CUDA kernels (``library.py``, which imports this module)
+from fastspeech2_tpu_torch.ops.kernels import library  # noqa: E402
+library.register_cuda("ffn_block", functools.partial(launch_block, False))
+library.register_cuda("ffn_block_pre", functools.partial(launch_block, True))

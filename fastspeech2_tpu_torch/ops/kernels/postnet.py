@@ -148,15 +148,23 @@ def postnet(x, w_flat, bn, lengths, n_layers: int, C: int, k: int):
     in the compute dtype, Cin_pad = Cin rounded up to 32 with zeros,
     flattened and concatenated; bn (n_layers, 4, CB) f32 rows
     [mean, rsqrt(var + eps), gamma, beta], zero-padded to CB = max(C, C0);
-    C is the hidden width; lengths (B,) int32."""
+    C is the hidden width; lengths (B,) int32. Through the op
+    ``fs2::postnet`` (``library.py``): CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if x.device.type != "cpu":
+        B, L, C0 = x.shape
+        common.check_cuda("postnet", x.device, [
+            ("x", x, torch.float32, None), ("w", w_flat, torch.bfloat16, None),
+            ("bn", bn, torch.float32, (n_layers, 4, max(C, C0))),
+            ("lengths", lengths, torch.int32, (B,))])
+        plan(C0, C, k, n_layers)
+    return torch.ops.fs2.postnet.default(x, w_flat, bn, lengths, n_layers, C, k)
+
+
+def launch(x, w_flat, bn, lengths, n_layers: int, C: int, k: int):
+    """The CUDA implementation of ``fs2::postnet`` on checked inputs."""
     global launches, _fn
-    if x.device.type == "cpu":
-        return postnet_plain(x, w_flat, bn, lengths, n_layers, C, k)
     B, L, C0 = x.shape
-    common.check_cuda("postnet", x.device, [
-        ("x", x, torch.float32, None), ("w", w_flat, torch.bfloat16, None),
-        ("bn", bn, torch.float32, (n_layers, 4, max(C, C0))),
-        ("lengths", lengths, torch.int32, (B,))])
     pl = plan(C0, C, k, n_layers)
     if _fn is None:
         P, I = common.P, common.I
@@ -192,3 +200,8 @@ def pack_weights(layers, cd: torch.dtype, eps: float = 1e-5):
         bn.append(torch.stack([torch.nn.functional.pad(r.float(), (0, CB - r.shape[0]))
                                for r in rows]))
     return torch.cat(ws).to(cd).contiguous(), torch.stack(bn).contiguous(), C
+
+
+# the ops' CUDA kernels (``library.py``, which imports this module)
+from fastspeech2_tpu_torch.ops.kernels import library  # noqa: E402
+library.register_cuda("postnet", launch)

@@ -93,36 +93,44 @@ def resstack_plain(x, w1, b1, w2, b2, dilations: Sequence[int] = (1, 3, 9)):
 def resstack(x, w1, b1, w2, b2, dilations: Sequence[int] = (1, 3, 9)):
     """x (B, S, C); w1 (n, C, 3*C) laid out (out, tap, in) and w2 (n, C, C)
     (out, in) in the compute dtype; b1, b2 (n, C) f32 holding values of the
-    compute dtype. CPU tensors take the plain version; CUDA tensors launch
-    the kernel, which needs x in the compute dtype (bf16 or f32)."""
+    compute dtype. Through the op ``fs2::resstack`` (``library.py``): CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    needs x in the compute dtype (bf16 or f32)."""
+    if x.device.type != "cpu":
+        B, S, C = x.shape
+        n, cd = len(dilations), w1.dtype
+        if cd not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"resstack: compute dtype {cd} not supported")
+        common.check_cuda("resstack", x.device, [
+            ("x", x, cd, None), ("w1", w1, cd, (n, C, 3 * C)),
+            ("b1", b1, torch.float32, (n, C)), ("w2", w2, cd, (n, C, C)),
+            ("b2", b2, torch.float32, (n, C))])
+        if S <= sum(dilations):
+            raise ValueError(f"resstack: S={S} must exceed the halo "
+                             f"{sum(dilations)} (reflection needs it)")
+        if resstack_tile(S) == 0:
+            raise ValueError(f"resstack: S={S} is not a multiple of {_TILES[-1]}")
+        if not 1 <= n <= 8 or min(dilations) < 1:
+            raise ValueError(f"resstack: dilations {tuple(dilations)} not supported")
+        bf16 = cd == torch.bfloat16
+        Cp = served_width(C) if bf16 else C
+        if Cp == 0:
+            raise ValueError(f"resstack: C={C} not supported by the {cd} kernel (at most "
+                             "256: a warpgroup's 64 x C f32 output takes C / 2 registers "
+                             "a thread)")
+        if not bf16 and (C % 8 or C > 256):
+            raise ValueError(f"resstack: C={C} not supported by the {cd} kernel")
+        if Cp != C:
+            return resstack(*pad_channels(x, w1, b1, w2, b2, Cp), dilations)[..., :C].contiguous()
+    return torch.ops.fs2.resstack.default(x, w1, b1, w2, b2, list(dilations))
+
+
+def launch(x, w1, b1, w2, b2, dilations: Sequence[int]):
+    """The CUDA implementation of ``fs2::resstack`` on checked inputs."""
     global launches
-    if x.device.type == "cpu":
-        return resstack_plain(x, w1, b1, w2, b2, dilations)
     B, S, C = x.shape
     n, cd = len(dilations), w1.dtype
-    if cd not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"resstack: compute dtype {cd} not supported")
-    common.check_cuda("resstack", x.device, [
-        ("x", x, cd, None), ("w1", w1, cd, (n, C, 3 * C)),
-        ("b1", b1, torch.float32, (n, C)), ("w2", w2, cd, (n, C, C)),
-        ("b2", b2, torch.float32, (n, C))])
-    if S <= sum(dilations):
-        raise ValueError(f"resstack: S={S} must exceed the halo "
-                         f"{sum(dilations)} (reflection needs it)")
-    if resstack_tile(S) == 0:
-        raise ValueError(f"resstack: S={S} is not a multiple of {_TILES[-1]}")
-    if not 1 <= n <= 8 or min(dilations) < 1:
-        raise ValueError(f"resstack: dilations {tuple(dilations)} not supported")
     bf16 = cd == torch.bfloat16
-    Cp = served_width(C) if bf16 else C
-    if Cp == 0:
-        raise ValueError(f"resstack: C={C} not supported by the {cd} kernel (at most "
-                         "256: a warpgroup's 64 x C f32 output takes C / 2 registers "
-                         "a thread)")
-    if not bf16 and (C % 8 or C > 256):
-        raise ValueError(f"resstack: C={C} not supported by the {cd} kernel")
-    if Cp != C:
-        return resstack(*pad_channels(x, w1, b1, w2, b2, Cp), dilations)[..., :C].contiguous()
     fn = _fns.get(cd)
     if fn is None:
         P, I = common.P, common.I
@@ -154,3 +162,8 @@ def pack_weights(stacks, cd: torch.dtype
     b2 = torch.stack([s.c2.bias for s in stacks])
     return (w1.to(cd).contiguous(), round_to(b1.float(), cd).contiguous(),
             w2.to(cd).contiguous(), round_to(b2.float(), cd).contiguous())
+
+
+# the ops' CUDA kernels (``library.py``, which imports this module)
+from fastspeech2_tpu_torch.ops.kernels import library  # noqa: E402
+library.register_cuda("resstack", launch)

@@ -4,6 +4,11 @@ For output frame j the source token is ``#(cumsum(d) <= j)``, clipped to
 T-1. Durations are zeroed at padded tokens; a row whose durations sum to 0
 falls back to one frame per valid token; frames past the expanded length are
 zero.
+
+Under autograd the gather's backward is a product with the (T, L) selection
+matrix of each row (``_Expand``), not the gather's own backward: that is a
+scatter-add, whose CUDA atomics add a token's frames in a varying order, so
+the encoder's gradient would differ run to run on the card.
 """
 
 from typing import Tuple, Union
@@ -40,6 +45,28 @@ def expansion_indices(ds: torch.Tensor, tok_mask: torch.Tensor,
     return idx, frame_mask, out_lens
 
 
+class _Expand(torch.autograd.Function):
+    """``out[b, j] = hs[b, idx[b, j]]`` with a deterministic backward: the
+    gradient of token t sums its frames' gradients as the product of the
+    transposed one-hot selection (B, T, L) with the frames' gradient, in the
+    fixed order of one batched matrix product. The selection is a comparison
+    with the token positions, not ``F.one_hot``, which may read the indices'
+    range on the host and so wait for the device mid-backward."""
+
+    @staticmethod
+    def forward(ctx, hs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.num_tokens = hs.shape[1]
+        return torch.gather(hs, 1, idx[..., None].expand(-1, -1, hs.shape[2]))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        tokens = torch.arange(ctx.num_tokens, device=idx.device)
+        select = (idx[:, None, :] == tokens[None, :, None]).to(grad.dtype)
+        return select @ grad, None
+
+
 def regulate_length(hs: torch.Tensor, ds: torch.Tensor, tok_mask: torch.Tensor,
                     out_maxlen: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -47,8 +74,11 @@ def regulate_length(hs: torch.Tensor, ds: torch.Tensor, tok_mask: torch.Tensor,
     returns (expanded, frame_mask, out_lens)."""
     idx, frame_mask, out_lens = expansion_indices(ds, tok_mask, out_maxlen,
                                                   hs.shape[1])
-    expanded = torch.gather(
-        hs, 1, idx.long()[..., None].expand(-1, -1, hs.shape[2]))
+    idx = idx.long()
+    if torch.is_grad_enabled() and hs.requires_grad:
+        expanded = _Expand.apply(hs, idx)
+    else:
+        expanded = torch.gather(hs, 1, idx[..., None].expand(-1, -1, hs.shape[2]))
     expanded = torch.where(frame_mask[..., None], expanded,
                            torch.zeros_like(expanded))
     return expanded, frame_mask, out_lens

@@ -40,8 +40,11 @@ from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn as tnn
+
+from fastspeech2_tpu_torch.parallel.mesh import all_reduce, current_shard
 
 _QMAX = 127.0
 _TINY = torch.finfo(torch.float32).tiny
@@ -72,9 +75,20 @@ def quantize_weight(w: torch.Tensor, reduce_dims) -> Int8Weight:
 
 def dynamic_quantize(x: torch.Tensor):
     """(q int8, s f32 scalar tensor): symmetric per-tensor int8 of an
-    activation, computed in f32; zero inputs quantize to exact zero."""
+    activation, computed in f32; zero inputs quantize to exact zero.
+
+    Inside a data shard of a process mesh (``parallel/mesh.py:data_shard``,
+    entered by ``Synthesizer(mesh=)``) x is this rank's rows of the tensor
+    and the amax is the max over the data group, so every shard takes the
+    whole tensor's scale, as the JAX package's sharded program does. Every
+    rank of the group must then enter the same quantizations in the same
+    order."""
     xf = x.float()
-    s = _scale(xf.abs().amax())
+    amax = xf.abs().amax()
+    shard = current_shard()
+    if shard is not None and shard.group is not None:
+        all_reduce(amax, shard.group, op=dist.ReduceOp.MAX)
+    s = _scale(amax)
     q = torch.clamp(torch.round(xf / s), -_QMAX, _QMAX).to(torch.int8)
     return q, s
 

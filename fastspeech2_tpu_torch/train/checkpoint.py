@@ -175,6 +175,34 @@ def load_checkpoint_meta(path: str) -> dict:
         return json.loads(bytes(z["__meta__"]).decode())
 
 
+#: file extensions of the reference's PyTorch checkpoints
+TORCH_EXTS = (".pth", ".pyt", ".pt")
+
+
+def load_model(path: Optional[str], config_path: Optional[str] = None, device=None):
+    """(cfg, ``FastSpeech2`` on ``device``): a ``.npz`` checkpoint of either
+    package with its embedded config; a reference ``.pth``/``.pyt``/``.pt``
+    (``compat/torch_loader.py``; config from ``config_path``, else its
+    ``hp_str``); no path: a random init from seed 0 of the ``config_path``
+    config."""
+    from fastspeech2_tpu_torch.config import load_config
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+
+    if path and path.endswith(TORCH_EXTS):
+        from fastspeech2_tpu_torch.compat.torch_loader import load_torch_model
+
+        cfg, _, model = load_torch_model(
+            path, load_config(config_path) if config_path else None, device)
+    elif path:
+        cfg = Config.from_yaml(load_checkpoint_meta(path)["hp_yaml"])
+        model = FastSpeech2(cfg, device=device)
+        load_checkpoint(path, model)
+    else:
+        cfg = load_config(config_path)
+        model = FastSpeech2(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    return cfg, model
+
+
 def average_checkpoints(paths, out_path: str) -> int:
     """Uniform parameter average of N checkpoints -> one checkpoint. Works
     on the flat npz representation: float parameters and BatchNorm running

@@ -12,6 +12,7 @@ from fastspeech2_tpu_torch.vocoder.melgan import (  # noqa: F401
     load_melgan_params,
     load_melgan_state_dict,
     melgan_config_from_checkpoint,
+    melgan_state_dict,
 )
 from fastspeech2_tpu_torch.vocoder.waveglow import (  # noqa: F401
     WaveGlow,

@@ -325,6 +325,37 @@ def load_melgan_state_dict(gen: MelGANGenerator, sd: Dict[str, np.ndarray]
     return gen
 
 
+def melgan_state_dict(gen: MelGANGenerator) -> Dict[str, torch.Tensor]:
+    """``gen``'s weights as a seungwonpark/melgan generator state dict
+    (``generator.{i}`` Sequential names, each weight as ``weight_g`` = its
+    norm over all but the first axis and ``weight_v`` = the weight): the
+    format ``load_melgan_state_dict`` reads, for checkpoints of seeded
+    generators. The weight norm folds back to the weight up to rounding."""
+    own = {k: v.detach().float().cpu() for k, v in gen.state_dict().items()}
+    out: Dict[str, torch.Tensor] = {}
+    idx, n_stacks = 2, len(gen.cfg.resstack_dilations)
+
+    def put(name: str, base: str):
+        w = own[f"{name}.weight"]
+        out[f"generator.{base}.weight_g"] = w.flatten(1).norm(dim=1).reshape(
+            -1, *([1] * (w.dim() - 1)))
+        out[f"generator.{base}.weight_v"] = w.clone()
+        out[f"generator.{base}.bias"] = own[f"{name}.bias"].clone()
+
+    # the Sequential indices of load_melgan_state_dict
+    put("pre", "1")
+    for i in range(len(gen.cfg.upsample_rates)):
+        idx += 1
+        put(f"blocks.{i}.up", str(idx))
+        idx += 1
+        for j in range(n_stacks):
+            put(f"blocks.{i}.stacks.{j}.c1", f"{idx}.blocks.{j}.2")
+            put(f"blocks.{i}.stacks.{j}.c2", f"{idx}.blocks.{j}.4")
+        idx += 1
+    put("post", str(idx + 2))
+    return out
+
+
 def load_melgan_params(path: str, cfg: MelGANConfig = MelGANConfig(),
                        bf16: bool = False,
                        device: Union[str, torch.device, None] = None

@@ -882,6 +882,162 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     assert abs(lg - lc) < 0.01 * abs(lc) and abs(ng - nc) < 0.05 * nc, out
 
 
+def test_full_width_bf16_step_is_reproducible(dev):
+    """The same full-width bf16 training step (``configs/default.yaml``, the
+    seed-0 model, its dropout seeds, 16 rows of up to 96 tokens and 640
+    frames) run twice from the same start gives the same gradients bit for
+    bit: every backward on the step is deterministic (the length
+    regulator's is ``ops/length_regulator.py:_Expand``, not the gather's
+    scatter-add)."""
+    import dataclasses
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import load_config
+    from fastspeech2_tpu_torch.models.fastspeech2 import Batch, FastSpeech2
+    from fastspeech2_tpu_torch.train.optimizer import NoamAdam
+    from fastspeech2_tpu_torch.train.seeds import SeedSchedule
+    from fastspeech2_tpu_torch.train.step import TrainState, make_train_step, trainable
+
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs" / "default.yaml"))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, bf16=True))
+    g = np.random.default_rng(4)
+    B, T, L = 16, 96, 640
+    ilens = g.integers(T // 2, T + 1, B).astype(np.int32)
+    ds = g.integers(1, L // T + 1, (B, T)).astype(np.int32) * (np.arange(T)[None] < ilens[:, None])
+    olens = ds.sum(1).astype(np.int32)
+    m = np.arange(L)[None] < olens[:, None]
+    batch = Batch(*(torch.from_numpy(a).to(dev) for a in (
+        (g.integers(1, 68, (B, T)) * (ds > 0)).astype(np.int32), ilens,
+        (g.normal(-5, 2, (B, L, 80)) * m[..., None]).astype(np.float32), olens, ds,
+        (g.uniform(0.02, 100, (B, L)) * m).astype(np.float32),
+        (g.uniform(71, 600, (B, L)) * m).astype(np.float32))))
+
+    def gradients():
+        model = FastSpeech2(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        opt = NoamAdam(trainable(model), cfg)
+        kept = []
+        opt.step = lambda grads: kept.extend(t.detach().clone() for t in grads) or \
+            torch.zeros((), device=dev)
+        seeds = SeedSchedule(model.dropout_sites(), seed=0)
+        make_train_step(model, opt, 1, bf16=True)(TrainState(model, opt), batch,
+                                                  [seeds.draw()])
+        return [n for n, _ in model.named_parameters()], kept
+
+    names, a = gradients()
+    _, b = gradients()
+    differ = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
+    assert len(a) == len(names) and not differ, differ
+
+
+#: the serving kernels' custom ops (``ops/kernels/library.py``): op name ->
+#: (wrapper module, its direct launch's name, leading arguments)
+CUSTOM_OPS = {
+    "attention_block": ("attention", "launch_block", ()),
+    "attention_res_ln": ("attention", "launch_res_ln", ()),
+    "attention_res": ("attention", "launch_res", ()),
+    "fused_attention_packed": ("attention", "launch_packed", ()),
+    "ffn_block": ("ffn", "launch_block", (False,)),
+    "ffn_block_pre": ("ffn", "launch_block", (True,)),
+    "variance_adaptor": ("adaptor", "launch", ()),
+    "postnet": ("postnet", "launch", ()),
+    "resstack": ("resstack", "launch", ()),
+}
+
+
+def _seeded_model(dev, **model_kw):
+    from fastspeech2_tpu_torch.config import Config, ModelConfig
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+
+    cfg = Config(model=ModelConfig(adim=256, aheads=2, elayers=2, eunits=512, ddim=256,
+                                   dlayers=2, dunits=512, fused_attention="on", **model_kw))
+    model = FastSpeech2(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.duration_predictor.out.bias.fill_(1.87)
+    return cfg, model
+
+
+def test_custom_ops_equal_their_direct_launches(dev, monkeypatch):
+    """Each serving kernel's ``fs2::`` custom op against its direct ctypes
+    launch on the inputs the model's routes give it (post-LN with MelGAN,
+    ``FUSED_ATT_QKV`` off, pre-LN, ``concat_after``): the same bits, and one
+    launch counted per op call."""
+    import importlib
+
+    import numpy as np
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.ops import flags
+    from fastspeech2_tpu_torch.ops.kernels import launch_counts
+    from fastspeech2_tpu_torch.vocoder import MelGANGenerator
+
+    calls = {}
+
+    class Record(TorchDispatchMode):
+        """Keeps the first arguments each ``fs2::`` op is called with."""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._schema.name.startswith("fs2::"):
+                calls.setdefault(func._schema.name[len("fs2::"):], args)
+            return func(*args, **(kwargs or {}))
+
+    seqs = [np.arange(n) % 60 + 1 for n in (40, 17, 64)]
+    _, model = _seeded_model(dev)
+    synth = Synthesizer(model, bf16=True, device=dev)
+    synth.attach_vocoder(MelGANGenerator(bf16=True, seed=0, device=dev))
+    with Record():
+        synth.wav_from_token_batch(seqs)
+        monkeypatch.setattr(flags, "FUSED_ATT_QKV", False)
+        synth.mel_from_token_batch(seqs)
+        for kw in ({"encoder_normalize_before": True, "decoder_normalize_before": True},
+                   {"encoder_concat_after": True, "decoder_concat_after": True}):
+            Synthesizer(_seeded_model(dev, **kw)[1], bf16=True,
+                        device=dev).mel_from_token_batch(seqs)
+    assert set(calls) == set(CUSTOM_OPS), set(CUSTOM_OPS) - set(calls)
+    for name, args in calls.items():
+        mod, launch, lead = CUSTOM_OPS[name]
+        before = launch_counts()[name]
+        got = getattr(torch.ops.fs2, name)(*args)
+        assert launch_counts()[name] == before + 1, name
+        want = getattr(importlib.import_module(f"fastspeech2_tpu_torch.ops.kernels.{mod}"),
+                       launch)(*lead, *args)
+        for a, b in zip(*((t,) if isinstance(t, torch.Tensor) else t for t in (got, want))):
+            assert a.is_cuda and torch.equal(a, b), name
+
+
+def test_exported_bf16_artifact_launches_the_kernels(dev, tmp_path):
+    """A bf16 artifact exported on the card (``infer/export.py``) launches
+    kernels 1-4 through its custom ops (the launch counters: 2 + 2 blocks,
+    one adaptor, one postnet) and returns the eager bf16 call's mel and
+    lengths bit for bit."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.infer.export import export_inference, load_exported
+    from fastspeech2_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fastspeech2_tpu_torch.ops.precision import compute_dtype
+    from fastspeech2_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg, model = _seeded_model(dev)
+    save_checkpoint(str(tmp_path / "m.npz"), model, None, 0, cfg)
+    call = load_exported(export_inference(str(tmp_path / "m.npz"), str(tmp_path / "m.pt2"),
+                                          batch=4, max_tokens=64, max_frames=512, bf16=True))
+    g = np.random.default_rng(1)
+    ilens = np.asarray([64, 40, 9, 1], np.int32)
+    xs = (g.integers(1, 68, (4, 64)) * (np.arange(64)[None] < ilens[:, None])).astype(np.int32)
+    reset_launch_counts()
+    mel, lens = call(xs, ilens)
+    counts = launch_counts()
+    assert {k: counts[k] for k in ("attention_block", "ffn_block", "variance_adaptor",
+                                   "postnet")} == {"attention_block": 4, "ffn_block": 4,
+                                                   "variance_adaptor": 1, "postnet": 1}, counts
+    with torch.inference_mode(), compute_dtype(torch.bfloat16):
+        want, wlens, _ = model.inference(torch.from_numpy(xs).to(dev),
+                                         torch.from_numpy(ilens).to(dev), out_maxlen=512)
+    assert mel.is_cuda and torch.equal(lens, wlens) and int(lens.min()) > 0
+    assert torch.equal(mel, want), float((mel - want).abs().max())
+
+
 def _speechlike(B, N, g):
     """Harmonics on a gliding f0 plus noise; row 0 keeps sound only in its
     first tenth (a bucket's zero tail)."""

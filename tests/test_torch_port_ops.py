@@ -38,21 +38,22 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import in a fresh
-    interpreter without loading jax or the JAX package."""
+    """Every module of the port, chip_smoke.py and examples/demo_torch.py
+    import in a fresh interpreter without loading jax or the JAX package."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
 import fastspeech2_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name, path in (("chip_smoke", sys.argv[1]), ("demo_torch", sys.argv[2])):
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "fastspeech2_tpu"
        or m.startswith("fastspeech2_tpu.")]
 assert not bad, bad
-assert len(names) >= 58, names
+assert len(names) >= 61, names
 need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
         "audio", "audio.stft", "audio.pitch", "audio.griffin_lim",
         "audio.processing", "native", "cli", "__main__", "ops.kernels.stft",
@@ -65,12 +66,14 @@ need = {"vocoder", "vocoder.melgan", "infer.server", "infer.synthesize",
         "data.filelist", "data.dataset", "data.batching", "data.prefetch",
         "utils", "utils.plotting", "utils.display", "compat.torch_loader",
         "compat.torch_saver", "train.gta", "ops.quant8", "vocoder.waveglow",
-        "parallel", "parallel.mesh", "parallel.sharding"}
+        "parallel", "parallel.mesh", "parallel.sharding", "ops.kernels.library",
+        "infer.export", "compat.golden"}
 missing = {pkg.__name__ + "." + n for n in need} - set(names)
 assert not missing, missing
 print(len(names))
 """
-    r = subprocess.run([sys.executable, "-c", code, str(ROOT / "chip_smoke.py")],
+    r = subprocess.run([sys.executable, "-c", code, str(ROOT / "chip_smoke.py"),
+                        str(ROOT / "examples" / "demo_torch.py")],
                        cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
 

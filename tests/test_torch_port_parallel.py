@@ -163,12 +163,32 @@ for task in spec["tasks"]:
         out[f"{name}/durs"] = durs.numpy()
     elif kind == "serve":
         from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+        from fastspeech2_tpu_torch.ops import quant8
         synth = Synthesizer(m, device="cpu", mesh=pm.make_mesh(), **task.get("kw", {}))
         seqs = [np.asarray(s, np.int64) for s in task["seqs"]]
+        # every activation quantization of the calls: (this rank's amax of
+        # its input, the scale it returned); the encoder's durations
+        scales, durs = [], []
+        quantize, encode = quant8.dynamic_quantize, synth.model.encode
+
+        def recording_quantize(x):
+            q, s = quantize(x)
+            scales.append((float(x.float().abs().amax()), float(s)))
+            return q, s
+
+        def recording_encode(xs, ilens):
+            hs, d = encode(xs, ilens)
+            durs.append(d.numpy().copy())
+            return hs, d
+
+        quant8.dynamic_quantize, synth.model.encode = recording_quantize, recording_encode
         mel, lens, trunc = synth.mel_from_token_batch(seqs, return_truncated=True)
         mel2, lens2 = synth.mel_from_token_batch(seqs)
+        quant8.dynamic_quantize = quantize
         assert np.array_equal(lens, lens2) and np.array_equal(mel, mel2)
         out[f"{name}/mel"], out[f"{name}/lens"], out[f"{name}/trunc"] = mel, lens, trunc
+        out[f"{name}/scales"] = np.asarray(scales, np.float64).reshape(-1, 2)
+        out[f"{name}/durs"] = durs[0]
 
 bad = [n for n in sys.modules if n == "jax" or n.startswith("jax.")
        or n == "fastspeech2_tpu" or n.startswith("fastspeech2_tpu.")]
@@ -229,6 +249,11 @@ MODES = {"masked": dict(use_masking=True, use_weighted_masking=False),
 STEPS = {"masked": 2, "weighted": 2, "unmasked": 2}
 SEQS = [[int(x) for x in np.random.default_rng(11).integers(1, 68, n)]
         for n in (5, 9, 7)]
+#: the int8 serving batch: shard 0 (rows 0, 1) holds the long rows, so its
+#: activations are the larger; the demand split (rungs 256 and 512) pairs a
+#: row of each shard in each group
+SEQS8 = [[int(x) for x in np.random.default_rng(12).integers(1, 68, n)]
+         for n in (120, 3, 24, 2)]
 
 
 def _dp_cfg(mode):
@@ -256,6 +281,8 @@ def dp_run(tmp_path_factory):
     params["duration_predictor"]["out"]["b"] = params["duration_predictor"]["out"]["b"] + 1.0
     cfgs["serve"], weights["serve"] = serve_cfg, port_model_state(serve_cfg, params, state)
     tasks.append(dict(name="serve", kind="serve", cfg="serve", dp=2, tp=1, seqs=SEQS))
+    tasks.append(dict(name="serve8", kind="serve", cfg="serve", dp=2, tp=1, seqs=SEQS8,
+                      kw={"int8": True}))
     outs = run_workers(root, 2, cfgs, weights, data, tasks)
     return outs, data, (serve_cfg, params, state)
 
@@ -316,6 +343,100 @@ def test_two_rank_serving_matches_jax_sharded(dp_run):
         assert r["serve/mel"].shape == mj.shape
         np.testing.assert_allclose(r["serve/mel"], mj, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(outs[0]["serve/mel"], outs[1]["serve/mel"])
+
+
+def _scale_f32(amax: float) -> np.float32:
+    """``quant8._scale`` in float32: max(amax, tiny) / 127."""
+    return np.float32(max(np.float32(amax), np.finfo(np.float32).tiny)) / np.float32(127.0)
+
+
+def _jax_sharded_mel(js, seqs):
+    """The JAX sharded ``Synthesizer``'s demand-sized mel call, step by step:
+    its encode program, ``_decode_groups`` over the whole batch's demand,
+    then each group's decode program with the group's rows placed sharded
+    over ``data``, as the programs take them (its own dispatch hands them
+    over replicated, which jit refuses once the split engages). Returns
+    (mel, out_lens, durations of the padded batch)."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    data = NamedSharding(js.mesh, PartitionSpec("data"))
+    B, B_pad = len(seqs), js._b_pad(len(seqs))
+    t_pad = -(-max(len(s) for s in seqs) // js.token_multiple) * js.token_multiple
+    xs = np.zeros((B_pad, t_pad), np.int32)
+    ilens = np.ones((B_pad,), np.int32)
+    for i, s in enumerate(seqs):
+        xs[i, :len(s)], ilens[i] = s, len(s)
+    ilens_d, alphas_d = jnp.asarray(ilens), jnp.ones((B_pad,), jnp.float32)
+    hs, d_outs, dem = js._enc_fn(t_pad)(js.params, jnp.asarray(xs), ilens_d, alphas_d)
+    groups = js._decode_groups(np.asarray(dem))
+    assert len(groups) == 2  # the split is engaged
+    mel = np.zeros((B_pad, max(r for _, r in groups), js.model.odim), np.float32)
+    lens = np.zeros((B_pad,), np.int64)
+    for rows, rung in groups:
+        args = [jax.device_put(jnp.take(t, jnp.asarray(rows), axis=0), data)
+                for t in (hs, d_outs, ilens_d, alphas_d)]
+        m, ln = js._dec_fn(t_pad, rung)(js.params, js.state, *args)
+        mel[rows, :rung], lens[rows] = np.asarray(m), np.asarray(ln)
+    return mel[:B], lens[:B], np.asarray(d_outs), ilens, t_pad
+
+
+def test_two_rank_int8_serving_matches_jax_sharded(dp_run):
+    """The int8 tier over two processes (``SEQS8``: shard 0 holds the long
+    rows, the 2-way decode split engaged) against the JAX int8
+    ``Synthesizer`` on its 2-device data mesh, whose programs take each
+    activation's scale over the whole group's rows. The bar of
+    ``test_synthesizer_int8_f32_matches_jax``: durations on >= 99% of the
+    tokens, out_lens equal, the rows with equal durations within 2e-2; both
+    ranks return the same bits. It prints each row's largest mel difference
+    to the JAX call (``pytest -s``)."""
+    outs, _, (cfg, params, state) = dp_run
+    js = JSynth(JFS(cfg), params, state, mesh=jmake_mesh(2), int8=True)
+    mj, lj, dj, ilens, t_pad = _jax_sharded_mel(js, [np.asarray(s, np.int32)
+                                                     for s in SEQS8])
+    r0, r1 = outs
+    for k in ("mel", "lens", "trunc"):
+        np.testing.assert_array_equal(r0[f"serve8/{k}"], r1[f"serve8/{k}"], err_msg=k)
+    np.testing.assert_array_equal(r0["serve8/lens"], lj)
+    assert r0["serve8/mel"].shape == mj.shape
+    dt = np.concatenate([r0["serve8/durs"], r1["serve8/durs"]])
+    live = np.arange(t_pad)[None] < ilens[:, None]
+    assert (dj == dt)[live].mean() >= 0.99, (dj != dt)[live].sum()
+    same = [i for i in range(len(SEQS8)) if np.array_equal(dj[i], dt[i])]
+    assert len(same) >= len(SEQS8) - 1, same
+    gaps = [float(np.abs(r0["serve8/mel"][i] - mj[i]).max()) for i in same]
+    print("int8 rows' max abs mel difference to the JAX sharded call:", gaps)
+    assert max(gaps) < 2e-2, gaps
+
+
+def test_two_rank_int8_scales_cover_the_whole_group(dp_run):
+    """Every activation quantization of the two-rank int8 calls returns, on
+    both ranks, the scale of the largest magnitude over the whole group's
+    rows (the max of the two ranks' own amax), as the JAX package's sharded
+    program does: the two ranks enter the same quantizations in the same
+    order. A failure says how many scales were off the group's, of how
+    many, and by how much at most (relative)."""
+    outs, _, _ = dp_run
+    r0, r1 = (o["serve8/scales"] for o in outs)
+    n = min(len(r0), len(r1))
+    want = np.asarray([_scale_f32(max(a, b)) for a, b in zip(r0[:n, 0], r1[:n, 0])],
+                      np.float64)
+    rel = np.concatenate([np.abs(r[:n, 1] - want) / want for r in (r0, r1)])
+    gap = (f"{int((rel > 0).sum())} of {rel.size} scales off the group's, up to "
+           f"{rel.max():.3g} relative; {len(r0)} and {len(r1)} quantizations a rank")
+    assert n > 0 and len(r0) == len(r1) and not rel.any(), gap
+    assert not np.array_equal(r0[:, 0], r1[:, 0])  # the shards' own amax differ
+
+
+def test_local_mesh_refuses_int8():
+    """A local mesh runs its replicas one after another on one thread, so
+    they cannot share a scale per layer: ``int8=True`` is refused there."""
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+
+    cfg = config_from_dict(small_cfg().to_dict())
+    m = TFS(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="int8"):
+        Synthesizer(m, device="cpu", mesh=pmesh.make_mesh(devices=["cpu", "cpu"]),
+                    int8=True)
 
 
 def test_local_mesh_serving_equals_one_device():
