@@ -8,10 +8,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: refuse to run without CUDA; print the card's name and power limit.
 2. build: compile the seven CUDA sources of fastspeech2_tpu_torch/csrc with
    nvcc for sm_90a (all sources at once) and print the build seconds and the
-   ptxas register/shared-memory report; the fourteen bf16 training-attention
-   kernels (forward, dQ, dK/dV at d_k 128/192/256, both grid splits), the
-   six SERVE instantiations of the shared forward (kernels 7 and 8, and
-   launch B of 1, 5 and 6), the ten q|k|v and out projection kernels of
+   ptxas register/shared-memory report; the 20 bf16 training-attention
+   kernels (forward, dQ, dK/dV: the tile bodies at DK 128/192/256 and both
+   grid splits, the wide bodies of d_k past 256 at column parts of 192 and
+   256), the eight SERVE instantiations of the shared forward (kernels 7
+   and 8, and launch B of 1, 5 and 6: the tile body at DK 128/192/256 in
+   both grid splits, the wide body at parts of 192 and 256; the new ones
+   without a ptxas note of serialized wgmma in either library), the ten
+   q|k|v and out projection kernels of
    1, 5 and 6, the twelve widths of the bf16 residual stack (kernel 13),
    the 18 conv-FFN kernels (2, 9, 10: k-tap conv and k=1 conv with its
    epilogue), the two variance-adaptor kernels (3) and the nine postnet
@@ -62,7 +66,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernels 1, 5 and 6 with their device times by the profiler, also at d_k
    256 (B=16, T=768, D=256, one head), where their dead rows are held bit
    for bit to res + bo (6) and to kernel 5's own LN(res + bo) at length 0
-   (1 and 5; that within 1e-5 of the plain LayerNorm).
+   (1 and 5; that within 1e-5 of the plain LayerNorm). Every head dim:
+   kernels 7, 8, 11 and 12 (forward and the three gradients, rate 0.2) at
+   d_k 40, 64, 136, 160, 320, 384, 512 and 1024 (two heads at 40, 136 and
+   160, so that a load or store crossing into the next head's columns
+   shows; d_k 40 also reads a 64-column box past a map of 40), lengths
+   T, 0, random and short, against their plain versions: dead rows zero,
+   8 == 7 == 11's forward at rate 0 and a second training call bit for bit;
+   the f32 instantiations at d_k 160 and 384; kernels 1, 5 and 6 at (D, H)
+   = (384, 1), (320, 2) and (1024, 1) with their dead rows; at d_k 160, 384
+   and 1024 every one of the seven timed at (16, 768) beside its plain
+   version, its bound and (7, 8, 11, 12) SDPA, whose backend is named.
 4. mel path: the default-config model (random weights from seed 0, duration
    bias 1.87 for realistic frame counts) served through
    Synthesizer(bf16=True) on cuda at B=1, 8 and 32 with fixed ARPAbet
@@ -128,6 +142,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 14. d_k 256: a post-LN model with adim = ddim = 256 and one head serves a
    B=8 mel call through kernel 1 at d_k 256 (its launch counter), held
    against the CPU port fed the card's durations.
+14b. one head: configs/default.yaml with aheads 1 (encoder d_k 256,
+   decoder d_k 384) serves B=1, 8 and 32 mel calls through kernel 1 in all
+   8 blocks (12 launches a B=32 call), B=8 held against the CPU port fed the
+   card's durations; one B=8 call each with FUSED_ATT_QKV off (kernel 5),
+   pre-LN blocks (kernel 6) and concat_after (kernel 7); adim 320 at two
+   heads (encoder d_k 160) serves a B=8 call through kernel 1, held the
+   same way. After the train path (9), train() with aheads 1 at full width
+   in bf16 takes 2 steps (kernel 11 at d_k 256 and 384, 32 / 32 a step),
+   the single-process step on one window runs twice with the same bits, and
+   one step with FUSED_ATT_TRAIN_PACKED off goes through kernel 12.
 15. wide postnet: a post-LN model with postnet_chans 512 and adim 384 serves
    a B=8 mel call through kernels 3 (D = 384) and 4 (C = 512), held against
    the CPU port fed the card's durations; their launch counters rise.
@@ -1354,12 +1378,13 @@ def batch(n: int, offset: int = 0):
     return seqs
 
 
-def hold_b8_vs_cpu(torch, synth, cfg, what, cpu_model=None):
+def hold_b8_vs_cpu(torch, synth, cfg, what, cpu_model=None, split=True):
     """One B=8 batch served through the timed path with the 2-way split
-    engaged; every served row is held against the same port on the CPU
-    (plain versions; ``cpu_model``, default a CPU copy of the served model)
-    fed the card's durations (live frames do not depend on the decode rung,
-    so one CPU decode at the longer rung covers both)."""
+    engaged (``split=False``: however the dispatch groups it); every served
+    row is held against the same port on the CPU (plain versions;
+    ``cpu_model``, default a CPU copy of the served model) fed the card's
+    durations (live frames do not depend on the decode rung, so one CPU
+    decode at the longer rung covers both)."""
     import numpy as np
 
     from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
@@ -1376,7 +1401,7 @@ def hold_b8_vs_cpu(torch, synth, cfg, what, cpu_model=None):
         demand = frame_demand(scale_durations(d_g, alphas), make_non_pad_mask(il_g, t_pad))
     groups = synth._decode_groups(demand.cpu().numpy())
     log(f"{what}: B=8 decode groups (rows, rung): {[(g.tolist(), r) for g, r in groups]}")
-    assert len(groups) == 2, "the 2-way split did not engage on the B=8 batch"
+    assert len(groups) == 2 or not split, "the 2-way split did not engage on the B=8 batch"
     rung = max(r for _, r in groups)
     assert mel_s.shape[1] == rung, (mel_s.shape, rung)
     if cpu_model is None:
@@ -2500,6 +2525,434 @@ def bare_attention_checks(torch, results):
                 results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
 
+#: head dims of the kernel phases past the 128/192/256 instantiations: padded
+#: with zero columns (40, 64 to 128; 136, 160 to 192) or cut into column
+#: parts (320-1024)
+NEW_HEAD_DIMS = (40, 64, 136, 160, 320, 384, 512, 1024)
+#: head dims run at two heads, so that a column past d_k is the next head's
+TWO_HEAD_DIMS = (40, 136, 160)
+#: (d_k, heads) timed at the decoder rung's (16, 768)
+TIMED_HEAD_DIMS = ((160, 2), (384, 1), (1024, 1))
+#: (D, heads) of kernels 1, 5 and 6 past d_k 256: d_k 384, 160, 1024
+HALF_HEAD_DIMS = ((384, 1), (320, 2), (1024, 1))
+
+
+def sdpa_backend(names):
+    """The backend of a scaled_dot_product_attention call, from the names of
+    the kernels it launched."""
+    low = " ".join(names).lower()
+    for key, what in (("flash", "flash"), ("cudnn", "cuDNN"), ("fmha", "memory-efficient"),
+                      ("mem_eff", "memory-efficient"), ("efficient", "memory-efficient")):
+        if key in low:
+            return what
+    return "math (" + ", ".join(sorted(names)) + ")"
+
+
+def head_dim_kernel_phase(torch, results):
+    """Kernels 7, 8, 11 and 12 at every d_k of NEW_HEAD_DIMS (two heads at
+    TWO_HEAD_DIMS, so that a load or store that crosses into the next head's
+    columns shows; one head otherwise) at B=4, T=200 with lengths T, 0, one
+    random and a short one: 7 and 8 against their plain versions (bf16 band),
+    kernel 8 == kernel 7 and kernel 7 == kernel 11's forward at rate 0 bit
+    for bit, rows at or past each length zeros; 11 and 12 at rate 0.2,
+    forward and the three gradients against the plain version's autograd
+    (max < 2^-6, mean < 1e-4 of the peak), padded rows exactly zero, a
+    second call bit for bit; the f32 instantiations at d_k 160 and 384.
+    Then kernels 1, 5 and 6 at (D, H) of HALF_HEAD_DIMS with their dead
+    rows (6: res + bo bit for bit; 1 and 5: kernel 5 at length 0, itself
+    within 1e-5 of the plain LN(res + bo)). At TIMED_HEAD_DIMS every kernel
+    is timed at (16, 768) beside its plain version, its bound and, for 7, 8,
+    11 and 12, SDPA (whose backend is named from its kernels)."""
+    import torch.nn.functional as F
+
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(17)
+
+    def lengths(B, T):
+        ls = torch.randint(T // 4, T + 1, (B,), generator=gen, dtype=torch.int32)
+        ls[0], ls[1], ls[-1] = T, 0, max(1, T // 5)
+        return ls.tolist(), ls.to(dev)
+
+    def note(name, key, **kw):
+        results[name].setdefault("head_dims", {}).setdefault(key, {}).update(kw)
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], kw.get("max_abs_err", 0.0))
+
+    def train_grads(fn, q, k, v, do):
+        o = fn(q, k, v)
+        return (o, *torch.autograd.grad(o, (q, k, v), do))
+
+    B, T = 4, 200
+    for dk in NEW_HEAD_DIMS:
+        H = 2 if dk in TWO_HEAD_DIMS else 1
+        D, key = H * dk, f"dk={dk},H={H},B={B},T={T}"
+        lc, lens = lengths(B, T)
+        split = lambda t: t.view(B, T, H, dk).transpose(1, 2).contiguous()  # noqa: E731
+        q, k, v, do = (torch.randn(B, T, D, generator=gen).to(bf16).to(dev) for _ in range(4))
+        with torch.no_grad():
+            got7 = KA.fused_attention_packed(q, k, v, lens, H)
+            got8 = KA.fused_attention(split(q), split(k), split(v), lens)
+            k11 = KT.fused_attention_train_packed(q, k, v, lens, 0, H, 0.0)
+            want = KA.fused_attention_packed_plain(q, k, v, lens, H)
+        torch.cuda.synchronize()
+        log(f"kernel fused_attention_packed / fused_attention {key}")
+        err = compare(f"fused_attention_packed {key}", got7, want, 2e-3, 0.1)
+        for b, n in enumerate(lc):
+            assert not got7[b, n:].any(), f"fused_attention_packed dead row {b}, {key}"
+        assert torch.equal(split(got7), got8), f"kernel 8 != kernel 7, {key}"
+        assert torch.equal(got7, k11), f"kernel 7 != kernel 11's forward at rate 0, {key}"
+        log("  rows at or past each length zeros; kernel 8 == kernel 7 == kernel 11's "
+            "forward at rate 0, bit for bit")
+        for name in ("fused_attention_packed", "fused_attention"):
+            note(name, key, max_abs_err=err)
+        for packed, name in ((True, "attention_train_packed"), (False, "attention_train")):
+            shape = (B, T, D) if packed else (B, H, T, dk)
+            qq, kk, vv, dd = ((t if packed else split(t)) for t in (q, k, v, do))
+            qq, kk, vv = (t.detach().clone().requires_grad_() for t in (qq, kk, vv))
+            kern, plain = train_attention_fns(KT, packed, lens, 0xFFFFFFF2, H, 0.2)
+            got, again = (train_grads(kern, qq, kk, vv, dd) for _ in range(2))
+            want = train_grads(plain, qq, kk, vv, dd)
+            torch.cuda.synchronize()
+            pad = torch.arange(T, device=dev)[None] >= lens[:, None]
+            pad = pad[:, :, None] if packed else pad[:, None, :, None]
+            err = 0.0
+            for what, g, g2, w in zip(("o", "dq", "dk", "dv"), got, again, want):
+                assert g.shape == shape and torch.equal(g, g2), f"{name}.{what} {key}: two calls"
+                assert float(torch.where(pad, g.detach().float().abs(), 0).max()) == 0.0
+                peak = float(w.detach().float().abs().max())
+                err = max(err, compare(f"{name}.{what} {key} rate 0.2 (peak {peak:.3f})",
+                                       g.detach(), w.detach(), 1e-4 * peak, 2.0 ** -6 * peak))
+            log(f"  {name} {key}: padded rows exactly zero, a second call bit for bit")
+            note(name, key, max_abs_err=err)
+    # the f32 instantiations (plain multiply-adds) past the old head dims
+    for dk, H in ((160, 2), (384, 1)):
+        D, key = H * dk, f"f32,dk={dk},H={H},B=2,T=120"
+        ls = torch.tensor([120, 37], dtype=torch.int32, device=dev)
+        q, k, v, do = (torch.randn(2, 120, D, generator=gen).to(dev) for _ in range(4))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        kern, plain = train_attention_fns(KT, True, ls, 2 ** 32 - 3, H, 0.2)
+        got, want = train_grads(kern, q, k, v, do), train_grads(plain, q, k, v, do)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+            peak = float(w.detach().abs().max())
+            compare(f"attention_train_packed.{what} {key}", g.detach(), w.detach(),
+                    2e-6 * peak, 2e-5 * peak)
+
+    # kernels 1, 5, 6 at the new head dims: correctness at B=4, T=200
+    for D, H in HALF_HEAD_DIMS:
+        half_heads_case(torch, results, gen, 4, 200, D, H, timed=False)
+
+    # timings at the decoder rung
+    B, T = 16, 768
+    for dk, H in TIMED_HEAD_DIMS:
+        D, key = H * dk, f"dk={dk},H={H},B={B},T={T}"
+        lc, lens = lengths(B, T)
+        live_qkv = 3 * sum(lc) * D * 2
+        q, k, v, do = (torch.randn(B, T, D, generator=gen).to(bf16).to(dev) for _ in range(4))
+        mask = (torch.arange(T, device=dev)[None] < lens[:, None])[:, None, None, :]
+        q4, k4, v4 = (t.view(B, T, H, dk).transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)  # noqa: E731
+        with torch.no_grad():
+            backend = sdpa_backend(device_ms_by_kernel(torch, lib))
+            lib_ms, lib_dev = cuda_time_ms(lib), sum(device_ms_by_kernel(torch, lib).values())
+            flops = sum(4 * l * l * D for l in lc)
+            b_ms, by = bound_ms(flops, live_qkv + B * T * D * 2)
+            for name, fn, plain in (
+                    ("fused_attention_packed", lambda: KA.fused_attention_packed(q, k, v, lens, H),
+                     lambda: KA.fused_attention_packed_plain(q, k, v, lens, H)),
+                    ("fused_attention", lambda: KA.fused_attention(q4, k4, v4, lens),
+                     lambda: KA.fused_attention_plain(q4, k4, v4, lens))):
+                ms, pms = cuda_time_ms(fn), cuda_time_ms(plain, reps=5)
+                dms = sum(device_ms_by_kernel(torch, fn).values()) or None
+                log(f"  {name} {key}: kernel {ms:.4f} ms (device {dms}), plain {pms:.4f}, "
+                    f"SDPA {lib_ms:.4f} (device {lib_dev:.4f}; backend {backend}), bound "
+                    f"{b_ms:.4f} ({by})")
+                note(name, key, ms=ms, device_ms=dms, plain_ms=pms, library_ms=lib_ms,
+                     library_device_ms=lib_dev, library_backend=backend, bound_ms=b_ms,
+                     bound_by=by)
+        pairs = sum(l * l for l in lc) * H * dk
+        live, whole = sum(lc) * D * 2, B * T * D * 2
+        fb, fby = bound_ms(4 * pairs, 3 * live + whole)
+        bb, bby = bound_ms(10 * pairs, 4 * live + 3 * whole)
+        for packed, name in ((True, "attention_train_packed"), (False, "attention_train")):
+            qq, kk, vv, dd = ((t if packed else t.view(B, T, H, dk).transpose(1, 2).contiguous())
+                              for t in (q, k, v, do))
+            qq, kk, vv = (t.detach().clone().requires_grad_() for t in (qq, kk, vv))
+            tm = train_attention_times(torch, KT, packed, qq, kk, vv, dd, lens, H, 0.2)
+            kern, plain = train_attention_fns(KT, packed, lens, 12345, H, 0.2)
+            o = plain(qq, kk, vv)
+            with torch.no_grad():
+                pf_ms = cuda_time_ms(lambda: plain(qq, kk, vv), reps=3)
+            pb_ms = cuda_time_ms(lambda: torch.autograd.grad(o, (qq, kk, vv), dd,
+                                                             retain_graph=True), reps=3)
+            del o
+            so = F.scaled_dot_product_attention(
+                *((t if not packed else t.view(B, T, H, dk).transpose(1, 2))
+                  for t in (qq, kk, vv)), attn_mask=mask | (~mask).all(-1, keepdim=True),
+                dropout_p=0.2)
+            tb = sdpa_backend(device_ms_by_kernel(
+                torch, lambda: torch.autograd.grad(so, (qq, kk, vv), torch.ones_like(so),
+                                                   retain_graph=True)))
+            del so
+            log(f"  {name} {key} rate 0.2: forward {tm['fwd']:.4f} ms (device "
+                f"{tm['device_fwd']}), backward {tm['bwd']:.4f} ms (device {tm['device_bwd']}; "
+                f"launches {tm['bwd_launches']}); plain {pf_ms:.3f} / {pb_ms:.3f}; SDPA "
+                f"{tm['sdpa_fwd']:.4f} / {tm['sdpa_bwd']:.4f} (device {tm['device_sdpa_fwd']} / "
+                f"{tm['device_sdpa_bwd']}; backward backend {tb}); bound {fb:.4f} ({fby}) / "
+                f"{bb:.4f} ({bby})")
+            note(name, key, ms=tm["fwd"], device_ms=tm["device_fwd"], plain_ms=pf_ms,
+                 library_ms=tm["sdpa_fwd"], library_device_ms=tm["device_sdpa_fwd"],
+                 bound_ms=fb, bound_by=fby, library_backend=backend,
+                 bwd={"ms": tm["bwd"], "device_ms": tm["device_bwd"], "plain_ms": pb_ms,
+                      "library_ms": tm["sdpa_bwd"], "library_device_ms": tm["device_sdpa_bwd"],
+                      "bound_ms": bb, "bound_by": bby, "library_backend": tb,
+                      "launches_ms": tm["bwd_launches"]})
+    for D, H in HALF_HEAD_DIMS:
+        half_heads_case(torch, results, gen, B, T, D, H, timed=True)
+
+
+def half_heads_case(torch, results, gen, B, T, D, H, timed):
+    """Kernels 1, 5 and 6 at (B, T, D, H) against their plain versions on
+    random weights (q/k/v of 5 and 6: column blocks of one q|k|v buffer, as
+    kernel 1 rounds them), lengths T, 0, one random and a short one; the dead
+    rows as attention_halves_dk256 holds them; timed: events, device time,
+    plain version and bound."""
+    from fastspeech2_tpu_torch.ops import nn
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.precision import compute_dtype
+
+    dev, bf16, dk = torch.device("cuda"), torch.bfloat16, D // H
+    key = f"dk={dk},H={H},B={B},T={T}"
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    x = rnd(B, T, D, scale=2.0) + 0.5
+    wqkv, wo = (rnd(3 * D, D) / D ** 0.5).to(bf16), (rnd(D, D) / D ** 0.5).to(bf16)
+    bqkv, bo = rnd(3 * D, scale=0.1), rnd(D, scale=0.1)
+    g, be = 1.0 + rnd(D, scale=0.2), rnd(D, scale=0.1)
+    ls = torch.randint(T // 4, T + 1, (B,), generator=gen, dtype=torch.int32)
+    ls[0], ls[1], ls[-1] = T, 0, max(1, T // 5)
+    lc, lens = ls.tolist(), ls.to(dev)
+    with torch.inference_mode(), compute_dtype(bf16):
+        qkv = (x.to(bf16).float() @ wqkv.float().t()).to(bf16).float().add(bqkv).to(bf16)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        a1 = (x, wqkv, bqkv, wo, bo, g, be, lens, H)
+        a5 = (q, k, v, x, wo, bo, g, be, lens, H)
+        a6 = (q, k, v, x, wo, bo, lens, H)
+        dead = KA.attention_res_ln(q, k, v, x, wo, bo, g, be, torch.zeros_like(lens), H)
+        torch.cuda.synchronize()
+        worst = float((dead - nn.layer_norm(x + bo, g, be)).abs().max())
+        assert worst < 1e-5, f"kernel 5 at length 0 vs LN(res + bo): {worst}, {key}"
+        small = sum(4 * l * l * D + 2 * l * D * D for l in lc)
+        live_qkv = 3 * sum(lc) * D * 2
+        for name, fn, plain, args, flops, nb, want_dead in (
+                ("attention_block", KA.attention_block, KA.attention_block_plain, a1,
+                 sum(8 * l * D * D + 4 * l * l * D for l in lc), nbytes(x, x, *a1[1:7]), dead),
+                ("attention_res_ln", KA.attention_res_ln, KA.attention_res_ln_plain, a5,
+                 small, live_qkv + nbytes(x, x, wo, bo, g, be), dead),
+                ("attention_res", KA.attention_res, KA.attention_res_plain, a6,
+                 small, live_qkv + nbytes(x, x, wo, bo), x + bo)):
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            log(f"kernel {name} {key}")
+            err = compare(f"{name} {key}", got, want, 2e-3, 0.1)
+            for b, n in enumerate(lc):
+                assert torch.equal(got[b, n:], want_dead[b, n:]), f"{name} dead row {b}, {key}"
+            log(f"  {name}: rows at or past each length bit for bit the dead-row constant "
+                f"(kernel 5 at length 0 within {worst:.2e} of the plain LN(res + bo))")
+            entry = {"max_abs_err": err}
+            if timed:
+                ms, pms = cuda_time_ms(lambda: fn(*args)), cuda_time_ms(lambda: plain(*args),
+                                                                         reps=5)
+                dms = sum(device_ms_by_kernel(torch, lambda: fn(*args)).values()) or None
+                b_ms, by = bound_ms(flops, nb)
+                log(f"  {name} {key}: kernel {ms:.4f} ms (device {dms}), plain {pms:.4f}, bound "
+                    f"{b_ms:.4f} ({by})")
+                entry.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by)
+            results[name].setdefault("head_dims", {}).setdefault(key, {}).update(entry)
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+
+def one_head_path_phase(torch, results):
+    """``configs/default.yaml`` with ``aheads: 1`` (encoder 4 blocks at d_k
+    256, decoder 4 at d_k 384; seed 0, duration bias 1.87): B=1, 8 and 32
+    mel calls through kernel 1 in all 8 blocks (12 launches a B=32 call, as at
+    two heads) with kernels 2-4; B=8 against the CPU port fed the card's
+    durations; a B=8 call each with FUSED_ATT_QKV off (kernel 5), with
+    pre-LN blocks (kernel 6) and with concat_after (kernel 7). Then
+    ``adim: 320`` at two heads (encoder d_k 160) serves a B=8 call through
+    kernel 1, held the same way."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config, config_from_dict
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.ops import flags
+
+    raw = Config().to_dict()
+    raw["model"].update(aheads=1)
+    cfg = config_from_dict(raw)
+    synth = Synthesizer(seeded_model(torch, cfg), bf16=True)
+    b32 = batch(32)
+    synth.mel_from_token_batch(b32)  # warm: packs the kernel weights
+    reset_counts()
+    for n in (1, 8, 32):
+        mel, lens = synth.mel_from_token_batch(batch(n, offset=n))
+        assert np.isfinite(mel).all() and (lens > 0).all(), f"one head B={n}"
+        log(f"one head (d_k 256 / 384) B={n}: mel {mel.shape}, frames {int(lens.sum())}")
+    counts = read_counts()
+    log(f"one head B=1, 8, 32 launches: { {k: v for k, v in counts.items() if v} }")
+    for k in ("attention_block", "ffn_block", "variance_adaptor", "postnet"):
+        assert counts[k] > 0, k
+    results["attention_block"]["launches_one_head"] = counts["attention_block"]
+    reset_counts()
+    ms, (_, lens) = timed_calls(torch, lambda: synth.mel_from_token_batch(b32))
+    counts = read_counts()
+    per = {k: v // 5 for k, v in counts.items() if v}
+    log(f"one head B=32 mel call: {ms:.3f} ms median of 5, {int(lens.sum())} frames; "
+        f"launches a call {per}")
+    assert per["attention_block"] == 12 and per["ffn_block"] == 12, per
+    results["attention_block"]["launches_one_head_b32"] = per["attention_block"]
+    hold_b8_vs_cpu(torch, synth, cfg, "one head B=8")
+
+    seqs = batch(8, offset=8)
+    reset_counts()
+    flags.FUSED_ATT_QKV = False
+    try:
+        mel, lens = synth.mel_from_token_batch(seqs)
+    finally:
+        flags.FUSED_ATT_QKV = True
+    counts = read_counts()
+    log(f"one head FUSED_ATT_QKV=off B=8: launches { {k: v for k, v in counts.items() if v} }")
+    assert counts["attention_res_ln"] > 0 and counts["attention_block"] == 0, counts
+    assert np.isfinite(mel).all() and (lens > 0).all()
+    results["attention_res_ln"]["launches_one_head_b8"] = counts["attention_res_ln"]
+    del synth
+    for what, keys, kernel in (("pre-LN", PRENORM_KEYS, "attention_res"),
+                               ("concat_after", ("encoder_concat_after",
+                                                 "decoder_concat_after"),
+                                "fused_attention_packed")):
+        raw2 = Config().to_dict()
+        raw2["model"].update(aheads=1, **{k: True for k in keys})
+        cfg2 = config_from_dict(raw2)
+        s2 = Synthesizer(seeded_model(torch, cfg2), bf16=True)
+        s2.mel_from_token_batch(seqs)
+        reset_counts()
+        mel, lens = s2.mel_from_token_batch(seqs)
+        counts = read_counts()
+        log(f"one head {what} B=8: {int(lens.sum())} frames; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert counts[kernel] > 0 and counts["attention_block"] == 0, counts
+        assert np.isfinite(mel).all() and (lens > 0).all()
+        results[kernel]["launches_one_head_b8"] = counts[kernel]
+        del s2
+
+    raw3 = Config().to_dict()
+    raw3["model"].update(adim=320, aheads=2)
+    cfg3 = config_from_dict(raw3)
+    s3 = Synthesizer(seeded_model(torch, cfg3), bf16=True)
+    s3.mel_from_token_batch(seqs)
+    reset_counts()
+    mel, lens = s3.mel_from_token_batch(seqs)
+    counts = read_counts()
+    log(f"adim 320, two heads (encoder d_k 160) B=8: {int(lens.sum())} frames; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    assert counts["attention_block"] > 0 and np.isfinite(mel).all() and (lens > 0).all()
+    results["attention_block"]["launches_dk160_b8"] = counts["attention_block"]
+    # this model's durations put the whole batch on one rung
+    hold_b8_vs_cpu(torch, s3, cfg3, "adim 320 B=8", split=False)
+
+
+def one_head_train_phase(torch, results, store):
+    """``train()`` on the seeded store with ``aheads: 1`` at full width in
+    bf16, batch 16 x accum 4 (T <= 896): 2 steps through kernel 11 at d_k
+    256 and 384 (32 / 32 launches a step); the single-process step on one
+    window run twice from the same start, its gradients bit for bit; one
+    step with FUSED_ATT_TRAIN_PACKED off (kernel 12, 32 / 32)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config, DataConfig
+    from fastspeech2_tpu_torch.data.batching import BucketBatcher
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset
+    from fastspeech2_tpu_torch.data.prefetch import batch_to_device
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops import flags
+    from fastspeech2_tpu_torch.train.loop import train
+    from fastspeech2_tpu_torch.train.optimizer import NoamAdam
+    from fastspeech2_tpu_torch.train.seeds import SeedSchedule
+    from fastspeech2_tpu_torch.train.step import TrainState, make_train_step, trainable
+
+    work = tempfile.mkdtemp(prefix="fs2_train1h_", dir=str(ROOT / "build"))
+    try:
+        root, fl = store
+        cfg = Config()
+        accum = cfg.train.accum_grad
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, aheads=1),
+            data=DataConfig(data_dir=root, train_filelist=fl, valid_filelist=fl),
+            train=dataclasses.replace(cfg.train, bf16=True, summary_interval=1,
+                                      save_interval=10 ** 6, validation_step=10 ** 6))
+        reset_counts()
+        t0 = time.perf_counter()
+        ts = train(cfg, "one_head", f"{work}/out", max_steps=2)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        recs = [json.loads(ln) for ln in open(f"{work}/out/logs/one_head/train_metrics.jsonl")]
+        main = [r for r in recs if "main/loss" in r]
+        assert [r["step"] for r in main] == [1, 2] and all(
+            np.isfinite(r["main/loss"]) and np.isfinite(r["main/grad_norm"]) for r in main), main
+        got = (counts["attention_train_packed"], counts["attention_train_packed.bwd"])
+        log(f"one head train(): 2 steps in {time.perf_counter() - t0:.1f} s, loss "
+            f"{main[0]['main/loss']:.1f} -> {main[1]['main/loss']:.1f}; kernel 11 launches {got}")
+        assert got == (2 * 8 * accum,) * 2 and counts["attention_train"] == 0, counts
+        results["attention_train_packed"]["launches_one_head_step"] = got[0] // 2
+
+        # the single-process step twice from the same start: the same bits
+        ds = TTSDataset(root, fl)
+        batch_np, shape = next(iter(BucketBatcher(
+            ds, batch_size=cfg.train.batch_size * accum, seed=1).epoch(0)))
+        dev_batch = batch_to_device(batch_np, ts.model.device)
+
+        def gradients():
+            model = FastSpeech2(cfg, generator=torch.Generator().manual_seed(0))
+            opt = NoamAdam(trainable(model), cfg)
+            kept = []
+            opt.step = lambda grads: kept.extend(t.detach().clone() for t in grads) or \
+                torch.zeros((), device=model.device)
+            seeds = SeedSchedule(model.dropout_sites(), seed=0)
+            make_train_step(model, opt, accum, bf16=True)(
+                TrainState(model, opt), dev_batch, [seeds.draw() for _ in range(accum)])
+            return kept
+
+        a, b = gradients(), gradients()
+        differ = sum(not torch.equal(x, y) for x, y in zip(a, b))
+        log(f"one head step (16 x 4, pad {shape}) run twice: {differ} of {len(a)} gradients "
+            "differ")
+        assert differ == 0 and all(bool(torch.isfinite(x).all()) for x in a)
+
+        reset_counts()
+        flags.FUSED_ATT_TRAIN_PACKED = False
+        try:
+            train(cfg, "one_head12", f"{work}/out", max_steps=1)
+            torch.cuda.synchronize()
+        finally:
+            flags.FUSED_ATT_TRAIN_PACKED = True
+        counts = read_counts()
+        got = (counts["attention_train"], counts["attention_train.bwd"])
+        log(f"one head FUSED_ATT_TRAIN_PACKED=off, 1 step: kernel 12 launches {got}")
+        assert got == (8 * accum,) * 2 and counts["attention_train_packed"] == 0, counts
+        results["attention_train"]["launches_one_head_step"] = got[0]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def seeded_model(torch, cfg):
     """The main path's model for ``cfg``: torch's generator seeded with 0,
     duration bias 1.87 (as bench.py does), on the card."""
@@ -3308,11 +3761,12 @@ def wgmma_kernels_sass():
     """The bf16 kernels built on csrc/hopper.cuh are wgmma kernels: HGMMA in
     their SASS and no mma.sync HMMA (cuobjdump), and ptxas spills nothing in
     them. attention_train's library: the forward in its TRAIN mode, dQ and
-    dK/dV (every head dim and grid split, 14 kernels); attention's: the
-    forward in its SERVE mode (kernels 7 and 8, launch B of 1, 5 and 6; 6
-    kernels), which also keeps no stack frame (its two score arrays stay in
-    registers), and the q|k|v and out projections of kernels 1, 5 and 6 on
-    ffn_body.cuh (2 + 8 kernels);
+    dK/dV (the tile bodies at DK 128, 192, 256 and both grid splits, 14
+    kernels; the wide bodies at parts of 192 and 256 columns, 6); attention's:
+    the forward in its SERVE mode (kernels 7 and 8, launch B of 1, 5 and 6;
+    the tile body 6 kernels, the wide body 2), which also keeps no stack
+    frame (its two score arrays stay in registers), and the q|k|v and out
+    projections of kernels 1, 5 and 6 on ffn_body.cuh (2 + 8 kernels);
     resstack's: the bf16 residual stack at each of its 12 widths (kernel 13;
     the f32 kernel is exempt); ffn's: the k-tap conv (3 inputs x 2 tilings)
     and the k=1 conv with its epilogue (3 entries x 4 widths) of kernels 2,
@@ -3328,8 +3782,10 @@ def wgmma_kernels_sass():
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for lib, kinds, want in (
             ("attention_train", ("attn_fwd_kernel", "train_bwd_dq_kernel",
-                                 "train_bwd_dkv_kernel"), 14),
-            ("attention", ("attn_fwd_kernel", "ffn_conv_kernel", "ffn_out_kernel"), 16),
+                                 "train_bwd_dkv_kernel", "attn_fwd_wide_kernel",
+                                 "train_bwd_dq_wide_kernel", "train_bwd_dkv_wide_kernel"), 20),
+            ("attention", ("attn_fwd_kernel", "attn_fwd_wide_kernel", "ffn_conv_kernel",
+                           "ffn_out_kernel"), 18),
             ("resstack", ("resstack_wgmma_kernel",), 12),
             ("ffn", ("ffn_conv_kernel", "ffn_out_kernel"), 18),
             ("adaptor", ("adaptor_kernel",), 2),
@@ -3338,6 +3794,9 @@ def wgmma_kernels_sass():
         for line in log_text.splitlines():
             if "serialized" in line:
                 log(f"  ptxas {lib}: {line.strip()}")
+                # the head dims' wide bodies in either library: no wgmma
+                # serialized by a guard on d_k or on the part
+                assert "wide_kernel" not in line, line
         # the overlap of these kernels exists only if ptxas kept wgmma asynchronous
         assert lib == "attention_train" or "serialized" not in log_text, "wgmma serialized"
         props = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
@@ -3356,7 +3815,7 @@ def wgmma_kernels_sass():
             log(f"  sass {lib} {kind}{fn[fn.index(kind) + len(kind):][:14]}: {hg} HGMMA, "
                 f"{hm} HMMA, ptxas spill stores/loads {st}/{ld} bytes, stack frame {stack}")
             assert hg > 0 and hm == 0 and (st, ld) == ("0", "0"), fn
-            assert kind != "attn_fwd_kernel" or lib != "attention" or stack == "0", fn
+            assert not kind.startswith("attn_fwd") or lib != "attention" or stack == "0", fn
         assert seen == want, f"expected {want} bf16 wgmma kernels in {lib}, found {seen}"
 
 
@@ -3957,6 +4416,9 @@ def main(parallel_only: bool = False) -> int:
     results = {}
     kernel_phase(torch, results)
     train_kernel_phase(torch, results)
+    t_hd = time.perf_counter()
+    head_dim_kernel_phase(torch, results)
+    log(f"head-dim kernel phase: {time.perf_counter() - t_hd:.1f} s")
     stft_kernel_phase(torch, results)
     ms, frames, synth = main_path_phase(torch, results)
     wav_ms, wav_secs = wav_path_phase(torch, results, synth)
@@ -3968,6 +4430,10 @@ def main(parallel_only: bool = False) -> int:
     pre = prenorm_path_phase(torch, results)
     prenorm_concat_phase(torch, results)
     dk256_path_phase(torch, results)
+    t_oh = time.perf_counter()
+    one_head_path_phase(torch, results)
+    log(f"one-head path phase: {time.perf_counter() - t_oh:.1f} s")
+    torch.cuda.empty_cache()
     wide_postnet_path_phase(torch, results)
     torch.cuda.empty_cache()
     import shutil
@@ -3995,6 +4461,10 @@ def main(parallel_only: bool = False) -> int:
     try:
         store = seeded_store(store_dir)
         step_ms, step_frames = train_path_phase(torch, results, store)
+        torch.cuda.empty_cache()
+        t_oh = time.perf_counter()
+        one_head_train_phase(torch, results, store)
+        log(f"one-head train phase: {time.perf_counter() - t_oh:.1f} s")
         torch.cuda.empty_cache()
         t_cli = time.perf_counter()
         cli_train_phase(torch, results, store, smi)
@@ -4024,7 +4494,9 @@ def main(parallel_only: bool = False) -> int:
                                  "launches_tp2_infer", "launches_mesh2_b32",
                                  "launches_mesh2_wav_b8", "launches_export_b8",
                                  "launches_golden_f32", "launches_golden",
-                                 "op_dispatch") if k in r},
+                                 "op_dispatch", "launches_one_head", "launches_one_head_b32",
+                                 "launches_one_head_b8", "launches_dk160_b8",
+                                 "launches_one_head_step", "head_dims") if k in r},
             **({"device_ms": r["device_ms"][key],
                 "library_device_ms": r.get("library_device_ms", {}).get(key)}
                if "device_ms" in r else {}),

@@ -6,7 +6,8 @@
 // and the bare attention
 //   fs2_attention         out = MHA(q, k, v), bf16, no projection (rows at or
 //                         past the length zero).
-// d_k 128, 192 or 256 in every entry.
+// Any d_k that is a multiple of 8 from 8 to 1024 in every entry
+// (attention_fwd.cuh: attn_plan).
 //
 // Replaces fastspeech2_tpu/ops/pallas/attention.py:
 //  - fused_attention_packed_qkv_res_ln (kernel _attn_kernel_packed_qkv_res_ln):
@@ -57,22 +58,19 @@
 
 namespace {
 
-// The head dims of the SERVE forward's instantiations.
-bool dk_ok(int DK) { return DK == 128 || DK == 192 || DK == 256; }
+// The head dims the SERVE forward takes.
+bool dk_ok(int DK) {
+  AttnPlan pl;
+  return attn_plan(DK, &pl);
+}
 
 bool heads_ok(int D, int H) { return H > 0 && D % H == 0 && dk_ok(D / H); }
 
-// The SERVE forward at head dim DK: launch B, and the whole bare entry.
+// The SERVE forward at head dim gm.dk: launch B, and the whole bare entry.
 cudaError_t serve_fwd(const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* out,
-                      int B, int DK, const Geometry& gm, float scale, cudaStream_t stream) {
-  if (DK == 128)
-    return launch_fwd<128, FWD_SERVE>(q, k, v, lens, out, nullptr, nullptr, B, gm, scale, 0u,
-                                      0u, 1.0f, stream);
-  if (DK == 192)
-    return launch_fwd<192, FWD_SERVE>(q, k, v, lens, out, nullptr, nullptr, B, gm, scale, 0u,
-                                      0u, 1.0f, stream);
-  return launch_fwd<256, FWD_SERVE>(q, k, v, lens, out, nullptr, nullptr, B, gm, scale, 0u, 0u,
-                                    1.0f, stream);
+                      int B, const Geometry& gm, float scale, cudaStream_t stream) {
+  return launch_fwd<FWD_SERVE>(q, k, v, lens, out, nullptr, nullptr, B, gm, scale, 0u, 0u, 1.0f,
+                               stream);
 }
 
 // Launch A: q|k|v = round(round(bf16(x) Wqkv) + bqkv) into qkv (B, T, 3D).
@@ -101,8 +99,8 @@ cudaError_t attention_half(const float* res, const bf16* q, const bf16* k, const
       !make_plan(D, D, 1, D, &pl))
     return cudaErrorInvalidValue;
   const int DK = D / H;
-  const Geometry gm{T, H, (long long)T * ld, DK, ld, 1, (long long)T * D, DK, D};
-  cudaError_t e = serve_fwd(q, k, v, lens, o, B, DK, gm, scale, stream);
+  const Geometry gm{T, H, (long long)T * ld, DK, ld, (long long)T * D, DK, D, DK};
+  cudaError_t e = serve_fwd(q, k, v, lens, o, B, gm, scale, stream);
   if (e != cudaSuccess) return e;
   // bo is the row c of the rows past the length (launch 2 only reads it)
   const Args a{res, g, be, nullptr, wo, bo, lens, o, const_cast<float*>(bo), out,
@@ -118,7 +116,7 @@ cudaError_t attention_half(const float* res, const bf16* q, const bf16* k, const
 
 // x (B,T,D) f32; wqkv (3D, D) bf16 [q|k|v rows, (out, in)]; bqkv (3D) f32;
 // wo (D, D) bf16 (out, in); bo/g/be (D) f32; lens (B) i32; qkv (B,T,3D) and
-// o (B,T,D) bf16 scratch; out (B,T,D) f32. D / H = 128, 192 or 256.
+// o (B,T,D) bf16 scratch; out (B,T,D) f32. D / H a multiple of 8 in 8..1024.
 FS2_EXPORT int fs2_attention_block(const float* x, const bf16* wqkv, const float* bqkv,
                                    const bf16* wo, const float* bo, const float* g,
                                    const float* be, const int* lens, bf16* qkv, bf16* o,
@@ -170,9 +168,9 @@ FS2_EXPORT int fs2_attention_res(const float* res, const bf16* q, const bf16* k,
 // = columns [h DK, (h + 1) DK) of rows ld >= H * DK apart -- contiguous, or
 // column blocks of one q|k|v buffer; out (B, T, H * DK) contiguous) and
 // fused_attention (packed = 0: q, k, v and out (B, H, T, DK) contiguous,
-// ld = DK). ld a multiple of 8, bases 16-byte aligned; lens (B) i32; DK 128,
-// 192 or 256. The SERVE forward of attention_fwd.cuh, its three tensor maps
-// encoded per call.
+// ld = DK). ld a multiple of 8, bases 16-byte aligned; lens (B) i32; DK a
+// multiple of 8 in 8..1024. The SERVE forward of attention_fwd.cuh, its three
+// tensor maps encoded per call.
 FS2_EXPORT int fs2_attention(const bf16* q, const bf16* k, const bf16* v, int ld,
                              const int* lens, bf16* out, int B, int T, int H, int DK, int packed,
                              float scale, void* stream_ptr) {
@@ -181,8 +179,8 @@ FS2_EXPORT int fs2_attention(const bf16* q, const bf16* k, const bf16* v, int ld
     return (int)cudaErrorInvalidValue;
   const long long osb = (long long)H * T * DK, osh = packed ? DK : (long long)T * DK;
   const int osr = packed ? H * DK : DK;
-  const Geometry gm = packed ? Geometry{T, H, (long long)T * ld, DK, ld, 1, osb, osh, osr}
-                             : Geometry{T, H, osb, osh, DK, 0, osb, osh, osr};
-  return (int)serve_fwd(q, k, v, lens, out, B, DK, gm, scale,
+  const Geometry gm = packed ? Geometry{T, H, (long long)T * ld, DK, ld, osb, osh, osr, DK}
+                             : Geometry{T, H, osb, osh, DK, osb, osh, osr, DK};
+  return (int)serve_fwd(q, k, v, lens, out, B, gm, scale,
                         reinterpret_cast<cudaStream_t>(stream_ptr));
 }

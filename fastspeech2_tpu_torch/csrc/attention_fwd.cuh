@@ -36,10 +36,28 @@
 // keep * exp(s - m) / l / (1 - rate) in f32, packed in registers into the
 // bf16 A fragment, O += P V (RS, V MN-major). Exponentials are exp2 of
 // log2e-scaled scores, divisions multiplies by per-row reciprocals. Each
-// operand is read through one TMA map of (columns, rows, planes): the plane
-// is the batch row (head h = columns [h dk, (h + 1) dk) of a row that may be
-// a column block of a wider buffer) or the (batch, head) pair; the output
-// has strides of its own.
+// operand is read through one 4-D TMA map (d_k, T, H, B) whose innermost
+// extent is the head dim d_k itself, with the layout's row, head and batch
+// strides: heads packed along a row (head h = columns [h d_k, (h + 1) d_k)
+// of a row that may be a column block of a wider buffer) or (B, H, T, d_k).
+// So both layouts take the same box coordinates (column, row, head, batch),
+// computed with no branch by the thread that issues the loads, and a
+// 64-column box past d_k reads zeros, never the next head's columns. The
+// output has strides of its own, and every store masks the columns at or
+// past d_k.
+//
+// Head dims (`attn_plan`): any multiple of 8 from 8 to 1024, padded to DKP,
+// the next multiple of 64 and at least 128 (zero columns in Q and K leave
+// the scores exact, zero columns of V give zero columns of O; the scale is
+// the real d_k's).
+//  * DKP <= 256: the body above at DK = DKP, one accumulator of 32
+//    registers a thread per 64 columns (d_k 128, 192 and 256 keep their
+//    instantiations and their bits).
+//  * DKP > 256 (`attn_fwd_wide_kernel`): a warpgroup would need DKP / 2
+//    registers for O alone, so O is cut into column parts of PW <= 256
+//    columns, a grid dimension; each part recomputes S = Q K^T in both
+//    sweeps, streamed through the ring in 64-column chunks of Q and K (a
+//    64 x 1024 bf16 tile is 128 KB), then P V over the part's V boxes.
 #pragma once
 
 #include "common.cuh"
@@ -77,20 +95,26 @@ struct Geometry {
   int T, H;
   long long sb, sh;    // batch and head stride of q/k/v, elements
   int sr;              // row stride of q/k/v, elements
-  int packed;          // 1: (B, T, .), the head a column block; 0: (B, H, T, dk)
   long long osb, osh;  // batch and head stride of the forward's output
   int osr;             // its row stride
+  int dk;              // the head dim: columns [dk, DKP) are padding
 };
+
+// One 64 x 64 box of head h of batch row b, columns [c, c + 64) of rows [r0,
+// r0 + 64), through a map of `make_map`, counted on `bar`.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                        int r0, int h, int b) {
+  tma_load_4d(dst, map, bar, c, r0, h, b);
+}
 
 // Rows [r0, r0 + 64) x DK columns of one (b, h) matrix into a 64-row tile
 // (DK / 64 swizzled sub-tiles), counted on `bar`.
 template <int DK>
-__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int r0, int plane) {
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar, int r0,
+                                         int h, int b) {
 #pragma unroll
   for (int cb = 0; cb < DK / 64; ++cb)
-    tma_load_3d(static_cast<unsigned char*>(dst) + cb * 8192, map, bar, col + cb * 64, r0,
-                plane);
+    tma_box(static_cast<unsigned char*>(dst) + cb * 8192, map, bar, cb * 64, r0, h, b);
 }
 
 // S (+)= A B^T over DK: A and B both 64-row K-major tiles.
@@ -154,13 +178,16 @@ __device__ __forceinline__ void merge_acc(float (&acc)[DK / 64][32], float* red,
   }
 }
 
-// The warpgroup's 64 x DK accumulator to global memory as bf16 times mul (and
-// as f32 into out32 when given), rows [r0, r0 + 64) of one (b, h) matrix;
-// rows >= T are not written, rows >= zero_from are written as zeros.
-template <int DK>
+// The warpgroup's 64 x (NC * 64) accumulator, columns [col0, col0 + NC * 64)
+// of one (b, h) matrix, to global memory as bf16 times mul (and as f32 into
+// out32 when given), rows [r0, r0 + 64); rows >= T and columns >= dk (the
+// next head's, in the packed layout) are not written, rows >= zero_from are
+// written as zeros.
+template <int NC>
 __device__ __forceinline__ void store_tile(bf16* __restrict__ dst, float* __restrict__ out32,
                                            int sr, int r0, int T, int zero_from,
-                                           const float (&acc)[DK / 64][32], float mul, int t) {
+                                           const float (&acc)[NC][32], float mul, int t,
+                                           int col0, int dk) {
   const int lane = t & 31, ra = r0 + (t >> 5) * 16 + (lane >> 2), t4 = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -168,10 +195,11 @@ __device__ __forceinline__ void store_tile(bf16* __restrict__ dst, float* __rest
     if (row >= T) continue;
     const bool live = row < zero_from;
 #pragma unroll
-    for (int c = 0; c < DK / 64; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni) {
-        const int col = c * 64 + ni * 8 + 2 * t4;
+        const int col = col0 + c * 64 + ni * 8 + 2 * t4;
+        if (col >= dk) continue;
         const float x = live ? acc[c][ni * 4 + 2 * half] * mul : 0.f;
         const float y = live ? acc[c][ni * 4 + 2 * half + 1] * mul : 0.f;
         *reinterpret_cast<uint32_t*>(dst + (size_t)row * sr + col) = pack_bf16(x, y);
@@ -181,11 +209,14 @@ __device__ __forceinline__ void store_tile(bf16* __restrict__ dst, float* __rest
   }
 }
 
-// Zero rows [r0, min(r0 + ROWS, T)) x DK of one (b, h) matrix.
-template <int DK, int ROWS>
-__device__ __forceinline__ void zero_rows(bf16* __restrict__ dst, int sr, int r0, int T) {
-  for (int i = threadIdx.x; i < ROWS * (DK / 8); i += blockDim.x) {
-    const int r = i / (DK / 8), c = (i % (DK / 8)) * 8;
+// Zero rows [r0, min(r0 + ROWS, T)) x columns [c0, c1) of one (b, h) matrix
+// (c0 and c1 multiples of 8).
+template <int ROWS>
+__device__ __forceinline__ void zero_rows(bf16* __restrict__ dst, int sr, int r0, int T, int c0,
+                                          int c1) {
+  const int n8 = (c1 - c0) / 8;
+  for (int i = threadIdx.x; i < ROWS * n8; i += blockDim.x) {
+    const int r = i / n8, c = c0 + (i % n8) * 8;
     if (r0 + r < T)
       *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * sr + c) = make_uint4(0u, 0u, 0u, 0u);
   }
@@ -309,11 +340,10 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int len = min(lens[b], T);
   const size_t obase = (size_t)b * gm.osb + (size_t)h * gm.osh;
   if (t0 >= len) {  // dead tile: exact zeros
-    zero_rows<DK, QROWS>(o + obase, gm.osr, t0, T);
+    zero_rows<QROWS>(o + obase, gm.osr, t0, T, 0, gm.dk);
     return;
   }
   const int nkt = (len + TILE - 1) / TILE;
-  const int col = gm.packed ? h * DK : 0, plane = gm.packed ? b : b * gm.H + h;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -341,15 +371,15 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         break;
       unsigned char* Ks = ring + s * 2 * TB;
       mbar_expect_tx(&full[s], pass ? 2 * TB : TB);
-      tma_tile<DK>(Ks, &tk, &full[s], col, kt * TILE, plane);
-      if (pass) tma_tile<DK>(Ks + TB, &tv, &full[s], col, kt * TILE, plane);
+      tma_tile<DK>(Ks, &tk, &full[s], kt * TILE, h, b);
+      if (pass) tma_tile<DK>(Ks + TB, &tv, &full[s], kt * TILE, h, b);
     }
   };
   if (threadIdx.x == 0) {
     mbar_expect_tx(qbar, QROWS * DK * 2);
 #pragma unroll
     for (int g = 0; g < QROWS / TILE; ++g)
-      tma_tile<DK>(Qs + g * TB, &tq, qbar, col, t0 + g * TILE, plane);
+      tma_tile<DK>(Qs + g * TB, &tq, qbar, t0 + g * TILE, h, b);
     top_up(STAGES, STAGES);
   }
   __syncwarp();
@@ -533,11 +563,213 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     merge_acc<DK>(acc, reinterpret_cast<float*>(ring), wg, t);
     if (wg == 1) return;
   }
-  store_tile<DK>(o + obase, MODE == FWD_TRAIN ? o32 + obase : nullptr, gm.osr, r0, T, len, acc,
-                 1.0f, t);
+  store_tile<DK / 64>(o + obase, MODE == FWD_TRAIN ? o32 + obase : nullptr, gm.osr, r0, T, len,
+                      acc, 1.0f, t, 0, gm.dk);
+}
+
+// ---- d_k past 256: column parts ---------------------------------------------
+
+// Ring of the wide bodies: slots of up to six 64 x 64 boxes (8 KB each).
+constexpr int BOX = TILE * 64 * 2;
+constexpr int WF_STAGES = 8;  // forward: slots of 3 boxes (Q, Q, K) or 1 (V)
+
+// S (+)= A B^T over one 64-column chunk: A and B 64 x 64 K-major boxes;
+// scale_d 0 (the chunk's first k-step of the first chunk) overwrites s.
+__device__ __forceinline__ void chunk_product(float (&s)[32], uint32_t a, uint32_t b, int first) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_ss<0>(s, kmajor_desc(a, ks), kmajor_desc(b, ks), first && ks == 0 ? 0 : 1);
+}
+
+// acc += P X with P the register operand pa and X one 64 x 64 box read
+// MN-major.
+__device__ __forceinline__ void box_accumulate(float (&acc)[32], const uint32_t (&pa)[4][4],
+                                               uint32_t x) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(acc, pa[kk], mnmajor_desc(x, 0, kk), 1);
+}
+
+// A consumer's walk over a ring whose every item every warp reads (and
+// releases): item i in slot i % STAGES; thread 0 keeps it topped up
+// `top_up(upto)` items ahead.
+template <int STAGES, int SLOT>
+struct RingWalk {
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int it;
+  // the next item's slot (shared address), once it has landed
+  template <class TopUp>
+  __device__ __forceinline__ uint32_t next(TopUp& top_up) {
+    if (threadIdx.x == 0) top_up(it + STAGES);
+    __syncwarp();
+    mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    return smem_u32(ring + (it % STAGES) * SLOT);
+  }
+  __device__ __forceinline__ void done() {
+    release(&empty[it % STAGES]);
+    ++it;
+  }
+};
+
+// The forward at d_k > 256. A block owns 128 query rows (64 a warpgroup, as
+// the row split above) and the column part [c0, c0 + PW) of O; the grid's y
+// is (head, part). Nothing stays resident: ring item i is, per key tile, a
+// score chunk (rows of Q for each warpgroup and of K, 64 columns) for each
+// of the DKP / 64 chunks, in sweep 2 followed by the PW / 64 boxes of V's
+// part. Each item is waited for and retired before the next: no product
+// stays in flight across a runtime loop, and no runtime guard sits around a
+// product. Rows >= T of Q and K and columns >= d_k read as zeros.
+template <int PW, int MODE>
+__global__ void __launch_bounds__(CONSUMERS, 1)
+attn_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const int* __restrict__ lens,
+                     bf16* __restrict__ o, float* __restrict__ o32, float* __restrict__ m_out,
+                     float* __restrict__ rden_out, Geometry gm, int Tp, int parts, float scale,
+                     uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr int NJ = PW / 64, SLOT = 3 * BOX;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WF_STAGES * SLOT);
+  uint64_t* empty = full + WF_STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y / parts, part = blockIdx.y % parts;
+  const int t0 = blockIdx.x * 2 * TILE, c0 = part * PW, T = gm.T, dk = gm.dk;
+  const int len = min(lens[b], T);
+  const size_t obase = (size_t)b * gm.osb + (size_t)h * gm.osh;
+  if (t0 >= len) {  // dead tile: exact zeros
+    zero_rows<2 * TILE>(o + obase, gm.osr, t0, T, c0, min(c0 + PW, dk));
+    return;
+  }
+  const int nkt = (len + TILE - 1) / TILE, nch = (dk + 63) / 64;
+  const int n1 = nkt * nch, per2 = nch + NJ, total = n1 + nkt * per2;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WF_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  int issued = 0;  // thread 0 keeps the ring loaded
+  auto top_up = [&](int upto) {
+    for (; issued < min(upto, total); ++issued) {
+      const int s = issued % WF_STAGES;
+      mbar_wait(&empty[s], ((issued / WF_STAGES) & 1) ^ 1);
+      unsigned char* dst = ring + s * SLOT;
+      int i = issued, kt, c;
+      if (i < n1) {
+        kt = i / nch, c = i % nch;
+      } else {
+        i -= n1;
+        kt = i / per2, c = i % per2;
+      }
+      if (c >= nch) {  // a box of V's part
+        mbar_expect_tx(&full[s], BOX);
+        tma_box(dst, &tv, &full[s], c0 + (c - nch) * 64, kt * TILE, h, b);
+      } else {  // a score chunk
+        mbar_expect_tx(&full[s], 3 * BOX);
+        tma_box(dst, &tq, &full[s], c * 64, t0, h, b);
+        tma_box(dst + BOX, &tq, &full[s], c * 64, t0 + TILE, h, b);
+        tma_box(dst + 2 * BOX, &tk, &full[s], c * 64, kt * TILE, h, b);
+      }
+    }
+  };
+  if (threadIdx.x == 0) top_up(WF_STAGES);
+  __syncwarp();
+
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = t0 + wg * TILE;
+  const int ra = r0 + (t >> 5) * 16 + g8, rb = ra + 8;
+  const bool va = ra < len, vb = rb < len;
+  const uint32_t key = MODE == FWD_TRAIN ? mask_key(seed, b, h) : 0u;
+  const float sl2 = scale * LOG2E;
+  RingWalk<WF_STAGES, SLOT> rw{ring, full, empty, 0};
+  float s[32];
+  auto scores = [&]() {  // S = Q K^T of the next key tile, chunk by chunk
+    for (int c = 0; c < nch; ++c) {
+      const uint32_t a = rw.next(top_up);
+      wgmma_fence();
+      chunk_product(s, a + wg * BOX, a + 2 * BOX, c == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      rw.done();
+    }
+    fence_regs(s);
+  };
+
+  // sweep 1: row max m and denominator l
+  float m_a = -FLT_MAX, m_b = -FLT_MAX, l_a = 0.f, l_b = 0.f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    scores();
+    fold_stats(s, kt * TILE, len, va, vb, t4, sl2, m_a, m_b, l_a, l_b);
+  }
+  const float ra_den = 1.0f / fmaxf(l_a, FLT_MIN), rb_den = 1.0f / fmaxf(l_b, FLT_MIN);
+  if constexpr (MODE == FWD_TRAIN) {
+    if (t4 == 0 && part == 0) {  // one writer of the statistics
+      const size_t srow = ((size_t)b * gm.H + h) * Tp;
+      if (ra < T) {
+        m_out[srow + ra] = m_a;
+        rden_out[srow + ra] = ra_den;
+      }
+      if (rb < T) {
+        m_out[srow + rb] = m_b;
+        rden_out[srow + rb] = rb_den;
+      }
+    }
+  }
+
+  // sweep 2: the part's columns of O = round(D) V
+  const uint32_t rowa_T = (uint32_t)ra * (uint32_t)T, rowb_T = (uint32_t)rb * (uint32_t)T;
+  float acc[NJ][32];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+  uint32_t pa[4][4];
+  for (int kt = 0; kt < nkt; ++kt) {
+    scores();
+    float p[32];
+    tile_weights<MODE>(p, s, kt * TILE, len, va, vb, t4, sl2, m_a, m_b, ra_den, rb_den, key,
+                       rowa_T, rowb_T, thresh, inv_keep);
+    pack_weights(pa, p);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const uint32_t a = rw.next(top_up);
+      wgmma_fence();
+      box_accumulate(acc[j], pa, a);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc[j]);
+      rw.done();
+    }
+  }
+  store_tile<NJ>(o + obase, MODE == FWD_TRAIN ? o32 + obase : nullptr, gm.osr, r0, T, len, acc,
+                 1.0f, t, c0, dk);
 }
 
 // ---- host ---------------------------------------------------------------------
+
+// The tiling of a head dim, one rule for every attention kernel (mirrored by
+// ops/kernels/attention_train.py:plan): d_k a multiple of 8 in 8..1024,
+// padded to dkp (a multiple of 64, at least 128: no model routes a narrower
+// head, and zero columns keep the result exact). dkp <= 256: the tile bodies
+// at DK = dkp, one part. Above: the wide bodies, `parts` column parts of pw columns
+// (pw = 192 or 256: no warpgroup holds more than 256 accumulator columns).
+struct AttnPlan {
+  int dkp, wide, pw, parts;
+};
+
+bool attn_plan(int dk, AttnPlan* p) {
+  if (dk < 8 || dk > 1024 || dk % 8 != 0) return false;
+  p->dkp = max(128, (dk + 63) / 64 * 64);
+  p->wide = p->dkp > 256;
+  p->parts = p->wide ? (p->dkp + 255) / 256 : 1;
+  p->pw = 64 * ((p->dkp / 64 + p->parts - 1) / p->parts);
+  return true;
+}
 
 int sm_count() {
   static int n = 0;
@@ -557,13 +789,12 @@ bool use_key_split(int B, const Geometry& gm) {
   return (long long)B * gm.H * ((gm.T + 2 * TILE - 1) / (2 * TILE)) < sm_count();
 }
 
-// One TMA map of an operand of either layout: (columns, T, planes). Packed:
-// the H * DK columns of each row, rows sr apart (sr > H * DK: a column block
-// of a wider buffer); per head: (B * H) planes of (T, DK).
-cudaError_t make_map(CUtensorMap* map, const void* p, int B, int DK, const Geometry& gm) {
-  if (gm.packed)
-    return tma_map_bf16(map, p, (uint64_t)gm.H * DK, gm.T, B, gm.sr, gm.sb);
-  return tma_map_bf16(map, p, DK, gm.T, (uint64_t)B * gm.H, gm.sr, gm.sh);
+// One TMA map of an operand, d_k columns wide (see the head of this file):
+// (d_k, T, H, B) with the layout's row, head and batch strides, in 64 x 64
+// boxes; both layouts take the same coordinates.
+cudaError_t make_map(CUtensorMap* map, const void* p, int B, const Geometry& gm) {
+  return tma_map_bf16_4d(map, p, {(uint64_t)gm.dk, (uint64_t)gm.T, (uint64_t)gm.H, (uint64_t)B},
+                         {(uint64_t)gm.sr, (uint64_t)gm.sh, (uint64_t)gm.sb}, {64, 64, 1, 1});
 }
 
 size_t fwd_smem(int DK, bool ksplit, int mode) {
@@ -571,6 +802,8 @@ size_t fwd_smem(int DK, bool ksplit, int mode) {
   const size_t stages = fwd_stages(mode, DK);
   return 1024 + qrows * DK * 2 + stages * 2 * tb + (2 * stages + 1) * 8 + 2 * 64 * 2 * 4;
 }
+
+size_t fwd_wide_smem() { return 1024 + (size_t)WF_STAGES * 3 * BOX + 2 * WF_STAGES * 8; }
 
 template <int DK, bool KSPLIT, int MODE>
 cudaError_t launch_fwd_split(const Maps& mp, const int* lens, bf16* o, float* o32, float* stats,
@@ -587,26 +820,68 @@ cudaError_t launch_fwd_split(const Maps& mp, const int* lens, bf16* o, float* o3
   return cudaGetLastError();
 }
 
-// The forward of either mode: three tensor maps encoded per call, then the
-// grid split for the shape. TRAIN: o32 and stats as attention_train.cu's
-// entries describe them; SERVE: both nullptr, thresh 0, keep_prob 1.
+template <int PW, int MODE>
+cudaError_t launch_fwd_wide(const Maps& mp, const int* lens, bf16* o, float* o32, float* stats,
+                            int B, Geometry gm, int Tp, int parts, float scale, uint32_t seed,
+                            uint32_t thresh, float inv_keep, cudaStream_t stream) {
+  const size_t smem = fwd_wide_smem();
+  cudaError_t e = set_smem(attn_fwd_wide_kernel<PW, MODE>, smem);
+  if (e != cudaSuccess) return e;
+  float* rden = stats != nullptr ? stats + (size_t)B * gm.H * Tp : nullptr;
+  attn_fwd_wide_kernel<PW, MODE><<<dim3((gm.T + 2 * TILE - 1) / (2 * TILE), gm.H * parts, B),
+                                   CONSUMERS, smem, stream>>>(mp.q, mp.k, mp.v, lens, o, o32,
+                                                              stats, rden, gm, Tp, parts, scale,
+                                                              seed, thresh, inv_keep);
+  return cudaGetLastError();
+}
+
 template <int DK, int MODE>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
-                       float* o32, float* stats, int B, Geometry gm, float scale, uint32_t seed,
-                       uint32_t thresh, float keep_prob, cudaStream_t stream) {
-  Maps mp;
-  cudaError_t e;
-  if ((e = make_map(&mp.q, q, B, DK, gm)) != cudaSuccess ||
-      (e = make_map(&mp.k, k, B, DK, gm)) != cudaSuccess ||
-      (e = make_map(&mp.v, v, B, DK, gm)) != cudaSuccess)
-    return e;
-  const int Tp = (gm.T + TILE - 1) / TILE * TILE;
-  const float inv_keep = 1.0f / keep_prob;
+cudaError_t launch_fwd_tile(const Maps& mp, const int* lens, bf16* o, float* o32, float* stats,
+                            int B, Geometry gm, int Tp, float scale, uint32_t seed,
+                            uint32_t thresh, float inv_keep, cudaStream_t stream) {
   if (use_key_split(B, gm))
     return launch_fwd_split<DK, true, MODE>(mp, lens, o, o32, stats, B, gm, Tp, scale, seed,
                                             thresh, inv_keep, stream);
   return launch_fwd_split<DK, false, MODE>(mp, lens, o, o32, stats, B, gm, Tp, scale, seed,
                                            thresh, inv_keep, stream);
+}
+
+// The forward of either mode at any planned d_k (gm.dk): three tensor maps
+// encoded per call, then the body and grid split for the shape. TRAIN: o32
+// and stats as attention_train.cu's entries describe them; SERVE: both
+// nullptr, thresh 0, keep_prob 1.
+template <int MODE>
+cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
+                       float* o32, float* stats, int B, Geometry gm, float scale, uint32_t seed,
+                       uint32_t thresh, float keep_prob, cudaStream_t stream) {
+  AttnPlan pl;
+  if (!attn_plan(gm.dk, &pl)) return cudaErrorInvalidValue;
+  Maps mp;
+  cudaError_t e;
+  if ((e = make_map(&mp.q, q, B, gm)) != cudaSuccess ||
+      (e = make_map(&mp.k, k, B, gm)) != cudaSuccess ||
+      (e = make_map(&mp.v, v, B, gm)) != cudaSuccess)
+    return e;
+  const int Tp = (gm.T + TILE - 1) / TILE * TILE;
+  const float inv_keep = 1.0f / keep_prob;
+  if (pl.wide) {
+    if (pl.pw == 192)
+      return launch_fwd_wide<192, MODE>(mp, lens, o, o32, stats, B, gm, Tp, pl.parts, scale,
+                                        seed, thresh, inv_keep, stream);
+    return launch_fwd_wide<256, MODE>(mp, lens, o, o32, stats, B, gm, Tp, pl.parts, scale, seed,
+                                      thresh, inv_keep, stream);
+  }
+  switch (pl.dkp) {
+    case 128:
+      return launch_fwd_tile<128, MODE>(mp, lens, o, o32, stats, B, gm, Tp, scale, seed, thresh,
+                                        inv_keep, stream);
+    case 192:
+      return launch_fwd_tile<192, MODE>(mp, lens, o, o32, stats, B, gm, Tp, scale, seed, thresh,
+                                        inv_keep, stream);
+    default:
+      return launch_fwd_tile<256, MODE>(mp, lens, o, o32, stats, B, gm, Tp, scale, seed, thresh,
+                                        inv_keep, stream);
+  }
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's redesigned
 // kernels: warpgroup MMA (wgmma) with shared-memory matrix descriptors in the
 // 128-byte swizzle or none (`desc_plain`: row-shifted views), mbarriers, TMA
-// tile and bulk loads (3-D maps of activations, 2-D maps of weights, 3-D
-// (in, tap, out) maps of conv weights), the async-proxy fence, named
+// tile and bulk loads (3-D maps of activations, 4-D (column, row, head,
+// batch) maps of the attention operands, 2-D maps of weights, 3-D (in, tap,
+// out) maps of conv weights), the async-proxy fence, named
 // barriers and register reallocation (setmaxnreg).
 // Inline PTX keeps the build to seconds (no CuTe/CUTLASS headers).
 //
@@ -118,6 +119,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// One box of a 4-D tensor map (`tma_map_bf16_4d`); c0 is the innermost.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 // One box of a 2-D tensor map (`tma_map_bf16_2d`): c0 column, c1 row.
@@ -395,12 +406,16 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 3-D map over (cols, rows, planes), strides in elements, read in
-// {64, 64, 1} boxes with the 128-byte swizzle; rows or columns past the
-// extents read as zeros.
-static inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base, uint64_t cols,
-                                       uint64_t rows, uint64_t planes, uint64_t row_stride,
-                                       uint64_t plane_stride) {
+// A bf16 4-D map over dims[0..3] (innermost first; strides of dims 1-3 in
+// elements, each a multiple of 8, in any order: a head stride below the row
+// stride reads heads packed along a row), read in boxes of box[0..3] with
+// the 128-byte swizzle (box[0] = 64): a box of {64, 64, 1, 1} lands as 64
+// rows of 128 bytes (the sub-tile of the layout convention). Elements past
+// an extent, in any dimension, read as zeros.
+static inline cudaError_t tma_map_bf16_4d(CUtensorMap* map, const void* base,
+                                          const uint64_t (&dims)[4],
+                                          const uint64_t (&strides)[3],
+                                          const uint32_t (&box)[4]) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   // the encoder needs a current context, which a thread that has made no
@@ -409,14 +424,13 @@ static inline cudaError_t tma_map_bf16(CUtensorMap* map, const void* base, uint6
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
-  const cuuint64_t dims[3] = {cols, rows, planes};
-  const cuuint64_t strides[2] = {row_stride * 2, plane_stride * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0] * 2, strides[1] * 2, strides[2] * 2};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d, st,
+                        bx, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -429,7 +443,7 @@ static inline cudaError_t tma_map_bf16_2d(CUtensorMap* map, const void* base, ui
                                           uint32_t box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  int dev = 0;  // a current context, as in tma_map_bf16
+  int dev = 0;  // a current context, as in tma_map_bf16_4d
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
@@ -456,7 +470,7 @@ static inline cudaError_t tma_map_bf16_taps(CUtensorMap* map, const void* base, 
                                             uint32_t box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  int dev = 0;  // a current context, as in tma_map_bf16
+  int dev = 0;  // a current context, as in tma_map_bf16_4d
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;

@@ -44,7 +44,10 @@ def prefetch(iterable: Iterable[T], depth: int = 2,
 
     Exceptions from the producer re-raise at the consumer's next pull;
     abandoning the iterator (break / GC) stops the producer promptly because
-    puts block on the bounded queue and check the stop flag.
+    puts block on the bounded queue and check the stop flag, and waits for
+    it: a producer thread still inside a torch or numpy call when the
+    interpreter exits is ended by the runtime inside C++ frames, which
+    aborts the process ("terminate called without an active exception").
     """
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -85,3 +88,5 @@ def prefetch(iterable: Iterable[T], depth: int = 2,
             yield item
     finally:
         stop.set()
+        # at most the item in hand: every put checks the flag within 0.1 s
+        t.join()

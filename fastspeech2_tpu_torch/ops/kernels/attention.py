@@ -6,7 +6,8 @@ Port of ``fastspeech2_tpu/ops/pallas/attention.py:fused_attention_packed_qkv_res
 of ``csrc/ffn_body.cuh`` at k = 1 without the ReLU), the SERVE forward of
 ``csrc/attention_fwd.cuh`` (kernel 7's) into a bf16 head-output scratch,
 and the out projection with the residual and LayerNorm (launch 2 of
-``csrc/ffn_body.cuh``). d_k 128, 192 or 256.
+``csrc/ffn_body.cuh``). Any d_k that is a multiple of 8 from 8 to 1024
+(``attention_train.plan``).
 
 Rounding points follow the TPU kernel: q/k/v are ``round(round(x@W) + b)``
 in the compute dtype, the softmax is f32 with ``finfo.min`` fill, re-zeroing
@@ -35,7 +36,7 @@ out in q's dtype, rows at or past the length zero: the ports of
 ``attention.py:fused_attention`` (kernel ``_attn_kernel``), both through the
 C entry ``fs2_attention``: the SERVE mode of ``csrc/attention_fwd.cuh``, the
 wgmma/TMA forward of the training kernels 11 and 12 without their dropout,
-O32 and row statistics (d_k 128, 192 or 256). For the same bf16 values the
+O32 and row statistics (any planned d_k). For the same bf16 values the
 packed entry gives ``attention_train.fused_attention_train_packed`` at rate
 0 bit for bit. f32 operands on the card take the training kernels' f32
 forward (plain multiply-adds, no TF32) at rate 0, its row statistics
@@ -231,8 +232,8 @@ def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
             ("res", res, f32, (B, T, D)), ("wo", wo, bf16, (D, D)),
             ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
             ("lengths", lengths, torch.int32, (B,))])
-        _qkv_stride("attention_res_ln", q, k, v, (B, T, D))
         _check_heads("attention_res_ln", D, n_heads)
+        _qkv_stride("attention_res_ln", q, k, v, (B, T, D))
     return torch.ops.fs2.attention_res_ln.default(q, k, v, res, wo, bo, g, be, lengths,
                                                   n_heads, eps)
 
@@ -272,8 +273,8 @@ def attention_res(q, k, v, res, wo, bo, lengths, n_heads: int):
         common.check_cuda("attention_res", q.device, [
             ("res", res, torch.float32, (B, T, D)), ("wo", wo, torch.bfloat16, (D, D)),
             ("bo", bo, torch.float32, (D,)), ("lengths", lengths, torch.int32, (B,))])
-        _qkv_stride("attention_res", q, k, v, (B, T, D))
         _check_heads("attention_res", D, n_heads)
+        _qkv_stride("attention_res", q, k, v, (B, T, D))
     return torch.ops.fs2.attention_res.default(q, k, v, res, wo, bo, lengths, n_heads)
 
 
@@ -299,10 +300,9 @@ def launch_res(q, k, v, res, wo, bo, lengths, n_heads: int):
 
 
 def check_head_dim(name: str, dk: int) -> None:
-    """The bare kernels take the head dims of their instantiations
-    (``attention_train.HEAD_DIMS``: 128, 192, 256); raise for others."""
-    if dk not in attention_train.HEAD_DIMS:
-        raise ValueError(f"{name}: d_k={dk} not supported by the kernel (128, 192 or 256)")
+    """The attention kernels take every head dim ``attention_train.plan``
+    plans (a multiple of 8 from 8 to 1024); raise ValueError for others."""
+    attention_train.check_head_dim(name, dk)
 
 
 def _bare_shape(name, q, n_heads=None):

@@ -31,7 +31,8 @@ differentiable by autograd; two small autograd helpers put the backward's
 rounding points where the kernels have them. The CPU takes it; a CUDA tensor
 launches the kernels or raises: bf16 on the tensor cores (what the model
 sends) or f32 with plain multiply-adds and no TF32 (for callers that hold the
-kernels to an f32 reference), d_k 128, 192 or 256 only. The bf16 backward
+kernels to an f32 reference), at any d_k that is a multiple of 8 from 8 to
+1024 (``plan``: the tiling the CUDA sources choose for it). The bf16 backward
 takes t from O's f32 accumulator before its rounding: equal to
 ``rowsum(dA * A)`` but for the rounding of D inside it.
 """
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -56,8 +57,11 @@ MAX_T = 1024
 #: longest T the model routes to the head-packed entry
 PACKED_MAX_T = 896
 
-#: head dims the CUDA kernels take
-HEAD_DIMS = (128, 192, 256)
+#: widest head dim the CUDA kernels take (a multiple of 8 up to it): the
+#: widest D the port's other kernels serve (``adaptor.plan``)
+MAX_HEAD_DIM = 1024
+#: shared memory a block may opt into on the H100
+SMEM_LIMIT = 232_448
 
 #: launches of the CUDA kernels (the plain version does not count): forward
 #: and backward of the head-packed entry, then of the (B, H, T, dk) entry
@@ -138,6 +142,112 @@ def attention_train_plain(q, k, v, lengths, seed: int, rate: float,
     return o
 
 
+class Plan(NamedTuple):
+    """The tiling of one head dim (``plan``)."""
+
+    dkp: int         #: d_k padded to a multiple of 64, at least 128 (zero columns)
+    wide: bool       #: column parts (the wide bodies) rather than the tile bodies
+    part_width: int  #: output columns a block (and a warpgroup) accumulates
+    parts: int       #: column parts of each output: a grid dimension
+    smem: Dict[str, int]  #: shared-memory bytes of each kernel that serves it
+
+
+_BOX = 64 * 64 * 2  # a 64 x 64 bf16 box (8 KB)
+_BAR = 8            # an mbarrier
+
+
+def _tile_smem(dkp: int) -> Dict[str, int]:
+    """Shared-memory bytes of the tile bodies at DK = dkp
+    (``csrc/attention_fwd.cuh:fwd_smem``, ``csrc/attention_train.cu:dq_smem``
+    and ``dkv_smem``); dQ's row split does not fit at 256 and is not built."""
+    tb = 64 * dkp * 2
+
+    def fwd(qrows, stages):
+        return 1024 + qrows * dkp * 2 + stages * 2 * tb + (2 * stages + 1) * _BAR + 2 * 64 * 2 * 4
+
+    serve_stages = 3 if dkp <= 192 else 2
+    return {"serve_rows": fwd(128, serve_stages), "serve_keys": fwd(64, serve_stages),
+            "train_rows": fwd(128, 2), "train_keys": fwd(64, 2),
+            "dq_rows": 0 if dkp == 256 else 1024 + 2 * 128 * dkp * 2 + 2 * 2 * tb + 5 * _BAR,
+            "dq_keys": 1024 + 2 * 64 * dkp * 2 + 2 * 2 * tb + 5 * _BAR,
+            "dkv": 1024 + 2 * tb + 2 * 2 * tb + 2 * 32 * 128 * 4 + 2 * 3 * 64 * 4 + 5 * _BAR}
+
+
+def _wide_smem() -> Dict[str, int]:
+    """Shared-memory bytes of the wide bodies (rings of 8, 4 and 5 slots of
+    3, 6 and 4 boxes: ``WF_STAGES``, ``WQ_STAGES``, ``WKV_STAGES``)."""
+    fwd = 1024 + 8 * 3 * _BOX + 2 * 8 * _BAR
+    return {"serve_rows": fwd, "serve_keys": fwd, "train_rows": fwd, "train_keys": fwd,
+            "dq_rows": 1024 + 4 * 6 * _BOX + 2 * 4 * _BAR,
+            "dq_keys": 1024 + 4 * 6 * _BOX + 2 * 4 * _BAR,
+            "dkv": 1024 + 5 * 4 * _BOX + 2 * 32 * 128 * 4 + 2 * 5 * _BAR}
+
+
+def _f32_smem(dkp: int) -> Dict[str, int]:
+    """Shared-memory bytes of the f32 kernels (``csrc/attention_train.cu:
+    f32_fwd_smem``, ``f32_bwd_smem``): 32-row tiles of dkp + 1 columns up to
+    256, 64-column chunks above."""
+    ld = dkp + 1 if dkp <= 256 else 65
+    n = 3 if dkp <= 256 else 2
+    return {"f32_fwd": (n * 32 * ld + 32 * 33 + 2 * 32) * 4,
+            "f32_bwd": (4 * 32 * ld + 2 * 32 * 33 + 3 * 32) * 4}
+
+
+def plan(dk: int, mode: str = "serve") -> Plan:
+    """The tiling the CUDA sources choose for head dim ``dk``
+    (``csrc/attention_fwd.cuh:attn_plan``; ``fs2_attention_plan`` returns
+    the C side's, which the card test holds to this): d_k a multiple of 8
+    from 8 to ``MAX_HEAD_DIM``, padded to ``dkp``. dkp <= 256: the tile
+    bodies at DK = dkp, one part; above: ``parts`` column parts of
+    ``part_width`` (192 or 256) columns each, every part recomputing the
+    scores over 64-column chunks of d_k. ``mode``: "serve" (kernels 1, 5-8:
+    the SERVE forward), "train" (11, 12: the TRAIN forward, dQ, dK/dV) or
+    "f32" (their f32 kernels: the tile at dkp, or 64-column parts above
+    256); ``smem`` holds the bytes of the mode's kernels. Both layouts,
+    (B, T, D) and (B, H, T, dk), have the same plan. Raises ValueError for
+    what the kernels refuse."""
+    if not isinstance(dk, int) or dk < 8 or dk > MAX_HEAD_DIM or dk % 8:
+        raise ValueError(f"head dim d_k={dk} not supported by the kernels (a multiple of 8 "
+                         f"from 8 to {MAX_HEAD_DIM})")
+    if mode not in ("serve", "train", "f32"):
+        raise ValueError(f"plan: unknown mode {mode!r}")
+    dkp = max(128, -(-dk // 64) * 64)
+    wide = dkp > 256
+    parts = -(-dkp // 256) if wide else 1
+    pw = 64 * -(-(dkp // 64) // parts)
+    if mode == "f32":
+        if wide:
+            pw, parts = 64, -(-dk // 64)
+        return Plan(dkp, wide, pw, parts, _f32_smem(dkp))
+    every = _wide_smem() if wide else _tile_smem(dkp)
+    keys = {"serve": ("serve_rows", "serve_keys"),
+            "train": ("train_rows", "train_keys", "dq_rows", "dq_keys", "dkv")}[mode]
+    return Plan(dkp, wide, pw, parts, {k: every[k] for k in keys})
+
+
+def check_head_dim(name: str, dk: int) -> None:
+    """Raise ValueError (naming ``name``) for a head dim no kernel takes."""
+    try:
+        plan(dk)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+
+
+def c_plan(dk: int):
+    """The C side's plan (``fs2_attention_plan``): (dkp, wide, pw, parts,
+    smem of serve rows/keys, train rows/keys, dQ rows/keys, dK/dV, f32
+    forward, f32 backward). Raises ValueError where the C side refuses.
+    Builds the library: card only."""
+    fn = _fns.get("plan")
+    if fn is None:
+        fn = _fns["plan"] = common.bind(common.load("attention_train"), "fs2_attention_plan",
+                                        [common.I, ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 13)()
+    if fn(dk, out) != 0:
+        raise ValueError(f"fs2_attention_plan refuses d_k={dk}")
+    return tuple(out)
+
+
 def _entry(name: str, n_ptr: int):
     fn = _fns.get(name)
     if fn is None:
@@ -151,9 +261,7 @@ def _check(name, q, k, v, lengths, B, dk):
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: the CUDA kernels take bfloat16 or float32, "
                          f"got {q.dtype}")
-    if dk not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {dk} not supported by the kernel "
-                         "(128, 192 or 256)")
+    check_head_dim(name, dk)
     common.check_cuda(name, q.device, [
         ("q", q, q.dtype, None), ("k", k, q.dtype, tuple(q.shape)),
         ("v", v, q.dtype, tuple(q.shape)),

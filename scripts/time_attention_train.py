@@ -17,9 +17,14 @@ ms the profiler's kernel time per call. The bare kernels run at the serving
 shapes (16, 768, 384) (decoder rung) and (32, 128, 256) (encoder), two heads,
 the same kind of lengths; for them also the host's time to enqueue one call
 (``host_ms``: wrapper, tensor maps and launch, 200 calls back to back).
-``digest`` holds a hash of each kernel's outputs (kernel 11 and 12: forward
-and gradients at rate 0.2 at the decoder shape; kernels 7 and 8: their
-outputs at both shapes), so two trees can be checked for the same bits;
+Kernels 11 and 12 are also timed at rate 0.2 at d_k 256 with one head
+(16, 896, 256) and in f32 at (4, 320, 384) with two heads (d_k 192, the
+shape ``chip_smoke.py`` holds them at), (3, 200, 256) with one and two
+heads (d_k 256 and 128) and (4, 320, 384) with one (d_k 384; a tree that
+refuses it prints the error). ``digest`` holds a hash of each kernel's
+outputs (kernel 11 and 12: forward and gradients at rate 0.2 at the decoder
+shape and at each of those; kernels 7 and 8: their outputs at both serving
+shapes and at d_k 256), so two trees can be checked for the same bits;
 ``--digest-only`` computes those and skips the timings. Prints the card's
 name and power limit, then one JSON line. To compare two trees, run parent,
 change, change, parent in one command on the same card.
@@ -105,6 +110,40 @@ def main() -> int:
                 out["times"][key] = smoke.train_attention_times(
                     torch, KT, packed, q, k, v, do, lens, H, rate)
                 print(key, json.dumps(out["times"][key]), flush=True)
+
+    # d_k 256 (one head) in bf16, the f32 kernels at d_k 128, 192 and 256
+    # (the tile kernels) and 384 (the wide ones): digests and, unless
+    # --digest-only, times; a tree that refuses a head dim prints the error
+    gen = torch.Generator().manual_seed(13)
+    for B, T, D, h, dt in ((16, 896, 256, 1, torch.bfloat16), (4, 320, 384, 2, torch.float32),
+                           (3, 200, 256, 1, torch.float32), (3, 200, 256, 2, torch.float32),
+                           (4, 320, 384, 1, torch.float32)):
+        lens = lengths(gen, B, T)
+        for packed in (True, False):
+            shape = (B, T, D) if packed else (B, h, T, D // h)
+            q, k, v, do = (torch.randn(shape, generator=gen).to(dt).to(dev) for _ in range(4))
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            key = f"{'k11' if packed else 'k12'} {str(dt)[6:]} B={B},T={T},D={D},H={h}"
+            try:
+                kern = smoke.train_attention_fns(KT, packed, lens, 12345, h, 0.2)[0]
+                o = kern(q, k, v)
+            except ValueError as e:
+                print(key, "refused:", e, flush=True)
+                continue
+            out["digest"][key] = digest(o, *torch.autograd.grad(o, (q, k, v), do))
+            if not args.digest_only:
+                out["times"][key] = smoke.train_attention_times(
+                    torch, KT, packed, q, k, v, do, lens, h, 0.2)
+                print(key, json.dumps(out["times"][key]), flush=True)
+        with torch.no_grad():
+            if dt == torch.bfloat16:
+                q, k, v = (torch.randn(B, T, D, generator=gen).bfloat16().to(dev)
+                           for _ in range(3))
+                out["digest"][f"k7 B={B},T={T},D={D},H={h}"] = digest(
+                    KA.fused_attention_packed(q, k, v, lens, h))
+                out["digest"][f"k8 B={B},T={T},D={D},H={h}"] = digest(KA.fused_attention(
+                    *(t.view(B, T, h, D // h).transpose(1, 2).contiguous() for t in (q, k, v)),
+                    lens))
 
     gen = torch.Generator().manual_seed(7)
     for B, T, D in ((16, 768, 384), (32, 128, 256)):

@@ -519,14 +519,15 @@ def test_attention_res_ln(dev, B, T, D):
 # and 128-row tiles; D = 768 takes the q|k|v projection's 64-row tiling and
 # the out projection's two column passes with its LayerNorm launch
 HALF_CASES = [(4, 100, 256, 2), (3, 200, 384, 2), (4, 130, 256, 1), (3, 72, 512, 2),
-              (3, 96, 768, 3)]
+              (3, 96, 768, 3), (3, 100, 320, 2), (2, 150, 384, 1), (2, 70, 1024, 1)]
 
 
 @pytest.mark.parametrize("B,T,D,H", HALF_CASES,
                          ids=[f"T{t}-D{d}-dk{d // h}" for _, t, d, h in HALF_CASES])
 def test_attention_halves_at_every_head_dim(dev, B, T, D, H):
-    """Kernels 1, 5 and 6 against their plain versions at d_k 128, 192 and
-    256 with lengths T, 1, 0 and random: 5 and 6 on q/k/v column blocks of
+    """Kernels 1, 5 and 6 against their plain versions at d_k 128, 192,
+    256, 160 (two heads: a column past d_k is the next head's), 384 and 1024
+    (column parts) with lengths T, 1, 0 and random: 5 and 6 on q/k/v column blocks of
     one (B, T, 3D) buffer rounded as kernel 1 rounds them, kernel 1 against
     kernel 5 on the same x (the band: a cuBLAS f32 product and a tensor-core
     one flip rare q/k/v ulps). Rows at or past each length bit for bit: res
@@ -644,7 +645,8 @@ def test_attention_train_forward_and_backward(dev, packed, B, T, D, rate):
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["kernel11_packed", "kernel12"])
-@pytest.mark.parametrize("B,T,D,rate", [(2, 100, 256, 0.2), (2, 70, 384, 0.0)])
+@pytest.mark.parametrize("B,T,D,rate", [(2, 100, 256, 0.2), (2, 70, 384, 0.0),
+                                        (2, 90, 320, 0.2), (2, 60, 768, 0.2)])
 def test_attention_train_f32(dev, packed, B, T, D, rate):
     """The f32 instantiation (plain multiply-adds, no TF32) against the plain
     version's autograd in full f32: 2e-5 of each result's peak (other
@@ -705,8 +707,9 @@ def test_attention_train_rejects_what_it_does_not_cover(dev):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         KT.fused_attention_train_packed(q.half(), q.half(), q.half(), lens, 1, 2, 0.0)
     qb = q.bfloat16()
-    with pytest.raises(ValueError, match="head dim"):
-        KT.fused_attention_train_packed(qb, qb, qb, lens, 1, 4, 0.0)
+    q132 = torch.randn(2, 8, 264, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):  # d_k 132: not a multiple of 8
+        KT.fused_attention_train_packed(q132, q132, q132, lens, 1, 2, 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         KT.fused_attention_train_packed(qb, qb.transpose(0, 1).contiguous().transpose(0, 1),
                                         qb, lens, 1, 2, 0.0)
@@ -753,13 +756,27 @@ def _train_attention_pair(KT, packed, B, H, T, dk, rate, seed, g, dev):
     (False, 2, 2, 160, 256, 0.2),
     (True, 16, 2, 640, 192, 0.2),    # B * H * ceil(T / 128) >= the SM count: the row split
     (False, 16, 2, 1024, 256, 0.2),  # the row split at d_k 256 (the dQ launch splits keys)
+    (True, 3, 2, 150, 160, 0.2),     # d_k 160 padded to 192: two heads, columns past d_k
+    (False, 3, 2, 150, 160, 0.2),
+    (True, 2, 1, 200, 384, 0.2),     # d_k 384: two column parts of 192
+    (False, 2, 2, 130, 384, 0.0),
+    (True, 2, 2, 96, 64, 0.2),       # d_k 64 padded to 128
+    (True, 2, 2, 96, 40, 0.2),       # d_k 40: a 64-column box wider than the map
+    (False, 2, 2, 90, 40, 0.2),
+    (True, 2, 1, 140, 1024, 0.2),    # d_k 1024: four parts of 256
+    (True, 2, 2, 90, 136, 0.2),      # d_k 136 and 328: the chunk past d_k
+    (False, 2, 2, 90, 328, 0.2),
 ], ids=["k12_T1024", "k11_T896", "k11_small_grid", "k12_small_grid_rate0", "k11_dk256_h1",
         "k12_dk256_h1_rate0", "k11_dk256_h2", "k12_dk256_h2", "k11_row_split",
-        "k12_dk256_row_split"])
+        "k12_dk256_row_split", "k11_dk160_h2", "k12_dk160_h2", "k11_dk384_h1",
+        "k12_dk384_h2_rate0", "k11_dk64_h2", "k11_dk40_h2", "k12_dk40_h2", "k11_dk1024_h1",
+        "k11_dk136_h2", "k12_dk328_h2"])
 def test_attention_train_ring_split_and_dk256(dev, packed, B, H, T, dk, rate):
     """Kernels 11 and 12 where the ring turns over many times, in both grid
     splits (128 query rows a block, or 64 rows whose keys the two warpgroups
-    share where the grid would leave SMs idle), and at d_k 256, against the
+    share where the grid would leave SMs idle), at d_k 256, and at the head
+    dims padded with zero columns (40, 64, 136, 160) or cut into column
+    parts (328, 384, 1024), against the
     plain version's autograd within the bands of
     test_attention_train_forward_and_backward (max < 2^-6, mean < 1e-4 of the
     peak); padded rows exactly zero; a second call gives the same bits (no
@@ -928,6 +945,195 @@ def test_full_width_bf16_step_is_reproducible(dev):
     _, b = gradients()
     differ = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
     assert len(a) == len(names) and not differ, differ
+
+
+def test_one_head_bf16_step_is_reproducible_at_dk384(dev):
+    """``configs/default.yaml`` with ``aheads: 1`` (encoder d_k 256, decoder
+    d_k 384: kernel 11's wide bodies, two column parts of 192): the same
+    bf16 step of the seed-0 model run twice gives the same gradients bit for
+    bit (every output tile of the backward has one writer)."""
+    import dataclasses
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import load_config
+    from fastspeech2_tpu_torch.models.fastspeech2 import Batch, FastSpeech2
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+    from fastspeech2_tpu_torch.train.optimizer import NoamAdam
+    from fastspeech2_tpu_torch.train.seeds import SeedSchedule
+    from fastspeech2_tpu_torch.train.step import TrainState, make_train_step, trainable
+
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs" / "default.yaml"))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, bf16=True),
+                              model=dataclasses.replace(cfg.model, aheads=1))
+    g = np.random.default_rng(5)
+    B, T, L = 8, 80, 480
+    ilens = g.integers(T // 2, T + 1, B).astype(np.int32)
+    ds = g.integers(1, L // T + 1, (B, T)).astype(np.int32) * (np.arange(T)[None] < ilens[:, None])
+    olens = ds.sum(1).astype(np.int32)
+    m = np.arange(L)[None] < olens[:, None]
+    batch = Batch(*(torch.from_numpy(a).to(dev) for a in (
+        (g.integers(1, 68, (B, T)) * (ds > 0)).astype(np.int32), ilens,
+        (g.normal(-5, 2, (B, L, 80)) * m[..., None]).astype(np.float32), olens, ds,
+        (g.uniform(0.02, 100, (B, L)) * m).astype(np.float32),
+        (g.uniform(71, 600, (B, L)) * m).astype(np.float32))))
+
+    def gradients():
+        model = FastSpeech2(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        opt = NoamAdam(trainable(model), cfg)
+        kept = []
+        opt.step = lambda grads: kept.extend(t.detach().clone() for t in grads) or \
+            torch.zeros((), device=dev)
+        seeds = SeedSchedule(model.dropout_sites(), seed=0)
+        n = (KT.packed_fwd_launches, KT.packed_bwd_launches)
+        make_train_step(model, opt, 1, bf16=True)(TrainState(model, opt), batch,
+                                                  [seeds.draw()])
+        assert (KT.packed_fwd_launches - n[0], KT.packed_bwd_launches - n[1]) == (8, 8)
+        return [n for n, _ in model.named_parameters()], kept
+
+    names, a = gradients()
+    _, b = gradients()
+    differ = [n for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
+    assert len(a) == len(names) and all(bool(torch.isfinite(x).all()) for x in a)
+    assert not differ, differ
+
+
+def test_attention_plan_of_the_c_side_is_the_python_one(dev):
+    """``fs2_attention_plan`` (csrc/attention_fwd.cuh:attn_plan and the
+    kernels' shared-memory sizes) gives ``attention_train.plan`` for every
+    multiple of 8 in 8..1024, and both refuse d_k 132 and 1032."""
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+
+    for dk in range(8, 1025, 8):
+        serve, train, f32 = (KT.plan(dk, m) for m in ("serve", "train", "f32"))
+        want = (serve.dkp, int(serve.wide), serve.part_width, serve.parts,
+                serve.smem["serve_rows"], serve.smem["serve_keys"], train.smem["train_rows"],
+                train.smem["train_keys"], train.smem["dq_rows"], train.smem["dq_keys"],
+                train.smem["dkv"], f32.smem["f32_fwd"], f32.smem["f32_bwd"])
+        assert KT.c_plan(dk) == want, (dk, KT.c_plan(dk), want)
+    for dk in (132, 1032):
+        with pytest.raises(ValueError):
+            KT.plan(dk)
+        with pytest.raises(ValueError):
+            KT.c_plan(dk)
+
+
+def test_attention_kernels_refuse_head_dims_they_do_not_take(dev):
+    """On CUDA tensors every attention wrapper raises ValueError for d_k 132
+    (not a multiple of 8) and 1032 (past 1024), and none falls back to its
+    plain version: no launch counter moves."""
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
+    from fastspeech2_tpu_torch.ops.kernels import launch_counts
+
+    before = launch_counts()
+    bf, f32 = torch.bfloat16, torch.float32
+    lens = torch.tensor([8], dtype=torch.int32, device=dev)
+    for dk in (132, 1032):
+        z = lambda *s, dt=bf: torch.zeros(*s, dtype=dt, device=dev)  # noqa: E731
+        D = dk
+        with torch.no_grad():
+            for call in (
+                    lambda: KA.attention_block(z(1, 8, D, dt=f32), z(3 * D, D), z(3 * D, dt=f32),
+                                               z(D, D), z(D, dt=f32), z(D, dt=f32),
+                                               z(D, dt=f32), lens, 1),
+                    lambda: KA.attention_res_ln(z(1, 8, D), z(1, 8, D), z(1, 8, D),
+                                                z(1, 8, D, dt=f32), z(D, D), z(D, dt=f32),
+                                                z(D, dt=f32), z(D, dt=f32), lens, 1),
+                    lambda: KA.attention_res(z(1, 8, D), z(1, 8, D), z(1, 8, D),
+                                             z(1, 8, D, dt=f32), z(D, D), z(D, dt=f32), lens, 1),
+                    lambda: KA.fused_attention_packed(z(1, 8, D), z(1, 8, D), z(1, 8, D), lens,
+                                                      1),
+                    lambda: KA.fused_attention(z(1, 1, 8, D), z(1, 1, 8, D), z(1, 1, 8, D),
+                                               lens)):
+                with pytest.raises(ValueError, match="d_k"):
+                    call()
+        for dt in (bf, f32):
+            q = z(1, 8, D, dt=dt)
+            with pytest.raises(ValueError, match="head dim"):
+                KT.fused_attention_train_packed(q, q, q, lens, 1, 1, 0.2)
+            with pytest.raises(ValueError, match="head dim"):
+                KT.fused_attention_train(q[:, None], q[:, None], q[:, None], lens, 1, 0.2)
+    assert launch_counts() == before
+
+
+def test_two_threads_launch_the_attention_at_dk192_and_dk384(dev):
+    """The server's two threads run the encoder and the decoder at once; in
+    a one-head model their bare attention is the tile body at d_k 192 and
+    the wide body at d_k 384 (two column parts). Two threads call the C
+    entry of kernel 7 back to back at the two head dims: no launch is
+    refused, and every output equals the call made alone."""
+    import math
+    import threading
+
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+
+    g = torch.Generator().manual_seed(19)
+    jobs, keep = [], []
+    for dk in (192, 384):
+        q, k, v = (torch.randn(2, 96, dk, generator=g).to(torch.bfloat16).to(dev)
+                   for _ in range(3))
+        lens = torch.tensor([96, 41], dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            want = KA.fused_attention_packed(q, k, v, lens, 1)  # binds KA._fn_bare
+        out = torch.empty_like(q)
+        keep.append((q, k, v, lens, out, want))
+        jobs.append((q.data_ptr(), k.data_ptr(), v.data_ptr(), dk, lens.data_ptr(),
+                     out.data_ptr(), 2, 96, 1, dk, 1, 1.0 / math.sqrt(dk),
+                     torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    refused = {}
+
+    def run(args):
+        refused[args[3]] = sum(1 for _ in range(20000) if KA._fn_bare(*args))
+
+    threads = [threading.Thread(target=run, args=(job,)) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert refused == {192: 0, 384: 0}, f"refused launches of 20000 per head dim: {refused}"
+    for *_, out, want in keep:
+        assert torch.equal(out, want)
+
+
+def test_exported_one_head_artifact_launches_kernel_1(dev, tmp_path):
+    """A one-head bf16 model (encoder d_k 256, decoder d_k 384) exported on
+    the card (``infer/export.py``, at ``matmul_precision="highest"``, the
+    eager call's) launches kernel 1 through its ``fs2::attention_block`` op
+    in every block (the launch counter: 2 + 2) and returns the eager bf16
+    call's mel and lengths bit for bit."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config, ModelConfig
+    from fastspeech2_tpu_torch.infer.export import export_inference, load_exported
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fastspeech2_tpu_torch.ops.precision import compute_dtype
+    from fastspeech2_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = Config(model=ModelConfig(adim=256, aheads=1, elayers=2, eunits=512, ddim=384,
+                                   dlayers=2, dunits=512, fused_attention="on"))
+    model = FastSpeech2(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.duration_predictor.out.bias.fill_(1.87)
+    save_checkpoint(str(tmp_path / "m.npz"), model, None, 0, cfg)
+    call = load_exported(export_inference(str(tmp_path / "m.npz"), str(tmp_path / "m.pt2"),
+                                          batch=4, max_tokens=64, max_frames=512, bf16=True,
+                                          matmul_precision="highest"))
+    g = np.random.default_rng(2)
+    ilens = np.asarray([64, 33, 9, 1], np.int32)
+    xs = (g.integers(1, 68, (4, 64)) * (np.arange(64)[None] < ilens[:, None])).astype(np.int32)
+    reset_launch_counts()
+    mel, lens = call(xs, ilens)
+    counts = launch_counts()
+    assert counts["attention_block"] == 4 and counts["ffn_block"] == 4, counts
+    with torch.inference_mode(), compute_dtype(torch.bfloat16):
+        want, wlens, _ = model.inference(torch.from_numpy(xs).to(dev),
+                                         torch.from_numpy(ilens).to(dev), out_maxlen=512)
+    assert mel.is_cuda and torch.equal(lens, wlens) and int(lens.min()) > 0
+    assert torch.isfinite(mel).all() and torch.equal(mel, want)
 
 
 #: the serving kernels' custom ops (``ops/kernels/library.py``): op name ->
@@ -1229,11 +1435,15 @@ def test_fused_attention_bhtd(dev, B, H, T, dk):
 # split; at or above: 128-row blocks), T from one key tile to 36
 BARE_SHAPES = [(4, 2, 96, 128), (70, 2, 96, 128), (3, 2, 160, 192), (34, 2, 160, 192),
                (3, 1, 160, 256), (132, 1, 96, 256), (9, 2, 1024, 128), (3, 2, 1024, 192),
-               (9, 2, 1024, 256), (3, 1, 2304, 128), (4, 2, 2304, 192), (3, 2, 2304, 256)]
+               (9, 2, 1024, 256), (3, 1, 2304, 128), (4, 2, 2304, 192), (3, 2, 2304, 256),
+               (4, 2, 96, 64), (4, 2, 96, 40), (3, 2, 150, 136), (3, 2, 160, 160), (70, 2, 96, 160),
+               (2, 1, 200, 384), (3, 2, 130, 384), (2, 2, 1024, 320), (2, 1, 100, 1024)]
 BARE_IDS = ["dk128_T96_ksplit", "dk128_T96_rows", "dk192_T160_ksplit", "dk192_T160_rows",
             "dk256_T160_ksplit", "dk256_T96_rows", "dk128_T1024_rows", "dk192_T1024_ksplit",
             "dk256_T1024_rows", "dk128_T2304_ksplit", "dk192_T2304_rows",
-            "dk256_T2304_ksplit"]
+            "dk256_T2304_ksplit", "dk64_T96", "dk40_T96", "dk136_T150", "dk160_T160_ksplit",
+            "dk160_T96_rows", "dk384_h1_T200", "dk384_h2_T130", "dk320_T1024",
+            "dk1024_T100"]
 
 
 @pytest.mark.parametrize("B,H,T,dk", BARE_SHAPES, ids=BARE_IDS)
@@ -1274,7 +1484,8 @@ def test_bare_attention_widths_and_splits(dev, B, H, T, dk):
     assert torch.equal(got7, k11)
 
 
-@pytest.mark.parametrize("B,H,T,dk", [(4, 2, 96, 128), (3, 1, 160, 256), (3, 2, 200, 192)])
+@pytest.mark.parametrize("B,H,T,dk", [(4, 2, 96, 128), (3, 1, 160, 256), (3, 2, 200, 192),
+                                      (3, 2, 100, 160), (2, 1, 90, 384), (2, 2, 70, 1024)])
 def test_bare_attention_f32(dev, B, H, T, dk):
     """The f32 entry of kernels 7 and 8 (the training kernels' f32 forward at
     rate 0: plain multiply-adds, no TF32) against the plain version within
@@ -1304,8 +1515,9 @@ def test_bare_attention_f32(dev, B, H, T, dk):
 
 
 def test_bare_attention_kernels_use_wgmma_and_do_not_spill(dev):
-    """The SERVE instantiations of the forward in attention's library (d_k
-    128, 192, 256, both grid splits) are wgmma kernels: HGMMA and no HMMA in
+    """The SERVE instantiations of the forward in attention's library (the
+    tile body at DK 128, 192, 256, both grid splits; the wide body at
+    parts of 192 and 256) are wgmma kernels: HGMMA and no HMMA in
     their SASS, no ptxas spills, no stack frame (the two score arrays of the
     pipelined schedule stay in registers) and no ptxas note that it
     serialized the wgmma (the overlap would be gone)."""
@@ -1319,8 +1531,8 @@ def test_bare_attention_kernels_use_wgmma_and_do_not_spill(dev):
     log = common.ptxas_report("attention")
     funcs = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
                        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log, re.S)
-    serve = [f for f in funcs if "attn_fwd_kernel" in f[0]]
-    assert len(serve) == 6, [f[0] for f in funcs]
+    serve = [f for f in funcs if "attn_fwd_kernel" in f[0] or "attn_fwd_wide_kernel" in f[0]]
+    assert len(serve) == 8, [f[0] for f in funcs]
     assert all(f[1:] == ("0", "0", "0") for f in serve), serve
     assert "serialized" not in log
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1329,10 +1541,10 @@ def test_bare_attention_kernels_use_wgmma_and_do_not_spill(dev):
     seen = 0
     for part in sass.split("Function : ")[1:]:
         name = part.split()[0]
-        if "attn_fwd_kernel" in name:
+        if "attn_fwd_kernel" in name or "attn_fwd_wide_kernel" in name:
             seen += 1
             assert "HGMMA" in part and "HMMA" not in part.replace("HGMMA", ""), name
-    assert seen == 6
+    assert seen == 8
 
 
 @pytest.mark.parametrize("B,T,D", [(4, 96, 256), (3, 160, 384)])
@@ -1544,8 +1756,8 @@ def test_new_kernels_refuse_the_wrong_dtype(dev):
     q4 = qh.reshape(B, 2, T, D // 2)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         KA.fused_attention(q4, q4, q4, lens)
-    with pytest.raises(ValueError, match="d_k"):
-        qb = torch.zeros(B, 4, T, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="d_k"):  # d_k 132: not a multiple of 8
+        qb = torch.zeros(B, 4, T, 132, dtype=torch.bfloat16, device=dev)
         KA.fused_attention(qb, qb, qb, lens)
     w1 = torch.zeros(1024, 9 * D, dtype=torch.bfloat16, device=dev)
     w2 = torch.zeros(D, 1024, dtype=torch.bfloat16, device=dev)

@@ -140,12 +140,13 @@ def test_fused_attention_matches_pallas(tier, dm, nh, rng):
     assert torch.equal(packed, pack(got))
 
 
-@pytest.mark.parametrize("dk,ok", [(64, False), (128, True), (192, True), (256, True),
-                                   (320, False)])
+@pytest.mark.parametrize("dk,ok", [(64, True), (128, True), (192, True), (256, True),
+                                   (320, True), (136, True), (1024, True), (132, False),
+                                   (1032, False)])
 def test_bare_attention_head_dims(dk, ok):
-    """The CUDA entry of kernels 7 and 8 takes the head dims of its Hopper
-    instantiations (128, 192, 256: the training kernels' set) and refuses
-    the others before it builds anything; the check needs no card."""
+    """The CUDA entry of kernels 7 and 8 takes every head dim its tiling
+    plans (``attention_train.plan``: a multiple of 8 from 8 to 1024) and
+    refuses the others before it builds anything; the check needs no card."""
     if ok:
         KA.check_head_dim("t", dk)
     else:
@@ -153,11 +154,12 @@ def test_bare_attention_head_dims(dk, ok):
             KA.check_head_dim("t", dk)
 
 
-@pytest.mark.parametrize("dk,ok", [(128, True), (160, False), (192, True), (256, True)])
+@pytest.mark.parametrize("dk,ok", [(128, True), (160, True), (192, True), (256, True),
+                                   (384, True), (132, False), (1032, False)])
 def test_attention_half_head_dims(dk, ok):
     """The CUDA entries of kernels 1, 5 and 6 take the bare kernels' head
-    dims (128, 192, 256) at one and two heads, and refuse the others before
-    they build anything; the check needs no card."""
+    dims (a multiple of 8 from 8 to 1024) at one and two heads, and refuse
+    the others before they build anything; the check needs no card."""
     for heads in (1, 2):
         if ok:
             KA._check_heads("t", heads * dk, heads)

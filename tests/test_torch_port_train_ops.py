@@ -175,16 +175,16 @@ def test_attention_train_needs_all_three_grads_and_bf16_on_cuda():
         tat._check("t", q.half(), q.half(), q.half(), torch.zeros(1, dtype=torch.int32),
                    1, 128)
     qb = q.bfloat16()
-    with pytest.raises(ValueError, match="head dim"):
-        tat._check("t", qb, qb, qb, torch.zeros(1, dtype=torch.int32), 1, 64)
+    with pytest.raises(ValueError, match="head dim"):  # d_k 132: not a multiple of 8
+        tat._check("t", qb, qb, qb, torch.zeros(1, dtype=torch.int32), 1, 132)
 
 
-@pytest.mark.parametrize("dk,ok", [(64, False), (128, True), (192, True), (256, True),
-                                   (320, False)])
+@pytest.mark.parametrize("dk,ok", [(64, True), (128, True), (192, True), (256, True),
+                                   (320, True), (384, True), (132, False), (1032, False)])
 def test_attention_train_head_dims(dk, ok):
-    """The CUDA entry takes the head dims of its kernel instantiations (128,
-    192, 256; the JAX encoder routes every d_k >= 128 to these kernels) and
-    refuses the others before it builds anything."""
+    """The CUDA entry takes every head dim its tiling plans (a multiple of 8
+    from 8 to 1024; the JAX encoder routes every d_k >= 128 to these
+    kernels) and refuses the others before it builds anything."""
     q = torch.zeros(1, 8, dk, dtype=torch.bfloat16)
     lens = torch.zeros(1, dtype=torch.int32)
     if ok:
