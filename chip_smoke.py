@@ -2331,7 +2331,11 @@ def prenorm_kernel_phase(torch, results, record):
 
 FFN_EDGES = ((3, 40, 256, 1024, 9), (2, 200, 384, 1024, 9), (2, 160, 512, 1024, 9),
              (2, 100, 1024, 4096, 9), (3, 130, 256, 1056, 3), (3, 96, 384, 1024, 1),
-             (2, 70, 384, 1024, 3))
+             (2, 70, 384, 1024, 3),
+             # any width, D and H padded to 32 in the kernels: D = 260 and 36
+             # (16-byte f32 rows, not bf16), 200, 40, and 30 (a value at a time)
+             (2, 100, 260, 1000, 9), (3, 70, 200, 1000, 9), (3, 40, 36, 100, 3),
+             (2, 64, 40, 72, 1), (2, 50, 30, 72, 3))
 
 
 def ffn_edges_phase(torch, results):
@@ -2340,8 +2344,10 @@ def ffn_edges_phase(torch, results):
     64-row tile and no multiple of the tiles, D = 512 (fewer ring stages),
     D = 1024 at H = 4096 (64-row conv tiles, two column passes, the row
     LayerNorm launch), H = 1056, k = 1 and 3; kernel 10 also at O = 80 and
-    200. Lengths 0, 1 and T; every row from len + (k - 1) / 2 on holds c,
-    x + c or LN(x + c) for the call's one bias-only row c."""
+    200, 30; at widths no multiple of 32 (D 260, 200, 40, 36, 30; H 1000,
+    100, 72), which the kernels pad to 32. Lengths 0, 1 and T; every row from
+    len + (k - 1) / 2 on holds c, x + c or LN(x + c) for the call's one
+    bias-only row c."""
     from fastspeech2_tpu_torch.ops import nn
     from fastspeech2_tpu_torch.ops.kernels import ffn as KF
 
@@ -2382,7 +2388,7 @@ def ffn_edges_phase(torch, results):
                 err = compare(name, got, want, 2e-3, 0.1)
                 ffn_dead_rows(name, got, lens, k, dead, exact)
                 results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-        for O in (80, 200):
+        for O in (80, 200, 30):
             B, T, D, H, k = 3, 160, 384, 1024, 9
             w = weights(D, H, O, k)
             xb = torch.randn(B, T, D, generator=g).to(bf16).to(dev)
@@ -2528,13 +2534,15 @@ def bare_attention_checks(torch, results):
 #: head dims of the kernel phases past the 128/192/256 instantiations: padded
 #: with zero columns (40, 64 to 128; 136, 160 to 192) or cut into column
 #: parts (320-1024)
-NEW_HEAD_DIMS = (40, 64, 136, 160, 320, 384, 512, 1024)
+NEW_HEAD_DIMS = (20, 40, 64, 130, 136, 160, 320, 384, 512, 1024)
 #: head dims run at two heads, so that a column past d_k is the next head's
-TWO_HEAD_DIMS = (40, 136, 160)
+#: (20 and 130: no multiple of 8, run zero-padded to 24 and 136)
+TWO_HEAD_DIMS = (20, 40, 130, 136, 160)
 #: (d_k, heads) timed at the decoder rung's (16, 768)
-TIMED_HEAD_DIMS = ((160, 2), (384, 1), (1024, 1))
-#: (D, heads) of kernels 1, 5 and 6 past d_k 256: d_k 384, 160, 1024
-HALF_HEAD_DIMS = ((384, 1), (320, 2), (1024, 1))
+TIMED_HEAD_DIMS = ((160, 2), (384, 1), (1024, 1), (130, 2), (20, 2))
+#: (D, heads) of kernels 1, 5 and 6 past d_k 256 (d_k 384, 160, 1024) and at
+#: head dims no multiple of 8 (d_k 130 at D = 260, 20 at D = 40)
+HALF_HEAD_DIMS = ((384, 1), (320, 2), (1024, 1), (260, 2), (40, 2))
 
 
 def sdpa_backend(names):
@@ -2775,6 +2783,225 @@ def half_heads_case(torch, results, gen, B, T, D, H, timed):
                 entry.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by)
             results[name].setdefault("head_dims", {}).setdefault(key, {}).update(entry)
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+
+#: (D, H) of kernels 2, 9 and 10 timed at the decoder rung's (16, 768), k = 9:
+#: D and H no multiple of 32 (the kernels pad them to 288 / 224 and 1024)
+#: beside the width they pad to, in turns (A, B, C, A, B, C)
+WIDTH_FFN_TIMED = ((256, 1024), (260, 1000), (200, 1000))
+
+
+def widths_kernel_phase(torch, results):
+    """Kernels 2, 9 and 10 at (16, 768), k = 9, at the (D, H) of
+    WIDTH_FFN_TIMED: against their plain versions, then in turns CUDA-event
+    ms, profiler device ms, the plain version's ms and the bound at the real
+    widths (the function's FLOPs on the live rows, its bytes at the real
+    widths); the weights packed as the model packs them (``FFTBlock.
+    ffn_pack``: padded once). Then the copy that kernels 5 and 6 make of
+    q/k/v whose d_k is no multiple of 8 (D = 260, two heads: zero-filled to
+    136 a head) at (16, 768), timed beside kernel 5 there."""
+    from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(23)
+    B, T, k = 16, 768, 9
+    ls = torch.randint(T // 4, T + 1, (B,), generator=gen, dtype=torch.int32)
+    ls[0], ls[-1] = T, max(1, T // 5)
+    lc, lens = ls.tolist(), ls.to(dev)
+    cases = {}
+    for D, H in WIDTH_FFN_TIMED:
+        torch.manual_seed(D + H)
+        blk = FFTBlock(EncoderConfig(idim=D, attention_dim=D, attention_heads=2,
+                                     linear_units=H, positionwise_conv_kernel_size=k),
+                       device=dev)
+        with torch.inference_mode():
+            fp = blk.ffn_pack(bf16)
+        x = torch.randn(B, T, D, generator=gen).to(dev)
+        cases[(D, H)] = (x, x.to(bf16), fp)
+    rows = sum(min(l + (k - 1) // 2, T) for l in lc)
+
+    def calls(x, xb, fp):
+        return (("ffn_block", lambda: KF.ffn_block(x, *fp, lens, k),
+                 lambda: KF.ffn_block_plain(x, *fp, lens, k), 8),
+                ("ffn_block_pre", lambda: KF.ffn_block_pre(x, *fp, lens, k),
+                 lambda: KF.ffn_block_pre_plain(x, *fp, lens, k), 8),
+                ("fused_ffn", lambda: KF.fused_ffn(xb, *fp[:4], lens, k),
+                 lambda: KF.fused_ffn_plain(xb, *fp[:4], lens, k), 4))
+
+    with torch.inference_mode():
+        for (D, H), case in cases.items():
+            for name, fn, plain, _ in calls(*case):
+                got, want = fn(), plain()
+                torch.cuda.synchronize()
+                err = compare(f"{name} D={D},H={H},B={B},T={T},k={k}", got, want, 2e-3, 0.1)
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        for (D, H), case in list(cases.items()) * 2:
+            key = f"D={D},H={H},B={B},T={T},k={k}"
+            flops = rows * 2 * (k * D * H + H * D)
+            wbytes = (k * D * H + H * D) * 2 + (H + 3 * D) * 4
+            for name, fn, plain, io in calls(*case):
+                ms = cuda_time_ms(fn)
+                dms = sum(device_ms_by_kernel(torch, fn).values()) or None
+                entry = results[name].setdefault("widths", {}).setdefault(key, {})
+                if "plain_ms" not in entry:
+                    entry["plain_ms"] = cuda_time_ms(plain, reps=3)
+                b_ms, by = bound_ms(flops, B * T * D * io + wbytes)
+                log(f"  {name} {key}: kernel {ms:.4f} ms (device {dms}), plain "
+                    f"{entry['plain_ms']:.4f}, bound {b_ms:.4f} ({by})")
+                entry.setdefault("ms", []).append(ms)
+                entry.setdefault("device_ms", []).append(dms)
+                entry.update(bound_ms=b_ms, bound_by=by)
+        D, H = 260, 2
+        q, kk, v, x = (torch.randn(B, T, D, generator=gen).to(dev) for _ in range(4))
+        q, kk, v = (t.to(bf16) for t in (q, kk, v))
+        wo = (torch.randn(D, D, generator=gen) / D ** 0.5).to(bf16).to(dev)
+        bo, g, be = (torch.randn(D, generator=gen).to(dev) for _ in range(3))
+
+        def copy():
+            return KA._head_operands(q, kk, v, H)
+
+        ms_copy = cuda_time_ms(copy)
+        dms_copy = sum(device_ms_by_kernel(torch, copy).values()) or None
+        ms5 = cuda_time_ms(lambda: KA.attention_res_ln(q, kk, v, x, wo, bo, g, be, lens, H))
+        moved = 3 * B * T * (D + H * 136) * 2
+        b_ms, _ = bound_ms(0, moved)
+        log(f"  q/k/v copy at d_k 130 (D={D}, two heads, B={B}, T={T}): {ms_copy:.4f} ms "
+            f"(device {dms_copy}; bound {b_ms:.4f} ms for {moved} bytes) of kernel 5's "
+            f"{ms5:.4f} ms with it")
+        results["attention_res_ln"].setdefault("widths", {})[f"qkv_copy dk=130,B={B},T={T}"] = \
+            dict(ms=ms_copy, device_ms=dms_copy, bound_ms=b_ms, kernel5_ms=ms5)
+
+
+#: the model of the widths phases: ``configs/default.yaml`` with these model
+#: keys (encoder d_k 100, which both packages route to plain attention; the
+#: decoder's d_k 130 through kernel 1; FFNs of 1,000 units through kernel 2)
+WIDTH_MODEL = dict(adim=200, ddim=260, eunits=1000, dunits=1000)
+
+
+def width_config(**model_keys):
+    from fastspeech2_tpu_torch.config import Config, config_from_dict
+
+    raw = Config().to_dict()
+    raw["model"].update(WIDTH_MODEL, **model_keys)
+    return config_from_dict(raw)
+
+
+def widths_path_phase(torch, results):
+    """The WIDTH_MODEL model (seed 0, duration bias 1.87) served in bf16:
+    B=8 mel against the CPU port fed the card's durations (the band of the
+    other models), the B=32 call's time and launches (kernel 1 in the
+    decoder's blocks, kernel 2 in every block), a B=8 wav call through the
+    default MelGAN; then a B=8 call with pre-LN blocks (kernels 6 and 9) and
+    one through the int8 tier (kernel 1 on dequantized weights)."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.vocoder.melgan import MelGANGenerator
+
+    cfg = width_config()
+    synth = Synthesizer(seeded_model(torch, cfg), bf16=True)
+    b32, seqs = batch(32), batch(8, offset=8)
+    synth.mel_from_token_batch(b32)  # warm: packs the kernel weights
+    hold_b8_vs_cpu(torch, synth, cfg, "adim 200 / ddim 260 B=8", split=False)
+    reset_counts()
+    ms, (_, lens) = timed_calls(torch, lambda: synth.mel_from_token_batch(b32))
+    per = {k: v // 5 for k, v in read_counts().items() if v}
+    frames = int(lens.sum())
+    log(f"adim 200 / ddim 260 B=32 mel call: {ms:.3f} ms median of 5, {frames} frames "
+        f"({frames / ms * 1e3:.0f} mel-frames/s); launches a call {per}")
+    # the encoder's 4 blocks take kernel 2 once; each decode group runs the
+    # decoder's 4 blocks through kernels 1 and 2
+    assert per["attention_block"] > 0 and per["ffn_block"] == per["attention_block"] + 4, per
+    for k in ("variance_adaptor", "postnet"):
+        assert per[k] > 0, per
+    widths = results["attention_block"].setdefault("widths", {})
+    widths.update({"model B=32 launches a call": per["attention_block"], "model B=32 ms": ms})
+    results["ffn_block"].setdefault("widths", {})["model B=32 launches a call"] = \
+        per["ffn_block"]
+
+    synth.attach_vocoder(MelGANGenerator(bf16=True, seed=0))
+    reset_counts()
+    mel, wav, wav_lens = synth.wav_from_token_batch(seqs)
+    counts = read_counts()
+    live = np.arange(wav.shape[1])[None] < wav_lens[:, None]
+    log(f"adim 200 / ddim 260 B=8 wav call: wav {wav.shape} int16, {int(wav_lens.sum())} "
+        f"samples; launches { {k: v for k, v in counts.items() if v} }")
+    assert wav.dtype == np.int16 and np.abs(wav[live]).max() > 0 and counts["resstack"] > 0
+    del synth
+
+    for what, keys, int8, want in (
+            ("pre-LN", {k: True for k in PRENORM_KEYS}, False, ("attention_res", "ffn_block_pre")),
+            ("int8", {}, True, ("attention_block",))):
+        s2 = Synthesizer(seeded_model(torch, width_config(**keys)), bf16=True, int8=int8)
+        s2.mel_from_token_batch(seqs)
+        reset_counts()
+        mel, lens = s2.mel_from_token_batch(seqs)
+        counts = read_counts()
+        log(f"adim 200 / ddim 260 {what} B=8: {int(lens.sum())} frames; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert np.isfinite(mel).all() and (lens > 0).all()
+        for k in want:
+            assert counts[k] > 0, (what, counts)
+            results[k].setdefault("widths", {})[f"model {what} B=8 launches"] = counts[k]
+        assert counts["ffn_block"] == 0 and (int8 or counts["attention_block"] == 0), counts
+        del s2
+
+
+def widths_train_phase(torch, results, store):
+    """``train()`` on the seeded store with the WIDTH_MODEL model in bf16,
+    batch 16 x accum 4: 4 steps through kernel 11 at d_k 130 in the
+    decoder's blocks (the encoder's d_k 100 takes plain attention), run
+    twice from the same seed; the two runs' parameters and loss records bit
+    for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import DataConfig
+    from fastspeech2_tpu_torch.train.loop import train
+
+    work = tempfile.mkdtemp(prefix="fs2_trainw_", dir=str(ROOT / "build"))
+    try:
+        root, fl = store
+        cfg = width_config()
+        accum = cfg.train.accum_grad
+        cfg = dataclasses.replace(
+            cfg, data=DataConfig(data_dir=root, train_filelist=fl, valid_filelist=fl),
+            train=dataclasses.replace(cfg.train, bf16=True, summary_interval=1,
+                                      save_interval=10 ** 6, validation_step=10 ** 6))
+        runs = []
+        for i in range(2):
+            reset_counts()
+            t0 = time.perf_counter()
+            ts = train(cfg, f"widths{i}", f"{work}/out", max_steps=4)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            recs = [json.loads(ln) for ln in
+                    open(f"{work}/out/logs/widths{i}/train_metrics.jsonl")]
+            main = [r for r in recs if "main/loss" in r]
+            assert [r["step"] for r in main] == [1, 2, 3, 4] and all(
+                np.isfinite(r["main/loss"]) for r in main), main
+            got = (counts["attention_train_packed"], counts["attention_train_packed.bwd"])
+            log(f"adim 200 / ddim 260 train() run {i}: 4 steps in "
+                f"{time.perf_counter() - t0:.1f} s, loss {main[0]['main/loss']:.1f} -> "
+                f"{main[-1]['main/loss']:.1f}; kernel 11 launches {got}")
+            # 4 decoder blocks x accum x 4 steps; the encoder's d_k 100 is plain
+            assert got == (4 * accum * 4,) * 2, counts
+            results["attention_train_packed"].setdefault("widths", {})[
+                "model train step launches"] = got[0] // 4
+            runs.append(([r["main/loss"] for r in main],
+                         [p.detach().clone() for p in ts.model.parameters()]))
+            del ts
+        differ = sum(not torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+        log(f"adim 200 / ddim 260 train() twice: losses {runs[0][0]} / {runs[1][0]}; "
+            f"{differ} of {len(runs[0][1])} parameters differ after 4 steps")
+        assert runs[0][0] == runs[1][0] and differ == 0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def one_head_path_phase(torch, results):
@@ -4419,6 +4646,9 @@ def main(parallel_only: bool = False) -> int:
     t_hd = time.perf_counter()
     head_dim_kernel_phase(torch, results)
     log(f"head-dim kernel phase: {time.perf_counter() - t_hd:.1f} s")
+    t_w = time.perf_counter()
+    widths_kernel_phase(torch, results)
+    log(f"widths kernel phase: {time.perf_counter() - t_w:.1f} s")
     stft_kernel_phase(torch, results)
     ms, frames, synth = main_path_phase(torch, results)
     wav_ms, wav_secs = wav_path_phase(torch, results, synth)
@@ -4433,6 +4663,10 @@ def main(parallel_only: bool = False) -> int:
     t_oh = time.perf_counter()
     one_head_path_phase(torch, results)
     log(f"one-head path phase: {time.perf_counter() - t_oh:.1f} s")
+    torch.cuda.empty_cache()
+    t_w = time.perf_counter()
+    widths_path_phase(torch, results)
+    log(f"widths path phase: {time.perf_counter() - t_w:.1f} s")
     torch.cuda.empty_cache()
     wide_postnet_path_phase(torch, results)
     torch.cuda.empty_cache()
@@ -4466,6 +4700,10 @@ def main(parallel_only: bool = False) -> int:
         one_head_train_phase(torch, results, store)
         log(f"one-head train phase: {time.perf_counter() - t_oh:.1f} s")
         torch.cuda.empty_cache()
+        t_w = time.perf_counter()
+        widths_train_phase(torch, results, store)
+        log(f"widths train phase: {time.perf_counter() - t_w:.1f} s")
+        torch.cuda.empty_cache()
         t_cli = time.perf_counter()
         cli_train_phase(torch, results, store, smi)
         log(f"CLI train phase: {time.perf_counter() - t_cli:.1f} s")
@@ -4496,7 +4734,7 @@ def main(parallel_only: bool = False) -> int:
                                  "launches_golden_f32", "launches_golden",
                                  "op_dispatch", "launches_one_head", "launches_one_head_b32",
                                  "launches_one_head_b8", "launches_dk160_b8",
-                                 "launches_one_head_step", "head_dims") if k in r},
+                                 "launches_one_head_step", "head_dims", "widths") if k in r},
             **({"device_ms": r["device_ms"][key],
                 "library_device_ms": r.get("library_device_ms", {}).get(key)}
                if "device_ms" in r else {}),

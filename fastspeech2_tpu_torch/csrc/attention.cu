@@ -6,8 +6,11 @@
 // and the bare attention
 //   fs2_attention         out = MHA(q, k, v), bf16, no projection (rows at or
 //                         past the length zero).
-// Any d_k that is a multiple of 8 from 8 to 1024 in every entry
-// (attention_fwd.cuh: attn_plan).
+// Any D and any d_k from 1 to 1024 in the block entries (attention_fwd.cuh:
+// attn_plan): the attention runs at dkp = d_k rounded up to 8, heads laid
+// dkp apart (the zero columns leave Q K^T and P V exact; the scale is the
+// real d_k's), so every TMA stride is a multiple of 16 bytes. The bare entry
+// takes d_k multiples of 8 (ops/kernels/attention.py pads other head dims).
 //
 // Replaces fastspeech2_tpu/ops/pallas/attention.py:
 //  - fused_attention_packed_qkv_res_ln (kernel _attn_kernel_packed_qkv_res_ln):
@@ -36,19 +39,23 @@
 // of one row run concurrently and share nothing, so the attention halves are
 // three launches, each a wgmma kernel of two warpgroups fed by TMA, with the
 // TPU kernel's rounding points:
-//  A. q|k|v = round(round(bf16(x) Wqkv) + bqkv) into the (B, T, 3D) bf16
-//     scratch: launch 1 of ffn_body.cuh at k = 1 without the ReLU
+//  A. q|k|v = round(round(bf16(x) Wqkv) + bqkv) into the (B, T, 3 H dkp)
+//     bf16 scratch (Wqkv's rows laid out per head at dkp with zero rows and
+//     bias past d_k, so the scratch's padding columns are zeros): launch 1 of ffn_body.cuh at k = 1 without the ReLU
 //     (CONV_QKV): 128-row x 256-column blocks (64 x 128 where D = 768 leaves
 //     no room) of a bf16 x tile against Wqkv from a TMA ring. Row tiles past
 //     the length are skipped; rows of a live tile past the length hold
 //     round(bqkv), so the key tile the forward reads across the length is
 //     finite.
-//  B. O = MHA(q, k, v) in bf16 into a (B, T, D) scratch: attention_fwd.cuh's
+//  B. O = MHA(q, k, v) in bf16 into a (B, T, Kp) scratch, heads dkp apart
+//     (Kp = H dkp rounded up to 32; its map is H dkp wide, so the columns
+//     past it read as zeros): attention_fwd.cuh's
 //     SERVE forward (fs2_attention's kernel, unchanged) on q/k/v column blocks
 //     of rows ld apart; keys at or past the length are masked and query rows
 //     at or past it are written as zeros.
-//  C. out = res + (round(O Wo) + bo), LayerNormed for RES_LN: launch 2 of
-//     ffn_body.cuh with O as its hidden, Wo as its W2 and bo as its bias-only
+//  C. out = res + (round(O Wo) + bo), LayerNormed for RES_LN over the D
+//     real columns: launch 2 of ffn_body.cuh with O as its hidden, Wo (D,
+//     Kp; zero columns at O's padding) as its W2 and bo as its bias-only
 //     row. O is zero past the length and round(0) = 0, so those rows are
 //     exactly (the LayerNorm of) res + bo, as the TPU kernels' dead blocks
 //     give, and tiles wholly past the length skip the product.
@@ -66,6 +73,17 @@ bool dk_ok(int DK) {
 
 bool heads_ok(int D, int H) { return H > 0 && D % H == 0 && dk_ok(D / H); }
 
+// The block entries' layout of D = H d_k: heads dkp = d_k rounded up to 8
+// apart, q|k|v rows of 3 Da (Da = H dkp), O rows of Kp (Da rounded up to 32).
+struct Heads {
+  int dkp, Da, Kp;
+};
+
+Heads heads_of(int D, int H) {
+  const int dkp = (D / H + 7) / 8 * 8;
+  return Heads{dkp, H * dkp, pad32(H * dkp)};
+}
+
 // The SERVE forward at head dim gm.dk: launch B, and the whole bare entry.
 cudaError_t serve_fwd(const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* out,
                       int B, const Geometry& gm, float scale, cudaStream_t stream) {
@@ -73,50 +91,57 @@ cudaError_t serve_fwd(const bf16* q, const bf16* k, const bf16* v, const int* le
                                stream);
 }
 
-// Launch A: q|k|v = round(round(bf16(x) Wqkv) + bqkv) into qkv (B, T, 3D).
+// Launch A: q|k|v = round(round(bf16(x) Wqkv) + bqkv) into qkv (B, T, N),
+// N = 3 Da; Wqkv (N, Dp) with zero columns past D.
 cudaError_t qkv_proj(const float* x, const bf16* wqkv, const float* bqkv, const int* lens,
-                     bf16* qkv, int B, int T, int D, cudaStream_t stream) {
+                     bf16* qkv, int B, int T, int D, int N, cudaStream_t stream) {
   Plan pl;
-  if (!make_plan(D, 3 * D, 1, D, &pl)) return cudaErrorInvalidValue;
+  if (!make_plan(D, N, 1, D, &pl)) return cudaErrorInvalidValue;
   const Args a{x, nullptr, nullptr, bqkv, nullptr, nullptr, lens, qkv, nullptr, nullptr,
-               T, D, 3 * D, 1, D, 1, 0.f};
+               T, D, N, 1, D, 1, 0.f};
   CUtensorMap tw;
-  const cudaError_t e = tma_map_bf16_2d(&tw, wqkv, D, 3 * D, D, pl.nh);
+  const int Dp = pad32(D);
+  const cudaError_t e = tma_map_bf16_2d(&tw, wqkv, Dp, N, Dp, pl.nh);
   if (e != cudaSuccess) return e;
   return launch_conv<IN_F32, CONV_QKV>(tw, a, pl, B, stream);
 }
 
-// Launches B and C: O = MHA(q, k, v) (heads packed along D, rows ld apart)
-// into o (B, T, D), then out = res + (round(O Wo) + bo), LayerNormed for
-// OUT_POST_LN (OUT_PRE_RES: not).
+// Launches B and C: O = MHA(q, k, v) (heads dkp apart, rows ld apart) into
+// o (B, T, Kp), then out = res + (round(O Wo) + bo), LayerNormed for
+// OUT_POST_LN (OUT_PRE_RES: not); `heads_of` gives the layout.
 template <int OUT>
 cudaError_t attention_half(const float* res, const bf16* q, const bf16* k, const bf16* v,
                            int ld, const bf16* wo, const float* bo, const float* g,
                            const float* be, const int* lens, bf16* o, float* out, int B, int T,
                            int D, int H, float scale, float eps, cudaStream_t stream) {
   Plan pl;
-  if (!heads_ok(D, H) || B < 1 || T < 1 || ld < D || ld % 8 != 0 ||
-      !make_plan(D, D, 1, D, &pl))
+  if (!heads_ok(D, H) || B < 1 || T < 1) return cudaErrorInvalidValue;
+  const Heads hd = heads_of(D, H);
+  if (ld < hd.Da || ld % 8 != 0 || !make_plan(D, hd.Kp, 1, D, &pl))
     return cudaErrorInvalidValue;
-  const int DK = D / H;
-  const Geometry gm{T, H, (long long)T * ld, DK, ld, (long long)T * D, DK, D, DK};
+  const Geometry gm{T, H, (long long)T * ld, hd.dkp, ld, (long long)T * hd.Kp, hd.dkp, hd.Kp,
+                    hd.dkp};
   cudaError_t e = serve_fwd(q, k, v, lens, o, B, gm, scale, stream);
   if (e != cudaSuccess) return e;
   // bo is the row c of the rows past the length (launch 2 only reads it)
   const Args a{res, g, be, nullptr, wo, bo, lens, o, const_cast<float*>(bo), out,
-               T, D, D, 1, D, 1, eps};
+               T, D, hd.Kp, 1, D, 1, eps};
   CUtensorMap to, two;
-  if ((e = tma_map_bf16_2d(&to, o, D, (uint64_t)B * T, D, 64)) != cudaSuccess ||
-      (e = tma_map_bf16_2d(&two, wo, D, D, D, pl.no)) != cudaSuccess)
+  if ((e = tma_map_bf16_2d(&to, o, hd.Da, (uint64_t)B * T, hd.Kp, 64)) != cudaSuccess ||
+      (e = tma_map_bf16_2d(&two, wo, hd.Kp, D, hd.Kp, pl.no)) != cudaSuccess)
     return e;
   return launch_epilogue<OUT>(to, two, a, pl, B, stream);
 }
 
 }  // namespace
 
-// x (B,T,D) f32; wqkv (3D, D) bf16 [q|k|v rows, (out, in)]; bqkv (3D) f32;
-// wo (D, D) bf16 (out, in); bo/g/be (D) f32; lens (B) i32; qkv (B,T,3D) and
-// o (B,T,D) bf16 scratch; out (B,T,D) f32. D / H a multiple of 8 in 8..1024.
+// x (B,T,D) f32; wqkv (3 Da, Dp) bf16 [q|k|v rows, each H heads of dkp rows
+// (out, in), zero rows past d_k and zero columns past D; Dp = D rounded up to
+// 32]; bqkv (3 Da) f32, zero past d_k in each head; wo (D, Kp) bf16 (out,
+// in), zero columns at O's padding; bo/g/be (D) f32; lens (B) i32; qkv
+// (B,T,3 Da) and o (B,T,Kp) bf16 scratch; out (B,T,D) f32 (`heads_of` gives
+// dkp, Da, Kp: at d_k % 8 == 0 and D % 32 == 0 these are the unpadded
+// (3D, D) and (D, D)). scale = 1/sqrt(d_k); D / H in 1..1024.
 FS2_EXPORT int fs2_attention_block(const float* x, const bf16* wqkv, const float* bqkv,
                                    const bf16* wo, const float* bo, const float* g,
                                    const float* be, const int* lens, bf16* qkv, bf16* o,
@@ -124,21 +149,23 @@ FS2_EXPORT int fs2_attention_block(const float* x, const bf16* wqkv, const float
                                    float eps, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   if (!heads_ok(D, H) || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = qkv_proj(x, wqkv, bqkv, lens, qkv, B, T, D, stream);
+  const int Da = heads_of(D, H).Da;
+  const cudaError_t e = qkv_proj(x, wqkv, bqkv, lens, qkv, B, T, D, 3 * Da, stream);
   if (e != cudaSuccess) return (int)e;
-  return (int)attention_half<OUT_POST_LN>(x, qkv, qkv + D, qkv + 2 * D, 3 * D, wo, bo, g, be,
-                                          lens, o, out, B, T, D, H, scale, eps, stream);
+  return (int)attention_half<OUT_POST_LN>(x, qkv, qkv + Da, qkv + 2 * Da, 3 * Da, wo, bo, g,
+                                          be, lens, o, out, B, T, D, H, scale, eps, stream);
 }
 
 // Launches B and C alone, q/k/v given: out = LN(res + MHA(q, k, v) Wo + bo).
 // Replaces fastspeech2_tpu/ops/pallas/attention.py:
 // fused_attention_packed_res_ln (kernel _attn_kernel_packed_res_ln), which the
 // JAX package takes with FS2_FUSED_ATT_QKV=off.
-// res (B,T,D) f32; q, k, v (B,T,D) bf16, each with row stride ld elements
-// (ld >= D, a multiple of 8, 16-byte aligned bases): three separate tensors
-// (ld = D) or three column blocks of one buffer; rows at or past the length
-// need only be finite. wo (D, D) bf16 (out, in); bo/g/be (D) f32; lens (B)
-// i32; o (B,T,D) bf16 scratch; out (B,T,D) f32.
+// res (B,T,D) f32; q, k, v (B,T,Da) bf16, heads dkp apart (`heads_of`; the
+// columns past d_k zero), each with row stride ld elements (ld >= Da, a
+// multiple of 8, 16-byte aligned bases): three separate tensors (ld = Da)
+// or three column blocks of one buffer; rows at or past the length need
+// only be finite. wo (D, Kp) bf16 (out, in); bo/g/be (D) f32; lens (B) i32;
+// o (B,T,Kp) bf16 scratch; out (B,T,D) f32.
 FS2_EXPORT int fs2_attention_res_ln(const float* res, const bf16* q, const bf16* k,
                                     const bf16* v, int ld, const bf16* wo, const float* bo,
                                     const float* g, const float* be, const int* lens, bf16* o,
@@ -169,12 +196,12 @@ FS2_EXPORT int fs2_attention_res(const float* res, const bf16* q, const bf16* k,
 // column blocks of one q|k|v buffer; out (B, T, H * DK) contiguous) and
 // fused_attention (packed = 0: q, k, v and out (B, H, T, DK) contiguous,
 // ld = DK). ld a multiple of 8, bases 16-byte aligned; lens (B) i32; DK a
-// multiple of 8 in 8..1024. The SERVE forward of attention_fwd.cuh, its three
+// multiple of 8 in 8..1024 (the TMA strides and the 16-byte zero stores). The SERVE forward of attention_fwd.cuh, its three
 // tensor maps encoded per call.
 FS2_EXPORT int fs2_attention(const bf16* q, const bf16* k, const bf16* v, int ld,
                              const int* lens, bf16* out, int B, int T, int H, int DK, int packed,
                              float scale, void* stream_ptr) {
-  if (!dk_ok(DK) || B < 1 || T < 1 || H < 1 || ld % 8 != 0 ||
+  if (!dk_ok(DK) || DK % 8 != 0 || B < 1 || T < 1 || H < 1 || ld % 8 != 0 ||
       (packed ? ld < H * DK : ld != DK))
     return (int)cudaErrorInvalidValue;
   const long long osb = (long long)H * T * DK, osh = packed ? DK : (long long)T * DK;

@@ -46,10 +46,13 @@
 // output has strides of its own, and every store masks the columns at or
 // past d_k.
 //
-// Head dims (`attn_plan`): any multiple of 8 from 8 to 1024, padded to DKP,
-// the next multiple of 64 and at least 128 (zero columns in Q and K leave
-// the scores exact, zero columns of V give zero columns of O; the scale is
-// the real d_k's).
+// Head dims (`attn_plan`): any from 1 to 1024, padded to DKP, the next
+// multiple of 64 and at least 128 (zero columns in Q and K leave the scores
+// exact, zero columns of V give zero columns of O; the scale is the real
+// d_k's). The operands' own head stride is a multiple of 8 (a TMA stride is
+// a multiple of 16 bytes, and the stores write column pairs and 16-byte
+// zero rows): a head dim that is not runs at d_k rounded up to 8 on
+// zero-padded operands (ops/kernels/attention*.py, csrc/attention.cu).
 //  * DKP <= 256: the body above at DK = DKP, one accumulator of 32
 //    registers a thread per 64 columns (d_k 128, 192 and 256 keep their
 //    instantiations and their bits).
@@ -753,8 +756,7 @@ attn_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 // ---- host ---------------------------------------------------------------------
 
 // The tiling of a head dim, one rule for every attention kernel (mirrored by
-// ops/kernels/attention_train.py:plan): d_k a multiple of 8 in 8..1024,
-// padded to dkp (a multiple of 64, at least 128: no model routes a narrower
+// ops/kernels/attention_train.py:plan): d_k in 1..1024, padded to dkp (a multiple of 64, at least 128: no model routes a narrower
 // head, and zero columns keep the result exact). dkp <= 256: the tile bodies
 // at DK = dkp, one part. Above: the wide bodies, `parts` column parts of pw columns
 // (pw = 192 or 256: no warpgroup holds more than 256 accumulator columns).
@@ -763,7 +765,7 @@ struct AttnPlan {
 };
 
 bool attn_plan(int dk, AttnPlan* p) {
-  if (dk < 8 || dk > 1024 || dk % 8 != 0) return false;
+  if (dk < 1 || dk > 1024) return false;
   p->dkp = max(128, (dk + 63) / 64 * 64);
   p->wide = p->dkp > 256;
   p->parts = p->wide ? (p->dkp + 255) / 256 : 1;

@@ -16,7 +16,10 @@
 // is a multiple of 8 from 8 to 1024 (attention_fwd.cuh: attn_plan): the
 // tile bodies below at DKP = d_k rounded up to 64, at least 128 (<= 256),
 // the wide bodies
-// (column parts, the reductions over d_k streamed) above.
+// (column parts, the reductions over d_k streamed) above. Other head dims
+// up to 1024 come zero-padded to a multiple of 8 with the real d_k's scale
+// (ops/kernels/attention_train.py): zero columns leave every product and
+// gradient exact, and the keep mask does not read d_k.
 //
 // The keep mask is the TPU kernel's counter hash, bit for bit:
 //   lowbias32(idx ^ lowbias32(seed ^ 0x9E3779B9 * (b * 1024 + h))) >= thresh,
@@ -1512,7 +1515,7 @@ cudaError_t launch_bwd_f32(const float* q, const float* k, const float* v, const
 
 bool geometry_ok(int B, int T, int H, int DK) {
   AttnPlan pl;
-  return B > 0 && T > 0 && H > 0 && H <= 1024 && attn_plan(DK, &pl) &&
+  return B > 0 && T > 0 && H > 0 && H <= 1024 && DK % 8 == 0 && attn_plan(DK, &pl) &&
          (long long)T * T < (1ll << 32);
 }
 
@@ -1564,7 +1567,7 @@ int bwd_any(const void* q, const void* k, const void* v, const void* dout, const
 // bytes of the kernels that serve it: the forward (row split, key split; the
 // wide body: both the same) in the SERVE and the TRAIN mode, dQ (row split,
 // key split), dK/dV, the f32 forward and backward. cudaErrorInvalidValue
-// for a head dim the kernels refuse.
+// for a head dim outside 1..1024.
 FS2_EXPORT int fs2_attention_plan(int dk, int* out) {
   AttnPlan pl;
   if (!attn_plan(dk, &pl)) return (int)cudaErrorInvalidValue;

@@ -14,7 +14,12 @@
 // far above the ridge (~295) -- tensor-core (operations) bound.
 //
 // Design: csrc/ffn_body.cuh (a k-tap conv launch writing the bf16 hidden,
-// then a k=1 conv launch with the entry's epilogue).
+// then a k=1 conv launch with the entry's epilogue). Any D, H and O, odd k:
+// the weights come padded (w1 (Hd, K*Dp), Dp = D rounded up to 32, zero
+// columns past D in each tap, Hd a multiple of 32 with zero rows and bias
+// past the model's H; w2 (O, Hd) with zero columns there), x and out keep
+// their real width, and x is read by threads, so no row stride meets a TMA
+// rule.
 #include "ffn_body.cuh"
 
 namespace {
@@ -22,8 +27,8 @@ namespace {
 template <int IN, int OUT>
 cudaError_t launch_ffn(Args a, const bf16* w1, int B, cudaStream_t stream) {
   Plan pl;
-  const int T = a.T, D = a.D, Hd = a.Hd, K = a.K, O = a.O;
-  if (D % 32 != 0 || Hd % 32 != 0 || K % 2 != 1 || O < 1 || B < 1 || T < 1 ||
+  const int T = a.T, D = a.D, Hd = a.Hd, K = a.K, O = a.O, Dp = pad32(D);
+  if (D < 1 || Hd % 32 != 0 || K % 2 != 1 || O < 1 || B < 1 || T < 1 ||
       !make_plan(D, Hd, K, O, &pl))
     return cudaErrorInvalidValue;
   // the bias-only row lives behind the hidden, 16-byte aligned
@@ -31,7 +36,7 @@ cudaError_t launch_ffn(Args a, const bf16* w1, int B, cudaStream_t stream) {
                                     ((size_t)B * T * Hd * 2 + 15) / 16 * 16);
   CUtensorMap tw1, thid, tw2;
   cudaError_t e;
-  if ((e = tma_map_bf16_2d(&tw1, w1, (uint64_t)K * D, Hd, (uint64_t)K * D, pl.nh)) !=
+  if ((e = tma_map_bf16_2d(&tw1, w1, (uint64_t)K * Dp, Hd, (uint64_t)K * Dp, pl.nh)) !=
           cudaSuccess ||
       (e = tma_map_bf16_2d(&thid, a.hid, Hd, (uint64_t)B * T, Hd, 64)) != cudaSuccess ||
       (e = tma_map_bf16_2d(&tw2, a.w2, Hd, O, Hd, pl.no)) != cudaSuccess)
@@ -42,7 +47,8 @@ cudaError_t launch_ffn(Args a, const bf16* w1, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// x (B,T,D) f32; w1 (Hd, K*D) bf16 [(out, tap, in)]; b1 (Hd) f32;
+// x (B,T,D) f32; w1 (Hd, K*Dp) bf16 [(out, tap, in)], Dp = D rounded up to
+// 32, zero past D in each tap; Hd a multiple of 32; b1 (Hd) f32;
 // w2 (D, Hd) bf16 (out, in); b2/g/be (D) f32; lens (B) i32; hid bf16 scratch
 // of B*T*Hd values (16-byte aligned) followed by D floats, 16-byte aligned
 // (ops/kernels/ffn.py:scratch_elems); out (B,T,D) f32.

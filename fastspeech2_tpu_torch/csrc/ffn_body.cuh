@@ -21,11 +21,14 @@
 //     rows plus a halo of (k-1)/2 each side sit in shared memory once,
 //     masked (zero outside [0, len)), LayerNormed first for the pre-LN entry
 //     (f32, one warp a row), rounded to bf16 and kept column-chunk-major,
-//     [D/8][rows][8]: tap j's A operand is the same tile at a base shifted by
+//     [Dp/8][rows][8] (Dp = D rounded up to 32, zero columns past D): tap
+//     j's A operand is the same tile at a base shifted by
 //     j rows (a descriptor without swizzle takes any row shift), so the k-tap
-//     conv is one K = k*D product with no im2col copy. w1 (H, k*D), laid out
-//     (out, tap, in), is K-major as it is and streams in NH x 64 tiles
-//     (128-byte swizzle), each serving all P rows.
+//     conv is one K = k*Dp product with no im2col copy. w1 (H, k*Dp), laid
+//     out (out, tap, in) with zero columns past D in each tap and H a
+//     multiple of 32 (zero rows past the model's width: ops/kernels/ffn.py
+//     pads it once, when it packs the weights), is K-major as it is and
+//     streams in NH x 64 tiles (128-byte swizzle), each serving all P rows.
 //  2. ffn_out_kernel: y = round(hidden W2) + b2 and the entry's epilogue. A
 //     block covers 64 rows x up to 512 output columns, the two warpgroups
 //     half each (192 accumulators' worth at O = 384 would not fit one); the
@@ -37,6 +40,13 @@
 //     a third launch LayerNorms the rows (post-LN only).
 // The hidden goes through global memory in bf16 (25 MB at (16, 768, 1024),
 // mostly L2-resident).
+// Any width: D, H and O need no granule of their own. Zero columns of x and
+// w1 and zero rows of w1 (with zero bias) give hidden columns of
+// relu(0 + 0) = 0, which zero columns of w2 meet, so the padded products
+// are exact; x is loaded by threads (not TMA), a value at a time where its
+// rows are not 16-byte aligned; every LayerNorm counts the real D columns
+// (the pre-LN rows on load, launch 2's post-LN rows and launch 3 take O);
+// stores stop at the real width.
 // Dead rows, by row: every row t >= len + pad gets exactly the bias-only row
 // c = round(relu(round(b1)) W2) + b2 (then LN(x + c), x + c or c). Extra
 // blocks of launch 1 compute c once per call into a float scratch behind
@@ -79,6 +89,9 @@ constexpr int SMEM_PAIR = 115712;    // each of two blocks on one SM
 constexpr int SLACK = 1024 + 64;     // the ring's 1024-byte alignment, mbarriers
 constexpr int ROW_PASS = 512;        // launch 2: output columns of a block, at most
 
+// The conv input's width in the kernels: D rounded up to a multiple of 32.
+__host__ __device__ __forceinline__ int pad32(int d) { return (d + 31) / 32 * 32; }
+
 // Tiling of one shape; mirrors ops/kernels/ffn.py:plan (fs2_ffn_plan lets a
 // test hold the two together).
 struct Plan {
@@ -89,6 +102,7 @@ struct Plan {
 
 bool make_plan(int D, int Hd, int K, int O, Plan* pl) {
   static const int tiles[2][2] = {{128, 256}, {64, 128}};
+  D = pad32(D);  // the x tile's width
   pl->p = 0;
   for (const auto& c : tiles) {
     const long xb = (long)D * ((c[0] + K - 1) | 1) * 2;  // the x tile, odd rows
@@ -197,7 +211,7 @@ using Int = std::integral_constant<int, V>;
 
 // Runs a product in ring tiles: step(it, Int<k-steps>, Int<first>) for tile
 // it, with the k-step count and the first tile's overwrite known at compile
-// time (KS is even: D and H are multiples of 32), so no wgmma sits behind a
+// time (KS is even: Dp and H are multiples of 32), so no wgmma sits behind a
 // runtime guard or takes a runtime scale_d.
 template <class Step>
 __device__ __forceinline__ void tiles(int KS, Step& step) {
@@ -210,17 +224,62 @@ __device__ __forceinline__ void tiles(int KS, Step& step) {
   if (full > 0 && KS % 4 != 0) step(full, Int<2>{}, Int<0>{});
 }
 
+// Columns [c, c + 8) of an f32 row (c < D), zeros at or past D, for rows
+// aligned to A floats (D % A == 0): A = 8, two 16-byte loads; 4, the second
+// only where the chunk holds it; 1, a value at a time.
+template <int A>
+__device__ __forceinline__ void load8_f32(const float* row, int c, int D, float4& u, float4& w) {
+  if (A == 8) {
+    u = *reinterpret_cast<const float4*>(row + c);
+    w = *reinterpret_cast<const float4*>(row + c + 4);
+  } else if (A == 4) {
+    u = *reinterpret_cast<const float4*>(row + c);
+    w = c + 4 < D ? *reinterpret_cast<const float4*>(row + c + 4)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    float e[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = c + i < D ? row[c + i] : 0.f;
+    u = make_float4(e[0], e[1], e[2], e[3]);
+    w = make_float4(e[4], e[5], e[6], e[7]);
+  }
+}
+
+// The same at the alignment of D, known at run time.
+__device__ __forceinline__ void load8_f32(const float* row, int c, int D, float4& u, float4& w) {
+  if (D % 8 == 0)
+    load8_f32<8>(row, c, D, u, w);
+  else if (D % 4 == 0)
+    load8_f32<4>(row, c, D, u, w);
+  else
+    load8_f32<1>(row, c, D, u, w);
+}
+
+// The same of a bf16 row, as its raw bits: one 16-byte load where D % 8 == 0.
+__device__ __forceinline__ uint4 load8_bf16(const bf16* row, int c, int D) {
+  if (D % 8 == 0) return *reinterpret_cast<const uint4*>(row + c);
+  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+  uint32_t e[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = c + i < D ? r[c + i] : 0u;
+  return make_uint4(e[0] | e[1] << 16, e[2] | e[3] << 16, e[4] | e[5] << 16, e[6] | e[7] << 16);
+}
+
 // LayerNormed x rows into xs (pre-LN): one warp takes RA = 8 / S rows at a
 // time, S 8-column chunks of each per lane, every load of them issued before
-// the sums (f32, biased variance, mean first); rows outside [0, len) zero.
-template <int S>
+// the sums (f32, biased variance over the D real columns, mean first); rows
+// outside [0, len) and columns past D zero. A, the rows' alignment in
+// floats (`load8_f32`), is a compile-time constant: loads chosen at run time
+// kept the loads of a warp's rows from going out together and cost kernel
+// 9's conv launch a third of its time at D = 384. Below 8, the chunk that
+// holds column D is summed column by column.
+template <int S, int A>
 __device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, int tbase,
                                         int rows, int R, int len) {
   constexpr int RA = 8 / S;
-  const int CH = a.D / 8, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int D = a.D, CH = pad32(D) / 8, CHD = (D + 7) / 8;  // chunks: the tile's, D's
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* x = reinterpret_cast<const float*>(a.x);
-  const float4* g4 = reinterpret_cast<const float4*>(a.g);
-  const float4* b4 = reinterpret_cast<const float4*>(a.be);
   for (int e0 = warp * RA; e0 < rows; e0 += (THREADS / 32) * RA) {
     float4 u[RA][S], w[RA][S];
     bool ok[RA];
@@ -228,14 +287,13 @@ __device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, in
     for (int r = 0; r < RA; ++r) {
       const int t = tbase + e0 + r;
       ok[r] = e0 + r < rows && t >= 0 && t < len;
-      const float4* src = reinterpret_cast<const float4*>(x + (row0 + (ok[r] ? t : 0)) * a.D);
+      const float* src = x + (row0 + (ok[r] ? t : 0)) * D;
 #pragma unroll
       for (int q = 0; q < S; ++q) {
         const int c = lane + 32 * q;
         u[r][q] = w[r][q] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ok[r] && c < CH) {
-          u[r][q] = src[2 * c];
-          w[r][q] = src[2 * c + 1];
+        if (ok[r] && c < CHD) {
+          load8_f32<A>(src, 8 * c, D, u[r][q], w[r][q]);
         }
       }
     }
@@ -246,18 +304,20 @@ __device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, in
       for (int q = 0; q < S; ++q)
         s += ((u[r][q].x + u[r][q].y) + (u[r][q].z + u[r][q].w)) +
              ((w[r][q].x + w[r][q].y) + (w[r][q].z + w[r][q].w));
-      const float mean = warp_sum(s) / (float)a.D;
+      const float mean = warp_sum(s) / (float)D;
       float v = 0.f;
 #pragma unroll
       for (int q = 0; q < S; ++q)
-        if (lane + 32 * q < CH) {
+        if (lane + 32 * q < CHD) {
+          const int c8 = 8 * (lane + 32 * q);
           const float d[8] = {u[r][q].x - mean, u[r][q].y - mean, u[r][q].z - mean,
                               u[r][q].w - mean, w[r][q].x - mean, w[r][q].y - mean,
                               w[r][q].z - mean, w[r][q].w - mean};
 #pragma unroll
-          for (int i = 0; i < 8; ++i) v += d[i] * d[i];
+          for (int i = 0; i < 8; ++i)
+            if (A == 8 || c8 + i < D) v += d[i] * d[i];
         }
-      const float inv = 1.0f / sqrtf(warp_sum(v) / (float)a.D + a.eps);
+      const float inv = 1.0f / sqrtf(warp_sum(v) / (float)D + a.eps);
       const int e = e0 + r;
       if (e >= rows) continue;
       uint4* dst = reinterpret_cast<uint4*>(xs) + e;
@@ -266,8 +326,10 @@ __device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, in
         const int c = lane + 32 * q;
         if (c >= CH) continue;
         uint4 o = make_uint4(0u, 0u, 0u, 0u);
-        if (ok[r]) {
-          const float4 gu = g4[2 * c], gv = g4[2 * c + 1], bu = b4[2 * c], bv = b4[2 * c + 1];
+        if (ok[r] && c < CHD) {  // g = be = 0 past D: those columns give 0
+          float4 gu, gv, bu, bv;
+          load8_f32<A>(a.g, 8 * c, D, gu, gv);
+          load8_f32<A>(a.be, 8 * c, D, bu, bv);
           const float4 uu = u[r][q], ww = w[r][q];
           o = pack8(make_float4((uu.x - mean) * inv * gu.x + bu.x,
                                 (uu.y - mean) * inv * gu.y + bu.y,
@@ -284,8 +346,20 @@ __device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, in
   }
 }
 
+// The pre-LN tile at S chunks a lane and the rows' alignment.
+template <int S>
+__device__ __forceinline__ void ln_tile(bf16* xs, const Args& a, size_t row0, int tbase,
+                                        int rows, int R, int len) {
+  if (a.D % 8 == 0)
+    ln_rows<S, 8>(xs, a, row0, tbase, rows, R, len);
+  else if (a.D % 4 == 0)
+    ln_rows<S, 4>(xs, a, row0, tbase, rows, R, len);
+  else
+    ln_rows<S, 1>(xs, a, row0, tbase, rows, R, len);
+}
+
 // x rows tbase .. tbase + rows - 1 of batch row `row0 / T` into xs
-// [D/8][R][8] bf16, zero outside [0, len); pre-LN: LayerNormed first
+// [Dp/8][R][8] bf16, zero outside [0, len) and past D; pre-LN: LayerNormed first
 // (ln_rows). A thread takes 8 columns of a row (16 bytes stored, at an odd
 // row count R on 8 distinct bank groups), eight such items loaded before any
 // is stored: a dependent load and store per item left the tile's load
@@ -293,16 +367,16 @@ __device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, in
 template <int IN>
 __device__ __forceinline__ void load_tile(bf16* xs, const Args& a, size_t row0, int tbase,
                                           int rows, int R, int len) {
-  const int CH = a.D / 8;
+  const int D = a.D, CH = pad32(D) / 8;
   if (IN == IN_F32_LN) {
     if (CH <= 32)
-      ln_rows<1>(xs, a, row0, tbase, rows, R, len);
+      ln_tile<1>(xs, a, row0, tbase, rows, R, len);
     else if (CH <= 64)
-      ln_rows<2>(xs, a, row0, tbase, rows, R, len);
+      ln_tile<2>(xs, a, row0, tbase, rows, R, len);
     else if (CH <= 128)
-      ln_rows<4>(xs, a, row0, tbase, rows, R, len);
+      ln_tile<4>(xs, a, row0, tbase, rows, R, len);
     else
-      ln_rows<8>(xs, a, row0, tbase, rows, R, len);
+      ln_tile<8>(xs, a, row0, tbase, rows, R, len);
     return;
   }
   constexpr int U = 8;
@@ -313,20 +387,15 @@ __device__ __forceinline__ void load_tile(bf16* xs, const Args& a, size_t row0, 
 #pragma unroll
     for (int q = 0; q < U; ++q) {
       const int i = i0 + q * THREADS, e = i / CH, c = i % CH, t = tbase + e;
-      const bool ok = i < n && t >= 0 && t < len;
+      const bool ok = i < n && t >= 0 && t < len && 8 * c < D;
       if (IN == IN_F32) {
         f[q][0] = f[q][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ok) {
-          const float4* src = reinterpret_cast<const float4*>(
-              reinterpret_cast<const float*>(a.x) + (row0 + t) * a.D + c * 8);
-          f[q][0] = src[0];
-          f[q][1] = src[1];
-        }
+        if (ok)
+          load8_f32(reinterpret_cast<const float*>(a.x) + (row0 + t) * D, 8 * c, D, f[q][0],
+                    f[q][1]);
       } else {
         v[q] = make_uint4(0u, 0u, 0u, 0u);
-        if (ok)
-          v[q] = *reinterpret_cast<const uint4*>(reinterpret_cast<const bf16*>(a.x) +
-                                                 (row0 + t) * a.D + c * 8);
+        if (ok) v[q] = load8_bf16(reinterpret_cast<const bf16*>(a.x) + (row0 + t) * D, 8 * c, D);
       }
     }
 #pragma unroll
@@ -354,15 +423,15 @@ ffn_conv_kernel(const __grid_constant__ CUtensorMap tw1, const __grid_constant__
     constant_row(a, b * gridDim.y + blockIdx.y, gridDim.y * gridDim.z);
     return;
   }
-  const int T = a.T, D = a.D, pad = (a.K - 1) / 2;
+  const int T = a.T, Dp = pad32(a.D), pad = (a.K - 1) / 2;
   const int t0 = blockIdx.x * P, n0 = blockIdx.y * NH;
   const int len = max(0, min(a.lens[b], T)), live = min(T, len + pad);
   if (t0 >= live) return;  // launch 2 gives every row from len + pad on the row c
   unsigned char* ring_g = align1024(smem_raw);
   const int rows = P + a.K - 1, R = rows | 1;
-  bf16* xs = reinterpret_cast<bf16*>(ring_g + st * NH * 128);  // [D/8][R][8]
-  uint64_t* full = reinterpret_cast<uint64_t*>(xs + (size_t)(D / 8) * R * 8);
-  Ring ring{smem_u32(ring_g), ring_g, full, full + st, st, NH * 128, 0, (a.K * D + 63) / 64};
+  bf16* xs = reinterpret_cast<bf16*>(ring_g + st * NH * 128);  // [Dp/8][R][8]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + (size_t)(Dp / 8) * R * 8);
+  Ring ring{smem_u32(ring_g), ring_g, full, full + st, st, NH * 128, 0, (a.K * Dp + 63) / 64};
   ring.init();
   __syncthreads();
   auto load = [&](int i, unsigned char* dst, uint64_t* bar) {
@@ -390,7 +459,7 @@ ffn_conv_kernel(const __grid_constant__ CUtensorMap tw1, const __grid_constant__
       wgmma_ss_k<NW>(acc, desc_plain(ad, lbo, 128), kmajor_desc(bt, s),
                      decltype(first)::value && s == 0 ? 0 : 1);
       c0 += 16;
-      const bool wrap = c0 == D;  // next tap
+      const bool wrap = c0 == Dp;  // next tap
       c0 = wrap ? 0 : c0;
       j += wrap;
     }
@@ -399,7 +468,7 @@ ffn_conv_kernel(const __grid_constant__ CUtensorMap tw1, const __grid_constant__
     fence_regs(acc);
     warp_arrive(&ring.empty[it % st]);
   };
-  tiles(a.K * D / 16, step);
+  tiles(a.K * Dp / 16, step);
 
   // CONV_RELU: rows from len + pad on are not read. CONV_QKV (k = 1): every
   // row of the tile below T, those past the length from zero x rows
@@ -580,7 +649,7 @@ cudaError_t launch_conv_tile(const CUtensorMap& tw1, const Args& a, const Plan& 
   return cudaGetLastError();
 }
 
-// Launch 1 over B batch rows at the plan's tiling; tw1 maps w1 (Hd, K D) in
+// Launch 1 over B batch rows at the plan's tiling; tw1 maps w1 (Hd, K Dp) in
 // nh-row boxes. CONV_RELU adds the tile index of the bias-only row.
 template <int IN, int EPI>
 cudaError_t launch_conv(const CUtensorMap& tw1, const Args& a, const Plan& pl, int B,

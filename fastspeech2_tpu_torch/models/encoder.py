@@ -149,6 +149,8 @@ class FFTBlock(tnn.Module):
     def __init__(self, cfg: EncoderConfig, device=None):
         super().__init__()
         d = cfg.attention_dim
+        #: heads of the attention half (the kernels' weight layout reads it)
+        self.heads = cfg.attention_heads
         self.attn = MultiHeadAttention(d, device=device)
         self.ffn = PositionwiseFFN(cfg, device=device)
         self.norm1 = tnn.LayerNorm(d, device=device)
@@ -166,7 +168,7 @@ class FFTBlock(tnn.Module):
         return common.cached_pack(
             attn, [t for lin in lins for t in (lin.weight, lin.bias)]
             + [self.norm1.weight, self.norm1.bias],
-            lambda: attn_kernel.pack_weights(attn, self.norm1, cd))
+            lambda: attn_kernel.pack_weights(attn, self.norm1, cd, self.heads))
 
     def ffn_pack(self, cd):
         return ffn_kernel.block_pack(self.ffn, self.norm2, cd)

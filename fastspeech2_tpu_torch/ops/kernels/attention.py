@@ -6,8 +6,14 @@ Port of ``fastspeech2_tpu/ops/pallas/attention.py:fused_attention_packed_qkv_res
 of ``csrc/ffn_body.cuh`` at k = 1 without the ReLU), the SERVE forward of
 ``csrc/attention_fwd.cuh`` (kernel 7's) into a bf16 head-output scratch,
 and the out projection with the residual and LayerNorm (launch 2 of
-``csrc/ffn_body.cuh``). Any d_k that is a multiple of 8 from 8 to 1024
-(``attention_train.plan``).
+``csrc/ffn_body.cuh``). Any D and any d_k from 1 to 1024
+(``attention_train.plan``): the kernels lay heads dkp = d_k rounded up to 8
+apart (``head_layout``; a TMA stride is a multiple of 16 bytes), which
+``pad_block_weights`` gives the projections once where the model packs
+them (zero rows and columns leave every product exact; the scale and the
+LayerNorm take the real d_k and D). q/k/v given with such a head dim are
+copied into that layout, zero-filled, per call, and the bare kernels'
+outputs come back at the caller's layout.
 
 Rounding points follow the TPU kernel: q/k/v are ``round(round(x@W) + b)``
 in the compute dtype, the softmax is f32 with ``finfo.min`` fill, re-zeroing
@@ -72,6 +78,61 @@ _fn_res = None
 _fn_bare = None
 
 
+def head_layout(D: int, n_heads: int):
+    """(dk, dkp, Da, Kp) of the kernels' head layout
+    (``csrc/attention.cu:heads_of``): heads dkp = d_k rounded up to 8 apart,
+    q|k|v rows of 3 Da (Da = heads * dkp), head-output rows of Kp (Da rounded
+    up to 32), the out projection's weight (D, Kp). dkp = dk and Kp = Da = D
+    where d_k % 8 == 0 and D % 32 == 0."""
+    dk = D // n_heads
+    dkp = attention_train.padded_head_dim(dk)
+    return dk, dkp, n_heads * dkp, ffn.padded(n_heads * dkp)
+
+
+def _pad_heads(t, n_heads: int, dkp: int):
+    """(..., H * dk) -> (..., H * dkp), each head zero-filled past dk: a
+    new contiguous tensor."""
+    *lead, D = t.shape
+    return torch.nn.functional.pad(t.reshape(*lead, n_heads, D // n_heads),
+                                   (0, dkp - D // n_heads)).reshape(*lead, n_heads * dkp)
+
+
+def _pad_wo(wo, D: int, n_heads: int):
+    """The out projection (D, D) -> (D, Kp): zero columns at each head's
+    padding and past Da (``head_layout``); other shapes as they are."""
+    dk, dkp, Da, Kp = head_layout(D, n_heads)
+    if tuple(wo.shape) != (D, D) or Kp == D:
+        return wo
+    return torch.nn.functional.pad(_pad_heads(wo, n_heads, dkp), (0, Kp - Da))
+
+
+def pad_block_weights(wqkv, bqkv, wo, D: int, n_heads: int):
+    """Kernel 1's weights at the kernels' layout: wqkv (3D, D) -> (3 Da,
+    Dp) (each head's rows at dkp, zero rows past d_k, zero columns past D;
+    Dp = ``ffn.padded(D)``), bqkv (3D,) -> (3 Da,), wo (D, D) -> (D, Kp).
+    Weights at that layout already, or of a shape the checks refuse, come
+    back as they are."""
+    dk, dkp, Da, _ = head_layout(D, n_heads)
+    Dp = ffn.padded(D)
+    if tuple(wqkv.shape) == (3 * D, D) and (Da, Dp) != (D, D):
+        wqkv = torch.nn.functional.pad(wqkv.reshape(3, n_heads, dk, D),
+                                       (0, Dp - D, 0, dkp - dk)).reshape(3 * Da, Dp)
+        bqkv = _pad_heads(bqkv.reshape(3, D), n_heads, dkp).reshape(3 * Da)
+    return wqkv, bqkv, _pad_wo(wo, D, n_heads)
+
+
+def _real_weights(wqkv, bqkv, wo, D: int, n_heads: int):
+    """The inverse of ``pad_block_weights`` (wqkv/bqkv None: wo alone):
+    the weights at the real widths, for the plain versions."""
+    dk, dkp, Da, Kp = head_layout(D, n_heads)
+    if tuple(wo.shape) == (D, Kp) and Kp != D:
+        wo = wo[:, :Da].reshape(D, n_heads, dkp)[..., :dk].reshape(D, D)
+    if wqkv is not None and tuple(wqkv.shape) != (3 * D, D):
+        wqkv = wqkv.reshape(3, n_heads, dkp, -1)[:, :, :dk, :D].reshape(3 * D, D)
+        bqkv = bqkv.reshape(3, n_heads, dkp)[..., :dk].reshape(3 * D)
+    return wqkv, bqkv, wo
+
+
 def _attend(q, k, v, lengths, cd):
     """Masked attention of (B, H, T, dk) values; f32 result holding values of
     the compute dtype ``cd``: weights rounded before P·V, the product
@@ -94,8 +155,10 @@ def _attend_packed(q, k, v, lengths, n_heads: int, cd):
 
 def attention_res_plain(q, k, v, res, wo, bo, lengths, n_heads: int):
     """``res + MHA(q, k, v)·Wo + bo`` in plain PyTorch (f32 out); q/k/v hold
-    values of the compute dtype, which is wo's dtype."""
+    values of the compute dtype, which is wo's dtype; wo (D, D) or (D, Kp)
+    (``head_layout``)."""
     cd = wo.dtype
+    wo = _real_weights(None, None, wo, res.shape[-1], n_heads)[2]
     o = _attend_packed(q, k, v, lengths, n_heads, cd)
     return (round_to(o @ wo.float().t(), cd) + bo) + res.float()
 
@@ -121,10 +184,12 @@ def fused_attention_plain(q, k, v, lengths):
 
 def attention_block_plain(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
                           eps: float = 1e-5):
-    """The function the kernel computes, in plain PyTorch. The compute dtype
+    """The function the kernel computes, in plain PyTorch, on weights at the
+    real widths or the kernels' (``pad_block_weights``). The compute dtype
     is the weights' dtype (bf16 rounds, f32 does not)."""
     cd = wqkv.dtype
     D = x.shape[-1]
+    wqkv, bqkv, wo = _real_weights(wqkv, bqkv, wo, D, n_heads)
     x = x.float()
     xc = round_to(x, cd)
 
@@ -139,19 +204,22 @@ def attention_block_plain(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
 def attention_block(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int,
                     eps: float = 1e-5):
     """x (B, T, D) f32; wqkv (3D, D) [q|k|v rows, (out, in)] and wo (D, D) in
-    the compute dtype; bqkv (3D,), bo/g/be (D,) f32; lengths (B,) int32.
-    Through the op ``fs2::attention_block`` (``library.py``): CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    the compute dtype, or both at the kernels' layout
+    (``pad_block_weights``); bqkv (3D,), bo/g/be (D,) f32; lengths (B,)
+    int32. Through the op ``fs2::attention_block`` (``library.py``): CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     common.refuse_grad("attention_block", x, wqkv, bqkv, wo, bo, g, be)
     if x.device.type != "cpu":
         B, T, D = x.shape
+        _check_heads("attention_block", D, n_heads)
+        wqkv, bqkv, wo = pad_block_weights(wqkv, bqkv, wo, D, n_heads)
+        _, _, Da, Kp = head_layout(D, n_heads)
         bf16, f32 = torch.bfloat16, torch.float32
         common.check_cuda("attention_block", x.device, [
-            ("x", x, f32, None), ("wqkv", wqkv, bf16, (3 * D, D)),
-            ("bqkv", bqkv, f32, (3 * D,)), ("wo", wo, bf16, (D, D)),
+            ("x", x, f32, None), ("wqkv", wqkv, bf16, (3 * Da, ffn.padded(D))),
+            ("bqkv", bqkv, f32, (3 * Da,)), ("wo", wo, bf16, (D, Kp)),
             ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
             ("lengths", lengths, torch.int32, (B,))])
-        _check_heads("attention_block", D, n_heads)
     return torch.ops.fs2.attention_block.default(x, wqkv, bqkv, wo, bo, g, be, lengths,
                                                  n_heads, eps)
 
@@ -160,41 +228,53 @@ def launch_block(x, wqkv, bqkv, wo, bo, g, be, lengths, n_heads: int, eps: float
     """The CUDA implementation of ``fs2::attention_block`` on checked inputs."""
     global launches, _fn
     B, T, D = x.shape
+    dk, _, Da, Kp = head_layout(D, n_heads)
     bf16 = torch.bfloat16
     if _fn is None:
         P, I, F = common.P, common.I, common.F
         _fn = common.bind(common.load("attention"), "fs2_attention_block",
                           [P] * 11 + [I] * 4 + [F, F, P])
-    qkv = torch.empty((B, T, 3 * D), dtype=bf16, device=x.device)
-    o = torch.empty((B, T, D), dtype=bf16, device=x.device)
+    qkv = torch.empty((B, T, 3 * Da), dtype=bf16, device=x.device)
+    o = torch.empty((B, T, Kp), dtype=bf16, device=x.device)
     out = torch.empty_like(x)
     common.launch(_fn, x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
                   wo.data_ptr(), bo.data_ptr(), g.data_ptr(), be.data_ptr(),
                   lengths.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
-                  B, T, D, n_heads, 1.0 / math.sqrt(D // n_heads), eps,
-                  common.stream_of(x))
+                  B, T, D, n_heads, 1.0 / math.sqrt(dk), eps, common.stream_of(x))
     with common.count_lock:
         launches += 1
     return out
 
 
-def _qkv_stride(name, q, k, v, shape):
+def _qkv_stride(name, q, k, v, shape, copied: bool = False):
     """The common row stride of q, k, v: bf16 tensors of ``shape`` on one
     device, each contiguous or a column block of one wider buffer (unit
     column stride, a row stride that is a multiple of 8; 16-byte aligned
     bases, which the launch checks: a traced tensor has no address): no
-    re-packing copy is made."""
+    re-packing copy is made. ``copied``: the launch copies them into the
+    kernels' head layout (a head dim not a multiple of 8), and any strides
+    do."""
     B, T, _ = shape
     ld = q.stride(1)
     for arg, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != torch.bfloat16 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} must be a {shape} bfloat16 tensor on "
                              f"{q.device}")
-        if (t.stride(2) != 1 or t.stride(1) != ld or ld % 8
+        if not copied and (t.stride(2) != 1 or t.stride(1) != ld or ld % 8
                 or (B > 1 and t.stride(0) != T * ld)):
             raise ValueError(f"{name}: {arg} needs unit column stride, the common "
                              "row stride (a multiple of 8) and a 16-byte aligned base")
     return ld
+
+
+def _head_operands(q, k, v, n_heads: int):
+    """q, k, v (B, T, D) in the kernels' head layout: as they are where d_k
+    is a multiple of 8, else zero-filled copies with heads dkp apart
+    (``head_layout``), contiguous."""
+    dk, dkp, _, _ = head_layout(q.shape[-1], n_heads)
+    if dkp == dk:
+        return q, k, v
+    return tuple(_pad_heads(t, n_heads, dkp) for t in (q, k, v))
 
 
 def _check_aligned(name, *tensors):
@@ -221,19 +301,23 @@ def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
     """q, k, v (B, T, D) in the compute dtype, each contiguous or a column
     block of one wider buffer (a common row stride, unit column stride: no
     re-packing copy is made); res (B, T, D) f32; wo (D, D) in the compute
-    dtype; bo/g/be (D,) f32; lengths (B,) int32. Through the op
+    dtype (or (D, Kp): ``head_layout``); bo/g/be (D,) f32; lengths (B,)
+    int32. A head dim that is not a multiple of 8 takes a zero-filled copy
+    of q/k/v at the kernels' head layout. Through the op
     ``fs2::attention_res_ln`` (``library.py``): CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     common.refuse_grad("attention_res_ln", q, k, v, res, wo, bo, g, be)
     if q.device.type != "cpu":
         B, T, D = q.shape
+        _check_heads("attention_res_ln", D, n_heads)
+        dk, dkp, _, Kp = head_layout(D, n_heads)
+        wo = _pad_wo(wo, D, n_heads)
         bf16, f32 = torch.bfloat16, torch.float32
         common.check_cuda("attention_res_ln", q.device, [
-            ("res", res, f32, (B, T, D)), ("wo", wo, bf16, (D, D)),
+            ("res", res, f32, (B, T, D)), ("wo", wo, bf16, (D, Kp)),
             ("bo", bo, f32, (D,)), ("g", g, f32, (D,)), ("be", be, f32, (D,)),
             ("lengths", lengths, torch.int32, (B,))])
-        _check_heads("attention_res_ln", D, n_heads)
-        _qkv_stride("attention_res_ln", q, k, v, (B, T, D))
+        _qkv_stride("attention_res_ln", q, k, v, (B, T, D), dkp != dk)
     return torch.ops.fs2.attention_res_ln.default(q, k, v, res, wo, bo, g, be, lengths,
                                                   n_heads, eps)
 
@@ -242,20 +326,20 @@ def launch_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int, eps: float
     """The CUDA implementation of ``fs2::attention_res_ln`` on checked inputs."""
     global res_ln_launches, _fn_res_ln
     B, T, D = q.shape
-    bf16 = torch.bfloat16
+    dk, _, _, Kp = head_layout(D, n_heads)
+    q, k, v = _head_operands(q, k, v, n_heads)
     ld = q.stride(1)
     _check_aligned("attention_res_ln", q, k, v)
     if _fn_res_ln is None:
         P, I, F = common.P, common.I, common.F
         _fn_res_ln = common.bind(common.load("attention"), "fs2_attention_res_ln",
                                  [P] * 4 + [I] + [P] * 7 + [I] * 4 + [F, F, P])
-    o = torch.empty((B, T, D), dtype=bf16, device=q.device)
+    o = torch.empty((B, T, Kp), dtype=torch.bfloat16, device=q.device)
     out = torch.empty_like(res)
     common.launch(_fn_res_ln, res.data_ptr(), q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), ld, wo.data_ptr(), bo.data_ptr(), g.data_ptr(),
                   be.data_ptr(), lengths.data_ptr(), o.data_ptr(), out.data_ptr(),
-                  B, T, D, n_heads, 1.0 / math.sqrt(D // n_heads), eps,
-                  common.stream_of(q))
+                  B, T, D, n_heads, 1.0 / math.sqrt(dk), eps, common.stream_of(q))
     with common.count_lock:
         res_ln_launches += 1
     return out
@@ -263,18 +347,20 @@ def launch_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int, eps: float
 
 def attention_res(q, k, v, res, wo, bo, lengths, n_heads: int):
     """Pre-LN attention half ``res + MHA(q, k, v)·Wo + bo``: q, k, v as in
-    ``attention_res_ln``; res (B, T, D) f32; wo (D, D) in the compute dtype;
-    bo (D,) f32; lengths (B,) int32. Through the op ``fs2::attention_res``
-    (``library.py``): CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    ``attention_res_ln``; res (B, T, D) f32; wo (D, D) in the compute dtype
+    (or (D, Kp): ``head_layout``); bo (D,) f32; lengths (B,) int32. Through
+    the op ``fs2::attention_res`` (``library.py``): CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     common.refuse_grad("attention_res", q, k, v, res, wo, bo)
     if q.device.type != "cpu":
         B, T, D = q.shape
-        common.check_cuda("attention_res", q.device, [
-            ("res", res, torch.float32, (B, T, D)), ("wo", wo, torch.bfloat16, (D, D)),
-            ("bo", bo, torch.float32, (D,)), ("lengths", lengths, torch.int32, (B,))])
         _check_heads("attention_res", D, n_heads)
-        _qkv_stride("attention_res", q, k, v, (B, T, D))
+        dk, dkp, _, Kp = head_layout(D, n_heads)
+        wo = _pad_wo(wo, D, n_heads)
+        common.check_cuda("attention_res", q.device, [
+            ("res", res, torch.float32, (B, T, D)), ("wo", wo, torch.bfloat16, (D, Kp)),
+            ("bo", bo, torch.float32, (D,)), ("lengths", lengths, torch.int32, (B,))])
+        _qkv_stride("attention_res", q, k, v, (B, T, D), dkp != dk)
     return torch.ops.fs2.attention_res.default(q, k, v, res, wo, bo, lengths, n_heads)
 
 
@@ -282,17 +368,19 @@ def launch_res(q, k, v, res, wo, bo, lengths, n_heads: int):
     """The CUDA implementation of ``fs2::attention_res`` on checked inputs."""
     global res_launches, _fn_res
     B, T, D = q.shape
+    dk, _, _, Kp = head_layout(D, n_heads)
+    q, k, v = _head_operands(q, k, v, n_heads)
     ld = q.stride(1)
     _check_aligned("attention_res", q, k, v)
     if _fn_res is None:
         P, I, F = common.P, common.I, common.F
         _fn_res = common.bind(common.load("attention"), "fs2_attention_res",
                               [P] * 4 + [I] + [P] * 5 + [I] * 4 + [F, P])
-    o = torch.empty((B, T, D), dtype=torch.bfloat16, device=q.device)
+    o = torch.empty((B, T, Kp), dtype=torch.bfloat16, device=q.device)
     out = torch.empty_like(res)
     common.launch(_fn_res, res.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   ld, wo.data_ptr(), bo.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-                  out.data_ptr(), B, T, D, n_heads, 1.0 / math.sqrt(D // n_heads),
+                  out.data_ptr(), B, T, D, n_heads, 1.0 / math.sqrt(dk),
                   common.stream_of(q))
     with common.count_lock:
         res_launches += 1
@@ -301,7 +389,7 @@ def launch_res(q, k, v, res, wo, bo, lengths, n_heads: int):
 
 def check_head_dim(name: str, dk: int) -> None:
     """The attention kernels take every head dim ``attention_train.plan``
-    plans (a multiple of 8 from 8 to 1024); raise ValueError for others."""
+    plans (1 to 1024); raise ValueError for others."""
     attention_train.check_head_dim(name, dk)
 
 
@@ -326,38 +414,44 @@ def _bare_shape(name, q, n_heads=None):
 def _bare(name, q, k, v, lengths, n_heads=None):
     """Launch the bare attention: bf16 through ``fs2_attention``, f32
     through the training kernels' f32 forward at rate 0 (``_bare_shape``
-    gives the layouts). The output is contiguous."""
+    gives the layouts). A head dim that is not a multiple of 8 runs at dkp
+    (``head_layout``) on zero-filled copies with the real d_k's scale, and
+    its output is cut back to d_k. The output is contiguous."""
     global _fn_bare
     packed, B, H, T, dk = _bare_shape(name, q, n_heads)
+    dkp = attention_train.padded_head_dim(dk)
     if q.dtype == torch.float32:
         q, k, v = (t.contiguous() for t in (q, k, v))
         attention_train._check(name, q, k, v, lengths, B, dk)
+        q, k, v = attention_train.pad_head_dim((q, k, v), H if packed else 0, dkp)
         o = torch.empty_like(q)
         stats = torch.empty((2, B, H, T), dtype=torch.float32, device=q.device)
         entry = "fs2_attention_train_fwd" + ("_packed" if packed else "")
-        dims = (B, T, H * dk, H) if packed else (B, H, T, dk)
+        dims = (B, T, H * dkp, H) if packed else (B, H, T, dkp)
         common.launch(attention_train._entry(entry, 7), q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), lengths.data_ptr(), o.data_ptr(), 0, stats.data_ptr(),
                       *dims, 1.0 / math.sqrt(dk), 0, 0, 1.0, 1, common.stream_of(q))
-        return o
+        return attention_train.cut_head_dim(o, H if packed else 0, dk)
     if packed:
-        ld = _qkv_stride(name, q, k, v, (B, T, H * dk))
+        ld = _qkv_stride(name, q, k, v, (B, T, H * dk), dkp != dk)
     else:
         common.check_cuda(name, q.device, [
             (n, t, torch.bfloat16, (B, H, T, dk)) for n, t in (("q", q), ("k", k), ("v", v))])
-        ld = dk
+    q, k, v = attention_train.pad_head_dim((q, k, v), H if packed else 0, dkp)
+    if dkp != dk or not packed:
+        ld = q.stride(-2)
     _check_aligned(name, q, k, v)
     common.check_cuda(name, q.device, [("lengths", lengths, torch.int32, (B,))])
     if _fn_bare is None:
         P, I, F = common.P, common.I, common.F
         _fn_bare = common.bind(common.load("attention"), "fs2_attention",
                                [P] * 3 + [I] + [P] * 2 + [I] * 5 + [F, P])
-    out = torch.empty((B, T, H * dk) if packed else (B, H, T, dk), dtype=torch.bfloat16,
+    out = torch.empty((B, T, H * dkp) if packed else (B, H, T, dkp), dtype=torch.bfloat16,
                       device=q.device)
     common.launch(_fn_bare, q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, lengths.data_ptr(),
-                  out.data_ptr(), B, T, H, dk, int(packed), 1.0 / math.sqrt(dk),
+                  out.data_ptr(), B, T, H, dkp, int(packed), 1.0 / math.sqrt(dk),
                   common.stream_of(q))
-    return out
+    return attention_train.cut_head_dim(out, H if packed else 0, dk)
 
 
 def fused_attention_packed(q, k, v, lengths, n_heads: int):
@@ -410,7 +504,8 @@ def mha_fused_res_apply(attn, x, residual, lengths, n_heads: int):
     dt = current_compute_dtype() or x.dtype
     o = attn.out
     wo, bo = common.cached_pack(o, [o.weight, o.bias], lambda: (
-        o.weight.to(dt).contiguous(), o.bias.float().contiguous()))
+        _pad_wo(o.weight.to(dt).contiguous(), x.shape[-1], n_heads),
+        o.bias.float().contiguous()))
     return attention_res(*_project(attn, x, dt), residual, wo, bo, lengths, n_heads)
 
 
@@ -424,14 +519,16 @@ def mha_fused_apply(attn, x, lengths, n_heads: int):
 
 
 @torch.no_grad()
-def pack_weights(attn, norm, cd: torch.dtype):
-    """Kernel-layout weights of one block's attention half: attn has q, k,
-    v, out linears (torch layout), norm is the trailing LayerNorm."""
+def pack_weights(attn, norm, cd: torch.dtype, n_heads: int):
+    """Kernel-layout weights of one block's attention half
+    (``pad_block_weights``): attn has q, k, v, out linears (torch layout),
+    norm is the trailing LayerNorm."""
     wqkv = torch.cat([attn.q.weight, attn.k.weight, attn.v.weight]).to(cd)
     bqkv = torch.cat([attn.q.bias, attn.k.bias, attn.v.bias]).float()
-    return (wqkv.contiguous(), bqkv.contiguous(),
-            attn.out.weight.to(cd).contiguous(), attn.out.bias.float(),
-            norm.weight.float(), norm.bias.float())
+    wqkv, bqkv, wo = pad_block_weights(wqkv.contiguous(), bqkv.contiguous(),
+                                       attn.out.weight.to(cd).contiguous(),
+                                       attn.out.weight.shape[0], n_heads)
+    return (wqkv, bqkv, wo, attn.out.bias.float(), norm.weight.float(), norm.bias.float())
 
 
 # the ops' CUDA kernels (``library.py``, which imports this module)

@@ -31,8 +31,12 @@ differentiable by autograd; two small autograd helpers put the backward's
 rounding points where the kernels have them. The CPU takes it; a CUDA tensor
 launches the kernels or raises: bf16 on the tensor cores (what the model
 sends) or f32 with plain multiply-adds and no TF32 (for callers that hold the
-kernels to an f32 reference), at any d_k that is a multiple of 8 from 8 to
-1024 (``plan``: the tiling the CUDA sources choose for it). The bf16 backward
+kernels to an f32 reference), at any d_k from 1 to 1024 (``plan``: the
+tiling the CUDA sources choose for it). A head dim that is not a multiple of
+8 (a TMA stride is a multiple of 16 bytes) runs at ``padded_head_dim(dk)`` on
+zero-filled copies of q, k, v and dO with the real d_k's scale: the zero
+columns leave every product and gradient exact, the keep mask does not read
+d_k, and the outputs are cut back to the caller's layout. The bf16 backward
 takes t from O's f32 accumulator before its rounding: equal to
 ``rowsum(dA * A)`` but for the rounding of D inside it.
 """
@@ -57,7 +61,7 @@ MAX_T = 1024
 #: longest T the model routes to the head-packed entry
 PACKED_MAX_T = 896
 
-#: widest head dim the CUDA kernels take (a multiple of 8 up to it): the
+#: widest head dim the CUDA kernels take (every one from 1 up to it): the
 #: widest D the port's other kernels serve (``adaptor.plan``)
 MAX_HEAD_DIM = 1024
 #: shared memory a block may opt into on the H100
@@ -196,8 +200,8 @@ def _f32_smem(dkp: int) -> Dict[str, int]:
 def plan(dk: int, mode: str = "serve") -> Plan:
     """The tiling the CUDA sources choose for head dim ``dk``
     (``csrc/attention_fwd.cuh:attn_plan``; ``fs2_attention_plan`` returns
-    the C side's, which the card test holds to this): d_k a multiple of 8
-    from 8 to ``MAX_HEAD_DIM``, padded to ``dkp``. dkp <= 256: the tile
+    the C side's, which the card test holds to this): d_k from 1 to
+    ``MAX_HEAD_DIM``, padded to ``dkp``. dkp <= 256: the tile
     bodies at DK = dkp, one part; above: ``parts`` column parts of
     ``part_width`` (192 or 256) columns each, every part recomputing the
     scores over 64-column chunks of d_k. ``mode``: "serve" (kernels 1, 5-8:
@@ -206,9 +210,9 @@ def plan(dk: int, mode: str = "serve") -> Plan:
     256); ``smem`` holds the bytes of the mode's kernels. Both layouts,
     (B, T, D) and (B, H, T, dk), have the same plan. Raises ValueError for
     what the kernels refuse."""
-    if not isinstance(dk, int) or dk < 8 or dk > MAX_HEAD_DIM or dk % 8:
-        raise ValueError(f"head dim d_k={dk} not supported by the kernels (a multiple of 8 "
-                         f"from 8 to {MAX_HEAD_DIM})")
+    if not isinstance(dk, int) or dk < 1 or dk > MAX_HEAD_DIM:
+        raise ValueError(f"head dim d_k={dk} not supported by the kernels (1 to "
+                         f"{MAX_HEAD_DIM})")
     if mode not in ("serve", "train", "f32"):
         raise ValueError(f"plan: unknown mode {mode!r}")
     dkp = max(128, -(-dk // 64) * 64)
@@ -248,6 +252,40 @@ def c_plan(dk: int):
     return tuple(out)
 
 
+def padded_head_dim(dk: int) -> int:
+    """The head stride the kernels run a head dim at: d_k rounded up to 8."""
+    return -(-dk // 8) * 8
+
+
+def pad_head_dim(tensors, n_heads: int, dkp: int):
+    """Each of ``tensors`` with its heads zero-filled to dkp columns:
+    (B, T, H * dk) -> (B, T, H * dkp) for ``n_heads`` > 0, (B, H, T, dk) ->
+    (B, H, T, dkp) for 0; as they are where dk == dkp."""
+    out = []
+    for t in tensors:
+        if n_heads:
+            B, T, D = t.shape
+            dk = D // n_heads
+            t4 = t.reshape(B, T, n_heads, dk)
+        else:
+            dk, t4 = t.shape[-1], t
+        if dk != dkp:
+            t4 = torch.nn.functional.pad(t4, (0, dkp - dk))
+            t = t4.reshape(B, T, n_heads * dkp) if n_heads else t4
+        out.append(t)
+    return tuple(out)
+
+
+def cut_head_dim(t, n_heads: int, dk: int):
+    """The inverse of ``pad_head_dim`` for one tensor: contiguous."""
+    if n_heads:
+        B, T, Dp = t.shape
+        if Dp == n_heads * dk:
+            return t
+        return t.reshape(B, T, n_heads, Dp // n_heads)[..., :dk].reshape(B, T, n_heads * dk)
+    return t if t.shape[-1] == dk else t[..., :dk].contiguous()
+
+
 def _entry(name: str, n_ptr: int):
     fn = _fns.get(name)
     if fn is None:
@@ -281,13 +319,15 @@ class _AttentionTrainFn(torch.autograd.Function):
         packed = n_heads > 0
         if packed:
             B, T, D = q.shape
-            dims, dk, H = (B, T, D, n_heads), D // n_heads, n_heads
+            dk, H = D // n_heads, n_heads
             name = "fs2_attention_train_fwd_packed"
         else:
             B, H, T, dk = q.shape
-            dims = (B, H, T, dk)
             name = "fs2_attention_train_fwd"
         _check(name, q, k, v, lengths, B, dk)
+        dkp = padded_head_dim(dk)
+        q, k, v = pad_head_dim((q, k, v), n_heads, dkp)
+        dims = (B, T, H * dkp, H) if packed else (B, H, T, dkp)
         f32 = q.dtype == torch.float32
         o = torch.empty_like(q)
         # bf16: O's f32 accumulator for the backward's row sums, and the row
@@ -307,8 +347,8 @@ class _AttentionTrainFn(torch.autograd.Function):
             else:
                 fwd_launches += 1
         ctx.save_for_backward(q, k, v, lengths, o32, stats)
-        ctx.args = (dims, scale, int(seed) & _M32, thresh, rate, packed)
-        return o
+        ctx.args = (dims, scale, int(seed) & _M32, thresh, rate, n_heads, dk)
+        return cut_head_dim(o, n_heads, dk)
 
     @staticmethod
     def backward(ctx, do):
@@ -318,10 +358,12 @@ class _AttentionTrainFn(torch.autograd.Function):
                                "dK and dV together; all three inputs must "
                                "require grad")
         q, k, v, lengths, o32, stats = ctx.saved_tensors
-        dims, scale, seed, thresh, rate, packed = ctx.args
+        dims, scale, seed, thresh, rate, n_heads, dk_real = ctx.args
+        packed = n_heads > 0
         do = do.to(q.dtype).contiguous()
         if do.data_ptr() % 16:  # a view at an odd offset: TMA reads 16-byte aligned bases
             do = do.clone()
+        (do,) = pad_head_dim((do,), n_heads, padded_head_dim(dk_real))
         dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
         tbuf = torch.empty(stats.shape[1:], dtype=torch.float32, device=q.device)
         name = "fs2_attention_train_bwd" + ("_packed" if packed else "")
@@ -335,7 +377,8 @@ class _AttentionTrainFn(torch.autograd.Function):
                 packed_bwd_launches += 1
             else:
                 bwd_launches += 1
-        return dq, dk, dv, None, None, None, None
+        return (*(cut_head_dim(t, n_heads, dk_real) for t in (dq, dk, dv)), None, None, None,
+                None)
 
 
 def fused_attention_train_packed(q, k, v, lengths, seed: int, n_heads: int,

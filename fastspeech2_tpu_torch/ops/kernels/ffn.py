@@ -16,6 +16,16 @@ then a k=1 conv launch with the entry's epilogue, both wgmma kernels fed by
 a TMA weight ring). ``plan`` picks their tiling per shape; the C side makes
 the same choice (``c_plan`` reads it back on the card).
 
+Any D, H and O, odd k (the JAX route takes the kernel for odd k only, and
+the Pallas kernel fails at even k). The kernels work at D and H rounded up
+to 32 (``GRANULE``): ``pad_weights`` lays w1 out (Hp, k*Dp) with zero
+columns past D in each tap and zero rows past H, b1 (Hp,) and w2 (O, Hp)
+with zeros there, once where the model packs its weights (``pack_ffn``,
+cached by ``block_pack``) and per call for weights at the real widths.
+Zero padding is exact (the padded hidden columns are relu(0 + 0) = 0 and
+meet zero columns of w2); x and the output keep their real width, and every
+LayerNorm counts the real D columns. The plain versions take either layout.
+
 Rounding points follow the TPU kernels: the masked conv input is rounded to
 the compute dtype, each conv's product is rounded and widened for its bias,
 the hidden is ``relu(round(...))`` in the compute dtype, and the residual add
@@ -50,6 +60,9 @@ _fn_plan = None
 SMEM_MAX, SMEM_PAIR = 232_448, 115_712
 #: the ring's 1024-byte alignment and its mbarriers
 SLACK = 1024 + 64
+#: the kernels' granule of the conv input and hidden widths: their products
+#: run K in pairs of 16-column steps (k * Dp / 16 and H / 16 even)
+GRANULE = 32
 #: launch 1's (rows, hidden columns) per block, in the order tried: the
 #: second fits every shape the first does not (D up to 1,472 at k = 1)
 CONV_TILES = ((128, 256), (64, 128))
@@ -76,16 +89,22 @@ class FfnPlan(NamedTuple):
     smem2: int
 
 
+def padded(n: int) -> int:
+    """A conv input or hidden width rounded up to ``GRANULE``."""
+    return -(-n // GRANULE) * GRANULE
+
+
 def plan(D: int, H: int, kernel: int, O: int) -> FfnPlan:
     """The kernels' tiling of (D, H, k, O), as ``csrc/ffn.cu:make_plan``
-    picks it: launch 1 takes the first of ``CONV_TILES`` whose x tile
-    (p + k - 1 rows, rounded up to odd, D bf16 columns) and at least two
+    picks it, at D rounded up to 32: launch 1 takes the first of
+    ``CONV_TILES`` whose x tile (p + k - 1 rows, rounded up to odd,
+    ``padded(D)`` bf16 columns) and at least two
     ring stages fit a block's shared memory, with up to four stages;
     launch 2 splits O into passes of at most 512 columns, rounds each
     warpgroup's half up to 64, and takes two blocks per SM at 128 columns or
     fewer. Raises ValueError where no tiling fits."""
     for p, nh in CONV_TILES:
-        xb = D * ((p + kernel - 1) | 1) * 2
+        xb = padded(D) * ((p + kernel - 1) | 1) * 2
         st1 = min(4, (SMEM_MAX - SLACK - xb) // (nh * 128))
         if st1 >= 2:
             break
@@ -126,9 +145,29 @@ def _masked(x, lengths):
     return torch.where(valid[..., None], x, torch.zeros_like(x))
 
 
+def pad_weights(w1, b1, w2, D: int, kernel: int):
+    """(w1, b1, w2) at the kernels' widths: w1 (H, k*D) -> (Hp, k*Dp), zero
+    columns past D in each tap and zero rows past H; b1 -> (Hp,); w2 (O, H)
+    -> (O, Hp), zero columns past H (Dp, Hp = ``padded(D)``, ``padded(H)``).
+    Weights at those widths already, or of a shape the checks refuse, come
+    back as they are."""
+    H, Dp = w1.shape[0], padded(D)
+    Hp = padded(H)
+    if w1.dim() != 2 or w1.shape[1] != kernel * D or (H == Hp and D == Dp):
+        return w1, b1, w2
+    w = w1.new_zeros(Hp, kernel, Dp)
+    w[:H, :, :D] = w1.reshape(H, kernel, D)
+    return (w.reshape(Hp, kernel * Dp), torch.nn.functional.pad(b1, (0, Hp - H)),
+            torch.nn.functional.pad(w2, (0, Hp - H)))
+
+
 def _conv_ffn(xm, w1, b1, w2, b2, kernel: int, cd):
     """``round(relu(round(round(conv_k(xm)) + b1)) W2) + b2`` in f32; xm holds
-    values of the compute dtype ``cd``."""
+    values of the compute dtype ``cd``; w1 (H, k*D) or padded
+    (``pad_weights``: its zero input columns are dropped, the hidden's zero
+    columns kept)."""
+    D = xm.shape[-1]
+    w1 = w1.reshape(w1.shape[0], kernel, -1)[:, :, :D].reshape(w1.shape[0], kernel * D)
     acc = common.unfold_rows(xm, kernel) @ w1.float().t()
     h = torch.relu(round_to(round_to(acc, cd) + b1, cd))
     return round_to(h @ w2.float().t(), cd) + b2
@@ -137,7 +176,8 @@ def _conv_ffn(xm, w1, b1, w2, b2, kernel: int, cd):
 def ffn_block_plain(x, w1, b1, w2, b2, g, be, lengths, kernel: int,
                     eps: float = 1e-5):
     """The post-LN function in plain PyTorch; w1 is (H, k*D) laid out (out,
-    tap, in), w2 (D, H). Compute dtype = w1.dtype."""
+    tap, in), w2 (D, H), or both at the kernels' widths (``pad_weights``).
+    Compute dtype = w1.dtype."""
     cd = w1.dtype
     x = x.float()
     y = _conv_ffn(round_to(_masked(x, lengths), cd), w1, b1, w2, b2, kernel, cd)
@@ -165,16 +205,17 @@ def fused_ffn_plain(x, w1, b1, w2, b2, lengths, kernel: int, out_dtype=None):
 
 
 def _check(name, x, w1, b1, w2, b2, lengths, kernel, D, O, x_dtype):
+    """Checks of weights at the kernels' widths (``pad_weights``)."""
     B, T, _ = x.shape
-    H = w1.shape[0]
+    if kernel % 2 != 1:
+        raise ValueError(f"{name}: k={kernel} not supported by the kernel (odd k, "
+                         "as the JAX route)")
+    H = padded(w1.shape[0])
     bf16, f32 = torch.bfloat16, torch.float32
     common.check_cuda(name, x.device, [
-        ("x", x, x_dtype, None), ("w1", w1, bf16, (H, kernel * D)),
+        ("x", x, x_dtype, None), ("w1", w1, bf16, (H, kernel * padded(D))),
         ("b1", b1, f32, (H,)), ("w2", w2, bf16, (O, H)), ("b2", b2, f32, (O,)),
         ("lengths", lengths, torch.int32, (B,))])
-    if D % 32 or H % 32 or kernel % 2 != 1:
-        raise ValueError(f"{name}: D={D}, H={H}, k={kernel} not supported "
-                         "by the kernel (multiples of 32, odd k)")
     plan(D, H, kernel, O)
     return B, T, H
 
@@ -182,11 +223,13 @@ def _check(name, x, w1, b1, w2, b2, lengths, kernel, D, O, x_dtype):
 def ffn_block(x, w1, b1, w2, b2, g, be, lengths, kernel: int,
               eps: float = 1e-5):
     """Post-LN: x (B, T, D) f32; w1 (H, k*D) and w2 (D, H) in the compute
-    dtype; b1 (H,), b2/g/be (D,) f32; lengths (B,) int32. Through the op
-    ``fs2::ffn_block`` (``library.py``): CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    dtype, or both at the kernels' widths (``pad_weights``); b1 (H,),
+    b2/g/be (D,) f32; lengths (B,) int32. Through the op ``fs2::ffn_block``
+    (``library.py``): CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     common.refuse_grad("ffn_block", x, w1, b1, w2, b2, g, be)
     if x.device.type != "cpu":
+        w1, b1, w2 = pad_weights(w1, b1, w2, x.shape[-1], kernel)
         _check_block("ffn_block", x, w1, b1, w2, b2, g, be, lengths, kernel)
     return torch.ops.fs2.ffn_block.default(x, w1, b1, w2, b2, g, be, lengths, kernel,
                                            eps)
@@ -200,6 +243,7 @@ def ffn_block_pre(x, w1, b1, w2, b2, g, be, lengths, kernel: int,
     launch the kernel."""
     common.refuse_grad("ffn_block_pre", x, w1, b1, w2, b2, g, be)
     if x.device.type != "cpu":
+        w1, b1, w2 = pad_weights(w1, b1, w2, x.shape[-1], kernel)
         _check_block("ffn_block_pre", x, w1, b1, w2, b2, g, be, lengths, kernel)
     return torch.ops.fs2.ffn_block_pre.default(x, w1, b1, w2, b2, g, be, lengths, kernel,
                                                eps)
@@ -242,9 +286,10 @@ def _bind_block(symbol):
 
 def fused_ffn(x, w1, b1, w2, b2, lengths, kernel: int, out_dtype=None):
     """Bare conv-FFN: x (B, T, D) in the compute dtype (bf16 on the card),
-    w1 (H, k*D) and w2 (O, H) bf16, b1 (H,), b2 (O,) f32, lengths (B,)
-    int32 -> (B, T, O) in ``out_dtype`` (bf16 or f32; default x's dtype).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    w1 (H, k*D) and w2 (O, H) bf16 (or at the kernels' widths:
+    ``pad_weights``), b1 (H,), b2 (O,) f32, lengths (B,) int32 -> (B, T, O)
+    in ``out_dtype`` (bf16 or f32; default x's dtype). CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
     global bare_launches, _fn_bare
     common.refuse_grad("fused_ffn", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
@@ -253,6 +298,7 @@ def fused_ffn(x, w1, b1, w2, b2, lengths, kernel: int, out_dtype=None):
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_ffn: out_dtype {out_dtype} is not bf16 or f32")
     D, O = x.shape[-1], w2.shape[0]
+    w1, b1, w2 = pad_weights(w1, b1, w2, D, kernel)
     B, T, H = _check("fused_ffn", x, w1, b1, w2, b2, lengths, kernel, D, O,
                      torch.bfloat16)
     if _fn_bare is None:
@@ -272,11 +318,13 @@ def fused_ffn(x, w1, b1, w2, b2, lengths, kernel: int, out_dtype=None):
 @torch.no_grad()
 def pack_ffn(ffn, cd: torch.dtype):
     """Kernel-layout weights of a conv position-wise FFN: ffn.w1 is a Conv1d
-    (H, D, k), ffn.w2 a Conv1d (O, H, 1) -> (w1 (H, k*D), b1, w2 (O, H),
-    b2)."""
-    w1 = ffn.w1.weight.permute(0, 2, 1).reshape(ffn.w1.weight.shape[0], -1)
-    return (w1.to(cd).contiguous(), ffn.w1.bias.float(),
-            ffn.w2.weight[:, :, 0].to(cd).contiguous(), ffn.w2.bias.float())
+    (H, D, k), ffn.w2 a Conv1d (O, H, 1) -> (w1 (Hp, k*Dp), b1 (Hp,),
+    w2 (O, Hp), b2) at the kernels' widths (``pad_weights``)."""
+    H, D, k = ffn.w1.weight.shape
+    w1 = ffn.w1.weight.permute(0, 2, 1).reshape(H, k * D)
+    return (*pad_weights(w1.to(cd).contiguous(), ffn.w1.bias.float(),
+                         ffn.w2.weight[:, :, 0].to(cd).contiguous(), D, k),
+            ffn.w2.bias.float())
 
 
 @torch.no_grad()

@@ -519,7 +519,11 @@ def test_attention_res_ln(dev, B, T, D):
 # and 128-row tiles; D = 768 takes the q|k|v projection's 64-row tiling and
 # the out projection's two column passes with its LayerNorm launch
 HALF_CASES = [(4, 100, 256, 2), (3, 200, 384, 2), (4, 130, 256, 1), (3, 72, 512, 2),
-              (3, 96, 768, 3), (3, 100, 320, 2), (2, 150, 384, 1), (2, 70, 1024, 1)]
+              (3, 96, 768, 3), (3, 100, 320, 2), (2, 150, 384, 1), (2, 70, 1024, 1),
+              # any D, d_k no multiple of 8 (heads laid out dkp apart, zero-padded):
+              # d_k 130 at D = 260 and 390, 100 at D = 200, 20 at D = 40, 132 at 264
+              (2, 100, 260, 2), (2, 70, 390, 3), (3, 72, 200, 2), (3, 64, 40, 2),
+              (2, 90, 264, 2)]
 
 
 @pytest.mark.parametrize("B,T,D,H", HALF_CASES,
@@ -707,9 +711,9 @@ def test_attention_train_rejects_what_it_does_not_cover(dev):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         KT.fused_attention_train_packed(q.half(), q.half(), q.half(), lens, 1, 2, 0.0)
     qb = q.bfloat16()
-    q132 = torch.randn(2, 8, 264, device=dev).bfloat16()
-    with pytest.raises(ValueError, match="head dim"):  # d_k 132: not a multiple of 8
-        KT.fused_attention_train_packed(q132, q132, q132, lens, 1, 2, 0.0)
+    q1032 = torch.randn(2, 8, 2064, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):  # d_k 1032: past 1024
+        KT.fused_attention_train_packed(q1032, q1032, q1032, lens, 1, 2, 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         KT.fused_attention_train_packed(qb, qb.transpose(0, 1).contiguous().transpose(0, 1),
                                         qb, lens, 1, 2, 0.0)
@@ -766,11 +770,16 @@ def _train_attention_pair(KT, packed, B, H, T, dk, rate, seed, g, dev):
     (True, 2, 1, 140, 1024, 0.2),    # d_k 1024: four parts of 256
     (True, 2, 2, 90, 136, 0.2),      # d_k 136 and 328: the chunk past d_k
     (False, 2, 2, 90, 328, 0.2),
+    (True, 2, 2, 100, 130, 0.2),     # d_k 130 and 20: zero-padded to 136 and 24
+    (False, 2, 2, 100, 130, 0.2),
+    (True, 3, 2, 70, 20, 0.2),
+    (False, 3, 2, 70, 20, 0.0),
 ], ids=["k12_T1024", "k11_T896", "k11_small_grid", "k12_small_grid_rate0", "k11_dk256_h1",
         "k12_dk256_h1_rate0", "k11_dk256_h2", "k12_dk256_h2", "k11_row_split",
         "k12_dk256_row_split", "k11_dk160_h2", "k12_dk160_h2", "k11_dk384_h1",
         "k12_dk384_h2_rate0", "k11_dk64_h2", "k11_dk40_h2", "k12_dk40_h2", "k11_dk1024_h1",
-        "k11_dk136_h2", "k12_dk328_h2"])
+        "k11_dk136_h2", "k12_dk328_h2", "k11_dk130_h2", "k12_dk130_h2", "k11_dk20_h2",
+        "k12_dk20_h2_rate0"])
 def test_attention_train_ring_split_and_dk256(dev, packed, B, H, T, dk, rate):
     """Kernels 11 and 12 where the ring turns over many times, in both grid
     splits (128 query rows a block, or 64 rows whose keys the two warpgroups
@@ -1001,17 +1010,18 @@ def test_one_head_bf16_step_is_reproducible_at_dk384(dev):
 def test_attention_plan_of_the_c_side_is_the_python_one(dev):
     """``fs2_attention_plan`` (csrc/attention_fwd.cuh:attn_plan and the
     kernels' shared-memory sizes) gives ``attention_train.plan`` for every
-    multiple of 8 in 8..1024, and both refuse d_k 132 and 1032."""
+    d_k in 1..1024 (132 too: not a multiple of 8, it runs zero-padded to
+    136), and both refuse d_k 0 and 1032."""
     from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
 
-    for dk in range(8, 1025, 8):
+    for dk in range(1, 1025):
         serve, train, f32 = (KT.plan(dk, m) for m in ("serve", "train", "f32"))
         want = (serve.dkp, int(serve.wide), serve.part_width, serve.parts,
                 serve.smem["serve_rows"], serve.smem["serve_keys"], train.smem["train_rows"],
                 train.smem["train_keys"], train.smem["dq_rows"], train.smem["dq_keys"],
                 train.smem["dkv"], f32.smem["f32_fwd"], f32.smem["f32_bwd"])
         assert KT.c_plan(dk) == want, (dk, KT.c_plan(dk), want)
-    for dk in (132, 1032):
+    for dk in (0, 1032):
         with pytest.raises(ValueError):
             KT.plan(dk)
         with pytest.raises(ValueError):
@@ -1019,9 +1029,10 @@ def test_attention_plan_of_the_c_side_is_the_python_one(dev):
 
 
 def test_attention_kernels_refuse_head_dims_they_do_not_take(dev):
-    """On CUDA tensors every attention wrapper raises ValueError for d_k 132
-    (not a multiple of 8) and 1032 (past 1024), and none falls back to its
-    plain version: no launch counter moves."""
+    """On CUDA tensors every attention wrapper raises ValueError for d_k
+    1032 and 2048 (past 1024; d_k 132, not a multiple of 8, runs
+    zero-padded: ``test_attention_halves_at_every_head_dim``), and none
+    falls back to its plain version: no launch counter moves."""
     from fastspeech2_tpu_torch.ops.kernels import attention as KA
     from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
     from fastspeech2_tpu_torch.ops.kernels import launch_counts
@@ -1029,7 +1040,7 @@ def test_attention_kernels_refuse_head_dims_they_do_not_take(dev):
     before = launch_counts()
     bf, f32 = torch.bfloat16, torch.float32
     lens = torch.tensor([8], dtype=torch.int32, device=dev)
-    for dk in (132, 1032):
+    for dk in (1032, 2048):
         z = lambda *s, dt=bf: torch.zeros(*s, dtype=dt, device=dev)  # noqa: E731
         D = dk
         with torch.no_grad():
@@ -1437,13 +1448,14 @@ BARE_SHAPES = [(4, 2, 96, 128), (70, 2, 96, 128), (3, 2, 160, 192), (34, 2, 160,
                (3, 1, 160, 256), (132, 1, 96, 256), (9, 2, 1024, 128), (3, 2, 1024, 192),
                (9, 2, 1024, 256), (3, 1, 2304, 128), (4, 2, 2304, 192), (3, 2, 2304, 256),
                (4, 2, 96, 64), (4, 2, 96, 40), (3, 2, 150, 136), (3, 2, 160, 160), (70, 2, 96, 160),
-               (2, 1, 200, 384), (3, 2, 130, 384), (2, 2, 1024, 320), (2, 1, 100, 1024)]
+               (2, 1, 200, 384), (3, 2, 130, 384), (2, 2, 1024, 320), (2, 1, 100, 1024),
+               (3, 2, 150, 130), (3, 2, 96, 20), (2, 3, 70, 3)]
 BARE_IDS = ["dk128_T96_ksplit", "dk128_T96_rows", "dk192_T160_ksplit", "dk192_T160_rows",
             "dk256_T160_ksplit", "dk256_T96_rows", "dk128_T1024_rows", "dk192_T1024_ksplit",
             "dk256_T1024_rows", "dk128_T2304_ksplit", "dk192_T2304_rows",
             "dk256_T2304_ksplit", "dk64_T96", "dk40_T96", "dk136_T150", "dk160_T160_ksplit",
             "dk160_T96_rows", "dk384_h1_T200", "dk384_h2_T130", "dk320_T1024",
-            "dk1024_T100"]
+            "dk1024_T100", "dk130_T150", "dk20_T96", "dk3_h3_T70"]
 
 
 @pytest.mark.parametrize("B,H,T,dk", BARE_SHAPES, ids=BARE_IDS)
@@ -1485,7 +1497,8 @@ def test_bare_attention_widths_and_splits(dev, B, H, T, dk):
 
 
 @pytest.mark.parametrize("B,H,T,dk", [(4, 2, 96, 128), (3, 1, 160, 256), (3, 2, 200, 192),
-                                      (3, 2, 100, 160), (2, 1, 90, 384), (2, 2, 70, 1024)])
+                                      (3, 2, 100, 160), (2, 1, 90, 384), (2, 2, 70, 1024),
+                                      (3, 2, 100, 130), (2, 2, 70, 20)])
 def test_bare_attention_f32(dev, B, H, T, dk):
     """The f32 entry of kernels 7 and 8 (the training kernels' f32 forward at
     rate 0: plain multiply-adds, no TF32) against the plain version within
@@ -1577,7 +1590,8 @@ def test_ffn_block_pre(dev, B, T, D):
 
 
 @pytest.mark.parametrize("O,out_dtype", [(384, torch.bfloat16), (384, torch.float32),
-                                         (80, torch.float32), (200, torch.bfloat16)])
+                                         (80, torch.float32), (200, torch.bfloat16),
+                                         (30, torch.float32)])
 def test_fused_ffn(dev, O, out_dtype):
     """Kernel 10, the bare conv-FFN of a bf16 input with O outputs (O != D
     and O not a multiple of the 384-column tile), in bf16 and in f32."""
@@ -1641,7 +1655,11 @@ def _ffn_weights(D, H, O, k, g, dev):
 # and k=3 (ESPnet2's usual positionwise_conv_kernel_size)
 FFN_EDGES = [(3, 40, 256, 1024, 9), (2, 200, 384, 1024, 9), (2, 160, 512, 1024, 9),
              (2, 100, 1024, 4096, 9), (3, 130, 256, 1056, 3), (3, 96, 384, 1024, 1),
-             (2, 70, 384, 1024, 3)]
+             (2, 70, 384, 1024, 3),
+             # any width: D and H padded to 32 (D = 260: 16-byte f32 rows, not
+             # bf16; D = 36: the same; D = 30: neither, a value at a time)
+             (2, 100, 260, 1000, 9), (3, 70, 200, 1000, 9), (3, 40, 36, 100, 3),
+             (2, 64, 40, 72, 1), (2, 50, 30, 72, 3)]
 
 
 @pytest.mark.parametrize("B,T,D,H,k", FFN_EDGES,
@@ -1680,8 +1698,8 @@ def test_ffn_plan_of_the_c_side_is_the_python_one(dev):
     tiling (the CPU tests hold the Python one)."""
     from fastspeech2_tpu_torch.ops.kernels import ffn as KF
 
-    for D in (32, 256, 384, 512, 1024, 1472):
-        for H in (32, 1024, 4096):
+    for D in (32, 36, 200, 256, 260, 384, 512, 1000, 1024, 1472):
+        for H in (32, 1000, 1024, 4096):
             for k in (1, 3, 9, 31):
                 for O in (1, 80, 200, D, 1025):
                     try:
@@ -1756,8 +1774,8 @@ def test_new_kernels_refuse_the_wrong_dtype(dev):
     q4 = qh.reshape(B, 2, T, D // 2)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         KA.fused_attention(q4, q4, q4, lens)
-    with pytest.raises(ValueError, match="d_k"):  # d_k 132: not a multiple of 8
-        qb = torch.zeros(B, 4, T, 132, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="d_k"):  # d_k 1032: past 1024
+        qb = torch.zeros(B, 1, T, 1032, dtype=torch.bfloat16, device=dev)
         KA.fused_attention(qb, qb, qb, lens)
     w1 = torch.zeros(1024, 9 * D, dtype=torch.bfloat16, device=dev)
     w2 = torch.zeros(D, 1024, dtype=torch.bfloat16, device=dev)

@@ -20,7 +20,8 @@ inputs (``tests/test_torch_port_train_ops.py``).
 Plan level: ``plan`` covers every multiple of 8 in 8..1024 for every mode
 (both layouts share it) within the H100's 232,448 bytes of shared memory a
 block and 256 accumulator columns a warpgroup, and the wrappers' checks
-refuse d_k 132 and 1032.
+take d_k 132 (not a multiple of 8: zero-padded to 136) and refuse
+1032.
 
 Slice level: a one-head bf16 model (``small_cfg``'s depth, adim 136, ddim
 384: encoder d_k 136, decoder d_k 384) loaded from the JAX parameters with
@@ -275,9 +276,19 @@ def test_plan_covers_every_head_dim(mode, body):
 
 @pytest.mark.parametrize("dk", [132, 1032])
 def test_wrappers_refuse_head_dims_they_do_not_take(dk):
-    """d_k 132 (not a multiple of 8: a TMA stride must be 16 bytes) and 1032
-    (past 1024) are refused by the plan and by every wrapper's check, before
-    anything is built; the checks need no card."""
+    """d_k 1032 (past 1024) is refused by the plan and by every wrapper's
+    check, before anything is built; d_k 132 (not a multiple of 8) is taken
+    by all of them: the kernels run it zero-padded to 136. The checks need
+    no card."""
+    if dk == 132:
+        assert KT.plan(dk).dkp == 192
+        KA.check_head_dim("t", dk)
+        for heads in (1, 2):
+            KA._check_heads("t", heads * dk, heads)
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.zeros(1, 8, dk, dtype=dt)
+            KT._check("t", q, q, q, torch.zeros(1, dtype=torch.int32), 1, dk)
+        return
     with pytest.raises(ValueError, match="head dim"):
         KT.plan(dk)
     with pytest.raises(ValueError, match="d_k"):
