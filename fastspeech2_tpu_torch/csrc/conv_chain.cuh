@@ -39,10 +39,11 @@ __device__ __forceinline__ unsigned char* smem_align1024(unsigned char* base) {
 // KT (i % nq) .. + KT - 1, nq = ceil(cin / KT). step(i, Int<k-steps>,
 // Int<first>): KT / 16 k-steps, or ceil(rest / 16) in the last chunk of a
 // tap; the first tile, whose first k-step overwrites the accumulators, is
-// peeled. The k-step count selects a whole tile's code, and every tile
+// peeled (ACC: none does, the conv adds to them -- a later chunk of input
+// columns). The k-step count selects a whole tile's code, and every tile
 // retires its products before the next, so no wgmma waits behind a runtime
 // guard with an accumulator pending.
-template <int KT, class Step>
+template <int KT, bool ACC = false, class Step>
 __device__ __forceinline__ void tap_tiles(int taps, int cin, Step& step) {
   static_assert(KT == 64 || KT == 128, "tiles of 64 or 128 input columns");
   const int nq = (cin + KT - 1) / KT, ks_last = (cin - KT * (nq - 1) + 15) / 16;
@@ -64,7 +65,7 @@ __device__ __forceinline__ void tap_tiles(int taps, int cin, Step& step) {
         }
     }
   };
-  one(0, Int<1>{});
+  one(0, Int<ACC ? 0 : 1>{});
   for (int i = 1; i < taps * nq; ++i) one(i, Int<0>{});
 }
 
@@ -73,12 +74,12 @@ __host__ __device__ __forceinline__ int conv_tiles(int taps, int cin, int kt) {
   return taps * ((cin + kt - 1) / kt);
 }
 
-// acc = conv(A) for this warpgroup: A is the row-shifted tile at shared
-// address xa (its first row; lbo = R * 16 bytes between column chunks), B
-// the ring tiles it0 .. it0 + conv_tiles(taps, cin, KT) - 1, each KT / 64
-// sub-tiles of 64 input columns `sub` bytes apart, this warpgroup's N
-// output rows at byte offset boff of each.
-template <int N, int KT, class Load>
+// acc = conv(A) for this warpgroup (ACC: acc += conv(A)): A is the
+// row-shifted tile at shared address xa (its first row; lbo = R * 16 bytes
+// between column chunks), B the ring tiles it0 .. it0 + conv_tiles(taps,
+// cin, KT) - 1, each KT / 64 sub-tiles of 64 input columns `sub` bytes
+// apart, this warpgroup's N output rows at byte offset boff of each.
+template <int N, int KT, bool ACC = false, class Load>
 __device__ __forceinline__ void conv_product(float (&acc)[N / 2], Ring& ring, Load& load, int it0,
                                              uint32_t xa, uint32_t lbo, uint32_t boff, uint32_t sub,
                                              int taps, int cin) {
@@ -101,19 +102,22 @@ __device__ __forceinline__ void conv_product(float (&acc)[N / 2], Ring& ring, Lo
     fence_regs(acc);
     warp_arrive(&ring.empty[it % ring.st]);
   };
-  tap_tiles<KT>(taps, cin, step);
+  tap_tiles<KT, ACC>(taps, cin, step);
 }
 
 // xs [nch][R][8] bf16 from global rows: row e < rows is src(e), a pointer to
 // `cols` f32 (F32) or bf16 values, or nullptr for a zero row; rows from
-// `rows` to R and chunks at or past cols / 8 are zeros, stored without a
-// load. A thread takes 8 columns of a row; U such items are loaded before
-// any is stored (ffn_body.cuh:load_tile's reason: a dependent load and
-// store per item left the tile latency-bound; U = 16 was no faster and
-// raised the kernels' register peak to spills).
-template <bool F32, class Src, int U = 8>
+// `rows` to R, chunks at or past ceil(cols / 8) and, in the last chunk,
+// columns at or past cols are zeros, stored without a load. A thread takes
+// 8 columns of a row; U such items are loaded before any is stored
+// (ffn_body.cuh:load_tile's reason: a dependent load and store per item
+// left the tile latency-bound; U = 16 was no faster and raised the kernels'
+// register peak to spills). A: the f32 rows' alignment in floats
+// (ffn_body.cuh:load8_f32; 8 where cols % 8 == 0); bf16 rows take cols % 8
+// == 0 and 16-byte alignment.
+template <bool F32, int U = 8, int A = 8, class Src>
 __device__ __forceinline__ void load_rows(bf16* xs, int R, int nch, int cols, int rows, Src src) {
-  const int cc = cols / 8, n = rows * cc;
+  const int cc = (cols + 7) / 8, n = rows * cc;
   uint4* x4 = reinterpret_cast<uint4*>(xs);
   for (int i0 = threadIdx.x; i0 < n; i0 += U * THREADS) {
     float4 f[U][2];
@@ -124,11 +128,8 @@ __device__ __forceinline__ void load_rows(bf16* xs, int R, int nch, int cols, in
       const void* row = i < n ? src(e) : nullptr;
       if (F32) {
         f[q][0] = f[q][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row != nullptr) {
-          const float4* p = reinterpret_cast<const float4*>(row) + 2 * c;
-          f[q][0] = p[0];
-          f[q][1] = p[1];
-        }
+        if (row != nullptr)
+          load8_f32<A>(static_cast<const float*>(row), 8 * c, cols, f[q][0], f[q][1]);
       } else {
         v[q] = make_uint4(0u, 0u, 0u, 0u);
         if (row != nullptr) v[q] = reinterpret_cast<const uint4*>(row)[c];
@@ -147,6 +148,19 @@ __device__ __forceinline__ void load_rows(bf16* xs, int R, int nch, int cols, in
     x4[k < 0 ? (size_t)(cc + i / R) * R + i % R : (size_t)(k % cc) * R + rows + k / cc] =
         make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// f(Int<A>{}) at the alignment A in floats (8, 4 or 1) of rows of `cols`
+// f32 values: the loads of load_rows and of the kernels' output rows are
+// chosen at compile time, the alignment once per call.
+template <class F>
+__device__ __forceinline__ void by_alignment(int cols, F&& f) {
+  if (cols % 8 == 0)
+    f(Int<8>{});
+  else if (cols % 4 == 0)
+    f(Int<4>{});
+  else
+    f(Int<1>{});
 }
 
 // Copies `bytes` (a multiple of 16) from global to shared memory with

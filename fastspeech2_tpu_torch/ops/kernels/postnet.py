@@ -5,10 +5,10 @@ length. Returns the residual that is added to the mel.
 Port of ``fastspeech2_tpu/ops/pallas/postnet.py:fused_postnet`` (kernel
 ``_postnet_kernel``). CUDA source: ``csrc/postnet.cu`` (the chain in one
 shared-memory buffer, each stage one wgmma product from a TMA weight ring,
-the epilogues in registers). ``plan`` picks its tiling per shape; the C side
-makes the same choice (``c_plan`` reads it back on the card). It takes every
-C that is a multiple of 8 up to 512, every C0 that is a multiple of 8 up to
-256, every odd k up to 9 and 2 to 8 layers.
+the epilogues in registers; where the chain does not fit, one launch a stage
+through bf16 planes). ``plan`` picks its tiling per shape; the C side makes
+the same choice (``c_plan`` reads it back on the card). It takes every C and
+C0 from 1 to 1024, every odd k up to 31 and 1 to 32 layers.
 
 Rounding points follow the TPU kernel: conv operands in the compute dtype,
 the product rounded and widened, BatchNorm as ((h - mean) * inv) * g + b in
@@ -31,17 +31,26 @@ _fn = None
 _fn_plan = None
 
 
+#: the widest C and C0, the widest odd k and the most layers the kernel takes
+MAX_WIDTH, MAX_K, MAX_LAYERS = 1024, 31, 32
+#: the wide path (one launch a stage): output columns a block, input
+#: columns a chunk of the x tile
+WIDE_N, WIDE_XC = 256, 256
+
+
 class PostnetPlan(NamedTuple):
     """Tiling of one postnet. ``wr`` 2: stages of 128 rows, each warpgroup
     64 rows x all columns, ring tiles of 128 input columns; 1: stages of 64
-    rows, the two warpgroups half the columns each, ring tiles of 64.
+    rows, the two warpgroups half the columns each, ring tiles of 64; 0: the
+    wide path, one launch a stage (128 rows x WIDE_N columns a block, the
+    input in chunks of WIDE_XC columns, ring tiles of 128 input columns).
     ``nh`` and ``nl``: a warpgroup's output columns (wgmma N) in the hidden
     stages and in the last one; ``st`` ring stages; ``smem`` bytes (the
     chain's buffer of 64 wr + k - 1 rows, odd, a stage's BatchNorm rows and
     the ring); ``spl`` stages a launch: a block of a launch of s stages
     gives 64 wr - (s - 1)(k - 1) output frames, and a chain is cut where
     that would fall under half the stage rows (the last launch takes the
-    rest; over the shapes taken, two launches at most)."""
+    rest)."""
     wr: int
     nh: int
     nl: int
@@ -55,31 +64,39 @@ def _round16(c: int) -> int:
 
 
 def plan(C0: int, C: int, k: int, n_layers: int) -> PostnetPlan:
-    """The kernel's tiling, as ``csrc/postnet.cu:pn_make_plan`` picks it.
-    Raises ValueError for a shape the kernel does not take: C or C0 not a
-    multiple of 8, C > 512, C0 > 256, k even or above 9, fewer than 2 or more
-    than 8 layers."""
-    if (C0 % 8 or C % 8 or not 8 <= C0 <= 256 or not 8 <= C <= 512
-            or k % 2 != 1 or not 1 <= k <= 9 or not 2 <= n_layers <= 8):
+    """The kernel's tiling, as ``csrc/postnet.cu:pn_make_plan`` picks it: the
+    chain where C <= 512, C0 <= 256 and its buffer leaves room for two ring
+    stages, else the wide path. Raises ValueError for a shape the kernel
+    does not take: C or C0 outside 1 .. 1024, k even or above 31, fewer than
+    1 or more than 32 layers."""
+    if (not 1 <= C0 <= MAX_WIDTH or not 1 <= C <= MAX_WIDTH or k % 2 != 1
+            or not 1 <= k <= MAX_K or not 1 <= n_layers <= MAX_LAYERS):
         raise ValueError(f"postnet: C={C}, C0={C0}, k={k}, layers={n_layers} "
-                         "not supported by the kernel")
+                         f"not supported by the kernel (C and C0 from 1 to {MAX_WIDTH}, "
+                         f"odd k up to {MAX_K}, 1 to {MAX_LAYERS} layers)")
     cp, c0p = _round16(C), _round16(C0)
-    if cp <= 256:
-        wr, nh = 2, 128 if cp <= 128 else 256
-        nl = 80 if c0p <= 80 else 128 if c0p <= 128 else 256
-        tile = 2 * max(nh, nl) * 128  # 128 input columns a tile
-    else:
-        wr, nh = 1, 256
-        nl = 48 if c0p <= 96 else 64 if c0p <= 128 else 128
-        tile = 2 * 256 * 128
-    m = 64 * wr
-    # the chain's buffer, then a stage's BatchNorm rows (4 x max(C, C0) f32)
-    buf = max(cp, c0p) * ((m + k - 1) | 1) * 2 + 16 * max(C, C0)
+    if cp <= 512 and c0p <= 256:
+        if cp <= 256:
+            wr, nh = 2, 128 if cp <= 128 else 256
+            nl = 80 if c0p <= 80 else 128 if c0p <= 128 else 256
+            tile = 2 * max(nh, nl) * 128  # 128 input columns a tile
+        else:
+            wr, nh = 1, 256
+            nl = 48 if c0p <= 96 else 64 if c0p <= 128 else 128
+            tile = 2 * 256 * 128
+        m = 64 * wr
+        # the chain's buffer, then a stage's BatchNorm rows (4 x max(C, C0) f32)
+        buf = max(cp, c0p) * ((m + k - 1) | 1) * 2 + 16 * max(C, C0)
+        st = min(4, (SMEM_MAX - SLACK - buf) // tile)
+        if st >= 2:
+            spl = n_layers if k == 1 else min(n_layers, 1 + (m // 2) // (k - 1))
+            return PostnetPlan(wr, nh, nl, st, buf + st * tile + SLACK, spl)
+    # the wide path: the x tile (128 + k - 1 rows, odd, x WIDE_XC columns),
+    # the part's BatchNorm rows, ring tiles of 128 input columns x WIDE_N rows
+    buf = WIDE_XC * ((128 + k - 1) | 1) * 2 + 16 * WIDE_N
+    tile = 2 * WIDE_N * 128
     st = min(4, (SMEM_MAX - SLACK - buf) // tile)
-    if st < 2:
-        raise ValueError(f"postnet: no tiling fits C={C}, C0={C0}, k={k}")
-    spl = n_layers if k == 1 else min(n_layers, 1 + (m // 2) // (k - 1))
-    return PostnetPlan(wr, nh, nl, st, buf + st * tile + SLACK, spl)
+    return PostnetPlan(0, WIDE_N, WIDE_N, st, buf + st * tile + SLACK, 1)
 
 
 def launch_stages(pl: PostnetPlan, n_layers: int) -> List[range]:
@@ -88,10 +105,17 @@ def launch_stages(pl: PostnetPlan, n_layers: int) -> List[range]:
 
 
 def scratch_elems(B: int, L: int, C: int, n_launches: int) -> int:
-    """bf16 elements of the scratch that carries the masked rows from the
-    first launch to the second: none for one launch, one (B, L, C) plane for
-    two (the plan never takes more)."""
-    return 0 if n_launches == 1 else B * L * C
+    """bf16 elements of the planes that carry the masked rows from one
+    launch to the next, (B, L, C rounded up to 16) each: none for one
+    launch, one for two, two for more (launch l reads plane (l - 1) % 2 and
+    writes plane l % 2: a launch cannot write the plane it reads)."""
+    return B * L * _round16(C) * min(2, n_launches - 1)
+
+
+def bn_width(C0: int, C: int) -> int:
+    """Columns of the packed BatchNorm rows: max(C, C0) rounded up to 8 (the
+    kernel reads them in pairs)."""
+    return -(-max(C, C0) // 8) * 8
 
 
 def c_plan(C0: int, C: int, k: int, n_layers: int) -> PostnetPlan:
@@ -147,7 +171,8 @@ def postnet(x, w_flat, bn, lengths, n_layers: int, C: int, k: int):
     """x (B, L, C0) f32 mel; w_flat: the stages' (Cout, k, Cin_pad) weights
     in the compute dtype, Cin_pad = Cin rounded up to 32 with zeros,
     flattened and concatenated; bn (n_layers, 4, CB) f32 rows
-    [mean, rsqrt(var + eps), gamma, beta], zero-padded to CB = max(C, C0);
+    [mean, rsqrt(var + eps), gamma, beta], zero-padded to CB =
+    ``bn_width(C0, C)``;
     C is the hidden width; lengths (B,) int32. Through the op
     ``fs2::postnet`` (``library.py``): CPU tensors take the plain version;
     CUDA tensors launch the kernel."""
@@ -155,7 +180,7 @@ def postnet(x, w_flat, bn, lengths, n_layers: int, C: int, k: int):
         B, L, C0 = x.shape
         common.check_cuda("postnet", x.device, [
             ("x", x, torch.float32, None), ("w", w_flat, torch.bfloat16, None),
-            ("bn", bn, torch.float32, (n_layers, 4, max(C, C0))),
+            ("bn", bn, torch.float32, (n_layers, 4, bn_width(C0, C))),
             ("lengths", lengths, torch.int32, (B,))])
         plan(C0, C, k, n_layers)
     return torch.ops.fs2.postnet.default(x, w_flat, bn, lengths, n_layers, C, k)
@@ -188,8 +213,8 @@ def pack_weights(layers, cd: torch.dtype, eps: float = 1e-5):
     """Kernel-layout weights of a postnet: layers[i] has .conv (Conv1d, no
     bias) and .bn (BatchNorm1d with running statistics). Returns
     (w_flat, bn, C) with C the hidden width."""
-    C = layers[0].conv.weight.shape[0]
-    CB = max(max(l.conv.weight.shape[:2]) for l in layers)
+    C, C0 = layers[0].conv.weight.shape[:2]
+    CB = bn_width(C0, C)
     ws, bn = [], []
     for l in layers:
         w = l.conv.weight.permute(0, 2, 1)  # (Cout, k, Cin)

@@ -39,6 +39,7 @@ from fastspeech2_tpu_torch.config import Config as TConfig
 from fastspeech2_tpu_torch.data.ljspeech import read_metadata as t_read_metadata
 from fastspeech2_tpu_torch.infer import synthesize as tsynth
 from fastspeech2_tpu_torch.ops.kernels import stft as kstft
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 SR = 22050
 

@@ -37,6 +37,7 @@ from fastspeech2_tpu.utils import plotting as jplotting
 from fastspeech2_tpu_torch import cli as tcli
 from fastspeech2_tpu_torch.utils import display as tdisplay
 from fastspeech2_tpu_torch.utils import plotting as tplotting
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PHONEMES = "HH AH0 L OW1 W ER1 L D pau DH IH1 S IH1 Z AH0 T EH1 S T"

@@ -48,6 +48,7 @@ from fastspeech2_tpu_torch.data.dataset import write_fake_feature_store
 from fastspeech2_tpu_torch.infer.synthesize import Synthesizer as TSynth
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2 as TFS
 from fastspeech2_tpu_torch.train.checkpoint import load_checkpoint
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 VALIDATION_TAGS = {"validation/mel_target", "validation/mel_predicted",
                    "validation/audio_predicted", "validation/audio_target"}

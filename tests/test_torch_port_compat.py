@@ -30,6 +30,7 @@ from fastspeech2_tpu_torch.compat import torch_saver as tsaver
 from fastspeech2_tpu_torch.compat.from_jax import load_jax_params
 from fastspeech2_tpu_torch.config import config_from_dict
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2 as TFS
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 PHONEMES = "HH AH0 L OW1 W ER1 L D"
 

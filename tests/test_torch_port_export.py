@@ -29,6 +29,7 @@ from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from fastspeech2_tpu_torch.ops.precision import compute_dtype
 from fastspeech2_tpu_torch.ops.quant8 import quantize_model
 from fastspeech2_tpu_torch.train.checkpoint import load_model, save_checkpoint
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 B, T, L = 2, 16, 128
 SHAPE = dict(batch=B, max_tokens=T, max_frames=L)

@@ -27,6 +27,7 @@ from fastspeech2_tpu_torch.compat import golden as P
 from fastspeech2_tpu_torch.compat.torch_saver import save_torch_checkpoint
 from fastspeech2_tpu_torch.config import config_from_dict
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHONEMES = ["HH AH0 L OW1 W ER1 L D", "DH IH1 S IH1 Z AH0 T EH1 S T"]

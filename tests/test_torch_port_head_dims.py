@@ -52,6 +52,7 @@ from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2 as TFS
 from fastspeech2_tpu_torch.ops.kernels import attention as KA
 from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
 from fastspeech2_tpu_torch.ops.precision import compute_dtype as tcompute_dtype
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

@@ -51,6 +51,7 @@ from fastspeech2_tpu_torch.ops import quant8
 from fastspeech2_tpu_torch.ops.kernels import attention as KA
 from fastspeech2_tpu_torch.ops.kernels import ffn as KF
 from fastspeech2_tpu_torch.ops.precision import compute_dtype as tcompute_dtype
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _t(a):

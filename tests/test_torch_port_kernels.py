@@ -29,6 +29,7 @@ from fastspeech2_tpu_torch.ops.kernels import ffn as KF
 from fastspeech2_tpu_torch.ops.kernels import postnet as KP
 from fastspeech2_tpu_torch.ops.kernels import resstack as KR
 from fastspeech2_tpu_torch.ops.quantize import linear_bins, log_bins
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -411,80 +412,110 @@ def test_ffn_plan_fits_and_covers(D):
 
 def test_adaptor_plan_fits_and_covers():
     """ops/kernels/adaptor.py:plan (the tiling csrc/adaptor.cu picks the
-    same way) at every D the kernel takes, the multiples of 8 from 64 to
-    1024: the plan fits a block's shared memory; the x tile holds the
-    block's 64 conv rows and both convs' halo (66 rows, odd, D rounded up to
-    the K step) and H1 its 64 rows and the two that conv2 reads past them;
-    the two warpgroups cover the 256 channels, 128 each (a wgmma width);
-    the ring has two stages of 128-column tiles, or at least one of 64
-    columns; the frames of a grid of 62-frame tiles cover L. Other shapes
-    raise ValueError."""
+    same way) at every D the kernel takes, 1 to 2048, with 256, 4,096 and
+    65,536 bins: the plan fits a block's shared memory; the x tile holds the
+    block's 64 conv rows and both convs' halo (66 rows, odd) at D rounded up
+    to the K step, or 512-column chunks of them that cover D where the whole
+    tile leaves no room for a ring stage, and H1 its 64 rows and the two
+    that conv2 reads past them; at most 4,096 bin edges sit in shared
+    memory; the two warpgroups cover the 256 channels, 128 each (a wgmma
+    width); the ring has two stages of 128-column tiles, or at least one of
+    64 columns; the frames of a grid of 62-frame tiles cover L. The widths
+    the kernel took before (multiples of 8 in 64-1024) keep their tiling.
+    Other shapes raise ValueError."""
     assert KAd.TILE_ROWS == 67 and KAd.ROWS - 2 == 62
     assert 2 * 128 == KAd.CHANNELS
-    for D in range(64, 1025, 8):
-        pl = KAd.plan(D)
-        dp = -(-D // 16) * 16
-        assert dp >= D and dp % 16 == 0
-        tile = pl.kt // 64 * KAd.RING_SUB
-        assert pl.smem == (KAd.TILE_ROWS * (dp + KAd.CHANNELS) * 2 + KAd.misc_bytes()
-                           + KF.SLACK + pl.st * tile)
-        assert pl.smem <= KF.SMEM_MAX
-        assert (2 if pl.kt == 128 else 1) <= pl.st <= 4
-        assert pl.kt == (128 if D <= 416 else 64), D
+    for D in range(1, 2049):
+        for nb in (256, 4096, 65536):
+            pl = KAd.plan(D, nb)
+            dp = -(-D // 16) * 16
+            tile = pl.kt // 64 * KAd.RING_SUB
+            misc = KAd.misc_bytes(min(nb, KAd.BIN_CHUNK))
+            assert pl.smem == (KAd.TILE_ROWS * (pl.xc + KAd.CHANNELS) * 2 + misc
+                               + KF.SLACK + pl.st * tile)
+            assert pl.smem <= KF.SMEM_MAX
+            if pl.xc == dp:
+                assert (2 if pl.kt == 128 else 1) <= pl.st <= 4
+            else:
+                assert pl.xc == KAd.X_CHUNK and pl.kt == 64 and 1 <= pl.st <= 4
+                assert (KAd.TILE_ROWS * (dp + KAd.CHANNELS) * 2 + misc + KF.SLACK
+                        + KAd.RING_SUB > KF.SMEM_MAX)  # the whole x tile leaves no room
+                assert -(-D // pl.xc) * pl.xc >= D
+            if nb == 256:
+                assert pl.kt == (128 if D <= 416 else 64), D
+                assert pl.xc == (dp if D <= 1136 else KAd.X_CHUNK), D
         for L in (1, 62, 63, 768, 1000):
             assert -(-L // 62) * 62 >= L
-        assert KAd.plan(D, 4096).smem <= KF.SMEM_MAX
-    for D in (0, 8, 56, 60, 100, 1028, 1032, 2048):
+    for D in (0, 2049, 2056, 4096):
         with pytest.raises(ValueError):
             KAd.plan(D)
-    for NB in (0, 4097):
+    for NB in (0, 65537):
         with pytest.raises(ValueError):
             KAd.plan(256, NB)
 
 
 def test_postnet_plan_fits_and_covers():
     """ops/kernels/postnet.py:plan (the tiling csrc/postnet.cu picks the
-    same way) over every width the kernel takes (C a multiple of 8 up to
-    512, C0 up to 256, odd k up to 9, 2 to 8 layers): the plan fits a
-    block's shared memory with at least two ring stages; the warpgroups'
-    wgmma widths are instantiated ones and cover C and C0 rounded up to the
-    K step; the chain's buffer holds a launch's output tile plus its halo
-    (k - 1 rows a stage) at an odd row count; every launch gives at least
-    half its stage rows of output frames; the launches cover the stages in
-    order, at most two (one scratch plane). Other shapes raise ValueError."""
+    same way) over every width the kernel's chain took before (C a multiple
+    of 8 up to 512, C0 up to 256, odd k up to 9, 2 to 8 layers), then over
+    a grid of the new range (C and C0 to 1024, odd k to 31, 1 to 32
+    layers): the plan fits a block's shared memory with at least two ring
+    stages; the chain's wgmma widths are instantiated ones and cover C and
+    C0 rounded up to the K step; its buffer holds a launch's output tile
+    plus its halo (k - 1 rows a stage) at an odd row count; every launch
+    gives at least half its stage rows of output frames; the wide path
+    (one launch a stage) runs where the chain does not fit; the launches
+    cover the stages in order, through two planes at most. Other shapes
+    raise ValueError."""
     seen = set()
+
+    def check(C0, C, k, n):
+        pl = KP.plan(C0, C, k, n)
+        cp, c0p = -(-C // 16) * 16, -(-C0 // 16) * 16
+        assert pl.smem <= KF.SMEM_MAX and 2 <= pl.st <= 4
+        parts = KP.launch_stages(pl, n)
+        assert [i for r in parts for i in r] == list(range(n))
+        assert KP.scratch_elems(1, 1, C, len(parts)) == cp * min(2, len(parts) - 1)
+        seen.add((pl.wr, pl.nh, pl.nl))
+        if pl.wr == 0:
+            assert pl.spl == 1 and pl.nh == pl.nl == KP.WIDE_N
+            assert pl.smem == (KP.WIDE_XC * ((128 + k - 1) | 1) * 2 + 16 * KP.WIDE_N
+                               + pl.st * 2 * KP.WIDE_N * 128 + KF.SLACK)
+            return pl
+        m = 64 * pl.wr
+        R = (m + k - 1) | 1
+        if pl.wr == 2:
+            assert cp <= 256 and pl.nh >= cp and pl.nl >= c0p
+            assert pl.nh in (128, 256) and pl.nl in (80, 128, 256)
+            tile = 2 * max(pl.nh, pl.nl) * 128
+        else:
+            assert cp > 256 and 2 * pl.nh >= cp and 2 * pl.nl >= c0p
+            assert pl.nh == 256 and pl.nl in (48, 64, 128)
+            tile = 2 * 256 * 128
+        assert pl.smem == (max(cp, c0p) * R * 2 + 16 * max(C, C0) + pl.st * tile + KF.SLACK)
+        for r in parts:
+            P = m - (len(r) - 1) * (k - 1)
+            assert 2 * P >= m
+            # a block's first input rows: P frames and the launch's halo of
+            # len(r) (k - 1) / 2 rows a side
+            assert P + len(r) * (k - 1) == m + k - 1 <= R
+        return pl
+
     for C in range(8, 513, 8):
         for C0 in range(8, 257, 8):
             for k in (1, 3, 5, 7, 9):
                 for n in range(2, 9):
-                    pl = KP.plan(C0, C, k, n)
-                    cp, c0p = -(-C // 16) * 16, -(-C0 // 16) * 16
-                    m = 64 * pl.wr
-                    R = (m + k - 1) | 1
-                    assert pl.smem <= KF.SMEM_MAX and 2 <= pl.st <= 4
-                    if pl.wr == 2:
-                        assert cp <= 256 and pl.nh >= cp and pl.nl >= c0p
-                        assert pl.nh in (128, 256) and pl.nl in (80, 128, 256)
-                        tile = 2 * max(pl.nh, pl.nl) * 128
-                    else:
-                        assert cp > 256 and 2 * pl.nh >= cp and 2 * pl.nl >= c0p
-                        assert pl.nh == 256 and pl.nl in (48, 64, 128)
-                        tile = 2 * 256 * 128
-                    assert pl.smem == (max(cp, c0p) * R * 2 + 16 * max(C, C0)
-                                       + pl.st * tile + KF.SLACK)
-                    parts = KP.launch_stages(pl, n)
-                    assert [i for r in parts for i in r] == list(range(n))
-                    assert len(parts) <= 2
-                    for r in parts:
-                        P = m - (len(r) - 1) * (k - 1)
-                        assert 2 * P >= m
-                        # a block's first input rows: P frames and the
-                        # launch's halo of len(r) (k - 1) / 2 rows a side
-                        assert P + len(r) * (k - 1) == m + k - 1 <= R
-                    seen.add((pl.wr, pl.nh, pl.nl))
-    assert len(seen) == 9  # every instantiated kernel is some shape's
-    for C0, C, k, n in ((80, 520, 5, 5), (264, 256, 5, 5), (80, 256, 11, 5),
-                        (80, 256, 4, 5), (80, 256, 5, 1), (80, 256, 5, 9),
-                        (80, 36, 5, 5), (84, 256, 5, 5), (0, 256, 5, 5)):
+                    pl = check(C0, C, k, n)
+                    assert pl.wr in (1, 2) and len(KP.launch_stages(pl, n)) <= 2
+    assert len(seen) == 9  # every instantiated chain kernel is some shape's
+    for C in (1, 20, 100, 500, 520, 768, 1024):
+        for C0 in (1, 3, 100, 264, 513, 1024):
+            for k in (1, 11, 21, 31):
+                for n in (1, 3, 10, 12, 32):
+                    check(C0, C, k, n)
+    assert (0, KP.WIDE_N, KP.WIDE_N) in seen
+    for C0, C, k, n in ((80, 1032, 5, 5), (1032, 256, 5, 5), (80, 256, 33, 5),
+                        (80, 256, 4, 5), (80, 256, 5, 0), (80, 256, 5, 33),
+                        (80, 0, 5, 5), (0, 256, 5, 5)):
         with pytest.raises(ValueError):
             KP.plan(C0, C, k, n)

@@ -36,6 +36,7 @@ from fastspeech2_tpu_torch.infer.synthesize import Synthesizer as TSynth
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2 as TFS
 from fastspeech2_tpu_torch.ops.kernels import adaptor, attention, ffn, postnet
 from fastspeech2_tpu_torch.ops.precision import compute_dtype as tcompute_dtype
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 
 def _pair(cfg, dur_bias=1.5):

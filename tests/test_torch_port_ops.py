@@ -33,6 +33,7 @@ from fastspeech2_tpu_torch.ops import masks as tmasks
 from fastspeech2_tpu_torch.ops import nn as tnn
 from fastspeech2_tpu_torch.ops import quantize as tq
 from fastspeech2_tpu_torch.ops.precision import compute_dtype as tcompute_dtype
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -45,6 +45,7 @@ from fastspeech2_tpu_torch.ops.kernels import attention_train as tat
 from fastspeech2_tpu_torch.parallel import mesh as pmesh
 from test_torch_port_train_model import (KEY_BIAS, NO_DROPOUT, SHORT_WARMUP, _flat,
                                          _jax_init, _with_model, jbatch, make_batch)
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

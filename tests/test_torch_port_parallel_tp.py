@@ -33,6 +33,7 @@ from test_torch_port_parallel import (assert_update_matches, batch_data, port_mo
                                       run_workers)
 from test_torch_port_train_model import (NO_DROPOUT, SHORT_WARMUP, _flat, _jax_init,
                                          _with_model, jax_site_seeds, jbatch, make_batch)
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 STEPS = 2
 INFER = dict(B=8, T=32)  # a power of two of rows, tokens a multiple of 32: no padding

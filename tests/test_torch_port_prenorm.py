@@ -43,6 +43,7 @@ from fastspeech2_tpu_torch.ops import flags as tflags
 from fastspeech2_tpu_torch.ops.kernels import attention as KA
 from fastspeech2_tpu_torch.ops.kernels import ffn as KF
 from fastspeech2_tpu_torch.ops.precision import compute_dtype as tcompute_dtype
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

@@ -26,6 +26,7 @@ from scipy.io.wavfile import write as write_wav
 from fastspeech2_tpu import cli as jcli
 from fastspeech2_tpu_torch import cli as tcli
 from fastspeech2_tpu_torch.data.dataset import TTSDataset
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 SR = 22050
 ROOT = Path(__file__).resolve().parents[1]

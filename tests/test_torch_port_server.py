@@ -26,6 +26,7 @@ from fastspeech2_tpu_torch.infer.server import Batcher, serve
 from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
 from fastspeech2_tpu_torch.vocoder.melgan import MelGANConfig, MelGANGenerator
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 CFG = config_from_dict(small_cfg().to_dict())
 

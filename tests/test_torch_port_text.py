@@ -13,6 +13,7 @@ from fastspeech2_tpu_torch import text as ttext
 from fastspeech2_tpu_torch.text import cleaners as tcleaners
 from fastspeech2_tpu_torch.text import g2p as tg2p
 from fastspeech2_tpu_torch.text import numbers as tnumbers
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 SENTENCES = [
     "Hello world.",

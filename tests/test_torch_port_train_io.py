@@ -47,6 +47,7 @@ from fastspeech2_tpu_torch.train.loop import resolve_dp, train
 from fastspeech2_tpu_torch.train.optimizer import NoamAdam
 from fastspeech2_tpu_torch.train.seeds import SeedSchedule
 from fastspeech2_tpu_torch.train.step import TrainState, make_train_step, trainable
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 NO_DROPOUT = dict(transformer_dropout_rate=0.0, postnet_dropout_rate=0.0,
                   duration_predictor_dropout_rate=0.0,

@@ -28,6 +28,7 @@ from fastspeech2_tpu_torch.ops import flags as tflags
 from fastspeech2_tpu_torch.ops import nn as tnn_ops
 from fastspeech2_tpu_torch.ops.kernels import attention_train as tat
 from fastspeech2_tpu_torch.ops.precision import compute_dtype as tcompute_dtype
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 SEEDS = [0, 1, 12345, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 7, 2 ** 32 - 1]
 

@@ -37,6 +37,7 @@ from fastspeech2_tpu_torch.infer.synthesize import mel_floor_mask, pcm16
 from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2 as TFS
 from fastspeech2_tpu_torch.ops.kernels import common
 from fastspeech2_tpu_torch.vocoder import melgan as P
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 JCFG = J.MelGANConfig(base_channels=16)
 PCFG = P.MelGANConfig(base_channels=16)

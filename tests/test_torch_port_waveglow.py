@@ -32,6 +32,7 @@ from fastspeech2_tpu_torch.vocoder import detect_vocoder_kind, load_vocoder
 from fastspeech2_tpu_torch.vocoder import waveglow as W
 from test_waveglow import CFG as JCFG
 from test_waveglow import _TorchWaveGlow
+from test_torch_port_threads import torch_threads  # noqa: F401  (autouse)
 
 CFG = W.WaveGlowConfig(**dataclasses.asdict(JCFG))
 B, T = 2, 16
