@@ -16,7 +16,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    both grid splits, the wide body at parts of 192 and 256; the new ones
    without a ptxas note of serialized wgmma in either library), the ten
    q|k|v and out projection kernels of
-   1, 5 and 6, the twelve widths of the bf16 residual stack (kernel 13),
+   1, 5 and 6, the twelve widths of the bf16 residual stack and its wide
+   path's two kernels (kernel 13),
    the 18 conv-FFN kernels (2, 9, 10: k-tap conv and k=1 conv with its
    epilogue), the three variance-adaptor kernels (3: two ring-tile widths
    and the x tile in chunks) and the ten postnet kernels (4: nine chain
@@ -31,13 +32,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    training attention's two entries attention_train_packed and
    attention_train, forward and backward, and stft_mel_energy in f32 at the
    preprocess path's (8, 229,376) and (8, 16,384) buckets and at 10.4 s rows
-   of hop 200 and 512, n_fft = 4 hop, 1e-4) against its plain PyTorch
+   of hop 200 and 512, and at hops outside 32-512 or with a prime factor
+   above 5 (7, 28, 220, 257, 275, 441, 600, 1024 in 10 s rows; float64 errors held to the card
+   tests' band), n_fft = 4 hop, 1e-4) against its plain PyTorch
    version on the card, on
    the same bf16-tier inputs at the main paths' shapes (the FFT-block and
    decoder kernels with lengths that leave dead tiles, the MelGAN residual
    stack at the four stage shapes of a B=16, 768-frame rung (the per-layer
    cuDNN loop logged beside each), at lengths with one end and both ends in
-   a tile, at widths 96, 48 and 24 (zero-padded to 32) and in f32, the
+   a tile, at widths 96, 48 and 24 (zero-padded to 32) and in f32, and past
+   256 channels (RESSTACK_WIDTHS: the wide path at C 320, 512 and 1024, bf16
+   and f32, three and four dilations, two launches a block, timed; f32 at
+   250, zero-padded), the
    training attention at the decoder's and the
    encoder's training shapes with rate 0 and 0.2, timed at both rates beside
    SDPA at the same dropout_p, with the backward's three launches timed apart
@@ -97,7 +103,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    versions) fed the card's mel; ms per B=32 call, audio-seconds per second,
    the vocoder's share, the B=32 mel and wav calls with reduced-precision
    reductions of bf16 GEMMs refused (device.py's setting) and allowed, a
-   profile.
+   profile. Then (wide_vocoder_phase) a base_channels: 1024 MelGAN on the
+   same synthesizer: 9 kernel 13 launches a decode group, one row of each
+   group of a B=8 wav call held to the CPU port's generator on its first
+   64 frames, the B=32 wav call timed beside the default generator's; f32
+   generators at base_channels 1024 and 500 vocode a B=2 mel held to the
+   CPU port (1e-4 of the peak).
 6. server: infer.server.serve in a thread on 127.0.0.1 with the same
    synthesizer: 16 concurrent /synthesize wav requests (text and phonemes), a
    /stream of a three-sentence paragraph, a mel request, /healthz; RIFF
@@ -131,7 +142,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    and no other kernel, four files held
    against the CPU port (1e-4), the statistics finite with every key, the
    store read by TTSDataset; wavs/s, audio-seconds/s, shares of the wall
-   time (kernel 14, host DIO, file I/O).
+   time (kernel 14, host DIO, file I/O). Then (preprocess_corpora_phase)
+   12 wavs each at 22.05 kHz / hop 220, 44.1 kHz / hop 441 and 48 kHz / hop
+   600 (n_fft = 4 hop, an audio: override YAML) through the same command:
+   kernel 14 once a bucket batch, two files held to the plain version and
+   to float64, wavs/s.
 
 12. prenorm (after 10): the default widths and depth with pre-LN blocks in
    both stacks (a minimal override YAML), seed 0, duration bias 1.87, saved
@@ -625,6 +640,88 @@ def resstack_phase(torch, results, record):
             "(67 TFLOP/s f32 outside the tensor cores)")
         results["resstack"]["f32"] = {"shape": f"B={B},S={S},C={C}", "ms": ms,
                                       "plain_ms": pms, "max_abs_err": err}
+    resstack_widths(torch, results)
+
+
+# kernel 13 past 256 channels (the wide path) and f32 at any width: (dtype,
+# B, S, C, dilations, timed). 512 is a base_channels: 1024 generator's first
+# stage (S = 6144: a B=16, 768-frame rung)
+RESSTACK_WIDTHS = (("bf16", 16, 6144, 512, (1, 3, 9), True),
+                   ("bf16", 16, 6144, 320, (1, 3, 9, 27), True),
+                   ("bf16", 8, 6144, 1024, (1, 3, 9), True),
+                   ("bf16", 2, 2048, 1024, (1, 3, 9, 27), False),
+                   ("f32", 2, 2048, 512, (1, 3, 9), True),
+                   ("f32", 2, 2048, 320, (1, 3, 9, 27), True),
+                   ("f32", 1, 2048, 1024, (1, 3, 9), True),
+                   ("f32", 1, 1024, 1024, (1, 3, 9, 27), False),
+                   ("f32", 2, 2048, 250, (1, 3, 9), False))
+
+
+def resstack_widths(torch, results):
+    """Kernel 13 at RESSTACK_WIDTHS against its plain version (seeded
+    weights of a stage at that width, unit normal input): the bands of
+    resstack_phase, the launches (two a dilated block on the wide path),
+    CUDA events, device time by the profiler and the bound (bf16 at 989
+    TFLOP/s, f32 at 67)."""
+    from fastspeech2_tpu_torch.ops.kernels import resstack as KR
+    from fastspeech2_tpu_torch.ops.precision import round_to
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1024)
+    widths = results["resstack"].setdefault("widths", {})
+    for tier, B, S, C, dil, timed in RESSTACK_WIDTHS:
+        cd = torch.bfloat16 if tier == "bf16" else torch.float32
+        n, bound = len(dil), 1.0 / (3 * C) ** 0.5
+        w1 = ((torch.rand(n, C, 3 * C, generator=g) * 2 - 1) * bound).to(cd)
+        w2 = ((torch.rand(n, C, C, generator=g) * 2 - 1) / C ** 0.5).to(cd)
+        b1, b2 = (round_to((torch.rand(n, C, generator=g) * 2 - 1) * bound, cd)
+                  for _ in range(2))
+        ws = [t.to(dev).contiguous() for t in (w1, b1, w2, b2)]
+        x = torch.randn(B, S, C, generator=g).to(cd).to(dev)
+        key = f"{tier} B={B},S={S},C={C},n={n}"
+        with torch.inference_mode():
+            n0 = KR.launches
+            got = KR.resstack(x, *ws, dil)
+            torch.cuda.synchronize()
+            launched = KR.launches - n0
+            want = KR.resstack_plain(x, *ws, dil)
+            torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        # bf16: max 2^-6 of the scale as resstack_phase; the mean 2^-11 of
+        # it, the band tests/test_torch_port_kernels.py holds the plain
+        # version to against the JAX kernel: the share of elements one
+        # rounding apart grows with the sums' length (K = 3C) and with the
+        # blocks that carry a flip on (1.8% of them one ulp apart at C 1024,
+        # four blocks, on the H100; 1% at three), past resstack_phase's
+        # 1e-4, which its widths (K <= 768) meet. f32: 1e-5 and 1e-6.
+        tol = (2.0 ** -6, 2.0 ** -11) if tier == "bf16" else (1e-5, 1e-6)
+        expect = 2 * n if KR.wide(C) else 1
+        log(f"kernel resstack {key} (dilations {dil}): {launched} launches (expected "
+            f"{expect}), output scale {scale:.3f}")
+        assert launched == expect, (launched, expect)
+        d = (got.float() - want.float()).abs()
+        ends = max(float(d[:, :16].max()), float(d[:, -16:].max()))
+        assert ends < tol[0] * scale, "reflected ends disagree"
+        err = compare(f"resstack {key}", got, want, tol[1] * scale, tol[0] * scale)
+        r = {"max_abs_err": err, "launches_per_call": launched}
+        if timed:
+            fn = lambda: KR.resstack(x, *ws, dil)  # noqa: E731
+            with torch.inference_mode():
+                ms = cuda_time_ms(fn, reps=10)
+                pms = cuda_time_ms(lambda: KR.resstack_plain(x, *ws, dil), reps=3)
+                dms = device_ms_by_kernel(torch, fn)
+            flops = 2.0 * B * S * n * 4 * C * C
+            nb = 2 * B * S * C * x.element_size() + nbytes(*ws)
+            b_ms, by = bound_ms(flops, nb, PEAK_BF16_FLOPS if tier == "bf16" else PEAK_F32_FLOPS)
+            dev_ms = sum(dms.values()) or None
+            log(f"  resstack {key}: kernel {ms:.4f} ms (device {dev_ms} ms: "
+                f"{', '.join(f'{k} {v:.4f}' for k, v in dms.items())}), plain {pms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({by}), kernel {(dev_ms or ms) / b_ms:.1f}x its bound "
+                "by device time")
+            r.update(ms=ms, device_ms=dev_ms, plain_ms=pms, bound_ms=b_ms, bound_by=by)
+        widths[key] = r
+        del x, ws, got, want, d
+        torch.cuda.empty_cache()
 
 
 def attention_res_ln_phase(torch, results, record):
@@ -1644,6 +1741,100 @@ def wav_path_phase(torch, results, synth):
     return ms, secs
 
 
+def wide_vocoder_phase(torch, results, synth, default_ms):
+    """A base_channels: 1024 MelGAN (stages 512, 256, 128, 64; bf16, seed 0)
+    attached to the main path's synthesizer: kernel 13's launches per call
+    (the 512-channel stage on the wide path, two launches a dilated block),
+    one row of each decode group of the B=8 wav call against the CPU port's
+    generator (plain versions, bf16) on the first 96 frames of the card's mel
+    (compared over the first 64: the receptive field is ~10 frames), in the
+    band wav_path_phase holds the default generator to; the B=32 wav call
+    timed beside the default generator's. Then f32 generators at
+    base_channels 1024 and 500 (stages 250, 125, 62, 31: zero-padded to 256,
+    128, 64, 32) vocode a B=2 mel on the card and on the CPU: max < 1e-4 of
+    the peak, the band the golden phase holds the f32 tier's mel to. The
+    default generator is attached again at the end."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.infer.synthesize import mel_floor_mask, pcm16
+    from fastspeech2_tpu_torch.vocoder.melgan import MelGANConfig, MelGANGenerator
+
+    t_phase = time.perf_counter()
+    default = synth._voc
+    gen = MelGANGenerator(MelGANConfig(base_channels=1024), bf16=True, seed=0)
+    synth.attach_vocoder(gen)
+    hop = synth.hop_length
+    try:
+        groups = []
+        real = synth._decode_groups
+        synth._decode_groups = lambda dem: (groups.append(real(dem)), groups[-1])[1]
+        try:
+            reset_counts()
+            mel, wav, wav_lens = synth.wav_from_token_batch(batch(8, offset=8))
+            per_call = read_counts()["resstack"]
+        finally:
+            del synth._decode_groups
+        n_groups = len(groups[-1])
+        log(f"wide MelGAN (base_channels 1024, bf16): {per_call} kernel 13 launches a B=8 "
+            f"call of {n_groups} decode groups (expected {n_groups} x (6 + 1 + 1 + 1))")
+        assert per_call == 9 * n_groups, (per_call, n_groups)
+        results["resstack"]["launches_wide_melgan_b8"] = per_call
+        lens = wav_lens // hop
+        cpu_gen = MelGANGenerator(MelGANConfig(base_channels=1024), bf16=True,
+                                  fused_resstack=True, device="cpu")
+        cpu_gen.load_state_dict({k: v.cpu() for k, v in gen.state_dict().items()})
+        for rows, rung in groups[-1]:
+            row = int([r for r in rows if r < 8][0])
+            m = torch.from_numpy(mel[row:row + 1, :rung])
+            m = mel_floor_mask(m, torch.from_numpy(lens[row:row + 1]))[:, :96]
+            with torch.inference_mode():
+                want = pcm16(cpu_gen(m)).numpy()[0, :64 * hop]
+            got = wav[row, :64 * hop]
+            peak = float(np.abs(want).max())
+            d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+            log(f"wide MelGAN B=8 row {row} (rung {rung}), first 64 frames vs CPU plain "
+                f"generator: max {int(d.max())} LSB, mean {d.mean():.2f} LSB, peak {int(peak)} "
+                f"(tolerance max<{0.12 * peak:.0f} mean<{0.04 * peak:.1f})")
+            assert d.max() < 0.12 * peak and d.mean() < 0.04 * peak, "wide wav off the CPU plain"
+        b32 = batch(32)
+        synth.wav_from_token_batch(b32)
+        reset_counts()
+        ms, out = timed_calls(torch, lambda: synth.wav_from_token_batch(b32))
+        per_call = read_counts()["resstack"] // 5
+        secs = float(out[2].sum()) / 22050.0
+        log(f"wide MelGAN B=32 wav call: {ms:.3f} ms median of 5 ({secs / ms * 1e3:.0f} "
+            f"audio-seconds/s; {per_call} kernel 13 launches a call) against the default "
+            f"generator's {default_ms:.3f} ms in this run ({ms / default_ms:.2f}x)")
+        results["resstack"]["wide_melgan_b32_ms"] = ms
+        results["resstack"]["launches_wide_melgan_b32"] = per_call
+    finally:
+        synth.attach_vocoder(default)
+    del gen, cpu_gen
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(500)
+    mel = torch.randn(2, 64, 80, generator=g) - 4.0
+    for base, expect in ((1024, 9), (500, 4)):
+        cfg = MelGANConfig(base_channels=base)
+        gen = MelGANGenerator(cfg, seed=0)  # f32, on the card
+        cpu_gen = MelGANGenerator(cfg, fused_resstack=True, device="cpu")
+        cpu_gen.load_state_dict({k: v.cpu() for k, v in gen.state_dict().items()})
+        with torch.inference_mode():
+            reset_counts()
+            got = gen(mel.to("cuda")).cpu()
+            launched = read_counts()["resstack"]
+            want = cpu_gen(mel)
+        peak = float(want.abs().max())
+        widths = [base // 2 ** (i + 1) for i in range(4)]
+        log(f"f32 MelGAN base_channels {base} (stages {widths}), B=2 x 64 frames, card vs "
+            f"CPU port: {launched} kernel 13 launches (expected {expect})")
+        assert launched == expect, (launched, expect)
+        compare(f"f32 MelGAN {base}", got, want, 1e-5 * peak, 1e-4 * peak)
+        del gen, cpu_gen
+    torch.cuda.empty_cache()
+    log(f"wide vocoder phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 @contextlib.contextmanager
 def serving(synth):
     """infer.server.serve in a thread on 127.0.0.1 (an ephemeral port);
@@ -1895,8 +2086,8 @@ def cufft_mel_energy(torch, y, fb, n_fft, hop, win_length, clip=1e-5):
 def f64_errors(y, fb, hop, win_length, mel, en, clip=1e-5):
     """Against numpy's float64 rfft of the float64-padded, float64-windowed
     frames and the float64 mel product: the max abs log-mel error over the
-    entries whose mel exceeds 10 clip, and the max energy error over the
-    energy's peak."""
+    entries whose mel exceeds 10 clip (0 where none does: a filterbank of a
+    few bins at hop 1), and the max energy error over the energy's peak."""
     import numpy as np
 
     n_fft = 4 * hop
@@ -1911,7 +2102,7 @@ def f64_errors(y, fb, hop, win_length, mel, en, clip=1e-5):
     te = np.sqrt((mag ** 2).sum(-1))
     live = tmel > 10 * clip
     lm = np.log(np.maximum(tmel, clip))
-    return (float(np.abs(mel.double().cpu().numpy() - lm)[live].max()),
+    return (float(np.abs(mel.double().cpu().numpy() - lm)[live].max(initial=0.0)),
             float(np.abs(en.double().cpu().numpy() - te).max() / te.max()))
 
 
@@ -1920,6 +2111,13 @@ def f64_errors(y, fb, hop, win_length, mel, en, clip=1e-5):
 # (hop 512), n_fft = 4 hop
 STFT_SHAPES = ((8, 229_376, 256, 80), (8, 16_384, 256, 80), (8, 163_840, 200, 80),
                (8, 458_752, 512, 80))
+# the hops past kernel 14's first range, in 10 s rows of their corpora: 7
+# and 28 (under 32: 15 and 57 bins), 220 and 275 (22.05 kHz at 10 and 12.5
+# ms: factors 11), 257 (a direct DFT pass of 257 points), 441 (44.1 kHz at
+# 10 ms: 7s), 600 (48 kHz at 12.5 ms), 1024 (four frames a block)
+STFT_NEW_SHAPES = ((8, 220_500, 7, 8), (8, 220_500, 28, 40), (8, 220_500, 220, 80),
+                (8, 220_500, 257, 80), (8, 220_500, 275, 80), (8, 441_000, 441, 80),
+                (8, 480_000, 600, 80), (8, 480_000, 1024, 80))
 
 
 def stft_kernel_phase(torch, results):
@@ -1949,7 +2147,7 @@ def stft_kernel_phase(torch, results):
         "replaces": "fastspeech2_tpu/ops/pallas/stft.py:68", "max_abs_err": 0.0,
         "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}, "library_ms": {},
         "main_shape": "B=8,N=229376,hop=256"})  # the longest bucket of the corpus
-    for B, N, hop, n_mels in STFT_SHAPES:
+    for B, N, hop, n_mels in STFT_SHAPES + STFT_NEW_SHAPES:
         n_fft, F = 4 * hop, N // hop + 1
         key = f"B={B},N={N},hop={hop}"
         kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
@@ -1998,6 +2196,12 @@ def stft_kernel_phase(torch, results):
         r.setdefault("device_ms", {})[key] = d_k
         r.setdefault("library_device_ms", {})[key] = d_l
         r.setdefault("f64_errors", {})[key] = e64
+        if (B, N, hop, n_mels) in STFT_NEW_SHAPES:
+            # the hops past the first range, held to float64 as the card tests
+            # hold them: energy no less accurate than the plain version's,
+            # log-mel within twice its max error
+            (k_mel, k_en), (p_mel, p_en) = e64["kernel"], e64["plain"]
+            assert k_en <= p_en and k_mel <= 2 * p_mel, (hop, e64)
 
 
 def preprocess_phase(torch, results):
@@ -2133,6 +2337,85 @@ def preprocess_phase(torch, results):
         return len(lens) / wall, secs / wall
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# kernel 14's corpora: (sample rate, hop) with n_fft = 4 hop, win_length =
+# n_fft, 80 mels: 10 ms at 22.05 and 44.1 kHz, 12.5 ms at 48 kHz
+PREPROCESS_CORPORA = ((22050, 220), (44100, 441), (48000, 600))
+
+
+def preprocess_corpora_phase(torch, results):
+    """`preprocess` through cli.main on 12 seeded synthetic wavs (1.5-4 s) at
+    each of PREPROCESS_CORPORA, its audio: section overridden in a YAML:
+    kernel 14 launched once a bucket batch and no other kernel; two files'
+    stored mel and energy held to the plain version on the card (1e-4) and
+    to float64 (the kernel's errors within twice the plain version's);
+    wavs/s."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from scipy.io.wavfile import write as write_wav
+
+    from fastspeech2_tpu_torch import cli
+    from fastspeech2_tpu_torch.audio.stft import mel_filterbank
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    g = np.random.default_rng(441)
+    per = {}
+    for sr, hop in PREPROCESS_CORPORA:
+        n_fft = 4 * hop
+        work = tempfile.mkdtemp(prefix=f"fs2_pre{sr}_", dir=str(ROOT / "build"))
+        try:
+            wav_dir, store = Path(work, "wavs"), f"{work}/store"
+            wav_dir.mkdir()
+            lens = [int(g.uniform(1.5, 4.0) * sr) for _ in range(12)]
+            for i, n in enumerate(lens):
+                pcm = np.round(synthetic_utterance(n, g) * 32767).astype(np.int16)
+                write_wav(str(wav_dir / f"C{sr}-{i:02d}.wav"), sr, pcm)
+            cfg = Path(work, "audio.yaml")
+            cfg.write_text(f"audio:\n  sample_rate: {sr}\n  n_fft: {n_fft}\n"
+                           f"  hop_length: {hop}\n  win_length: {n_fft}\n  n_mels: 80\n")
+            groups = {}
+            for n in lens:
+                k = -(-(n + n_fft // 2) // 16384)
+                groups[k] = groups.get(k, 0) + 1
+            n_batches = sum(-(-v // 8) for v in groups.values())
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(["preprocess", "-d", str(wav_dir), "-o", store, "-c", str(cfg)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            log(f"preprocess {sr} Hz, hop {hop}, n_fft {n_fft} (plan {KS.plan(n_fft)}): "
+                f"{len(lens)} wavs in {wall:.2f} s, {len(lens) / wall:.1f} wavs/s; launches "
+                f"{ {k: v for k, v in counts.items() if v} } ({n_batches} bucket batches)")
+            assert counts["stft_mel_energy"] == n_batches and sum(counts.values()) == n_batches
+            fb = torch.from_numpy(mel_filterbank(sr, n_fft, 80)).cuda()
+            for i in (int(np.argmax(lens)), int(np.argmin(lens))):
+                w = cli.read_wav_float(str(wav_dir / f"C{sr}-{i:02d}.wav"), sr)
+                y = torch.from_numpy(w)[None].cuda()
+                F = lens[i] // hop + 1
+                mel = torch.from_numpy(np.load(f"{store}/mels/C{sr}-{i:02d}.npy"))[None].cuda()
+                en = torch.from_numpy(np.load(f"{store}/energy/C{sr}-{i:02d}.npy"))[None].cuda()
+                assert mel.shape == (1, 80, F) and en.shape == (1, F)
+                pm, pe = KS.stft_mel_energy_plain(y, fb, n_fft, hop, n_fft)
+                tol = 1e-4 * float(pe.abs().max())
+                compare(f"preprocess {sr} log-mel", mel, pm, 1e-4, 1e-4, rtol=1e-4)
+                compare(f"preprocess {sr} energy", en, pe, tol, tol, rtol=1e-4)
+                (k_mel, k_en) = f64_errors(y, fb, hop, n_fft, mel, en)
+                (p_mel, p_en) = f64_errors(y, fb, hop, n_fft, pm, pe)
+                log(f"  against float64: kernel {k_mel:.3e}, {k_en:.3e}; plain {p_mel:.3e}, "
+                    f"{p_en:.3e}")
+                assert k_mel <= 2 * p_mel and k_en <= 2 * p_en, (k_mel, p_mel, k_en, p_en)
+            per[f"{sr}/{hop}"] = {"wavs_per_s": len(lens) / wall,
+                                  "launches": counts["stft_mel_energy"]}
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    results["stft_mel_energy"]["corpora"] = per
+    log(f"preprocess corpora phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def griffin_lim_phase(torch, model):
@@ -4103,8 +4386,8 @@ def wgmma_kernels_sass():
     the tile body 6 kernels, the wide body 2), which also keeps no stack
     frame (its two score arrays stay in registers), and the q|k|v and out
     projections of kernels 1, 5 and 6 on ffn_body.cuh (2 + 8 kernels);
-    resstack's: the bf16 residual stack at each of its 12 widths (kernel 13;
-    the f32 kernel is exempt); ffn's: the k-tap conv (3 inputs x 2 tilings)
+    resstack's: the bf16 residual stack at each of its 12 widths and the wide
+    path's conv and out kernels (kernel 13; the f32 kernels are exempt); ffn's: the k-tap conv (3 inputs x 2 tilings)
     and the k=1 conv with its epilogue (3 entries x 4 widths) of kernels 2,
     9 and 10; adaptor's: kernel 3 at its two ring-tile widths and with the x
     tile in chunks (3 kernels); postnet's: kernel 4's chain at its nine (row
@@ -4123,7 +4406,8 @@ def wgmma_kernels_sass():
                                  "train_bwd_dq_wide_kernel", "train_bwd_dkv_wide_kernel"), 20),
             ("attention", ("attn_fwd_kernel", "attn_fwd_wide_kernel", "ffn_conv_kernel",
                            "ffn_out_kernel"), 18),
-            ("resstack", ("resstack_wgmma_kernel",), 12),
+            ("resstack", ("resstack_wgmma_kernel", "resstack_wide_conv_kernel",
+                          "resstack_wide_out_kernel"), 14),
             ("ffn", ("ffn_conv_kernel", "ffn_out_kernel"), 18),
             ("adaptor", ("adaptor_kernel",), 3),
             ("postnet", ("postnet_kernel", "postnet_wide_kernel"), 10)):
@@ -4762,6 +5046,7 @@ def main(parallel_only: bool = False) -> int:
     stft_kernel_phase(torch, results)
     ms, frames, synth = main_path_phase(torch, results)
     wav_ms, wav_secs = wav_path_phase(torch, results, synth)
+    wide_vocoder_phase(torch, results, synth, wav_ms)
     server_phase(torch, synth)
     switch_phase(torch, results, synth)
     gl_ms, gl_secs = griffin_lim_phase(torch, synth.model)
@@ -4825,6 +5110,7 @@ def main(parallel_only: bool = False) -> int:
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     wavs_per_s, pre_secs_per_s = preprocess_phase(torch, results)
+    preprocess_corpora_phase(torch, results)
     torch.cuda.empty_cache()
     parallel_phase(torch, results)
     assert "jax" not in sys.modules and not any(
@@ -4849,7 +5135,9 @@ def main(parallel_only: bool = False) -> int:
                                  "launches_golden_f32", "launches_golden",
                                  "op_dispatch", "launches_one_head", "launches_one_head_b32",
                                  "launches_one_head_b8", "launches_dk160_b8",
-                                 "launches_one_head_step", "head_dims", "widths") if k in r},
+                                 "launches_one_head_step", "head_dims", "widths",
+                                 "launches_wide_melgan_b8", "launches_wide_melgan_b32",
+                                 "wide_melgan_b32_ms", "corpora") if k in r},
             **({"device_ms": r["device_ms"][key],
                 "library_device_ms": r.get("library_device_ms", {}).get(key)}
                if "device_ms" in r else {}),

@@ -76,18 +76,20 @@ __host__ __device__ __forceinline__ int conv_tiles(int taps, int cin, int kt) {
 
 // acc = conv(A) for this warpgroup (ACC: acc += conv(A)): A is the
 // row-shifted tile at shared address xa (its first row; lbo = R * 16 bytes
-// between column chunks), B the ring tiles it0 .. it0 + conv_tiles(taps,
-// cin, KT) - 1, each KT / 64 sub-tiles of 64 input columns `sub` bytes
-// apart, this warpgroup's N output rows at byte offset boff of each.
+// between column chunks), tap j's rows tap_bytes / 16 rows apart (1 for a
+// plain conv, the dilation for a dilated one), B the ring tiles it0 .. it0 +
+// conv_tiles(taps, cin, KT) - 1, each KT / 64 sub-tiles of 64 input columns
+// `sub` bytes apart, this warpgroup's N output rows at byte offset boff of
+// each.
 template <int N, int KT, bool ACC = false, class Load>
 __device__ __forceinline__ void conv_product(float (&acc)[N / 2], Ring& ring, Load& load, int it0,
                                              uint32_t xa, uint32_t lbo, uint32_t boff, uint32_t sub,
-                                             int taps, int cin) {
+                                             int taps, int cin, uint32_t tap_bytes = 16) {
   const int nq = (cin + KT - 1) / KT;
   auto step = [&](int i, auto nks, auto first) {
     const int it = it0 + i;
     const uint32_t bt = ring.acquire(it, load) + boff;
-    const uint32_t a0 = xa + (uint32_t)(KT / 8 * (i % nq)) * lbo + (uint32_t)(i / nq) * 16;
+    const uint32_t a0 = xa + (uint32_t)(KT / 8 * (i % nq)) * lbo + (uint32_t)(i / nq) * tap_bytes;
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < decltype(nks)::value; ++s)

@@ -57,13 +57,39 @@
 // plain instruction writes an accumulator (the first product of each takes
 // scale_d = 0), so ptxas keeps them asynchronous. Widths: C a multiple of 16
 // up to 128, of 32 up to 256 (the wrapper pads any other C up to one of
-// these with zero channels).
+// these with zero channels); wider stages take the wide path below.
 //
 // f32: plain multiplies and adds (built with --fmad=false, no TF32), lrelu
 // applied while reading cur, the hidden for the whole tile in shared memory,
-// each thread eight output columns of one row. Written to be right, not fast.
-#include "common.cuh"
-#include "hopper.cuh"
+// each thread eight output columns of one row, C a multiple of 8 up to 256
+// (the wrapper zero-pads any other). Written to be right, not fast.
+//
+// The wide path (C above 256, up to 1024; both dtypes). Neither a
+// warpgroup's 64 x C output (C / 2 registers a thread) nor a tile's z and
+// hidden (at C = 1024 a 64-row tile's two bf16 buffers alone are ~300 KB)
+// fits, so a block of the stack is two launches through a (B, S, C) hidden
+// scratch in device memory:
+//  1. h = round(lrelu(conv_k3,dil(z) + b1)), z = round(lrelu(cur)): 128 rows
+//     x 256 output columns a block (each warpgroup 64 rows, all 256 columns:
+//     128 accumulators a thread), z gathered by the threads from the block's
+//     rows plus d each side (mirrored by index at the sequence ends: the
+//     per-layer ReflectionPad1d), LeakyReLU and rounding applied as it
+//     lands, 256 (or, for a large dilation, 128) columns at a time; the
+//     three taps' products (K = 3C) from conv_chain.cuh's TMA ring of
+//     128-column weight tiles, tap j's A operand the same tile shifted j * d
+//     rows, the accumulators carried across the column chunks.
+//  2. cur = round(cur + round(h W2^T + b2)): a plain wgmma GEMM over the
+//     B * S rows, 128 rows x 256 columns a block, the hidden's and w2's
+//     64-column tiles both by TMA through one ring (K-major, 128-byte
+//     swizzle), the residual read and the output written in the epilogue
+//     (in place from the second block on).
+// At C = 512 a block is 6 C = 3,072 FLOP a byte of the activation, ~10x
+// the card's ridge: the hidden's round trip costs little against the
+// products. Columns past C (C a multiple of 8) read as zeros (the maps
+// zero-fill, the gather stores zeros) and are never stored. The f32 wide
+// path is the same two launches as plain FMA-free SIMT tiles (64 rows x 64
+// columns a block, 4 x 4 a thread), summed in the f32 kernel's order.
+#include "conv_chain.cuh"
 
 namespace {
 
@@ -417,6 +443,295 @@ resstack_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
+// ---- the wide path (C > 256) ----------------------------------------------
+
+constexpr int RW_M = 128;   // rows a block (64 a warpgroup)
+constexpr int RW_N = 256;   // output columns a block (wgmma N of each warpgroup)
+constexpr int RW_KT = 128;  // input columns of a conv ring tile (two boxes of 64)
+constexpr int RW_SB1 = 2 * RW_N * 128;          // a conv ring tile: 64 KB
+constexpr int RW_SB2 = RW_M * 128 + RW_N * 128;  // an out ring tile: h 128 x 64, w2 256 x 64
+
+struct WideArgs {
+  const void* cur;  // (B, S, C): the block's input
+  const float* b;   // the block's b1 (launch 1) or b2 (launch 2), C values
+  void* out;        // launch 1: the hidden (B, S, C); launch 2: the block's output
+  int S, C, d, st, xc;  // xc: launch 1's z columns a chunk
+};
+
+// Global row of z row e of the tile whose first output row is t0 (z row 0 is
+// t0 - d): rows outside [0, S) mirror (row -p <- p, S - 1 + p <- S - 1 - p);
+// -1 for a row past S + d - 1, which feeds no stored output (a zero row).
+__device__ __forceinline__ int z_source(int t0, int e, int d, int S) {
+  const int t = t0 - d + e;
+  if (t >= S + d) return -1;
+  return t < 0 || t >= S ? mirror_src(t, S) : t;
+}
+
+// Launch 1 of a block of the stack: h = round(lrelu(sum_j z[t + (j-1)d] W1_j
+// + b1)) for 128 rows (blockIdx.x) x 256 columns (blockIdx.y) of batch row
+// blockIdx.z, the z tile a.xc columns at a time.
+__global__ void __launch_bounds__(THREADS, 1)
+resstack_wide_conv_kernel(const __grid_constant__ CUtensorMap tw,
+                          const __grid_constant__ WideArgs a) {
+  constexpr int M = RW_M, KT = RW_KT, NW = RW_N, SB = RW_SB1;
+  extern __shared__ unsigned char smem_raw[];
+  const int S = a.S, C = a.C, d = a.d, XC = a.xc;
+  const int rows_in = M + 2 * d, R = rows_in | 1, NCH = XC / 8;
+  const int b = blockIdx.z, c00 = blockIdx.y * NW, t0 = blockIdx.x * M;
+  unsigned char* ring_g = smem_align1024(smem_raw);
+  bf16* xs = reinterpret_cast<bf16*>(ring_g + a.st * SB);            // [NCH][R][8]
+  float* bias = reinterpret_cast<float*>(xs + (size_t)NCH * R * 8);  // [NW]
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias + NW);
+  const int nc = (C + XC - 1) / XC, pc = 3 * (XC / KT);
+  const int nql = (C - (nc - 1) * XC + KT - 1) / KT;
+  Ring ring{smem_u32(ring_g), ring_g, full, full + a.st, a.st, SB, 0, (nc - 1) * pc + 3 * nql};
+  ring.init();
+  for (int i = threadIdx.x; i < NW; i += THREADS)
+    bias[i] = c00 + i < C ? a.b[c00 + i] : 0.f;
+  __syncthreads();
+  // tile i: chunk q, tap j, input columns KT (i % nq) of the chunk, as two
+  // boxes of 64 columns x NW rows (a second box wholly past C: the first
+  // again, unread)
+  auto load = [&](int i, unsigned char* dst, uint64_t* bar) {
+    const int q = i / pc, r = i - q * pc, nqq = q == nc - 1 ? nql : XC / KT;
+    const int j = r / nqq, col = q * XC + KT * (r % nqq);
+    tma_load_3d(dst, &tw, bar, col, j, c00);
+    tma_load_3d(dst + SB / 2, &tw, bar, col + 64 < C ? col + 64 : col, j, c00);
+  };
+  if (threadIdx.x == 0) ring.top_up(0, load);  // every stage is free
+
+  // z rows of chunk q: round(lrelu(cur)), 8 columns a thread, eight 16-byte
+  // loads in flight before any store; zeros past C up to the chunk's last
+  // k-step (the products read whole 16-column steps)
+  const bf16* cur = static_cast<const bf16*>(a.cur) + (size_t)b * S * C;
+  auto gather = [&](int q) {
+    constexpr int U = 8;
+    const int c0 = q * XC, cw = min(XC, C - c0), cc = cw / 8, n = rows_in * cc;
+    uint4* x4 = reinterpret_cast<uint4*>(xs);
+    for (int i0 = threadIdx.x; i0 < n; i0 += U * THREADS) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * THREADS, e = i / cc, c = i % cc;
+        const int src = i < n ? z_source(t0, e, d, S) : -1;
+        v[u] = src >= 0 ? *reinterpret_cast<const uint4*>(cur + (size_t)src * C + c0 + 8 * c)
+                        : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * THREADS;
+        if (i < n) {
+          uint4 w = v[u];
+          w.x = lrelu_bf16x2(w.x);
+          w.y = lrelu_bf16x2(w.y);
+          w.z = lrelu_bf16x2(w.z);
+          w.w = lrelu_bf16x2(w.w);
+          x4[(size_t)(i % cc) * R + i / cc] = w;
+        }
+      }
+    }
+    const int cz = min(NCH, (cw + 15) / 16 * 2) - cc;  // chunks of zeros
+    for (int i = threadIdx.x; i < cz * rows_in; i += THREADS)
+      x4[(size_t)(cc + i / rows_in) * R + i % rows_in] = make_uint4(0u, 0u, 0u, 0u);
+  };
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int rw = wg * 64 + warp * 16 + g8;  // tile row of h = 0 (h = 1: + 8)
+  const uint32_t xa = smem_u32(xs) + wg * 64 * 16, lbo = R * 16, tap = d * 16;
+  float acc[NW / 2];
+  gather(0);
+  fence_proxy_async_smem();  // the products read xs by descriptor
+  __syncthreads();
+  conv_product<NW, KT>(acc, ring, load, 0, xa, lbo, 0, SB / 2, 3, min(XC, C), tap);
+  int it = conv_tiles(3, min(XC, C), KT);
+  for (int q = 1; q < nc; ++q) {
+    __syncthreads();  // every warp's products have read chunk q - 1
+    gather(q);
+    fence_proxy_async_smem();
+    __syncthreads();
+    const int cw = min(XC, C - q * XC);
+    conv_product<NW, KT, true>(acc, ring, load, it, xa, lbo, 0, SB / 2, 3, cw, tap);
+    it += conv_tiles(3, cw, KT);
+  }
+
+  bf16* hid = static_cast<bf16*>(a.out) + (size_t)b * S * C;
+  const int cb = opaque(2 * t4);  // column of n-tile 0 in the part
+#pragma unroll
+  for (int ni = 0; ni < NW / 8; ++ni) {
+    const int n = cb + ni * 8, gc = c00 + n;
+    if (gc >= C) continue;  // C is a multiple of 8: gc + 1 < C too
+    const float2 bb = *reinterpret_cast<const float2*>(bias + n);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tg = t0 + rw + 8 * h;
+      if (tg >= S) continue;
+      *reinterpret_cast<uint32_t*>(hid + (size_t)tg * C + gc) =
+          pack_bf16(lrelu(acc[ni * 4 + 2 * h] + bb.x), lrelu(acc[ni * 4 + 2 * h + 1] + bb.y));
+    }
+  }
+}
+
+// Launch 2 of a block of the stack: out = round(cur + round(h W2^T + b2))
+// over the B * S rows, 128 rows (blockIdx.x) x 256 columns (blockIdx.y).
+// out may be cur: each thread reads a pair of the residual and writes it back.
+__global__ void __launch_bounds__(THREADS, 1)
+resstack_wide_out_kernel(const __grid_constant__ CUtensorMap th,
+                         const __grid_constant__ CUtensorMap tw2,
+                         const __grid_constant__ WideArgs a, int rows) {
+  constexpr int M = RW_M, NW = RW_N, SA = M * 128, SB = RW_SB2;
+  extern __shared__ unsigned char smem_raw[];
+  const int C = a.C, c00 = blockIdx.y * NW, r0 = blockIdx.x * M;
+  unsigned char* ring_g = smem_align1024(smem_raw);
+  float* bias = reinterpret_cast<float*>(ring_g + a.st * SB);  // [NW]
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias + NW);
+  const int nk = (C + 63) / 64;
+  Ring ring{smem_u32(ring_g), ring_g, full, full + a.st, a.st, SB, 0, nk};
+  ring.init();
+  for (int i = threadIdx.x; i < NW; i += THREADS)
+    bias[i] = c00 + i < C ? a.b[c00 + i] : 0.f;
+  __syncthreads();
+  // tile i: the hidden's rows r0 .. r0 + 127 and w2's rows c00 .. c00 + 255,
+  // input columns 64 i .. 64 i + 63 (zeros past C and past the rows)
+  auto load = [&](int i, unsigned char* dst, uint64_t* bar) {
+    tma_load_2d(dst, &th, bar, i * 64, r0);
+    tma_load_2d(dst + SA, &tw2, bar, i * 64, c00);
+  };
+  if (threadIdx.x == 0) ring.top_up(0, load);
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, g8 = lane >> 2, t4 = lane & 3;
+  float acc[NW / 2];
+  // every tile's four k-steps (zeros past C), the first tile's first
+  // overwriting the accumulators (known at compile time: no wgmma behind a
+  // runtime guard), each tile retired before the next
+  auto step = [&](int it, auto first) {
+    const uint32_t s0 = ring.acquire(it, load);
+    const uint32_t at = s0 + wg * 64 * 128, bt = s0 + SA;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      wgmma_ss_k<NW>(acc, kmajor_desc(at, s), kmajor_desc(bt, s),
+                     decltype(first)::value && s == 0 ? 0 : 1);
+    wgmma_commit();
+    if (threadIdx.x == 0) ring.top_up(0, load);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    warp_arrive(&ring.empty[it % a.st]);
+  };
+  step(0, Int<1>{});
+  for (int it = 1; it < nk; ++it) step(it, Int<0>{});
+
+  const bf16* cur = static_cast<const bf16*>(a.cur);
+  bf16* out = static_cast<bf16*>(a.out);
+  const int rw = r0 + wg * 64 + warp * 16 + g8;
+  const int cb = opaque(2 * t4);
+#pragma unroll
+  for (int ni = 0; ni < NW / 8; ++ni) {
+    const int n = cb + ni * 8, gc = c00 + n;
+    if (gc >= C) continue;
+    const float2 bb = *reinterpret_cast<const float2*>(bias + n);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw + 8 * h;
+      if (r >= rows) continue;
+      const size_t off = (size_t)r * C + gc;
+      const __nv_bfloat162 o = *reinterpret_cast<const __nv_bfloat162*>(cur + off);
+      *reinterpret_cast<uint32_t*>(out + off) =
+          pack_bf16(__low2float(o) + bf16r(acc[ni * 4 + 2 * h] + bb.x),
+                    __high2float(o) + bf16r(acc[ni * 4 + 2 * h + 1] + bb.y));
+    }
+  }
+}
+
+// Launch 1's tiling for dilation d: z columns a chunk (256, or 128 where a
+// 256-column tile of 128 + 2d rows leaves no room for two ring stages), ring
+// stages and bytes; false where no chunk fits.
+bool wide_conv_plan(int d, int* xc, int* st, int* smem) {
+  const int chunks[2] = {256, 128};
+  for (int c : chunks) {
+    const long buf = (long)c * (((RW_M + 2 * d) | 1)) * 2 + 4L * RW_N;
+    const long s = std::min(4L, (SMEM_MAX - SLACK - buf) / RW_SB1);
+    if (s >= 2) {
+      *xc = c;
+      *st = (int)s;
+      *smem = (int)(buf + s * RW_SB1 + SLACK);
+      return true;
+    }
+  }
+  return false;
+}
+
+constexpr int WF_T = 64;  // the f32 wide path: rows and columns of a block
+constexpr int WF_K = 16;  // input columns a step
+
+// One launch of the f32 wide path, 64 rows (blockIdx.x) x 64 columns
+// (blockIdx.y) of batch row blockIdx.z, each thread 4 x 4. CONV: h =
+// lrelu(sum_j lrelu(cur[t + (j-1)d]) W1_j + b1) (rows outside [0, S)
+// mirrored); else out = cur + (h W2^T + b2), out may be cur. Each output
+// sums its products in input order, tap by tap, as resstack_f32_kernel does.
+template <bool CONV>
+__global__ void __launch_bounds__(256)
+resstack_f32_wide_kernel(const float* __restrict__ src, const float* __restrict__ w,
+                         const float* __restrict__ bias, const float* cur, float* out, int S,
+                         int C, int d) {
+  __shared__ float as[WF_K][WF_T + 4];  // [k][row]
+  __shared__ float bs[WF_K][WF_T + 4];  // [k][column]
+  const int b = blockIdx.z, t0 = blockIdx.x * WF_T, n0 = blockIdx.y * WF_T;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const size_t row0 = (size_t)b * S;
+  const int taps = CONV ? 3 : 1, ldw = taps * C;
+  float acc[4][4] = {};
+  for (int j = 0; j < taps; ++j) {
+    for (int k0 = 0; k0 < C; k0 += WF_K) {
+      for (int i = threadIdx.x; i < WF_K * WF_T; i += 256) {
+        const int kk = i % WF_K, r = i / WF_K, c = k0 + kk;
+        float v = 0.f;
+        if (c < C) {
+          if (CONV) {
+            const int tg = t0 + r + (j - 1) * d;
+            const int sg = tg < 0 || tg >= S ? mirror_src(tg, S) : tg;
+            if (tg < S + d && t0 + r < S) v = lrelu(src[(row0 + sg) * C + c]);
+          } else if (t0 + r < S) {
+            v = src[(row0 + t0 + r) * C + c];
+          }
+        }
+        as[kk][r] = v;
+        const int n = n0 + r;
+        bs[kk][r] = n < C && c < C ? w[(size_t)n * ldw + j * C + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < WF_K; ++kk) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          av[q] = as[kk][ty * 4 + q];
+          bv[q] = bs[kk][tx * 4 + q];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int p = 0; p < 4; ++p) acc[q][p] += av[q] * bv[p];
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int tg = t0 + ty * 4 + q;
+    if (tg >= S) continue;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int n = n0 + tx * 4 + p;
+      if (n >= C) continue;
+      const size_t o = (row0 + tg) * C + n;
+      if (CONV)
+        out[o] = lrelu(acc[q][p] + bias[n]);
+      else
+        out[o] = cur[o] + (acc[q][p] + bias[n]);
+    }
+  }
+}
+
 template <class K>
 cudaError_t launch_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
                         const float* b2, bf16* out, int B, int S, int n, Dilations dil,
@@ -490,6 +805,73 @@ FS2_EXPORT int fs2_resstack_bf16(const bf16* x, const bf16* w1, const float* b1,
       return (int)cudaErrorInvalidValue;
   }
 #undef FS2_RESSTACK_CASE
+}
+
+// The wide path (C > 256): x, out (B, S, C) bf16, weights and biases as for
+// fs2_resstack_bf16, hid a (B, S, C) bf16 scratch; C a multiple of 8 from
+// 264 to 1024, each dilation at most 64. Two launches a block of the stack.
+FS2_EXPORT int fs2_resstack_bf16_wide(const bf16* x, const bf16* w1, const float* b1,
+                                      const bf16* w2, const float* b2, bf16* out, bf16* hid,
+                                      int B, int S, int C, const int* dilations, int n,
+                                      void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  Dilations dil;
+  int halo, guard;
+  if (!read_dilations(dilations, n, &dil, &halo, &guard) || S <= halo || B < 1 || C <= 256 ||
+      C > 1024 || C % 8 != 0 || guard > 64)
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * S, st2 = std::min(4, (SMEM_MAX - SLACK - 4 * RW_N) / RW_SB2);
+  const int smem2 = st2 * RW_SB2 + 4 * RW_N + SLACK;
+  cudaError_t e;
+  CUtensorMap th;
+  if ((e = tma_map_bf16_2d(&th, hid, C, (uint64_t)rows, C, RW_M)) != cudaSuccess) return (int)e;
+  for (int bi = 0; bi < n; ++bi) {
+    int xc, st1, smem1;
+    if (!wide_conv_plan(dil.d[bi], &xc, &st1, &smem1)) return (int)cudaErrorInvalidValue;
+    const bf16* cur = bi == 0 ? x : out;
+    CUtensorMap tw1, tw2;
+    if ((e = tma_map_bf16_taps(&tw1, w1 + (size_t)bi * C * 3 * C, C, 3, C, C, RW_N)) !=
+            cudaSuccess ||
+        (e = tma_map_bf16_2d(&tw2, w2 + (size_t)bi * C * C, C, C, C, RW_N)) != cudaSuccess)
+      return (int)e;
+    const WideArgs a1{cur, b1 + (size_t)bi * C, hid, S, C, dil.d[bi], st1, xc};
+    if ((e = set_smem(resstack_wide_conv_kernel, smem1)) != cudaSuccess) return (int)e;
+    resstack_wide_conv_kernel<<<dim3((S + RW_M - 1) / RW_M, (C + RW_N - 1) / RW_N, B), THREADS,
+                                smem1, stream>>>(tw1, a1);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const WideArgs a2{cur, b2 + (size_t)bi * C, out, S, C, dil.d[bi], st2, 0};
+    if ((e = set_smem(resstack_wide_out_kernel, smem2)) != cudaSuccess) return (int)e;
+    resstack_wide_out_kernel<<<dim3((rows + RW_M - 1) / RW_M, (C + RW_N - 1) / RW_N), THREADS,
+                               smem2, stream>>>(th, tw2, a2, rows);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// The f32 wide path (C > 256): as fs2_resstack_f32 with hid a (B, S, C) f32
+// scratch; C a multiple of 8 from 264 to 1024. Two launches a block.
+FS2_EXPORT int fs2_resstack_f32_wide(const float* x, const float* w1, const float* b1,
+                                     const float* w2, const float* b2, float* out, float* hid,
+                                     int B, int S, int C, const int* dilations, int n,
+                                     void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  Dilations dil;
+  int halo, guard;
+  if (!read_dilations(dilations, n, &dil, &halo, &guard) || S <= halo || B < 1 || C <= 256 ||
+      C > 1024 || C % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((S + WF_T - 1) / WF_T, (C + WF_T - 1) / WF_T, B);
+  for (int bi = 0; bi < n; ++bi) {
+    const float* cur = bi == 0 ? x : out;
+    resstack_f32_wide_kernel<true><<<grid, 256, 0, stream>>>(
+        cur, w1 + (size_t)bi * C * 3 * C, b1 + (size_t)bi * C, nullptr, hid, S, C, dil.d[bi]);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    resstack_f32_wide_kernel<false><<<grid, 256, 0, stream>>>(
+        hid, w2 + (size_t)bi * C * C, b2 + (size_t)bi * C, cur, out, S, C, 0);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // x, out (B, S, C) f32; weights as for bf16 but f32: w1 (n, C, 3*C)

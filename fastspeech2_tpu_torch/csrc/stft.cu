@@ -35,8 +35,8 @@
 // 2. A real FFT by a half-size complex FFT, one warp per frame: the n_fft
 //    windowed samples, packed as n_fft/2 complex points (even samples real,
 //    odd imaginary), go through one decimation-in-frequency pass per radix
-//    of the host's plan (8, 4, 2, 5, 3: n_fft/2 = 2^a 3^b 5^c), in place in
-//    the warp's own buffer: a butterfly writes back the points it read, so a
+//    of the plan (`st_make_plan`: 8s, a 4, a 2, 5s, 3s, 7s, 11s, 13s, then
+//    any larger prime factor), in place in the warp's own buffer: a butterfly writes back the points it read, so a
 //    lane needs only its butterflies' points in registers and a pass ends
 //    with one __syncwarp. (A Stockham pass in place has to hold a lane's
 //    whole share of the frame across a __syncwarp: it spilled at 128 and at
@@ -57,14 +57,23 @@
 // 4. The (n_mels x FT) log-mel tile is staged in shared memory over the dead
 //    signal span and written band by band as contiguous runs of FT frames.
 //    Frames past F are neither computed nor written.
+// Every hop from 1 to 1024. A prime factor above 13 (hop 257: n_fft / 2 =
+// 2 * 257) takes a direct DFT pass: each butterfly's R outputs, a lane at a
+// time, as sums of R products with the R-th roots of unity (a float64 table
+// cast once, beside the twiddles), written to the warp's magnitude row (free
+// until the untangle) and copied back after a __syncwarp; N * R operations a
+// frame where a register butterfly costs N * log R. Frames a block: 8 where
+// the layout fits in shared memory, else 4 (hop above ~770; 4 warps a
+// block). Plans of radices 8, 4, 2, 5 and 3 with 8 frames a block run the
+// kernel of the hops 32-512 with 2^a 3^b 5^c points, as it was
+// (`stft_fft_kernel<8, false>`: the plan's radices in 4-bit fields).
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NW = THREADS / 32;
-constexpr int FT = 8;  // frames a block: one a warp
-constexpr int MAX_N2 = 1024;  // n_fft / 2 for hop 512
+constexpr int MAX_N2 = 2048;      // n_fft / 2 for hop 1024
+constexpr int MAX_PASSES = 12;    // 2 * 3^6 = 1,458 points take 7
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on the H100
 
 __device__ __forceinline__ int bpad(int i) { return i + (i >> 4); }
 
@@ -160,6 +169,67 @@ __device__ __forceinline__ void dft<5>(float2* v) {
   v[3] = cadd(a2, mul_pi(b2));
 }
 
+// An odd prime R's DFT from the pairs t_k = v_k + v_{R-k}, d_k = v_k -
+// v_{R-k}: out_m = v_0 + sum_k cos(2 pi k m / R) t_k - i sum_k sin(2 pi k m
+// / R) d_k, out_{R-m} the same with + i, k, m = 1 .. (R-1)/2; c[j], s[j] the
+// cosine and sine of 2 pi j / R (the radix-5 and radix-3 passes above are
+// this, written out).
+template <int R>
+__device__ __forceinline__ void dft_odd(float2* v, const float (&c)[(R + 1) / 2],
+                                        const float (&s)[(R + 1) / 2]) {
+  constexpr int H = (R - 1) / 2;
+  float2 t[H], d[H];
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    t[k - 1] = cadd(v[k], v[R - k]);
+    d[k - 1] = csub(v[k], v[R - k]);
+  }
+  const float2 x0 = v[0];
+  float2 sum = x0;
+#pragma unroll
+  for (int k = 0; k < H; ++k) sum = cadd(sum, t[k]);
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    float2 a = x0, b = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 1; k <= H; ++k) {
+      const int j = k * m % R, jj = j <= H ? j : R - j;
+      const float ck = c[jj], sk = j <= H ? s[jj] : -s[jj];
+      a = make_float2(__fmaf_rn(ck, t[k - 1].x, a.x), __fmaf_rn(ck, t[k - 1].y, a.y));
+      b = k == 1 ? make_float2(sk * d[0].x, sk * d[0].y)
+                 : make_float2(__fmaf_rn(sk, d[k - 1].x, b.x), __fmaf_rn(sk, d[k - 1].y, b.y));
+    }
+    v[m] = cadd(a, mul_mi(b));
+    v[R - m] = cadd(a, mul_pi(b));
+  }
+  v[0] = sum;
+}
+
+template <>
+__device__ __forceinline__ void dft<7>(float2* v) {
+  const float c[4] = {1.f, 0.62348980185873353f, -0.22252093395631440f, -0.90096886790241913f};
+  const float s[4] = {0.f, 0.78183148246802981f, 0.97492791218182361f, 0.43388373911755812f};
+  dft_odd<7>(v, c, s);
+}
+
+template <>
+__device__ __forceinline__ void dft<11>(float2* v) {
+  const float c[6] = {1.f, 0.84125353283118117f, 0.41541501300188643f, -0.14231483827328514f,
+                      -0.65486073394528506f, -0.95949297361449739f};
+  const float s[6] = {0.f, 0.54064081745559756f, 0.90963199535451837f, 0.98982144188093274f,
+                      0.75574957435425828f, 0.28173255684142969f};
+  dft_odd<11>(v, c, s);
+}
+
+template <>
+__device__ __forceinline__ void dft<13>(float2* v) {
+  const float c[7] = {1.f, 0.88545602565320989f, 0.56806474673115581f, 0.12053668025532305f,
+                      -0.35460488704253562f, -0.74851074817110109f, -0.97094181742605203f};
+  const float s[7] = {0.f, 0.46472317204376856f, 0.82298386589365635f, 0.99270887409805397f,
+                      0.93501624268541483f, 0.66312265824079520f, 0.23931566428755777f};
+  dft_odd<13>(v, c, s);
+}
+
 // One decimation-in-frequency pass of radix R over the warp's n2 points, in
 // place in z, at stride s (n2 / R for the first pass, 1 for the last):
 // butterfly q (j = q mod s) takes the points at (q - j) R + j + r s, r < R,
@@ -203,36 +273,127 @@ __device__ __forceinline__ void dif_pass(bool first, const float* __restrict__ x
   __syncwarp();
 }
 
-// The block's shared-memory layout, in floats; every part starts on 16 bytes.
+// A direct DFT pass of prime radix R (above 13) over the warp's n2 points at
+// stride s, as dif_pass<R> computes it: butterfly q at a time (the whole
+// warp), output k of a lane as sum_n v_n exp(-2 pi i n k / R) (`roots`, the
+// R roots of unity), times its twiddle, into `scr` (2 R floats, the warp's
+// magnitude row); then back where the butterfly read. Never a first pass (n2
+// is even: the plan starts with an 8, a 4 or a 2).
+__device__ __noinline__ void direct_pass(float2* z, const float2* __restrict__ roots,
+                                         float* scr, const float2* tw, int n2, int R, int s,
+                                         int lane) {
+  for (int q = 0; q < n2 / R; ++q) {
+    const int j = q % s, base = (q - j) * R + j;
+    for (int k = lane; k < R; k += 32) {
+      float2 acc = make_float2(0.f, 0.f);
+      for (int n = 0, m = 0; n < R; ++n) {
+        const float2 v = z[bpad(base + n * s)], w = roots[m];
+        acc = make_float2(__fmaf_rn(v.x, w.x, __fmaf_rn(-v.y, w.y, acc.x)),
+                          __fmaf_rn(v.x, w.y, __fmaf_rn(v.y, w.x, acc.y)));
+        m += k;
+        if (m >= R) m -= R;
+      }
+      if (s > 1 && k > 0) acc = cmul(acc, tw[(s - 1) + (k - 1) * s + j]);
+      scr[2 * k] = acc.x;
+      scr[2 * k + 1] = acc.y;
+    }
+    __syncwarp();
+    for (int k = lane; k < R; k += 32) z[bpad(base + k * s)] = make_float2(scr[2 * k], scr[2 * k + 1]);
+    __syncwarp();
+  }
+}
+
+// The block's shared-memory layout, in floats, for FT frames a block (one
+// warp each) and `roots` floats of direct-pass roots; every part starts on
+// 16 bytes.
 struct Layout {
   int span, tables, fft, buf, mag, en, total;
-  __host__ __device__ Layout(int hop, int n_mels) {
+  __host__ __device__ Layout(int hop, int n_mels, int FT, int roots) {
     const int n2 = 2 * hop, n_freq = n2 + 1;
     const int span4 = ((FT + 3) * hop + 3) & ~3;
     const int tile = n_mels * FT;
     span = 0;
     tables = ((span4 > tile ? span4 : tile) + 3) & ~3;
     buf = (2 * (n2 + (n2 - 1) / 16 + 1) + 3) & ~3;  // one warp's buffer
-    fft = tables + table_floats(hop);
-    mag = fft + NW * buf;
+    fft = tables + table_floats(hop) + roots;
+    mag = fft + FT * buf;
     en = mag + ((FT * n_freq + 3) & ~3);
     total = en + FT;
   }
   // window (n_fft) | pass twiddles (n2 - 1 complex) | untangle twiddles
   // (n2/2 + 1 complex) | where each bin lands (n2 int32), each part rounded
-  // up to 4 floats
+  // up to 4 floats; the direct passes' roots follow
   __host__ __device__ static int table_floats(int hop) {
     return 4 * hop + 4 * hop + ((2 * (hop + 1) + 3) & ~3) + ((2 * hop + 3) & ~3);
   }
 };
 
-__global__ void __launch_bounds__(THREADS, 3)
+// The radices of a plan, in pass order (a kernel parameter read by index).
+struct Passes {
+  int n;
+  int r[MAX_PASSES];
+};
+
+// The plan of one hop; mirrors ops/kernels/stft.py:plan (fs2_stft_plan lets a
+// test hold the two together).
+struct StPlan {
+  Passes p;
+  int gen;    // a radix other than 8, 4, 2, 5, 3
+  int roots;  // floats of the direct passes' roots, rounded up to 4
+  int ft;     // frames a block
+  int smem;   // bytes
+};
+
+bool st_make_plan(int hop, int n_mels, StPlan* pl) {
+  if (hop < 1 || 2 * hop > MAX_N2 || n_mels < 1 || n_mels > 2 * hop + 1) return false;
+  int n = 2 * hop, roots = 0;
+  pl->p.n = 0;
+  pl->gen = 0;
+  auto push = [&](int r) {
+    if (pl->p.n == MAX_PASSES) return false;
+    pl->p.r[pl->p.n++] = r;
+    n /= r;
+    return true;
+  };
+  const int reg[8][2] = {{8, 0}, {4, 1}, {2, 1}, {5, 0}, {3, 0}, {7, 0}, {11, 0}, {13, 0}};
+  for (const auto& ro : reg) {
+    while (n % ro[0] == 0) {
+      if (!push(ro[0])) return false;
+      pl->gen |= ro[0] == 7 || ro[0] > 8;  // no 4-bit field for these
+      if (ro[1]) break;
+    }
+  }
+  for (int q = 17; n > 1; q += 2) {
+    while (n % q == 0) {
+      if (!push(q)) return false;
+      pl->gen = 1;
+      roots += q;
+    }
+  }
+  pl->roots = (2 * roots + 3) & ~3;
+  const int fts[2] = {8, 4};
+  for (int ft : fts) {
+    pl->ft = ft;
+    pl->smem = (int)sizeof(float) * Layout(hop, n_mels, ft, pl->roots).total;
+    if (pl->smem <= SMEM_MAX) return true;
+  }
+  return false;
+}
+
+// FT frames a block (a warp each). GEN: any plan (`ps`, radices by index,
+// `roots` floats of direct-pass roots after the tables); else radices 8, 4,
+// 2, 5 and 3 in 4-bit fields of `plan`, first pass lowest.
+template <int FT, bool GEN>
+__global__ void __launch_bounds__(32 * FT, GEN && FT == 8 ? 2 : 3)
 stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
+                const __grid_constant__ Passes ps, int roots,
                 const float* __restrict__ tables, const int2* __restrict__ bands,
                 const float* __restrict__ fb, int n_mels, float clip,
                 float* __restrict__ mel_out, float* __restrict__ en_out) {
+  constexpr int THREADS = 32 * FT;
   extern __shared__ __align__(16) float smem[];
-  const Layout L(hop, n_mels);
+  const int rf = GEN ? roots : 0;
+  const Layout L(hop, n_mels, FT, rf);
   const int n_fft = 4 * hop, n2 = 2 * hop, n_freq = n2 + 1;
   const int b = blockIdx.y, f0 = blockIdx.x * FT;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
@@ -249,7 +410,7 @@ stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
   //    sample g is y[g - 2 hop] reflected into [0, N) (numpy's reflect,
   //    again and again where the row is shorter than the pad)
   {
-    const int table_groups = Layout::table_floats(hop) / 4;
+    const int table_groups = (Layout::table_floats(hop) + rf) / 4;
     for (int i = t; i < table_groups; i += THREADS)
       cp_async16(tab + 4 * i, tables + 4 * i, true);
     cp_async_commit();
@@ -274,23 +435,52 @@ stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
   float2* z = reinterpret_cast<float2*>(smem + L.fft + warp * L.buf);
   if (f0 + warp < F) {
     const float* x = sig + warp * hop;
+    float* m = mag + warp * n_freq;
     int s = n2;
-    for (int p = 0, code = plan; code != 0; ++p, code >>= 4) {
-      const int R = code & 15;
-      s /= R;
-      if (R == 8)
-        dif_pass<8>(p == 0, x, win, z, tw, n2, s, lane);
-      else if (R == 4)
-        dif_pass<4>(p == 0, x, win, z, tw, n2, s, lane);
-      else if (R == 2)
-        dif_pass<2>(p == 0, x, win, z, tw, n2, s, lane);
-      else if (R == 5)
-        dif_pass<5>(p == 0, x, win, z, tw, n2, s, lane);
-      else
-        dif_pass<3>(p == 0, x, win, z, tw, n2, s, lane);
+    if constexpr (!GEN) {
+      for (int p = 0, code = plan; code != 0; ++p, code >>= 4) {
+        const int R = code & 15;
+        s /= R;
+        if (R == 8)
+          dif_pass<8>(p == 0, x, win, z, tw, n2, s, lane);
+        else if (R == 4)
+          dif_pass<4>(p == 0, x, win, z, tw, n2, s, lane);
+        else if (R == 2)
+          dif_pass<2>(p == 0, x, win, z, tw, n2, s, lane);
+        else if (R == 5)
+          dif_pass<5>(p == 0, x, win, z, tw, n2, s, lane);
+        else
+          dif_pass<3>(p == 0, x, win, z, tw, n2, s, lane);
+      }
+    } else {
+      // the first pass is an 8, a 4 or a 2 (n2 is even)
+      const float2* rt = reinterpret_cast<const float2*>(tab + Layout::table_floats(hop));
+      for (int p = 0; p < ps.n; ++p) {
+        const int R = ps.r[p];
+        s /= R;
+        if (R == 8)
+          dif_pass<8>(p == 0, x, win, z, tw, n2, s, lane);
+        else if (R == 4)
+          dif_pass<4>(p == 0, x, win, z, tw, n2, s, lane);
+        else if (R == 2)
+          dif_pass<2>(p == 0, x, win, z, tw, n2, s, lane);
+        else if (R == 5)
+          dif_pass<5>(false, x, win, z, tw, n2, s, lane);
+        else if (R == 3)
+          dif_pass<3>(false, x, win, z, tw, n2, s, lane);
+        else if (R == 7)
+          dif_pass<7>(false, x, win, z, tw, n2, s, lane);
+        else if (R == 11)
+          dif_pass<11>(false, x, win, z, tw, n2, s, lane);
+        else if (R == 13)
+          dif_pass<13>(false, x, win, z, tw, n2, s, lane);
+        else {
+          direct_pass(z, rt, m, tw, n2, R, s, lane);
+          rt += R;
+        }
+      }
     }
     // Z[k] sits at pos[k] (the passes leave the bins digit-reversed)
-    float* m = mag + warp * n_freq;
     float e = 0.f;
     for (int k = lane; k <= hop; k += 32) {  // bins k and n2 - k
       const float2 A = z[bpad(pos[k])], Bc = z[bpad(pos[k == 0 ? 0 : n2 - k])];
@@ -340,33 +530,60 @@ stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
 
 }  // namespace
 
+template <int FT, bool GEN>
+cudaError_t launch_frames(const StPlan& pl, int code, const float* y, int B, int N, int F,
+                          int hop, const float* tables, const int* bands, const float* fb,
+                          int n_mels, float clip, float* mel_out, float* en_out,
+                          cudaStream_t stream) {
+  cudaError_t e = set_smem(stft_fft_kernel<FT, GEN>, pl.smem);
+  if (e != cudaSuccess) return e;
+  stft_fft_kernel<FT, GEN><<<dim3((F + FT - 1) / FT, B), 32 * FT, pl.smem, stream>>>(
+      y, N, F, hop, code, pl.p, pl.roots, tables, reinterpret_cast<const int2*>(bands), fb,
+      n_mels, clip, mel_out, en_out);
+  return cudaGetLastError();
+}
+
 // y (B, N) f32, the signal (the kernel center-pads it by reflection);
-// tables: the window, pass and untangle twiddles and the bins' positions
-// (Layout::table_floats(hop) f32) for the radix plan `plan` (one radix per 4
-// bits, first pass lowest; their product n_fft / 2 = 2 * hop); bands
-// (n_mels) int2: each band's first nonzero bin and bin count in fb (n_mels,
-// n_freq) f32. Writes mel_out (B, n_mels, F) = log(max(mel, clip)) and
-// en_out (B, F), F = N / hop + 1. hop 32-512, n_mels 1 to n_freq.
-FS2_EXPORT int fs2_stft_mel_energy(const float* y, int B, int N, int hop, int plan,
-                                   const float* tables, const int* bands, const float* fb,
-                                   int n_mels, float clip, float* mel_out, float* en_out,
-                                   void* stream_ptr) {
+// tables: the window, pass and untangle twiddles, the bins' positions
+// (Layout::table_floats(hop) f32) and the direct passes' roots for the plan
+// of `hop` (ops/kernels/stft.py:_device_tables); bands (n_mels) int2: each
+// band's first nonzero bin and bin count in fb (n_mels, n_freq) f32. Writes
+// mel_out (B, n_mels, F) = log(max(mel, clip)) and en_out (B, F), F = N /
+// hop + 1. hop 1-1024, n_mels 1 to n_freq.
+FS2_EXPORT int fs2_stft_mel_energy(const float* y, int B, int N, int hop, const float* tables,
+                                   const int* bands, const float* fb, int n_mels, float clip,
+                                   float* mel_out, float* en_out, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  long prod = 1;
-  for (int code = plan; code != 0; code >>= 4) {
-    const int R = code & 15;
-    if (R != 2 && R != 3 && R != 4 && R != 5 && R != 8) return (int)cudaErrorInvalidValue;
-    prod *= R;
-  }
-  if (B < 1 || B > 65535 || N < 1 || N > (1 << 30) || hop < 32 || 2 * hop > MAX_N2 ||
-      prod != 2 * hop || n_mels < 1 || n_mels > 2 * hop + 1)
+  StPlan pl;
+  if (B < 1 || B > 65535 || N < 1 || N > (1 << 30) || !st_make_plan(hop, n_mels, &pl))
     return (int)cudaErrorInvalidValue;
   const int F = N / hop + 1;
-  const size_t smem = sizeof(float) * (size_t)Layout(hop, n_mels).total;
-  cudaError_t e = set_smem(stft_fft_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  stft_fft_kernel<<<dim3((F + FT - 1) / FT, B), THREADS, smem, stream>>>(
-      y, N, F, hop, plan, tables, reinterpret_cast<const int2*>(bands), fb, n_mels,
-      clip, mel_out, en_out);
-  return (int)cudaGetLastError();
+  cudaError_t e;
+  if (pl.ft == 8 && !pl.gen) {
+    int code = 0;
+    for (int i = 0; i < pl.p.n; ++i) code |= pl.p.r[i] << (4 * i);
+    e = launch_frames<8, false>(pl, code, y, B, N, F, hop, tables, bands, fb, n_mels, clip,
+                                mel_out, en_out, stream);
+  } else if (pl.ft == 8) {
+    e = launch_frames<8, true>(pl, 0, y, B, N, F, hop, tables, bands, fb, n_mels, clip,
+                               mel_out, en_out, stream);
+  } else {
+    e = launch_frames<4, true>(pl, 0, y, B, N, F, hop, tables, bands, fb, n_mels, clip,
+                               mel_out, en_out, stream);
+  }
+  return (int)e;
+}
+
+// The plan of a hop, as ops/kernels/stft.py:plan gives its radices: the
+// number of passes, 12 radices, the frames a block and the shared-memory
+// bytes into out[0..14]. Returns 0, or cudaErrorInvalidValue for a hop (or
+// band count) the kernel does not take.
+FS2_EXPORT int fs2_stft_plan(int hop, int n_mels, int* out) {
+  StPlan pl;
+  if (!st_make_plan(hop, n_mels, &pl)) return (int)cudaErrorInvalidValue;
+  out[0] = pl.p.n;
+  for (int i = 0; i < MAX_PASSES; ++i) out[1 + i] = i < pl.p.n ? pl.p.r[i] : 0;
+  out[13] = pl.ft;
+  out[14] = pl.smem;
+  return 0;
 }

@@ -3,16 +3,19 @@
 dilation, on a (B, S, C) activation.
 
 Port of ``fastspeech2_tpu/ops/pallas/resstack.py:resstack_fused`` (kernel
-``_resstack_kernel``). CUDA source: ``csrc/resstack.cu`` (one launch per
-stage; a bf16 wgmma/TMA kernel and an f32 kernel).
+``_resstack_kernel``). CUDA source: ``csrc/resstack.cu``: up to C = 256 one
+launch per stage (a bf16 wgmma/TMA kernel and an f32 kernel); above, the
+wide path, two launches per dilated block through a (B, S, C) hidden
+scratch (the 3-tap product, then the k=1 product with the residual).
 
-Widths: the bf16 kernel takes C a multiple of 16 up to 128 and of 32 up to
-256 (``served_width``); any other C up to 256 is zero-padded to the next of
-those (``pad_channels``), as the JAX kernel pads to 128 lanes: zero weight
-rows and columns and zero biases keep the padded channels at exactly 0
-through every block, so the real channels are unchanged. C > 256 raises (the
-64 x C f32 output of a warpgroup would need C / 2 registers a thread). The
-f32 kernel takes C a multiple of 8 up to 256.
+Widths: every C from 1 to 1024 in both compute dtypes. The bf16 kernel takes
+C a multiple of 16 up to 128, of 32 up to 256 and of 8 up to 1024
+(``served_width``), the f32 kernels C a multiple of 8 up to 1024
+(``f32_width``); any other C is zero-padded to the next of those
+(``pad_channels``), as the JAX kernel pads to 128 lanes: zero weight rows
+and columns and zero biases keep the padded channels at exactly 0 through
+every block, so the real channels are unchanged. C > 1024 raises, and so
+does a dilation above 64 on the wide path (its z tile of 128 + 2d rows).
 
 Rounding points follow the TPU kernel (cd = the compute dtype, the weights'
 dtype): ``lrelu`` of the cd activation is rounded to cd; the three taps'
@@ -39,6 +42,9 @@ _fns = {}
 
 LRELU_SLOPE = 0.2
 _TILES = (2048, 1024, 512, 256, 128)
+#: the widest stage the kernels take, the narrow kernels' widest, and the
+#: wide path's largest dilation
+MAX_WIDTH, NARROW_WIDTH, MAX_WIDE_DILATION = 1024, 256, 64
 
 
 def resstack_tile(S: int) -> int:
@@ -52,11 +58,26 @@ def resstack_tile(S: int) -> int:
 
 
 def served_width(C: int) -> int:
-    """The bf16 kernel's width for a C-channel stage: C rounded up to a
-    multiple of 16 up to 128, of 32 up to 256; 0 above 256."""
+    """The bf16 kernels' width for a C-channel stage: C rounded up to a
+    multiple of 16 up to 128, of 32 up to 256 and of 8 up to 1024 (the wide
+    path); 0 above 1024."""
     if C <= 128:
         return max(16, -(-C // 16) * 16)
-    return -(-C // 32) * 32 if C <= 256 else 0
+    if C <= NARROW_WIDTH:
+        return -(-C // 32) * 32
+    return -(-C // 8) * 8 if C <= MAX_WIDTH else 0
+
+
+def f32_width(C: int) -> int:
+    """The f32 kernels' width for a C-channel stage: C rounded up to a
+    multiple of 8 up to 1024 (the wide path above 256); 0 above 1024."""
+    return -(-C // 8) * 8 if C <= MAX_WIDTH else 0
+
+
+def wide(C: int) -> bool:
+    """Whether a stage of C kernel channels takes the wide path (two
+    launches per dilated block)."""
+    return C > NARROW_WIDTH
 
 
 def pad_channels(x, w1, b1, w2, b2, Cp: int):
@@ -112,39 +133,40 @@ def resstack(x, w1, b1, w2, b2, dilations: Sequence[int] = (1, 3, 9)):
             raise ValueError(f"resstack: S={S} is not a multiple of {_TILES[-1]}")
         if not 1 <= n <= 8 or min(dilations) < 1:
             raise ValueError(f"resstack: dilations {tuple(dilations)} not supported")
-        bf16 = cd == torch.bfloat16
-        Cp = served_width(C) if bf16 else C
+        Cp = served_width(C) if cd == torch.bfloat16 else f32_width(C)
         if Cp == 0:
-            raise ValueError(f"resstack: C={C} not supported by the {cd} kernel (at most "
-                             "256: a warpgroup's 64 x C f32 output takes C / 2 registers "
-                             "a thread)")
-        if not bf16 and (C % 8 or C > 256):
-            raise ValueError(f"resstack: C={C} not supported by the {cd} kernel")
+            raise ValueError(f"resstack: C={C} not supported by the {cd} kernels (at most "
+                             f"{MAX_WIDTH} channels)")
+        if wide(Cp) and max(dilations) > MAX_WIDE_DILATION:
+            raise ValueError(f"resstack: dilations {tuple(dilations)} not supported at C={C} "
+                             f"(the wide path takes dilations up to {MAX_WIDE_DILATION})")
         if Cp != C:
             return resstack(*pad_channels(x, w1, b1, w2, b2, Cp), dilations)[..., :C].contiguous()
     return torch.ops.fs2.resstack.default(x, w1, b1, w2, b2, list(dilations))
 
 
 def launch(x, w1, b1, w2, b2, dilations: Sequence[int]):
-    """The CUDA implementation of ``fs2::resstack`` on checked inputs."""
+    """The CUDA implementation of ``fs2::resstack`` on checked inputs. The
+    count rises by one per kernel launch: one a stage up to C = 256, two per
+    dilated block on the wide path."""
     global launches
     B, S, C = x.shape
-    n, cd = len(dilations), w1.dtype
-    bf16 = cd == torch.bfloat16
-    fn = _fns.get(cd)
+    n, cd, is_wide = len(dilations), w1.dtype, wide(C)
+    fn = _fns.get((cd, is_wide))
     if fn is None:
         P, I = common.P, common.I
-        fn = _fns[cd] = common.bind(
-            common.load("resstack"),
-            "fs2_resstack_bf16" if bf16 else "fs2_resstack_f32",
-            [P] * 6 + [I] * 3 + [ctypes.POINTER(ctypes.c_int), I, P])
+        name = "fs2_resstack_" + ("bf16" if cd == torch.bfloat16 else "f32")
+        fn = _fns[cd, is_wide] = common.bind(
+            common.load("resstack"), name + ("_wide" if is_wide else ""),
+            [P] * (7 if is_wide else 6) + [I] * 3 + [ctypes.POINTER(ctypes.c_int), I, P])
     out = torch.empty_like(x)
     dil = (ctypes.c_int * n)(*dilations)
+    hidden = [torch.empty_like(x)] if is_wide else []  # the wide path's scratch
     common.launch(fn, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                  b2.data_ptr(), out.data_ptr(), B, S, C, dil, n,
-                  common.stream_of(x))
+                  b2.data_ptr(), out.data_ptr(), *(h.data_ptr() for h in hidden),
+                  B, S, C, dil, n, common.stream_of(x))
     with common.count_lock:
-        launches += 1
+        launches += 2 * n if is_wide else 1
     return out
 
 

@@ -4,11 +4,12 @@
 
 Port of ``fastspeech2_tpu/ops/pallas/stft.py:stft_mel_energy`` (kernel
 ``_stft_mel_kernel``). CUDA source: ``csrc/stft.cu``, one launch per batch,
-full f32: a real FFT of each frame in shared memory (a Stockham FFT of
-``n_fft / 2`` complex points, radices 8, 4, 2, 5 and 3), then ``|X|``, the
-energy and the mel projection over each band's nonzero bins. It takes every
-``hop`` from 32 to 512 whose ``n_fft / 2 = 2 * hop`` factors into 2, 3 and 5
-(:func:`plan`), ``win_length <= n_fft`` and 1 to ``n_fft / 2 + 1`` mels.
+full f32: a real FFT of each frame in shared memory (in-place
+decimation-in-frequency passes over ``n_fft / 2`` complex points: register
+butterflies of radix 8, 4, 2, 5, 3, 7, 11 and 13, a direct DFT pass for any
+larger prime), then ``|X|``, the energy and the mel projection over each
+band's nonzero bins. It takes every ``hop`` from 1 to 1024 (:func:`plan`),
+``win_length <= n_fft`` and 1 to ``n_fft / 2 + 1`` mels.
 
 The kernel reads the signal itself and pads it by reflection as it loads a
 block's span (the JAX wrapper pads outside its kernel: here that would be
@@ -21,6 +22,7 @@ end are the caller's to trim.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
 from typing import Tuple
@@ -36,7 +38,10 @@ launches = 0
 _fn = None
 
 _RATIO = 4  # n_fft // hop_length; the only case the reference uses
-MIN_HOP, MAX_HOP = 32, 512
+MIN_HOP, MAX_HOP = 1, 1024
+#: the radices with register butterflies, in plan order after the 8s, the 4
+#: and the 2; a larger prime factor takes a direct DFT pass
+REGISTER_RADICES = (5, 3, 7, 11, 13)
 _bands_lock = threading.Lock()
 _bands_cache: dict = {}
 _BANDS_KEPT = 8
@@ -54,29 +59,40 @@ def stft_mel_energy_plain(y, mel_basis, n_fft: int = 1024, hop_length: int = 256
 
 def plan(n_fft: int) -> Tuple[int, ...]:
     """The radices of the kernel's ``n_fft / 2``-point complex FFT, in the
-    order of its passes: as many 8s as divide it, then a 4, a 2, 5s and 3s.
-    Pass p runs at stride ``n_fft / 2`` over the product of the radices up to
-    and including its own (1 for the last). Raises ``ValueError`` unless
-    ``n_fft = 4 * hop`` with ``hop`` in 32..512 and ``n_fft / 2`` a product
-    of 2s, 3s and 5s."""
+    order of its passes: as many 8s as divide it, then a 4, a 2, 5s, 3s, 7s,
+    11s, 13s and the larger prime factors in ascending order (each a direct
+    DFT pass). Pass p runs at stride ``n_fft / 2`` over the product of the
+    radices up to and including its own (1 for the last). The C side's
+    ``st_make_plan`` (``csrc/stft.cu``) follows the same rule. Raises
+    ``ValueError`` unless ``n_fft = 4 * hop`` with ``hop`` in 1..1024."""
     hop, rest = divmod(n_fft, _RATIO)
     if rest or not MIN_HOP <= hop <= MAX_HOP:
         raise ValueError(f"stft_mel_energy: n_fft={n_fft} not supported (n_fft = 4 * hop "
-                         f"with hop from {MIN_HOP} to {MAX_HOP} and n_fft / 2 a product "
-                         "of 2s, 3s and 5s)")
+                         f"with hop from {MIN_HOP} to {MAX_HOP})")
     n, radices = n_fft // 2, []
-    for r, once in ((8, False), (4, True), (2, True), (5, False), (3, False)):
+    for r, once in ((8, False), (4, True), (2, True)) + tuple(
+            (r, False) for r in REGISTER_RADICES):
         while n % r == 0:
             radices.append(r)
             n //= r
             if once:
                 break
-    if n != 1:
-        raise ValueError(f"stft_mel_energy: n_fft={n_fft} not supported: n_fft / 2 = "
-                         f"{n_fft // 2} is not a product of 2s, 3s and 5s (the kernel "
-                         f"takes n_fft = 4 * hop with hop from {MIN_HOP} to {MAX_HOP} "
-                         "and n_fft / 2 a product of 2s, 3s and 5s)")
+    p = 17
+    while n > 1:
+        while n % p == 0:
+            radices.append(p)
+            n //= p
+        p += 2
     return tuple(radices)
+
+
+def direct_roots(n_fft: int) -> np.ndarray:
+    """The roots of unity of the plan's direct DFT passes (radices above 13),
+    in float64: for each such pass in order, ``exp(-2 pi i m / R)``, ``m <
+    R``; empty where the plan has none."""
+    parts = [np.exp(-2j * np.pi * np.arange(R) / R) for R in plan(n_fft)
+             if R not in (8, 4, 2) + REGISTER_RADICES]
+    return np.concatenate(parts) if parts else np.zeros(0, np.complex128)
 
 
 def fft_tables(n_fft: int, win_length: int
@@ -122,10 +138,11 @@ def _pad4(a: np.ndarray) -> np.ndarray:
 def _device_tables(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
     """``fft_tables`` cast to f32 (the positions as int32 bits) in the
     kernel's layout (``stft.cu:Layout``): window | pass twiddles (re, im) |
-    untangle twiddles | positions, each part rounded up to 4 floats."""
+    untangle twiddles | positions | the direct passes' roots, each part
+    rounded up to 4 floats."""
     window, tw, untangle, pos = fft_tables(n_fft, win_length)
     parts = [window.astype(np.float32), _interleave(tw), _interleave(untangle),
-             pos.astype(np.int32).view(np.float32)]
+             pos.astype(np.int32).view(np.float32), _interleave(direct_roots(n_fft))]
     return torch.from_numpy(np.concatenate([_pad4(p) for p in parts])).to(device)
 
 
@@ -159,20 +176,32 @@ def _bands(mel_basis: torch.Tensor) -> torch.Tensor:
     return hit[1]
 
 
+def c_plan(hop: int, n_mels: int) -> Tuple[Tuple[int, ...], int, int]:
+    """The C side's plan for a hop (``fs2_stft_plan``; needs the built
+    library): (radices, frames a block, shared-memory bytes). Raises
+    ``ValueError`` where it refuses the hop."""
+    P, I = common.P, common.I
+    fn = common.bind(common.load("stft"), "fs2_stft_plan", [I, I, P])
+    out = (ctypes.c_int * 16)()
+    if fn(hop, n_mels, out) != 0:
+        raise ValueError(f"stft_mel_energy: the kernel refuses hop={hop}")
+    return tuple(out[1:1 + out[0]]), out[13], out[14]
+
+
 def _bind():
     global _fn
     if _fn is None:
         P, I, F = common.P, common.I, common.F
         _fn = common.bind(common.load("stft"), "fs2_stft_mel_energy",
-                          [P, I, I, I, I, P, P, P, I, F, P, P, P])
+                          [P, I, I, I, P, P, P, I, F, P, P, P])
 
 
 def stft_mel_energy(y, mel_basis, n_fft: int = 1024, hop_length: int = 256,
                     win_length: int = 1024, clip_val: float = 1e-5
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """y (B, N) f32 in [-1, 1]; mel_basis (n_mels, n_fft//2+1) f32. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (the hops
-    of :func:`plan`, win_length <= n_fft, 1 to n_fft//2+1 mels) or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel (hop 1 to
+    1024, win_length <= n_fft, 1 to n_fft//2+1 mels) or raise."""
     global launches
     if n_fft != _RATIO * hop_length:
         raise ValueError("fused STFT kernel assumes n_fft == 4*hop")
@@ -187,7 +216,7 @@ def stft_mel_energy(y, mel_basis, n_fft: int = 1024, hop_length: int = 256,
     common.check_cuda("stft_mel_energy", y.device, [
         ("y", y, torch.float32, None),
         ("mel_basis", mel_basis, torch.float32, (n_mels, n_freq))])
-    radices = plan(n_fft)
+    plan(n_fft)
     if not 1 <= n_mels <= n_freq or not 1 <= win_length <= n_fft:
         raise ValueError(f"stft_mel_energy: n_mels={n_mels}, win_length={win_length} "
                          f"not supported (1 to {n_freq} mels, win_length <= n_fft)")
@@ -197,12 +226,11 @@ def stft_mel_energy(y, mel_basis, n_fft: int = 1024, hop_length: int = 256,
     _bind()
     tables = _device_tables(n_fft, win_length, y.device)
     bands = _bands(mel_basis)
-    code = sum(r << (4 * i) for i, r in enumerate(radices))
     F_ = N // hop_length + 1
     mel = torch.empty(B, n_mels, F_, device=y.device)
     energy = torch.empty(B, F_, device=y.device)
-    common.launch(_fn, y.data_ptr(), B, N, hop_length, code,
-                  tables.data_ptr(), bands.data_ptr(), mel_basis.data_ptr(), n_mels,
+    common.launch(_fn, y.data_ptr(), B, N, hop_length, tables.data_ptr(),
+                  bands.data_ptr(), mel_basis.data_ptr(), n_mels,
                   clip_val, mel.data_ptr(), energy.data_ptr(), common.stream_of(y))
     with common.count_lock:
         launches += 1

@@ -2,8 +2,8 @@
 """Time the fused STFT -> log-mel + energy kernel (kernel 14) of one tree of
 this repository, or of a parent tree and this one in turns, on the card.
 
-    python scripts/time_stft.py [--tree DIR] [--label NAME]
-    python scripts/time_stft.py --parent DIR
+    python scripts/time_stft.py [--tree DIR] [--label NAME] [--hops]
+    python scripts/time_stft.py --parent DIR [--hops]
 
 --tree is a checkout whose ``fastspeech2_tpu_torch`` is timed (default: this
 one), for example a parent commit unpacked with ``git archive`` into an
@@ -23,7 +23,9 @@ profiler's device time per call, every launch of the call) and
 against the signal, outputs and filterbank at 3.35 TB/s), the float64 errors
 of the kernel and of the plain version (``chip_smoke.f64_errors``: max abs
 log-mel error where mel > 10 clip, max energy error over the peak) and
-``digest`` (a hash of the outputs' bits).
+``digest`` (a hash of the outputs' bits). --hops times ``STFT_NEW_SHAPES``
+instead: the hops past the first range (7 to 1024: factors 7, 11,
+13, a direct pass of 257 points, four frames a block past ~770).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def time_tree(tree: str, label: str) -> int:
+def time_tree(tree: str, label: str, hops: bool = False) -> int:
     import numpy as np
     import torch
 
@@ -64,7 +66,7 @@ def time_tree(tree: str, label: str) -> int:
     common.build_all(["stft"])
     dev = torch.device("cuda")
     g = np.random.default_rng(14)
-    for B, N, hop, n_mels in smoke.STFT_SHAPES:
+    for B, N, hop, n_mels in smoke.STFT_NEW_SHAPES if hops else smoke.STFT_SHAPES:
         n_fft, F = 4 * hop, N // hop + 1
         kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
         fb = torch.from_numpy(mel_filterbank(22050, n_fft, n_mels)).to(dev)
@@ -107,14 +109,15 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--parent", help="run parent, change, change, parent in turns")
+    ap.add_argument("--hops", action="store_true", help="the new hops (STFT_NEW_SHAPES)")
     args = ap.parse_args()
     if args.parent is None:
-        return time_tree(args.tree, args.label)
+        return time_tree(args.tree, args.label, args.hops)
     rc = 0
     for tree, label in ((args.parent, "parent"), (str(ROOT), "change"),
                         (str(ROOT), "change"), (args.parent, "parent")):
-        rc |= subprocess.run([sys.executable, __file__, "--tree", tree,
-                              "--label", label]).returncode
+        rc |= subprocess.run([sys.executable, __file__, "--tree", tree, "--label", label]
+                             + (["--hops"] if args.hops else [])).returncode
     return rc
 
 

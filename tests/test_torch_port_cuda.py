@@ -551,6 +551,65 @@ def test_resstack_f32(dev, B, S, C):
     assert float(d.max()) < 1e-5 * float(want.abs().max()), float(d.max())
 
 
+@pytest.mark.parametrize("B,S,C,dil", [(2, 2048, 512, (1, 3, 9)), (1, 1024, 1024, (1, 3, 9)),
+                                       (2, 640, 320, (1, 3, 9, 27)), (1, 256, 500, (1, 3, 9)),
+                                       (1, 384, 768, (2, 5, 64))])
+def test_resstack_bf16_wide(dev, B, S, C, dil):
+    """The wide path (C above 256: two launches a dilated block, the hidden
+    through device memory) vs the plain version: the first stage of a
+    ``base_channels: 1024`` generator (512), 1024, 320 with four
+    dilations, 500 (zero-padded to 504), and a dilation of 64 (its z tile in
+    128-column chunks). Tolerance as for the narrow kernel."""
+    from fastspeech2_tpu_torch.ops.kernels import resstack as KR
+
+    g = torch.Generator().manual_seed(S + C)
+    ws = _stage_n(C, dev, torch.bfloat16, g, len(dil))
+    x = torch.randn(B, S, C, generator=g).to(torch.bfloat16).to(dev)
+    n0 = KR.launches
+    got = KR.resstack(x, *ws, dil)
+    want = KR.resstack_plain(x, *ws, dil)
+    torch.cuda.synchronize()
+    assert KR.launches == n0 + 2 * len(dil) and got.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    assert float(d.max()) < 2.0 ** -6 * scale and float(d.mean()) < 1e-4 * scale, (
+        float(d.max()), float(d.mean()), scale)
+    for sl in (slice(0, 16), slice(S - 16, S)):  # the reflected ends
+        assert float(d[:, sl].max()) < 2.0 ** -6 * scale
+
+
+@pytest.mark.parametrize("B,S,C,dil", [(1, 512, 320, (1, 3, 9)), (1, 256, 1024, (1, 3, 9, 27)),
+                                       (2, 256, 125, (1, 3, 9)), (1, 128, 250, (1, 3, 9))])
+def test_resstack_f32_any_width(dev, B, S, C, dil):
+    """f32 past the f32 kernel's first range: the wide path at 320 and 1024
+    (two launches a block), and 125 and 250, zero-padded to 128 and 256.
+    1e-5 of the output's scale, as for the f32 kernel."""
+    from fastspeech2_tpu_torch.ops.kernels import resstack as KR
+
+    g = torch.Generator().manual_seed(S + C)
+    ws = _stage_n(C, dev, torch.float32, g, len(dil))
+    x = torch.randn(B, S, C, generator=g).to(dev)
+    n0 = KR.launches
+    got = KR.resstack(x, *ws, dil)
+    want = KR.resstack_plain(x, *ws, dil)
+    torch.cuda.synchronize()
+    assert KR.launches == n0 + (2 * len(dil) if C > 256 else 1)
+    d = (got - want).abs()
+    assert float(d.max()) < 1e-5 * float(want.abs().max()), float(d.max())
+
+
+def _stage_n(C, dev, cd, g, n):
+    """``_stage`` with n dilated blocks."""
+    from fastspeech2_tpu_torch.ops.precision import round_to
+
+    bound = 1.0 / (3 * C) ** 0.5
+    w1 = ((torch.rand(n, C, 3 * C, generator=g) * 2 - 1) * bound).to(cd)
+    w2 = ((torch.rand(n, C, C, generator=g) * 2 - 1) / C ** 0.5).to(cd)
+    b1, b2 = (round_to((torch.rand(n, C, generator=g) * 2 - 1) * bound, cd)
+              for _ in range(2))
+    return [t.to(dev).contiguous() for t in (w1, b1, w2, b2)]
+
+
 def test_resstack_rejects_bad_inputs(dev):
     from fastspeech2_tpu_torch.ops.kernels import resstack as KR
 
@@ -564,9 +623,9 @@ def test_resstack_rejects_bad_inputs(dev):
         KR.resstack(xb[:, :13], *ws)
     with pytest.raises(ValueError, match="multiple"):
         KR.resstack(xb[:, :2000].contiguous(), *ws)
-    with pytest.raises(ValueError, match="C=512"):
-        KR.resstack(torch.zeros(1, 2048, 512, dtype=torch.bfloat16, device=dev),
-                    *_stage(512, dev, torch.bfloat16, g))
+    with pytest.raises(ValueError, match="C=1032"):
+        KR.resstack(torch.zeros(1, 2048, 1032, dtype=torch.bfloat16, device=dev),
+                    *_stage(1032, dev, torch.bfloat16, g))
 
 
 @pytest.mark.parametrize("B,T,D", [(3, 96, 256), (2, 160, 384)])
@@ -1446,7 +1505,7 @@ def test_stft_mel_energy_rejects_what_it_does_not_cover(dev):
         KS.stft_mel_energy(y.double(), fb)
     # hops the kernel's FFT does not take raise; nothing falls back
     n0 = KS.launches
-    for hop in (275, 28, 520):
+    for hop in (1025, 1100, 2048):
         fbh = torch.from_numpy(mel_filterbank(22050, 4 * hop, 80)).to(dev)
         with pytest.raises(ValueError, match="not supported"):
             KS.stft_mel_energy(y, fbh, n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
@@ -1457,6 +1516,59 @@ def test_stft_mel_energy_rejects_what_it_does_not_cover(dev):
     # another ratio takes the matmul path on the card, as in the JAX package
     mel, en = MelSpectrogram(hop_length=128, device=dev).mel_and_energy(y)
     assert KS.launches == n0 and mel.shape == (2, 80, 33)
+
+
+STFT_NEW_CASES = [(2, 3_000, 1, 3), (2, 5_000, 7, 8), (2, 8_000, 28, 40),
+                  (2, 22_050, 220, 80), (2, 22_050, 257, 80), (2, 22_050, 275, 80),
+                  (2, 44_100, 441, 80), (2, 48_000, 600, 80), (2, 48_000, 1000, 80),
+                  (2, 65_536, 1024, 80), (1, 20_000, 1021, 80), (2, 12_000, 13 * 17, 80)]
+
+
+@pytest.mark.parametrize("B,N,hop,n_mels", STFT_NEW_CASES)
+def test_stft_mel_energy_every_hop(dev, B, N, hop, n_mels):
+    """Kernel 14 at hops past its first range: under 32 (hop 1: two points,
+    three bins), n_fft / 2 with a factor 7, 11 or 13 (220, 275, 441, 221) or
+    above 13 (257, 1021: direct DFT passes), past 512 (600, 1000, 1024: four
+    frames a block past ~770). Against the plain version and float64 as
+    ``test_stft_mel_energy`` holds the hops it took before."""
+    from fastspeech2_tpu_torch.audio.stft import mel_filterbank
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    n_fft = 4 * hop
+    g = torch.Generator().manual_seed(N + hop)
+    y = _speechlike(B, N, g).to(dev)
+    fb = torch.from_numpy(mel_filterbank(22050, n_fft, n_mels)).to(dev)
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
+    n0 = KS.launches
+    mel, en = KS.stft_mel_energy(y, fb, **kw)
+    pm, pe = KS.stft_mel_energy_plain(y, fb, **kw)
+    torch.cuda.synchronize()
+    assert KS.launches == n0 + 1
+    F = N // hop + 1
+    assert mel.shape == pm.shape == (B, n_mels, F) and en.shape == pe.shape == (B, F)
+    torch.testing.assert_close(mel, pm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(en, pe, rtol=1e-4, atol=1e-4 * float(pe.abs().max()))
+    k_mel, k_en = _f64_errors(y, fb, hop, n_fft, mel, en)
+    p_mel, p_en = _f64_errors(y, fb, hop, n_fft, pm, pe)
+    assert k_en <= p_en and k_mel <= 2 * p_mel, (k_mel, p_mel, k_en, p_en)
+
+
+def test_stft_c_plan_is_the_python_plan(dev):
+    """One rule in two places: ``fs2_stft_plan`` gives ``plan``'s radices at
+    every hop from 1 to 1024, eight frames a block where they fit and four
+    above, within the card's shared memory; it refuses hop 0 and 1025."""
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    fts = set()
+    for hop in range(1, 1025):
+        radices, ft, smem = KS.c_plan(hop, min(80, 2 * hop + 1))
+        assert radices == KS.plan(4 * hop), hop
+        assert ft in (4, 8) and smem <= 232448 and (ft == 8 or hop > 512), (hop, ft, smem)
+        fts.add(ft)
+    assert fts == {4, 8}
+    for hop in (0, 1025):
+        with pytest.raises(ValueError):
+            KS.c_plan(hop, 3)
 
 
 def test_stft_library_does_not_spill(dev):

@@ -318,7 +318,7 @@ def test_resstack_pads_unserved_widths(tier, rng, C):
         assert d.max() <= scale * 2.0 ** -7 and d.mean() < scale * 2.0 ** -11, (
             d.max(), d.mean(), scale)
     assert not got[..., C:].any()
-    assert [KR.served_width(c) for c in (16, 48, 128, 129, 256, 257, 512)] == [
+    assert [KR.served_width(c) for c in (16, 48, 128, 129, 256, 1025, 2048)] == [
         16, 48, 128, 160, 256, 0, 0]
 
 
