@@ -14,17 +14,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    256), the eight SERVE instantiations of the shared forward (kernels 7
    and 8, and launch B of 1, 5 and 6: the tile body at DK 128/192/256 in
    both grid splits, the wide body at parts of 192 and 256; the new ones
-   without a ptxas note of serialized wgmma in either library), the ten
+   without a ptxas note of serialized wgmma in either library), the eleven
    q|k|v and out projection kernels of
    1, 5 and 6, the twelve widths of the bf16 residual stack and its wide
    path's two kernels (kernel 13),
-   the 18 conv-FFN kernels (2, 9, 10: k-tap conv and k=1 conv with its
-   epilogue), the three variance-adaptor kernels (3: two ring-tile widths
+   the 21 conv-FFN kernels (2, 9, 10: k-tap conv at two tilings and with
+   its x tile in 512-column chunks, whose SASS holds one fence.proxy.async
+   more than the whole tile's, and k=1 conv with its epilogue), the three variance-adaptor kernels (3: two ring-tile widths
    and the x tile in chunks) and the ten postnet kernels (4: nine chain
    kernels and the wide path's stage kernel) must show HGMMA and no HMMA in
    their SASS (cuobjdump) and no
    ptxas spills; all but the training kernels also no ptxas note of
-   serialized wgmma. The f32 FFT kernel of stft_mel_energy (14) must show
+   serialized wgmma (C7512/C7514/C7515/C7519); each kernel's generic
+   ST.E/LD.E count is printed. The f32 FFT kernel of stft_mel_energy (14) must show
    no ptxas spill (its report lines printed, in phase 3).
 3. kernels: each of the fourteen kernels (attention_block, ffn_block,
    variance_adaptor, postnet, resstack, attention_res_ln, attention_res,
@@ -50,7 +52,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    by the profiler, and in f32; the FFN kernels 2, 9 and 10 at both shapes
    with their device times by the profiler, and at the shapes their tiling
    makes risky: T under and off the tiles, D = 512, D = 1024 at H = 4096,
-   H = 1056, k = 1 and 3, O = 80 and 200); max/mean abs error
+   H = 1056, k = 1 and 3, O = 80 and 200, and past D 1,344 where launch 1
+   holds its x tile in 512-column chunks: D 1376, 1536 and 2048 at H 4096,
+   1500 at k = 31, 2044 and 2047); max/mean abs error
    against the stated tolerance; kernel and plain times (CUDA events, median
    of 25) beside the least time the card could take for the same work (for
    stft_mel_energy counted by an FFT and the sparse mel projection at the
@@ -88,6 +92,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    = (384, 1), (320, 2) and (1024, 1) with their dead rows; at d_k 160, 384
    and 1024 every one of the seven timed at (16, 768) beside its plain
    version, its bound and (7, 8, 11, 12) SDPA, whose backend is named.
+   The wide kernel phase (WIDE_FFN_TIMED, WIDE_HEAD_DIMS): kernels 2, 9,
+   10 at (16, 768), k 9, H 4096, D 1536 and 2048 against their plain
+   versions and timed; the same head-dim checks at d_k 1500, 1536 (two
+   heads) and 2048, f32 at 1500 and 2048, kernels 1, 5, 6 at D 1536, 2048
+   (one and two heads) and 1500, timed at d_k 1536 and 2048 beside SDPA.
 4. mel path: the default-config model (random weights from seed 0, duration
    bias 1.87 for realistic frame counts) served through
    Synthesizer(bf16=True) on cuda at B=1, 8 and 32 with fixed ARPAbet
@@ -172,6 +181,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    in bf16 takes 2 steps (kernel 11 at d_k 256 and 384, 32 / 32 a step),
    the single-process step on one window runs twice with the same bits, and
    one step with FUSED_ATT_TRAIN_PACKED off goes through kernel 12.
+14c. wide model (after 15): WIDE_MODEL (default.yaml, one head, adim 1536,
+   ddim 2048, 4,096-unit FFNs; ~0.7 G parameters) served in bf16: B=1, 8,
+   32 mel calls through kernels 1 and 2 in all 8 blocks, B=8 against the
+   CPU port fed the card's durations, the B=32 mel call and a B=32 wav
+   call (default MelGAN) timed beside default.yaml's in this run, a
+   profile; B=8 with pre-LN blocks (6, 9), the int8 tier (1, 3, 4; 5 with
+   FUSED_ATT_QKV off), concat_after (7) and two heads (decoder d_k 1024).
+   After the train path: train() 2 steps (kernel 11 at d_k 1536 and 2048,
+   32 / 32 a step, finite losses), the single-process step twice bit for
+   bit, one step through kernel 12.
 15. wide postnet: a post-LN model with postnet_chans 512 and adim 384 serves
    a B=8 mel call through kernels 3 (D = 384) and 4 (C = 512), held against
    the CPU port fed the card's durations; their launch counters rise. Then
@@ -2628,7 +2647,12 @@ FFN_EDGES = ((3, 40, 256, 1024, 9), (2, 200, 384, 1024, 9), (2, 160, 512, 1024, 
              # any width, D and H padded to 32 in the kernels: D = 260 and 36
              # (16-byte f32 rows, not bf16), 200, 40, and 30 (a value at a time)
              (2, 100, 260, 1000, 9), (3, 70, 200, 1000, 9), (3, 40, 36, 100, 3),
-             (2, 64, 40, 72, 1), (2, 50, 30, 72, 3))
+             (2, 64, 40, 72, 1), (2, 50, 30, 72, 3),
+             # the x tile in 512-column chunks: the first chunked width at
+             # k = 9, the wide model's 1536 and 2048 at H = 4096, a last chunk
+             # of 480 columns at k = 31, rows of 4- and 1-float alignment
+             (2, 200, 1376, 1024, 9), (2, 150, 1536, 4096, 9), (2, 100, 2048, 4096, 9),
+             (3, 70, 1500, 1000, 31), (2, 80, 2044, 200, 9), (2, 90, 2047, 100, 3))
 
 
 def ffn_edges_phase(torch, results):
@@ -2888,6 +2912,13 @@ TIMED_HEAD_DIMS = ((160, 2), (384, 1), (1024, 1), (130, 2), (20, 2))
 #: (D, heads) of kernels 1, 5 and 6 past d_k 256 (d_k 384, 160, 1024) and at
 #: head dims no multiple of 8 (d_k 130 at D = 260, 20 at D = 40)
 HALF_HEAD_DIMS = ((384, 1), (320, 2), (1024, 1), (260, 2), (40, 2))
+#: the wide kernel phase (head_dim_kernel_phase's arguments): d_k past 1024,
+#: 1500 zero-padded to 1504 and two heads of 1536 (a box past d_k is the next
+#: head's); kernels 1, 5, 6 at D 1536 and 2048 (their projections over x
+#: tiles in 512-column chunks), two heads of 1024 at D 2048, and d_k 1500
+WIDE_HEAD_DIMS = dict(dims=(1500, 1536, 2048), two=(1536,), f32=((1500, 1), (2048, 1)),
+                      halves=((1536, 1), (2048, 1), (2048, 2), (1500, 1)),
+                      timed=((1536, 1), (2048, 1)), tag="wide")
 
 
 def sdpa_backend(names):
@@ -2901,21 +2932,24 @@ def sdpa_backend(names):
     return "math (" + ", ".join(sorted(names)) + ")"
 
 
-def head_dim_kernel_phase(torch, results):
-    """Kernels 7, 8, 11 and 12 at every d_k of NEW_HEAD_DIMS (two heads at
-    TWO_HEAD_DIMS, so that a load or store that crosses into the next head's
+def head_dim_kernel_phase(torch, results, dims=NEW_HEAD_DIMS, two=TWO_HEAD_DIMS,
+                          f32=((160, 2), (384, 1)), halves=HALF_HEAD_DIMS,
+                          timed=TIMED_HEAD_DIMS, tag="head_dims"):
+    """Kernels 7, 8, 11 and 12 at every d_k of ``dims`` (two heads at
+    ``two``, so that a load or store that crosses into the next head's
     columns shows; one head otherwise) at B=4, T=200 with lengths T, 0, one
     random and a short one: 7 and 8 against their plain versions (bf16 band),
     kernel 8 == kernel 7 and kernel 7 == kernel 11's forward at rate 0 bit
     for bit, rows at or past each length zeros; 11 and 12 at rate 0.2,
     forward and the three gradients against the plain version's autograd
     (max < 2^-6, mean < 1e-4 of the peak), padded rows exactly zero, a
-    second call bit for bit; the f32 instantiations at d_k 160 and 384.
-    Then kernels 1, 5 and 6 at (D, H) of HALF_HEAD_DIMS with their dead
+    second call bit for bit; the f32 instantiations at the (d_k, H) of
+    ``f32``. Then kernels 1, 5 and 6 at (D, H) of ``halves`` with their dead
     rows (6: res + bo bit for bit; 1 and 5: kernel 5 at length 0, itself
-    within 1e-5 of the plain LN(res + bo)). At TIMED_HEAD_DIMS every kernel
+    within 1e-5 of the plain LN(res + bo)). At ``timed`` every kernel
     is timed at (16, 768) beside its plain version, its bound and, for 7, 8,
-    11 and 12, SDPA (whose backend is named from its kernels)."""
+    11 and 12, SDPA (whose backend is named from its kernels). Results go
+    under each kernel's ``tag`` key."""
     import torch.nn.functional as F
 
     from fastspeech2_tpu_torch.ops.kernels import attention as KA
@@ -2930,7 +2964,7 @@ def head_dim_kernel_phase(torch, results):
         return ls.tolist(), ls.to(dev)
 
     def note(name, key, **kw):
-        results[name].setdefault("head_dims", {}).setdefault(key, {}).update(kw)
+        results[name].setdefault(tag, {}).setdefault(key, {}).update(kw)
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], kw.get("max_abs_err", 0.0))
 
@@ -2939,8 +2973,8 @@ def head_dim_kernel_phase(torch, results):
         return (o, *torch.autograd.grad(o, (q, k, v), do))
 
     B, T = 4, 200
-    for dk in NEW_HEAD_DIMS:
-        H = 2 if dk in TWO_HEAD_DIMS else 1
+    for dk in dims:
+        H = 2 if dk in two else 1
         D, key = H * dk, f"dk={dk},H={H},B={B},T={T}"
         lc, lens = lengths(B, T)
         split = lambda t: t.view(B, T, H, dk).transpose(1, 2).contiguous()  # noqa: E731
@@ -2981,7 +3015,7 @@ def head_dim_kernel_phase(torch, results):
             log(f"  {name} {key}: padded rows exactly zero, a second call bit for bit")
             note(name, key, max_abs_err=err)
     # the f32 instantiations (plain multiply-adds) past the old head dims
-    for dk, H in ((160, 2), (384, 1)):
+    for dk, H in f32:
         D, key = H * dk, f"f32,dk={dk},H={H},B=2,T=120"
         ls = torch.tensor([120, 37], dtype=torch.int32, device=dev)
         q, k, v, do = (torch.randn(2, 120, D, generator=gen).to(dev) for _ in range(4))
@@ -2995,12 +3029,12 @@ def head_dim_kernel_phase(torch, results):
                     2e-6 * peak, 2e-5 * peak)
 
     # kernels 1, 5, 6 at the new head dims: correctness at B=4, T=200
-    for D, H in HALF_HEAD_DIMS:
-        half_heads_case(torch, results, gen, 4, 200, D, H, timed=False)
+    for D, H in halves:
+        half_heads_case(torch, results, gen, 4, 200, D, H, timed=False, tag=tag)
 
     # timings at the decoder rung
     B, T = 16, 768
-    for dk, H in TIMED_HEAD_DIMS:
+    for dk, H in timed:
         D, key = H * dk, f"dk={dk},H={H},B={B},T={T}"
         lc, lens = lengths(B, T)
         live_qkv = 3 * sum(lc) * D * 2
@@ -3063,11 +3097,12 @@ def head_dim_kernel_phase(torch, results):
                       "library_ms": tm["sdpa_bwd"], "library_device_ms": tm["device_sdpa_bwd"],
                       "bound_ms": bb, "bound_by": bby, "library_backend": tb,
                       "launches_ms": tm["bwd_launches"]})
-    for D, H in HALF_HEAD_DIMS:
-        half_heads_case(torch, results, gen, B, T, D, H, timed=True)
+    for dk, H in timed:
+        if (H * dk, H) in halves:
+            half_heads_case(torch, results, gen, B, T, H * dk, H, timed=True, tag=tag)
 
 
-def half_heads_case(torch, results, gen, B, T, D, H, timed):
+def half_heads_case(torch, results, gen, B, T, D, H, timed, tag="head_dims"):
     """Kernels 1, 5 and 6 at (B, T, D, H) against their plain versions on
     random weights (q/k/v of 5 and 6: column blocks of one q|k|v buffer, as
     kernel 1 rounds them), lengths T, 0, one random and a short one; the dead
@@ -3126,7 +3161,7 @@ def half_heads_case(torch, results, gen, B, T, D, H, timed):
                 log(f"  {name} {key}: kernel {ms:.4f} ms (device {dms}), plain {pms:.4f}, bound "
                     f"{b_ms:.4f} ({by})")
                 entry.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by)
-            results[name].setdefault("head_dims", {}).setdefault(key, {}).update(entry)
+            results[name].setdefault(tag, {}).setdefault(key, {}).update(entry)
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
 
@@ -3134,15 +3169,19 @@ def half_heads_case(torch, results, gen, B, T, D, H, timed):
 #: D and H no multiple of 32 (the kernels pad them to 288 / 224 and 1024)
 #: beside the width they pad to, in turns (A, B, C, A, B, C)
 WIDTH_FFN_TIMED = ((256, 1024), (260, 1000), (200, 1000))
+#: the same at the one-head wide model's widths (WIDE_MODEL): the x tile in
+#: 512-column chunks, H = 4096
+WIDE_FFN_TIMED = ((1536, 4096), (2048, 4096))
 
 
-def widths_kernel_phase(torch, results):
+def widths_kernel_phase(torch, results, timed=WIDTH_FFN_TIMED, tag="widths"):
     """Kernels 2, 9 and 10 at (16, 768), k = 9, at the (D, H) of
-    WIDTH_FFN_TIMED: against their plain versions, then in turns CUDA-event
+    ``timed``: against their plain versions, then in turns CUDA-event
     ms, profiler device ms, the plain version's ms and the bound at the real
     widths (the function's FLOPs on the live rows, its bytes at the real
     widths); the weights packed as the model packs them (``FFTBlock.
-    ffn_pack``: padded once). Then the copy that kernels 5 and 6 make of
+    ffn_pack``: padded once); results under each kernel's ``tag`` key. Then
+    (tag "widths") the copy that kernels 5 and 6 make of
     q/k/v whose d_k is no multiple of 8 (D = 260, two heads: zero-filled to
     136 a head) at (16, 768), timed beside kernel 5 there."""
     from fastspeech2_tpu_torch.models.encoder import EncoderConfig, FFTBlock
@@ -3156,7 +3195,7 @@ def widths_kernel_phase(torch, results):
     ls[0], ls[-1] = T, max(1, T // 5)
     lc, lens = ls.tolist(), ls.to(dev)
     cases = {}
-    for D, H in WIDTH_FFN_TIMED:
+    for D, H in timed:
         torch.manual_seed(D + H)
         blk = FFTBlock(EncoderConfig(idim=D, attention_dim=D, attention_heads=2,
                                      linear_units=H, positionwise_conv_kernel_size=k),
@@ -3189,7 +3228,7 @@ def widths_kernel_phase(torch, results):
             for name, fn, plain, io in calls(*case):
                 ms = cuda_time_ms(fn)
                 dms = sum(device_ms_by_kernel(torch, fn).values()) or None
-                entry = results[name].setdefault("widths", {}).setdefault(key, {})
+                entry = results[name].setdefault(tag, {}).setdefault(key, {})
                 if "plain_ms" not in entry:
                     entry["plain_ms"] = cuda_time_ms(plain, reps=3)
                 b_ms, by = bound_ms(flops, B * T * D * io + wbytes)
@@ -3198,6 +3237,8 @@ def widths_kernel_phase(torch, results):
                 entry.setdefault("ms", []).append(ms)
                 entry.setdefault("device_ms", []).append(dms)
                 entry.update(bound_ms=b_ms, bound_by=by)
+        if tag != "widths":
+            return
         D, H = 260, 2
         q, kk, v, x = (torch.randn(B, T, D, generator=gen).to(dev) for _ in range(4))
         q, kk, v = (t.to(bf16) for t in (q, kk, v))
@@ -3292,6 +3333,219 @@ def widths_path_phase(torch, results):
             results[k].setdefault("widths", {})[f"model {what} B=8 launches"] = counts[k]
         assert counts["ffn_block"] == 0 and (int8 or counts["attention_block"] == 0), counts
         del s2
+
+
+#: the one-head wide model: ``configs/default.yaml`` at full depth (4 + 4
+#: blocks, k = 9 FFNs, 5-layer postnet) with these model keys: encoder d_k
+#: 1536, decoder d_k 2048 (kernel 1's projections and kernel 2's conv over x
+#: tiles in 512-column chunks), 4,096-unit FFNs
+WIDE_MODEL = dict(adim=1536, ddim=2048, aheads=1, eunits=4096, dunits=4096)
+
+
+def wide_config(**model_keys):
+    """``configs/default.yaml``'s Config with WIDE_MODEL and ``model_keys``."""
+    from fastspeech2_tpu_torch.config import Config, config_from_dict
+
+    raw = Config().to_dict()
+    raw["model"].update(WIDE_MODEL, **model_keys)
+    return config_from_dict(raw)
+
+
+def wide_model_path_phase(torch, results, default_ms, default_wav_ms):
+    """The WIDE_MODEL model (seed 0, duration bias 1.87) served in bf16:
+    B=1, 8 and 32 mel calls through kernel 1 and 2 in all 8 blocks with
+    kernels 3 and 4; B=8 against the CPU port fed the card's durations; the
+    B=32 mel call timed beside the default model's (``default_ms``, this
+    run); a B=32 wav call with the default MelGAN beside the default model's
+    (``default_wav_ms``); then B=8 calls with pre-LN blocks (kernels 6 and
+    9), through the int8 tier (kernel 1 on dequantized weights, 3 and 4;
+    with FUSED_ATT_QKV off kernel 5) and with concat_after (kernel 7); and a
+    two-head model (decoder d_k 1024, encoder 768) on the chunked FFN path."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.ops import flags
+    from fastspeech2_tpu_torch.vocoder.melgan import MelGANGenerator
+
+    cfg = wide_config()
+    synth = Synthesizer(seeded_model(torch, cfg), bf16=True)
+    n_params = sum(p.numel() for p in synth.model.parameters())
+    b32, seqs = batch(32), batch(8, offset=8)
+    synth.mel_from_token_batch(b32)  # warm: packs the kernel weights
+    reset_counts()
+    for n in (1, 8, 32):
+        mel, lens = synth.mel_from_token_batch(batch(n, offset=n))
+        assert np.isfinite(mel).all() and (lens > 0).all(), f"wide model B={n}"
+        log(f"wide model ({n_params / 1e6:.1f} M parameters) B={n}: mel {mel.shape}, "
+            f"frames {int(lens.sum())}")
+    counts = read_counts()
+    log(f"wide model B=1, 8, 32 launches: { {k: v for k, v in counts.items() if v} }")
+    for k in ("attention_block", "ffn_block", "variance_adaptor", "postnet"):
+        assert counts[k] > 0, k
+    assert counts["attention_block"] == counts["ffn_block"], counts
+    results["attention_block"]["launches_wide_model"] = counts["attention_block"]
+    results["ffn_block"]["launches_wide_model"] = counts["ffn_block"]
+    reset_counts()
+    ms, (_, lens) = timed_calls(torch, lambda: synth.mel_from_token_batch(b32))
+    per = {k: v // 5 for k, v in read_counts().items() if v}
+    frames = int(lens.sum())
+    log(f"wide model B=32 mel call: {ms:.3f} ms median of 5 ({default_ms:.3f} ms for "
+        f"default.yaml in this run, {ms / default_ms:.2f}x), {frames} frames "
+        f"({frames / ms * 1e3:.0f} mel-frames/s); launches a call {per}")
+    assert per["attention_block"] >= 8 and per["ffn_block"] == per["attention_block"], per
+    for k in ("attention_block", "ffn_block"):
+        results[k].setdefault("wide", {}).update({
+            "model B=32 launches a call": per[k], "model B=32 ms": ms,
+            "default model B=32 ms": default_ms})
+    hold_b8_vs_cpu(torch, synth, cfg, "wide model B=8", split=False)
+    profile_phase(torch, lambda: synth.mel_from_token_batch(b32), "wide model B=32 mel call")
+
+    synth.attach_vocoder(MelGANGenerator(bf16=True, seed=0))
+    synth.wav_from_token_batch(b32)  # warm
+    reset_counts()
+    wms, (mel, wav, wav_lens) = timed_calls(torch, lambda: synth.wav_from_token_batch(b32), n=3)
+    counts = {k: v // 3 for k, v in read_counts().items() if v}
+    live = np.arange(wav.shape[1])[None] < wav_lens[:, None]
+    log(f"wide model B=32 wav call: {wms:.3f} ms median of 3 ({default_wav_ms:.3f} ms for "
+        f"default.yaml in this run), wav {wav.shape} int16, {int(wav_lens.sum())} samples; "
+        f"launches a call {counts}")
+    assert wav.dtype == np.int16 and np.abs(wav[live]).max() > 0 and counts["resstack"] > 0
+    results["ffn_block"]["wide"]["model B=32 wav ms"] = wms
+    results["ffn_block"]["wide"]["default model B=32 wav ms"] = default_wav_ms
+    del synth
+    torch.cuda.empty_cache()
+
+    for what, keys, int8, want, off in (
+            ("pre-LN", {k: True for k in PRENORM_KEYS}, False,
+             ("attention_res", "ffn_block_pre"), ("attention_block", "ffn_block")),
+            ("int8", {}, True, ("attention_block", "variance_adaptor", "postnet"),
+             ("ffn_block",)),
+            ("concat_after", {"encoder_concat_after": True, "decoder_concat_after": True},
+             False, ("fused_attention_packed", "ffn_block"), ("attention_block",)),
+            ("two heads (d_k 768 / 1024)", {"aheads": 2}, False,
+             ("attention_block", "ffn_block"), ())):
+        s2 = Synthesizer(seeded_model(torch, wide_config(**keys)), bf16=True, int8=int8)
+        s2.mel_from_token_batch(seqs)
+        reset_counts()
+        mel, lens = s2.mel_from_token_batch(seqs)
+        counts = read_counts()
+        log(f"wide model {what} B=8: {int(lens.sum())} frames; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert np.isfinite(mel).all() and (lens > 0).all()
+        for k in want:
+            assert counts[k] > 0, (what, counts)
+            results[k].setdefault("wide", {})[f"model {what} B=8 launches"] = counts[k]
+        assert all(counts[k] == 0 for k in off), (what, counts)
+        if int8:
+            reset_counts()
+            flags.FUSED_ATT_QKV = False
+            try:
+                mel, lens = s2.mel_from_token_batch(seqs)
+            finally:
+                flags.FUSED_ATT_QKV = True
+            counts = read_counts()
+            log(f"wide model int8 FUSED_ATT_QKV=off B=8: launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            assert counts["attention_res_ln"] > 0 and counts["attention_block"] == 0, counts
+            assert np.isfinite(mel).all() and (lens > 0).all()
+            results["attention_res_ln"].setdefault("wide", {})["model int8 B=8 launches"] = \
+                counts["attention_res_ln"]
+        del s2
+        torch.cuda.empty_cache()
+
+
+def wide_model_train_phase(torch, results, store):
+    """``train()`` on the seeded store with the WIDE_MODEL model in bf16,
+    batch 16 x accum 4: 2 steps through kernel 11 at d_k 1536 and 2048 (32 /
+    32 launches a step), finite losses; the single-process step on one
+    window run twice from the same start, its gradients bit for bit; one
+    step with FUSED_ATT_TRAIN_PACKED off (kernel 12, 32 / 32)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import DataConfig
+    from fastspeech2_tpu_torch.data.batching import BucketBatcher
+    from fastspeech2_tpu_torch.data.dataset import TTSDataset
+    from fastspeech2_tpu_torch.data.prefetch import batch_to_device
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops import flags
+    from fastspeech2_tpu_torch.train.loop import train
+    from fastspeech2_tpu_torch.train.optimizer import NoamAdam
+    from fastspeech2_tpu_torch.train.seeds import SeedSchedule
+    from fastspeech2_tpu_torch.train.step import TrainState, make_train_step, trainable
+
+    work = tempfile.mkdtemp(prefix="fs2_trainwide_", dir=str(ROOT / "build"))
+    try:
+        root, fl = store
+        cfg = wide_config()
+        accum = cfg.train.accum_grad
+        cfg = dataclasses.replace(
+            cfg, data=DataConfig(data_dir=root, train_filelist=fl, valid_filelist=fl),
+            train=dataclasses.replace(cfg.train, bf16=True, summary_interval=1,
+                                      save_interval=10 ** 6, validation_step=10 ** 6))
+        reset_counts()
+        t0 = time.perf_counter()
+        ts = train(cfg, "wide", f"{work}/out", max_steps=2)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        recs = [json.loads(ln) for ln in open(f"{work}/out/logs/wide/train_metrics.jsonl")]
+        main = [r for r in recs if "main/loss" in r]
+        assert [r["step"] for r in main] == [1, 2] and all(
+            np.isfinite(r["main/loss"]) and np.isfinite(r["main/grad_norm"]) for r in main), main
+        got = (counts["attention_train_packed"], counts["attention_train_packed.bwd"])
+        log(f"wide model train(): 2 steps in {time.perf_counter() - t0:.1f} s, loss "
+            f"{main[0]['main/loss']:.1f} -> {main[1]['main/loss']:.1f}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; kernel 11 launches {got}")
+        assert got == (2 * 8 * accum,) * 2 and counts["attention_train"] == 0, counts
+        results["attention_train_packed"].setdefault("wide", {})["model step launches"] = \
+            got[0] // 2
+
+        # the single-process step twice from the same start: the same bits
+        ds = TTSDataset(root, fl)
+        batch_np, shape = next(iter(BucketBatcher(
+            ds, batch_size=cfg.train.batch_size * accum, seed=1).epoch(0)))
+        dev_batch = batch_to_device(batch_np, ts.model.device)
+        del ts
+        torch.cuda.empty_cache()
+
+        def gradients():
+            model = FastSpeech2(cfg, generator=torch.Generator().manual_seed(0))
+            opt = NoamAdam(trainable(model), cfg)
+            kept = []
+            opt.step = lambda grads: kept.extend(t.detach().clone() for t in grads) or \
+                torch.zeros((), device=model.device)
+            seeds = SeedSchedule(model.dropout_sites(), seed=0)
+            make_train_step(model, opt, accum, bf16=True)(
+                TrainState(model, opt), dev_batch, [seeds.draw() for _ in range(accum)])
+            return kept
+
+        a = gradients()
+        torch.cuda.empty_cache()
+        b = gradients()
+        differ = sum(not torch.equal(x, y) for x, y in zip(a, b))
+        log(f"wide model step (16 x 4, pad {shape}) run twice: {differ} of {len(a)} "
+            "gradients differ")
+        assert differ == 0 and all(bool(torch.isfinite(x).all()) for x in a)
+        del a, b
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        flags.FUSED_ATT_TRAIN_PACKED = False
+        try:
+            train(cfg, "wide12", f"{work}/out", max_steps=1)
+            torch.cuda.synchronize()
+        finally:
+            flags.FUSED_ATT_TRAIN_PACKED = True
+        counts = read_counts()
+        got = (counts["attention_train"], counts["attention_train.bwd"])
+        log(f"wide model FUSED_ATT_TRAIN_PACKED=off, 1 step: kernel 12 launches {got}")
+        assert got == (8 * accum,) * 2 and counts["attention_train_packed"] == 0, counts
+        results["attention_train"].setdefault("wide", {})["model step launches"] = got[0]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def widths_train_phase(torch, results, store):
@@ -4405,26 +4659,27 @@ def wgmma_kernels_sass():
                                  "train_bwd_dkv_kernel", "attn_fwd_wide_kernel",
                                  "train_bwd_dq_wide_kernel", "train_bwd_dkv_wide_kernel"), 20),
             ("attention", ("attn_fwd_kernel", "attn_fwd_wide_kernel", "ffn_conv_kernel",
-                           "ffn_out_kernel"), 18),
+                           "ffn_out_kernel"), 19),
             ("resstack", ("resstack_wgmma_kernel", "resstack_wide_conv_kernel",
                           "resstack_wide_out_kernel"), 14),
-            ("ffn", ("ffn_conv_kernel", "ffn_out_kernel"), 18),
+            ("ffn", ("ffn_conv_kernel", "ffn_out_kernel"), 21),
             ("adaptor", ("adaptor_kernel",), 3),
             ("postnet", ("postnet_kernel", "postnet_wide_kernel"), 10)):
         log_text = common.ptxas_report(lib)
         for line in log_text.splitlines():
-            if "serialized" in line:
+            if "serialized" in line or re.search(r"C75(12|14|15|19)", line):
                 log(f"  ptxas {lib}: {line.strip()}")
                 # the head dims' wide bodies in either library: no wgmma
                 # serialized by a guard on d_k or on the part
                 assert "wide_kernel" not in line, line
+                assert lib == "attention_train", line
         # the overlap of these kernels exists only if ptxas kept wgmma asynchronous
         assert lib == "attention_train" or "serialized" not in log_text, "wgmma serialized"
         props = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
                            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log_text, re.S)
         sass = subprocess.run([tool, "-sass", str(common._lib_path(lib))], check=True,
                               capture_output=True, text=True, timeout=120).stdout
-        seen = 0
+        seen, fences = 0, {}
         for part in sass.split("Function : ")[1:]:
             fn = part.split()[0]
             kind = next((k for k in kinds if k in fn), None)
@@ -4433,11 +4688,23 @@ def wgmma_kernels_sass():
             seen += 1
             hg, hm = part.count("HGMMA"), len(re.findall(r"\bHMMA\b", part))
             stack, st, ld = next(((a, b, c) for n, a, b, c in props if n == fn), ("?",) * 3)
+            fence = part.count("FENCE.VIEW.ASYNC.S")
+            generic = len(re.findall(r"\b(?:ST|LD)\.E\b", part))
             log(f"  sass {lib} {kind}{fn[fn.index(kind) + len(kind):][:14]}: {hg} HGMMA, "
-                f"{hm} HMMA, ptxas spill stores/loads {st}/{ld} bytes, stack frame {stack}")
+                f"{hm} HMMA, ptxas spill stores/loads {st}/{ld} bytes, stack frame {stack}, "
+                f"{fence} fence.proxy.async, {generic} generic ST.E/LD.E")
             assert hg > 0 and hm == 0 and (st, ld) == ("0", "0"), fn
             assert not kind.startswith("attn_fwd") or lib != "attention" or stack == "0", fn
+            if kind == "ffn_conv_kernel":
+                fences.setdefault("Lb1E" in fn, []).append(fence)
         assert seen == want, f"expected {want} bf16 wgmma kernels in {lib}, found {seen}"
+        if fences:
+            # the chunked x tile (launch 1 past what fits whole) is written by
+            # threads and read by the products' descriptors once a chunk: a
+            # fence.proxy.async behind each chunk's load, one more than the
+            # whole tile's
+            assert len(fences[True]) == (3 if lib == "ffn" else 1), fences
+            assert min(fences[True]) > max(fences[False]) >= 1, fences
 
 
 
@@ -5043,6 +5310,10 @@ def main(parallel_only: bool = False) -> int:
     t_w = time.perf_counter()
     widths_kernel_phase(torch, results)
     log(f"widths kernel phase: {time.perf_counter() - t_w:.1f} s")
+    t_w = time.perf_counter()
+    widths_kernel_phase(torch, results, WIDE_FFN_TIMED, "wide")
+    head_dim_kernel_phase(torch, results, **WIDE_HEAD_DIMS)
+    log(f"wide kernel phase: {time.perf_counter() - t_w:.1f} s")
     stft_kernel_phase(torch, results)
     ms, frames, synth = main_path_phase(torch, results)
     wav_ms, wav_secs = wav_path_phase(torch, results, synth)
@@ -5070,6 +5341,10 @@ def main(parallel_only: bool = False) -> int:
         conv_widths_path_phase(torch, results, which)
         log(f"{which} adaptor/postnet path phase: {time.perf_counter() - t_w:.1f} s")
         torch.cuda.empty_cache()
+    t_w = time.perf_counter()
+    wide_model_path_phase(torch, results, ms, wav_ms)
+    log(f"wide model path phase: {time.perf_counter() - t_w:.1f} s")
+    torch.cuda.empty_cache()
     import shutil
 
     bf, work, ckpt = int8_path_phase(torch, smi)
@@ -5104,6 +5379,10 @@ def main(parallel_only: bool = False) -> int:
         widths_train_phase(torch, results, store)
         log(f"widths train phase: {time.perf_counter() - t_w:.1f} s")
         torch.cuda.empty_cache()
+        t_w = time.perf_counter()
+        wide_model_train_phase(torch, results, store)
+        log(f"wide model train phase: {time.perf_counter() - t_w:.1f} s")
+        torch.cuda.empty_cache()
         t_cli = time.perf_counter()
         cli_train_phase(torch, results, store, smi)
         log(f"CLI train phase: {time.perf_counter() - t_cli:.1f} s")
@@ -5135,7 +5414,8 @@ def main(parallel_only: bool = False) -> int:
                                  "launches_golden_f32", "launches_golden",
                                  "op_dispatch", "launches_one_head", "launches_one_head_b32",
                                  "launches_one_head_b8", "launches_dk160_b8",
-                                 "launches_one_head_step", "head_dims", "widths",
+                                 "launches_one_head_step", "head_dims", "widths", "wide",
+                                 "launches_wide_model",
                                  "launches_wide_melgan_b8", "launches_wide_melgan_b32",
                                  "wide_melgan_b32_ms", "corpora") if k in r},
             **({"device_ms": r["device_ms"][key],

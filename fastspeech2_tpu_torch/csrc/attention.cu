@@ -6,7 +6,7 @@
 // and the bare attention
 //   fs2_attention         out = MHA(q, k, v), bf16, no projection (rows at or
 //                         past the length zero).
-// Any D and any d_k from 1 to 1024 in the block entries (attention_fwd.cuh:
+// D from 1 to 2048 and any d_k from 1 to 2048 in the block entries (attention_fwd.cuh:
 // attn_plan): the attention runs at dkp = d_k rounded up to 8, heads laid
 // dkp apart (the zero columns leave Q K^T and P V exact; the scale is the
 // real d_k's), so every TMA stride is a multiple of 16 bytes. The bare entry
@@ -43,7 +43,8 @@
 //     bf16 scratch (Wqkv's rows laid out per head at dkp with zero rows and
 //     bias past d_k, so the scratch's padding columns are zeros): launch 1 of ffn_body.cuh at k = 1 without the ReLU
 //     (CONV_QKV): 128-row x 256-column blocks (64 x 128 where D = 768 leaves
-//     no room) of a bf16 x tile against Wqkv from a TMA ring. Row tiles past
+//     no room; past D = 1,472 the x tile in 512-column chunks) of a bf16 x
+//     tile against Wqkv from a TMA ring. Row tiles past
 //     the length are skipped; rows of a live tile past the length hold
 //     round(bqkv), so the key tile the forward reads across the length is
 //     finite.
@@ -141,7 +142,8 @@ cudaError_t attention_half(const float* res, const bf16* q, const bf16* k, const
 // in), zero columns at O's padding; bo/g/be (D) f32; lens (B) i32; qkv
 // (B,T,3 Da) and o (B,T,Kp) bf16 scratch; out (B,T,D) f32 (`heads_of` gives
 // dkp, Da, Kp: at d_k % 8 == 0 and D % 32 == 0 these are the unpadded
-// (3D, D) and (D, D)). scale = 1/sqrt(d_k); D / H in 1..1024.
+// (3D, D) and (D, D)). scale = 1/sqrt(d_k); D in 1..2048 (the projections'
+// plan: the x tile in column chunks past 1,472), D / H in 1..2048.
 FS2_EXPORT int fs2_attention_block(const float* x, const bf16* wqkv, const float* bqkv,
                                    const bf16* wo, const float* bo, const float* g,
                                    const float* be, const int* lens, bf16* qkv, bf16* o,
@@ -196,7 +198,7 @@ FS2_EXPORT int fs2_attention_res(const float* res, const bf16* q, const bf16* k,
 // column blocks of one q|k|v buffer; out (B, T, H * DK) contiguous) and
 // fused_attention (packed = 0: q, k, v and out (B, H, T, DK) contiguous,
 // ld = DK). ld a multiple of 8, bases 16-byte aligned; lens (B) i32; DK a
-// multiple of 8 in 8..1024 (the TMA strides and the 16-byte zero stores). The SERVE forward of attention_fwd.cuh, its three
+// multiple of 8 in 8..2048 (the TMA strides and the 16-byte zero stores). The SERVE forward of attention_fwd.cuh, its three
 // tensor maps encoded per call.
 FS2_EXPORT int fs2_attention(const bf16* q, const bf16* k, const bf16* v, int ld,
                              const int* lens, bf16* out, int B, int T, int H, int DK, int packed,

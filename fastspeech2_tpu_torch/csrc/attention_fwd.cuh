@@ -46,7 +46,7 @@
 // output has strides of its own, and every store masks the columns at or
 // past d_k.
 //
-// Head dims (`attn_plan`): any from 1 to 1024, padded to DKP, the next
+// Head dims (`attn_plan`): any from 1 to 2048, padded to DKP, the next
 // multiple of 64 and at least 128 (zero columns in Q and K leave the scores
 // exact, zero columns of V give zero columns of O; the scale is the real
 // d_k's). The operands' own head stride is a multiple of 8 (a TMA stride is
@@ -756,7 +756,7 @@ attn_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 // ---- host ---------------------------------------------------------------------
 
 // The tiling of a head dim, one rule for every attention kernel (mirrored by
-// ops/kernels/attention_train.py:plan): d_k in 1..1024, padded to dkp (a multiple of 64, at least 128: no model routes a narrower
+// ops/kernels/attention_train.py:plan): d_k in 1..2048, padded to dkp (a multiple of 64, at least 128: no model routes a narrower
 // head, and zero columns keep the result exact). dkp <= 256: the tile bodies
 // at DK = dkp, one part. Above: the wide bodies, `parts` column parts of pw columns
 // (pw = 192 or 256: no warpgroup holds more than 256 accumulator columns).
@@ -764,8 +764,12 @@ struct AttnPlan {
   int dkp, wide, pw, parts;
 };
 
+// The widest head dim: 8 column parts of 256 at 2048, each recomputing the
+// scores over 32 chunks of 64 columns (the rings' slots do not grow with d_k).
+constexpr int MAX_HEAD_DIM = 2048;
+
 bool attn_plan(int dk, AttnPlan* p) {
-  if (dk < 1 || dk > 1024) return false;
+  if (dk < 1 || dk > MAX_HEAD_DIM) return false;
   p->dkp = max(128, (dk + 63) / 64 * 64);
   p->wide = p->dkp > 256;
   p->parts = p->wide ? (p->dkp + 255) / 256 : 1;

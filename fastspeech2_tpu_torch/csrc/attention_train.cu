@@ -13,11 +13,11 @@
 // H, B) whose innermost extent is d_k (attention_fwd.cuh: make_map), so
 // neither makes a copy and a padded head never reads the next head's
 // columns. Any d_k that
-// is a multiple of 8 from 8 to 1024 (attention_fwd.cuh: attn_plan): the
+// is a multiple of 8 from 8 to 2048 (attention_fwd.cuh: attn_plan): the
 // tile bodies below at DKP = d_k rounded up to 64, at least 128 (<= 256),
 // the wide bodies
 // (column parts, the reductions over d_k streamed) above. Other head dims
-// up to 1024 come zero-padded to a multiple of 8 with the real d_k's scale
+// up to 2048 come zero-padded to a multiple of 8 with the real d_k's scale
 // (ops/kernels/attention_train.py): zero columns leave every product and
 // gradient exact, and the keep mask does not read d_k.
 //
@@ -1567,7 +1567,7 @@ int bwd_any(const void* q, const void* k, const void* v, const void* dout, const
 // bytes of the kernels that serve it: the forward (row split, key split; the
 // wide body: both the same) in the SERVE and the TRAIN mode, dQ (row split,
 // key split), dK/dV, the f32 forward and backward. cudaErrorInvalidValue
-// for a head dim outside 1..1024.
+// for a head dim outside 1..2048.
 FS2_EXPORT int fs2_attention_plan(int dk, int* out) {
   AttnPlan pl;
   if (!attn_plan(dk, &pl)) return (int)cudaErrorInvalidValue;

@@ -14,7 +14,8 @@
 // far above the ridge (~295) -- tensor-core (operations) bound.
 //
 // Design: csrc/ffn_body.cuh (a k-tap conv launch writing the bf16 hidden,
-// then a k=1 conv launch with the entry's epilogue). Any D, H and O, odd k:
+// then a k=1 conv launch with the entry's epilogue). D from 1 to 2048 (the
+// x tile in column chunks past what fits whole), any H and O, odd k:
 // the weights come padded (w1 (Hd, K*Dp), Dp = D rounded up to 32, zero
 // columns past D in each tap, Hd a multiple of 32 with zero rows and bias
 // past the model's H; w2 (O, Hd) with zero columns there), x and out keep
@@ -90,12 +91,14 @@ FS2_EXPORT int fs2_ffn(const bf16* x, const bf16* w1, const float* b1, const bf1
 }
 
 // The tiling chosen for a shape, as ops/kernels/ffn.py:plan gives it: p, nh,
-// st1, smem1, no, passes, st2, minb2, smem2 into out[0..8]. Returns 0, or
-// cudaErrorInvalidValue where no tiling fits.
+// st1, smem1, no, passes, st2, minb2, smem2, xc into out[0..9]. Returns 0,
+// or cudaErrorInvalidValue where no tiling fits (D outside 1..2048 among
+// them).
 FS2_EXPORT int fs2_ffn_plan(int D, int Hd, int K, int O, int* out) {
   Plan pl;
   if (!make_plan(D, Hd, K, O, &pl)) return (int)cudaErrorInvalidValue;
-  const int v[9] = {pl.p, pl.nh, pl.st1, pl.smem1, pl.no, pl.passes, pl.st2, pl.minb2, pl.smem2};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const int v[10] = {pl.p,  pl.nh, pl.st1,   pl.smem1, pl.no,
+                     pl.passes, pl.st2, pl.minb2, pl.smem2, pl.xc};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }

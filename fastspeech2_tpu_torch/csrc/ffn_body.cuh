@@ -29,6 +29,16 @@
 //     multiple of 32 (zero rows past the model's width: ops/kernels/ffn.py
 //     pads it once, when it packs the weights), is K-major as it is and
 //     streams in NH x 64 tiles (128-byte swizzle), each serving all P rows.
+//     Where the whole x tile leaves no room for two ring stages at either
+//     tiling (D past 1,344 at k = 9, past 1,472 at k = 1), the tile holds
+//     XC columns at a time (`make_plan`: 512, or less where the halo rows
+//     need it) at P = 128, NH = 256: the product runs chunk by chunk, each
+//     chunk's k taps over its columns, the accumulators carried across the
+//     chunks (every chunk's tiles retired before the next chunk is loaded
+//     over it), and ring tile i is the 64 columns of its (chunk, tap) that
+//     the walk reaches then. The pre-LN entry first takes each row's mean
+//     and 1/std over the whole row (`ln_rows` with STATS, the unchunked
+//     tile's arithmetic), then normalizes each chunk as it loads it.
 //  2. ffn_out_kernel: y = round(hidden W2) + b2 and the entry's epilogue. A
 //     block covers 64 rows x up to 512 output columns, the two warpgroups
 //     half each (192 accumulators' worth at O = 384 would not fit one); the
@@ -88,6 +98,7 @@ constexpr int SMEM_MAX = 232448;     // a block's shared memory on the H100
 constexpr int SMEM_PAIR = 115712;    // each of two blocks on one SM
 constexpr int SLACK = 1024 + 64;     // the ring's 1024-byte alignment, mbarriers
 constexpr int ROW_PASS = 512;        // launch 2: output columns of a block, at most
+constexpr int MAX_D = 2048;          // the widest conv input the plan takes
 
 // The conv input's width in the kernels: D rounded up to a multiple of 32.
 __host__ __device__ __forceinline__ int pad32(int d) { return (d + 31) / 32 * 32; }
@@ -98,10 +109,13 @@ struct Plan {
   int p, nh, st1, smem1;             // launch 1: rows, hidden columns, stages, bytes
   int no, passes, st2, minb2, smem2;  // launch 2: columns a warpgroup, column
                                       // passes, stages, blocks per SM, bytes
+  int xc;                            // launch 1: x tile columns (D rounded up to
+                                     // 32, or a chunk of them)
 };
 
 bool make_plan(int D, int Hd, int K, int O, Plan* pl) {
   static const int tiles[2][2] = {{128, 256}, {64, 128}};
+  if (D < 1 || D > MAX_D) return false;
   D = pad32(D);  // the x tile's width
   pl->p = 0;
   for (const auto& c : tiles) {
@@ -113,7 +127,22 @@ bool make_plan(int D, int Hd, int K, int O, Plan* pl) {
       pl->nh = c[1];
       pl->st1 = (int)st;
       pl->smem1 = (int)(xb + st * tile + SLACK);
+      pl->xc = D;
       break;
+    }
+  }
+  // else the x tile in chunks at 128 x 256: the widest chunk of 512, 256,
+  // 128 or 64 columns that leaves two stages beside the rows' statistics
+  for (int xc = 512; pl->p == 0 && xc >= 64; xc /= 2) {
+    const long rows = (128 + K - 1) | 1, tile = 256L * 128;
+    const long xb = (long)xc * rows * 2 + 8 * rows;  // the chunk, the rows' mean and 1/std
+    const long st = std::min(4L, (SMEM_MAX - SLACK - xb) / tile);
+    if (st >= 2) {
+      pl->p = 128;
+      pl->nh = 256;
+      pl->st1 = (int)st;
+      pl->smem1 = (int)(xb + st * tile + SLACK);
+      pl->xc = xc;
     }
   }
   if (pl->p == 0) return false;
@@ -273,7 +302,9 @@ __device__ __forceinline__ uint4 load8_bf16(const bf16* row, int c, int D) {
 // kept the loads of a warp's rows from going out together and cost kernel
 // 9's conv launch a third of its time at D = 384. Below 8, the chunk that
 // holds column D is summed column by column.
-template <int S, int A>
+// STATS: each row's mean and 1/std go to xs read as floats, [0, R) and
+// [R, 2 R), and no tile is written (the chunked tile, `load_chunk`).
+template <int S, int A, bool STATS = false>
 __device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, int tbase,
                                         int rows, int R, int len) {
   constexpr int RA = 8 / S;
@@ -320,6 +351,13 @@ __device__ __forceinline__ void ln_rows(bf16* xs, const Args& a, size_t row0, in
       const float inv = 1.0f / sqrtf(warp_sum(v) / (float)D + a.eps);
       const int e = e0 + r;
       if (e >= rows) continue;
+      if constexpr (STATS) {
+        if (lane == 0) {
+          reinterpret_cast<float*>(xs)[e] = mean;
+          reinterpret_cast<float*>(xs)[R + e] = inv;
+        }
+        continue;
+      }
       uint4* dst = reinterpret_cast<uint4*>(xs) + e;
 #pragma unroll
       for (int q = 0; q < S; ++q) {
@@ -408,14 +446,83 @@ __device__ __forceinline__ void load_tile(bf16* xs, const Args& a, size_t row0, 
   }
 }
 
+// The rows' mean and 1/std for the chunked pre-LN tile (`ln_rows` with
+// STATS: D past 1,024, so 8 chunks a lane) into st [0, R) and [R, 2 R).
+__device__ __forceinline__ void ln_stats(float* st, const Args& a, size_t row0, int tbase,
+                                         int rows, int R, int len) {
+  bf16* xs = reinterpret_cast<bf16*>(st);
+  if (a.D % 8 == 0)
+    ln_rows<8, 8, true>(xs, a, row0, tbase, rows, R, len);
+  else if (a.D % 4 == 0)
+    ln_rows<8, 4, true>(xs, a, row0, tbase, rows, R, len);
+  else
+    ln_rows<8, 1, true>(xs, a, row0, tbase, rows, R, len);
+}
+
+// Columns [c0, c0 + 8 CH) of x rows tbase .. tbase + rows - 1 into the
+// chunked tile xs [CH][R][8], as `load_tile` (zero outside [0, len) and past
+// D; U items loaded before any is stored: eight, four for the pre-LN entry,
+// whose 128 accumulators a thread stay live across the chunks' loads and
+// which spilled at eight); pre-LN: each value (x - mean) * inv * g + be with
+// the row's statistics st (`ln_stats`), the arithmetic of `ln_rows`.
+template <int IN>
+__device__ __forceinline__ void load_chunk(bf16* xs, const Args& a, size_t row0, int tbase,
+                                           int rows, int R, int len, int c0, int CH,
+                                           const float* st) {
+  const int D = a.D, Dr = D - c0;  // real columns from c0 on (c0 < D, a multiple of 64)
+  constexpr int U = IN == IN_F32_LN ? 4 : 8;
+  const int n = rows * CH;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * THREADS) {
+    uint4 v[U];
+    float4 f[U][2];
+    bool ok[U];
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int i = i0 + q * THREADS, e = i / CH, c = i % CH, t = tbase + e;
+      ok[q] = i < n && t >= 0 && t < len && 8 * c < Dr;
+      if (IN == IN_BF16) {
+        v[q] = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[q])
+          v[q] = load8_bf16(reinterpret_cast<const bf16*>(a.x) + (row0 + t) * D + c0, 8 * c, Dr);
+      } else {
+        f[q][0] = f[q][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok[q])
+          load8_f32(reinterpret_cast<const float*>(a.x) + (row0 + t) * D + c0, 8 * c, Dr,
+                    f[q][0], f[q][1]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int i = i0 + q * THREADS;
+      if (i >= n) continue;
+      const int e = i / CH, c = i % CH;
+      if (IN == IN_F32_LN && ok[q]) {  // g = be = 0 past D: those columns give 0
+        const float mean = st[e], inv = st[R + e];
+        float4 gu, gv, bu, bv;
+        load8_f32(a.g + c0, 8 * c, Dr, gu, gv);
+        load8_f32(a.be + c0, 8 * c, Dr, bu, bv);
+        const float4 uu = f[q][0], ww = f[q][1];
+        f[q][0] = make_float4((uu.x - mean) * inv * gu.x + bu.x, (uu.y - mean) * inv * gu.y + bu.y,
+                              (uu.z - mean) * inv * gu.z + bu.z, (uu.w - mean) * inv * gu.w + bu.w);
+        f[q][1] = make_float4((ww.x - mean) * inv * gv.x + bv.x, (ww.y - mean) * inv * gv.y + bv.y,
+                              (ww.z - mean) * inv * gv.z + bv.z, (ww.w - mean) * inv * gv.w + bv.w);
+      }
+      reinterpret_cast<uint4*>(xs)[(size_t)c * R + e] =
+          IN == IN_BF16 ? v[q] : pack8(f[q][0], f[q][1]);
+    }
+  }
+}
+
 // Launch 1. Block (tile, hidden part, batch row): P = 64 * WR rows x NH
 // hidden columns; WR = 2: each warpgroup 64 rows x NW columns (NH = NW);
 // WR = 1: both the same 64 rows, NW columns each (NH = 2 NW). CONV_RELU:
 // blocks of the extra tile index `ntiles` compute the bias-only row instead.
-template <int IN, int WR, int NW, int EPI>
+// CH: the x tile in chunks of xc columns (a multiple of 64; the plan's xc),
+// followed by the rows' statistics (2 R floats).
+template <int IN, int WR, int NW, int EPI, bool CH = false>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_conv_kernel(const __grid_constant__ CUtensorMap tw1, const __grid_constant__ Args a, int st,
-                int ntiles) {
+                int ntiles, int xc) {
   constexpr int P = 64 * WR, NH = WR == 2 ? NW : 2 * NW;
   extern __shared__ unsigned char smem_raw[];
   const int b = blockIdx.z;
@@ -429,17 +536,37 @@ ffn_conv_kernel(const __grid_constant__ CUtensorMap tw1, const __grid_constant__
   if (t0 >= live) return;  // launch 2 gives every row from len + pad on the row c
   unsigned char* ring_g = align1024(smem_raw);
   const int rows = P + a.K - 1, R = rows | 1;
-  bf16* xs = reinterpret_cast<bf16*>(ring_g + st * NH * 128);  // [Dp/8][R][8]
-  uint64_t* full = reinterpret_cast<uint64_t*>(xs + (size_t)(Dp / 8) * R * 8);
-  Ring ring{smem_u32(ring_g), ring_g, full, full + st, st, NH * 128, 0, (a.K * Dp + 63) / 64};
+  bf16* xs = reinterpret_cast<bf16*>(ring_g + st * NH * 128);  // [Dp/8][R][8] (CH: [xc/8])
+  float* stats = reinterpret_cast<float*>(xs + (size_t)((CH ? xc : Dp) / 8) * R * 8);
+  uint64_t* full = reinterpret_cast<uint64_t*>(CH ? stats + 2 * R : stats);
+  // CH: nc chunks, each tap of a chunk in tq ring tiles (the last chunk's:
+  // tql, its last tile 32 columns where Dp % 64 != 0)
+  const int nc = CH ? (Dp + xc - 1) / xc : 1, tq = xc / 64;
+  const int tql = CH ? (Dp - (nc - 1) * xc + 63) / 64 : 0;
+  Ring ring{smem_u32(ring_g), ring_g, full, full + st, st, NH * 128, 0,
+            CH ? a.K * ((nc - 1) * tq + tql) : (a.K * Dp + 63) / 64};
   ring.init();
   __syncthreads();
   auto load = [&](int i, unsigned char* dst, uint64_t* bar) {
-    tma_load_2d(dst, &tw1, bar, i * 64, n0);
+    if constexpr (CH) {  // tile i: chunk q, tap j, its 64 columns from c
+      const int q = min(i / (a.K * tq), nc - 1), r = i - q * a.K * tq;
+      const int nq = q == nc - 1 ? tql : tq;
+      tma_load_2d(dst, &tw1, bar, (r / nq) * Dp + q * xc + 64 * (r % nq), n0);
+    } else {
+      tma_load_2d(dst, &tw1, bar, i * 64, n0);
+    }
   };
   if (threadIdx.x == 0) ring.top_up(0, load);  // every stage is free
   const size_t row0 = (size_t)b * T;
-  load_tile<IN>(xs, a, row0, t0 - pad, rows, R, len);
+  if constexpr (CH) {
+    if (IN == IN_F32_LN) {
+      ln_stats(stats, a, row0, t0 - pad, rows, R, len);
+      __syncthreads();
+    }
+    load_chunk<IN>(xs, a, row0, t0 - pad, rows, R, len, 0, xc / 8, stats);
+  } else {
+    load_tile<IN>(xs, a, row0, t0 - pad, rows, R, len);
+  }
   fence_proxy_async_smem();  // xs is read by the products' descriptors
   __syncthreads();
 
@@ -468,7 +595,47 @@ ffn_conv_kernel(const __grid_constant__ CUtensorMap tw1, const __grid_constant__
     fence_regs(acc);
     warp_arrive(&ring.empty[it % st]);
   };
-  tiles(a.K * Dp / 16, step);
+  if constexpr (CH) {
+    // ring tile it at chunk column ad's descriptor base: nks k-steps of 16
+    // columns (two 8-column core matrices, 2 lbo bytes, each)
+    auto cstep = [&](int it, uint32_t ad, auto nks, auto first) {
+      const uint32_t bt = ring.acquire(it, load) + boff;
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < decltype(nks)::value; ++s)
+        wgmma_ss_k<NW>(acc, desc_plain(ad + s * 2 * lbo, lbo, 128), kmajor_desc(bt, s),
+                       decltype(first)::value && s == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      warp_arrive(&ring.empty[it % st]);
+    };
+    int it = 0;
+    for (int q = 0; q < nc; ++q) {
+      if (q > 0) {
+        __syncthreads();  // every warp's products have read chunk q - 1
+        load_chunk<IN>(xs, a, row0, t0 - pad, rows, R, len, q * xc, xc / 8, stats);
+        fence_proxy_async_smem();
+        __syncthreads();
+      }
+      const int nq = q == nc - 1 ? tql : tq, cw = min(xc, Dp - q * xc);
+      for (int j = 0; j < a.K; ++j) {
+        for (int m = 0; m < cw / 64; ++m, ++it) {
+          const uint32_t ad = xa + m * 8 * lbo + j * 16;
+          if (it == 0)
+            cstep(it, ad, Int<4>{}, Int<1>{});
+          else
+            cstep(it, ad, Int<4>{}, Int<0>{});
+        }
+        if (nq * 64 != cw) {  // 32 columns left (cw % 64 == 32; never the first tile)
+          cstep(it, xa + (cw / 64) * 8 * lbo + j * 16, Int<2>{}, Int<0>{});
+          ++it;
+        }
+      }
+    }
+  } else {
+    tiles(a.K * Dp / 16, step);
+  }
 
   // CONV_RELU: rows from len + pad on are not read. CONV_QKV (k = 1): every
   // row of the tile below T, those past the length from zero x rows
@@ -640,12 +807,13 @@ ffn_ln_rows_kernel(const __grid_constant__ Args a, int rows) {
   warp_layer_norm(row, row, a.O, a.g, a.be, a.eps, threadIdx.x & 31);
 }
 
-template <int IN, int WR, int NW, int EPI>
+template <int IN, int WR, int NW, int EPI, bool CH = false>
 cudaError_t launch_conv_tile(const CUtensorMap& tw1, const Args& a, const Plan& pl, dim3 grid,
                              int ntiles, cudaStream_t stream) {
-  cudaError_t e = set_smem(ffn_conv_kernel<IN, WR, NW, EPI>, pl.smem1);
+  cudaError_t e = set_smem(ffn_conv_kernel<IN, WR, NW, EPI, CH>, pl.smem1);
   if (e != cudaSuccess) return e;
-  ffn_conv_kernel<IN, WR, NW, EPI><<<grid, THREADS, pl.smem1, stream>>>(tw1, a, pl.st1, ntiles);
+  ffn_conv_kernel<IN, WR, NW, EPI, CH><<<grid, THREADS, pl.smem1, stream>>>(tw1, a, pl.st1,
+                                                                            ntiles, pl.xc);
   return cudaGetLastError();
 }
 
@@ -656,6 +824,8 @@ cudaError_t launch_conv(const CUtensorMap& tw1, const Args& a, const Plan& pl, i
                         cudaStream_t stream) {
   const int ntiles = (a.T + pl.p - 1) / pl.p;
   const dim3 grid(ntiles + (EPI == CONV_RELU), (a.Hd + pl.nh - 1) / pl.nh, B);
+  if (pl.xc < pad32(a.D))
+    return launch_conv_tile<IN, 2, 256, EPI, true>(tw1, a, pl, grid, ntiles, stream);
   if (pl.p == 128) return launch_conv_tile<IN, 2, 256, EPI>(tw1, a, pl, grid, ntiles, stream);
   return launch_conv_tile<IN, 1, 64, EPI>(tw1, a, pl, grid, ntiles, stream);
 }

@@ -6,8 +6,8 @@ Port of ``fastspeech2_tpu/ops/pallas/attention.py:fused_attention_packed_qkv_res
 of ``csrc/ffn_body.cuh`` at k = 1 without the ReLU), the SERVE forward of
 ``csrc/attention_fwd.cuh`` (kernel 7's) into a bf16 head-output scratch,
 and the out projection with the residual and LayerNorm (launch 2 of
-``csrc/ffn_body.cuh``). Any D and any d_k from 1 to 1024
-(``attention_train.plan``): the kernels lay heads dkp = d_k rounded up to 8
+``csrc/ffn_body.cuh``). Any D from 1 to 2048 (``ffn.plan`` at k = 1) and
+any d_k from 1 to 2048 (``attention_train.plan``): the kernels lay heads dkp = d_k rounded up to 8
 apart (``head_layout``; a TMA stride is a multiple of 16 bytes), which
 ``pad_block_weights`` gives the projections once where the model packs
 them (zero rows and columns leave every product exact; the scale and the
@@ -292,8 +292,8 @@ def _check_heads(name, D, n_heads):
     check_head_dim(name, D // n_heads)
     try:
         ffn.plan(D, D, 1, D)
-    except ValueError:
-        raise ValueError(f"{name}: D={D} leaves the projections no tiling") from None
+    except ValueError as e:
+        raise ValueError(f"{name}: the projections refuse D={D} ({e})") from None
 
 
 def attention_res_ln(q, k, v, res, wo, bo, g, be, lengths, n_heads: int,
@@ -389,7 +389,7 @@ def launch_res(q, k, v, res, wo, bo, lengths, n_heads: int):
 
 def check_head_dim(name: str, dk: int) -> None:
     """The attention kernels take every head dim ``attention_train.plan``
-    plans (1 to 1024); raise ValueError for others."""
+    plans (1 to 2048); raise ValueError for others."""
     attention_train.check_head_dim(name, dk)
 
 

@@ -31,7 +31,7 @@ differentiable by autograd; two small autograd helpers put the backward's
 rounding points where the kernels have them. The CPU takes it; a CUDA tensor
 launches the kernels or raises: bf16 on the tensor cores (what the model
 sends) or f32 with plain multiply-adds and no TF32 (for callers that hold the
-kernels to an f32 reference), at any d_k from 1 to 1024 (``plan``: the
+kernels to an f32 reference), at any d_k from 1 to 2048 (``plan``: the
 tiling the CUDA sources choose for it). A head dim that is not a multiple of
 8 (a TMA stride is a multiple of 16 bytes) runs at ``padded_head_dim(dk)`` on
 zero-filled copies of q, k, v and dO with the real d_k's scale: the zero
@@ -62,8 +62,8 @@ MAX_T = 1024
 PACKED_MAX_T = 896
 
 #: widest head dim the CUDA kernels take (every one from 1 up to it): the
-#: widest D the port's other kernels serve (``adaptor.plan``)
-MAX_HEAD_DIM = 1024
+#: widest D the port's other kernels serve (``adaptor.plan``, ``ffn.plan``)
+MAX_HEAD_DIM = 2048
 #: shared memory a block may opt into on the H100
 SMEM_LIMIT = 232_448
 

@@ -16,8 +16,11 @@ then a k=1 conv launch with the entry's epilogue, both wgmma kernels fed by
 a TMA weight ring). ``plan`` picks their tiling per shape; the C side makes
 the same choice (``c_plan`` reads it back on the card).
 
-Any D, H and O, odd k (the JAX route takes the kernel for odd k only, and
-the Pallas kernel fails at even k). The kernels work at D and H rounded up
+D from 1 to 2048 (``MAX_D``), any H and O, odd k (the JAX route takes the
+kernel for odd k only, and the Pallas kernel fails at even k). Where the
+conv's whole x tile leaves no room (D past 1,344 at k = 9), launch 1 holds
+it in column chunks (``plan``'s ``xc``) and carries its products across
+them. The kernels work at D and H rounded up
 to 32 (``GRANULE``): ``pad_weights`` lays w1 out (Hp, k*Dp) with zero
 columns past D in each tap and zero rows past H, b1 (Hp,) and w2 (O, Hp)
 with zeros there, once where the model packs its weights (``pack_ffn``,
@@ -66,8 +69,14 @@ GRANULE = 32
 #: launch 1's (rows, hidden columns) per block, in the order tried: the
 #: second fits every shape the first does not (D up to 1,472 at k = 1)
 CONV_TILES = ((128, 256), (64, 128))
+#: launch 1's x tile columns a chunk, in the order tried, where the whole
+#: tile fits neither tiling (then 128 x 256)
+X_CHUNKS = (512, 256, 128, 64)
 #: launch 2's output columns per block, at most
 ROW_PASS = 512
+#: the widest conv input (and attention projection) the kernels take: the
+#: widest D of the port's other kernels (``adaptor.plan``)
+MAX_D = 2048
 
 
 class FfnPlan(NamedTuple):
@@ -77,7 +86,9 @@ class FfnPlan(NamedTuple):
     columns per warpgroup (two per block), ``passes`` column passes (blocks)
     over O, ``st2`` stages of a 64 x 64 hidden tile plus 2*no x 64 weights,
     ``minb2`` blocks per SM, ``smem2`` bytes (the drained ring then holds
-    the block's round(y), 64 x (2*no + 8) floats)."""
+    the block's round(y), 64 x (2*no + 8) floats). ``xc``: launch 1's x
+    tile columns, ``padded(D)`` (whole) or a chunk of them (then the rows'
+    mean and 1/std, 8 bytes a row, sit behind the chunk)."""
     p: int
     nh: int
     st1: int
@@ -87,6 +98,7 @@ class FfnPlan(NamedTuple):
     st2: int
     minb2: int
     smem2: int
+    xc: int
 
 
 def padded(n: int) -> int:
@@ -95,22 +107,35 @@ def padded(n: int) -> int:
 
 
 def plan(D: int, H: int, kernel: int, O: int) -> FfnPlan:
-    """The kernels' tiling of (D, H, k, O), as ``csrc/ffn.cu:make_plan``
+    """The kernels' tiling of (D, H, k, O), as ``csrc/ffn_body.cuh:make_plan``
     picks it, at D rounded up to 32: launch 1 takes the first of
     ``CONV_TILES`` whose x tile (p + k - 1 rows, rounded up to odd,
     ``padded(D)`` bf16 columns) and at least two
-    ring stages fit a block's shared memory, with up to four stages;
-    launch 2 splits O into passes of at most 512 columns, rounds each
+    ring stages fit a block's shared memory, with up to four stages; where
+    neither does, 128 x 256 with the x tile in chunks of the first of
+    ``X_CHUNKS`` columns that leaves two stages; launch 2 splits O into
+    passes of at most 512 columns, rounds each
     warpgroup's half up to 64, and takes two blocks per SM at 128 columns or
-    fewer. Raises ValueError where no tiling fits."""
+    fewer. Raises ValueError for D outside 1..``MAX_D`` and where no tiling
+    fits."""
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"ffn: D={D} not supported by the kernels (D from 1 to {MAX_D})")
     for p, nh in CONV_TILES:
-        xb = padded(D) * ((p + kernel - 1) | 1) * 2
+        xc = padded(D)
+        xb = xc * ((p + kernel - 1) | 1) * 2
         st1 = min(4, (SMEM_MAX - SLACK - xb) // (nh * 128))
         if st1 >= 2:
             break
     else:
-        raise ValueError(f"ffn: D={D}, k={kernel} leave no room for the conv "
-                         "tile in shared memory")
+        (p, nh), rows = CONV_TILES[0], (CONV_TILES[0][0] + kernel - 1) | 1
+        for xc in X_CHUNKS:
+            xb = xc * rows * 2 + 8 * rows  # the chunk, the rows' mean and 1/std
+            st1 = min(4, (SMEM_MAX - SLACK - xb) // (nh * 128))
+            if st1 >= 2:
+                break
+        else:
+            raise ValueError(f"ffn: D={D}, k={kernel} leave no room for the conv "
+                             "tile in shared memory")
     passes = -(-O // ROW_PASS)
     per = -(-O // passes)  # columns of a pass
     no = -(-((per + 1) // 2) // 64) * 64  # a warpgroup's half, up to a multiple of 64
@@ -118,7 +143,7 @@ def plan(D: int, H: int, kernel: int, O: int) -> FfnPlan:
     stage = 8192 + 2 * no * 128
     st2 = min(4, ((SMEM_PAIR if minb2 == 2 else SMEM_MAX) - SLACK) // stage)
     return FfnPlan(p, nh, st1, xb + st1 * nh * 128 + SLACK, no, passes, st2, minb2,
-                   st2 * stage + SLACK)
+                   st2 * stage + SLACK, xc)
 
 
 def scratch_elems(B: int, T: int, H: int, O: int) -> int:
@@ -134,7 +159,7 @@ def c_plan(D: int, H: int, kernel: int, O: int) -> FfnPlan:
     if _fn_plan is None:
         _fn_plan = common.bind(common.load("ffn"), "fs2_ffn_plan",
                                [common.I] * 4 + [common.P])
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 10)()
     if _fn_plan(D, H, kernel, O, out) != 0:
         raise ValueError(f"ffn: no tiling fits D={D}, H={H}, k={kernel}, O={O}")
     return FfnPlan(*out)

@@ -2,7 +2,7 @@
 """Time the FFT-block attention halves (kernels 1, 5 and 6) of one tree of
 this repository on the card, at the serving path's shapes.
 
-    python scripts/time_attention.py [--tree DIR] [--label NAME]
+    python scripts/time_attention.py [--tree DIR] [--label NAME] [--digest-only]
 
 --tree is a checkout whose ``fastspeech2_tpu_torch`` is timed (default: this
 one), for example a parent commit unpacked with ``git archive`` into an
@@ -11,7 +11,10 @@ helpers come from this checkout's ``chip_smoke.py``. Kernel 1 (post-LN,
 ``attention_block``), kernel 5 (q/k/v given, ``attention_res_ln``) and
 kernel 6 (pre-LN, ``attention_res``) run at the decoder rung (16, 768, 384)
 and the encoder shape (32, 128, 256) with two heads, and at (16, 768, 256)
-with one head (d_k 256; a tree whose kernels refuse it prints the error).
+with one head (d_k 256), and at the wide widths: D = 1536 and 2048 with one
+head and D = 2048 with two (d_k 1536, 2048, 1024; the projections over x
+tiles in column chunks); a tree whose kernels refuse a shape prints the
+error.
 Weights are a seeded ``FFTBlock``'s (bf16), inputs seeded noise, lengths
 random with one full and one short row: the same in every tree. Kernel 5
 takes q/k/v projected from x by plain ops, kernel 6 from LN(x), with x as
@@ -22,7 +25,8 @@ entry) and ``device_ms_by_kernel``, ``host_ms`` (the host's time to
 enqueue one call; 200 calls back to back), ``bound_ms`` (8 l D^2 + 4 l^2 D
 FLOPs for kernel 1, 2 l D^2 + 4 l^2 D for 5 and 6, per row of length l, at
 989 TFLOP/s against the bytes chip_smoke.py counts at 3.35 TB/s) and
-``digest`` (a hash of the output's bits). To compare two trees, run parent,
+``digest`` (a hash of the output's bits); ``--digest-only`` prints the
+digests alone, as one JSON object. To compare two trees, run parent,
 change, change, parent in one command on the same card.
 """
 
@@ -37,13 +41,15 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-CASES = ((16, 768, 384, 2), (32, 128, 256, 2), (16, 768, 256, 1))
+CASES = ((16, 768, 384, 2), (32, 128, 256, 2), (16, 768, 256, 1), (16, 768, 1536, 1),
+         (16, 768, 2048, 1), (16, 768, 2048, 2))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--digest-only", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -62,6 +68,7 @@ def main() -> int:
 
     common.build_all(["attention"])
     dev, bf16 = torch.device("cuda"), torch.bfloat16
+    digests = {}
     with torch.no_grad(), compute_dtype(bf16):
         for B, T, D, H in CASES:
             g = torch.Generator().manual_seed(B * T + D + H)
@@ -96,7 +103,12 @@ def main() -> int:
                     torch.cuda.synchronize()
                 except (ValueError, RuntimeError) as e:
                     line["error"] = f"{type(e).__name__}: {e}"
-                    print(json.dumps(line), flush=True)
+                    if not args.digest_only:
+                        print(json.dumps(line), flush=True)
+                    continue
+                digest = hashlib.sha256(y.float().cpu().numpy().tobytes()).hexdigest()[:16]
+                digests[f"{name} {line['shape']}"] = digest
+                if args.digest_only:
                     continue
                 t0 = time.perf_counter()
                 for _ in range(200):
@@ -108,10 +120,11 @@ def main() -> int:
                 line.update({
                     "ms": smoke.cuda_time_ms(fn), "device_ms": sum(dms.values()) or None,
                     "device_ms_by_kernel": {k: round(v, 5) for k, v in dms.items()},
-                    "host_ms": host, "bound_ms": b_ms, "bound_by": by,
-                    "digest": hashlib.sha256(y.float().cpu().numpy().tobytes()).hexdigest()[:16]})
+                    "host_ms": host, "bound_ms": b_ms, "bound_by": by, "digest": digest})
                 print(smoke.smi_line(), flush=True)
                 print(json.dumps(line), flush=True)
+    if args.digest_only:
+        print(json.dumps({"label": args.label, "digest": digests}))
     return 0
 
 

@@ -2,7 +2,7 @@
 """Time the conv-FFN kernels (2, 9 and 10) of one tree of this repository on
 the card, at the serving path's shapes.
 
-    python scripts/time_ffn.py [--tree DIR] [--label NAME]
+    python scripts/time_ffn.py [--tree DIR] [--label NAME] [--digest-only]
 
 --tree is a checkout whose ``fastspeech2_tpu_torch`` is timed (default: this
 one), for example a parent commit unpacked with ``git archive`` into an
@@ -11,7 +11,10 @@ helpers come from this checkout's ``chip_smoke.py``. Kernel 2 (post-LN,
 ``ffn_block``) and kernel 9 (pre-LN, ``ffn_block_pre``) run at the decoder
 rung (16, 768, 384) and the encoder shape (32, 128, 256), kernel 10 (bare,
 ``fused_ffn``) at the decoder rung with O = 384, bf16 out and f32 out
-(``fused_ffn_f32``); H = 1024, k = 9.
+(``fused_ffn_f32``); H = 1024, k = 9. Kernels 2, 9 and 10 also run at
+D = 260 with H = 1000 (widths the kernels pad to 32) and at the one-head
+wide model's D = 1536 and 2048 with H = 4096 (the x tile in column chunks;
+a tree that refuses them prints the error).
 Weights are a seeded ``FFTBlock``'s (bf16), inputs seeded noise, lengths
 random with one full and one short row: the same in every tree. For each
 case it prints the card's name and power limit, then one JSON line: ``ms``
@@ -19,8 +22,9 @@ case it prints the card's name and power limit, then one JSON line: ``ms``
 per call: every launch of the entry), ``host_ms`` (the host's time to enqueue
 one call; 200 calls back to back), ``bound_ms`` (2 (k D H + H O) FLOPs per
 row up to len + 4 at 989 TFLOP/s against x, the output and the weights at
-3.35 TB/s) and ``digest`` (a hash of the output's bits). To compare two
-trees, run parent, change, change, parent in one command on the same card.
+3.35 TB/s) and ``digest`` (a hash of the output's bits); ``--digest-only``
+prints the digests alone, as one JSON object. To compare two trees, run
+parent, change, change, parent in one command on the same card.
 """
 
 from __future__ import annotations
@@ -34,16 +38,23 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-CASES = (("ffn_block", 16, 768, 384), ("ffn_block", 32, 128, 256),
-         ("ffn_block_pre", 16, 768, 384), ("ffn_block_pre", 32, 128, 256),
-         ("fused_ffn", 16, 768, 384), ("fused_ffn_f32", 16, 768, 384))
-H, K = 1024, 9
+#: (entry, B, T, D, H)
+CASES = (("ffn_block", 16, 768, 384, 1024), ("ffn_block", 32, 128, 256, 1024),
+         ("ffn_block_pre", 16, 768, 384, 1024), ("ffn_block_pre", 32, 128, 256, 1024),
+         ("fused_ffn", 16, 768, 384, 1024), ("fused_ffn_f32", 16, 768, 384, 1024),
+         ("ffn_block", 16, 768, 260, 1000), ("ffn_block_pre", 16, 768, 260, 1000),
+         ("fused_ffn", 16, 768, 260, 1000),
+         ("ffn_block", 16, 768, 1536, 4096), ("ffn_block_pre", 16, 768, 1536, 4096),
+         ("fused_ffn", 16, 768, 1536, 4096), ("ffn_block", 16, 768, 2048, 4096),
+         ("ffn_block_pre", 16, 768, 2048, 4096), ("fused_ffn", 16, 768, 2048, 4096))
+K = 9
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--digest-only", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -60,8 +71,9 @@ def main() -> int:
 
     common.build_all(["ffn"])
     dev, bf16 = torch.device("cuda"), torch.bfloat16
+    digests = {}
     with torch.no_grad():
-        for name, B, T, D in CASES:
+        for name, B, T, D, H in CASES:
             g = torch.Generator().manual_seed(B * T + D)
             torch.manual_seed(D)
             blk = FFTBlock(EncoderConfig(idim=D, attention_dim=D, linear_units=H,
@@ -79,8 +91,19 @@ def main() -> int:
                 kern = getattr(KF, name)
                 fn = lambda: kern(x, *fp, lens, K)  # noqa: E731
                 nb = smoke.nbytes(x, x, *fp)
-            y = fn()
-            torch.cuda.synchronize()
+            shape = f"B={B},T={T},D={D}" + (f",H={H}" if H != 1024 else "")
+            try:
+                y = fn()
+                torch.cuda.synchronize()
+            except (ValueError, RuntimeError) as e:
+                if not args.digest_only:
+                    print(json.dumps({"label": args.label, "kernel": name, "shape": shape,
+                                      "error": f"{type(e).__name__}: {e}"}), flush=True)
+                continue
+            digest = hashlib.sha256(y.float().cpu().numpy().tobytes()).hexdigest()[:16]
+            digests[f"{name} {shape}"] = digest
+            if args.digest_only:
+                continue
             t0 = time.perf_counter()
             for _ in range(200):
                 fn()
@@ -89,14 +112,14 @@ def main() -> int:
             flops = sum(min(n + (K - 1) // 2, T) for n in lc) * 2 * (K * D * H + H * D)
             b_ms, by = smoke.bound_ms(flops, nb)
             dms = smoke.device_ms_by_kernel(torch, fn)
-            line = {"label": args.label, "kernel": name, "shape": f"B={B},T={T},D={D}",
+            line = {"label": args.label, "kernel": name, "shape": shape,
                     "ms": smoke.cuda_time_ms(fn), "device_ms": sum(dms.values()) or None,
                     "device_ms_by_kernel": {k: round(v, 5) for k, v in dms.items()},
-                    "host_ms": host, "bound_ms": b_ms, "bound_by": by,
-                    "digest": hashlib.sha256(
-                        y.float().cpu().numpy().tobytes()).hexdigest()[:16]}
+                    "host_ms": host, "bound_ms": b_ms, "bound_by": by, "digest": digest}
             print(smoke.smi_line(), flush=True)
             print(json.dumps(line), flush=True)
+    if args.digest_only:
+        print(json.dumps({"label": args.label, "digest": digests}))
     return 0
 
 

@@ -676,15 +676,19 @@ HALF_CASES = [(4, 100, 256, 2), (3, 200, 384, 2), (4, 130, 256, 1), (3, 72, 512,
               # any D, d_k no multiple of 8 (heads laid out dkp apart, zero-padded):
               # d_k 130 at D = 260 and 390, 100 at D = 200, 20 at D = 40, 132 at 264
               (2, 100, 260, 2), (2, 70, 390, 3), (3, 72, 200, 2), (3, 64, 40, 2),
-              (2, 90, 264, 2)]
+              (2, 90, 264, 2),
+              # past 1024: d_k 1500 (zero-padded to 1504; its projections' x
+              # tile whole at 64 rows), 1536 and 2048 (projections over 512-
+              # column chunks), and two heads of 1024 at D = 2048
+              (2, 100, 1500, 1), (2, 90, 1536, 1), (2, 70, 2048, 1), (2, 80, 2048, 2)]
 
 
 @pytest.mark.parametrize("B,T,D,H", HALF_CASES,
                          ids=[f"T{t}-D{d}-dk{d // h}" for _, t, d, h in HALF_CASES])
 def test_attention_halves_at_every_head_dim(dev, B, T, D, H):
     """Kernels 1, 5 and 6 against their plain versions at d_k 128, 192,
-    256, 160 (two heads: a column past d_k is the next head's), 384 and 1024
-    (column parts) with lengths T, 1, 0 and random: 5 and 6 on q/k/v column blocks of
+    256, 160 (two heads: a column past d_k is the next head's), 384, 1024,
+    1500, 1536 and 2048 (column parts) with lengths T, 1, 0 and random: 5 and 6 on q/k/v column blocks of
     one (B, T, 3D) buffer rounded as kernel 1 rounds them, kernel 1 against
     kernel 5 on the same x (the band: a cuBLAS f32 product and a tensor-core
     one flip rare q/k/v ulps). Rows at or past each length bit for bit: res
@@ -729,7 +733,7 @@ def test_attention_halves_at_every_head_dim(dev, B, T, D, H):
 def test_attention_half_kernels_use_wgmma_and_do_not_spill(dev):
     """attention's library holds no mma.sync kernel: beside the SERVE
     forward, the q|k|v projection (launch 1 of ffn_body.cuh at both
-    tilings) and the out projection (its launch 2, with and without the
+    tilings and with the x tile in chunks) and the out projection (its launch 2, with and without the
     LayerNorm, at four widths) show HGMMA and no HMMA in their SASS, and no
     ptxas spills; no ptxas note that it serialized a wgmma."""
     import re
@@ -755,7 +759,7 @@ def test_attention_half_kernels_use_wgmma_and_do_not_spill(dev):
         if kind:
             seen[kind] += 1
             assert "HGMMA" in part and funcs.get(name) == ("0", "0"), name
-    assert seen == {"ffn_conv_kernel": 2, "ffn_out_kernel": 8}, seen
+    assert seen == {"ffn_conv_kernel": 3, "ffn_out_kernel": 8}, seen
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["kernel11_packed", "kernel12"])
@@ -803,7 +807,8 @@ def test_attention_train_forward_and_backward(dev, packed, B, T, D, rate):
 
 @pytest.mark.parametrize("packed", [True, False], ids=["kernel11_packed", "kernel12"])
 @pytest.mark.parametrize("B,T,D,rate", [(2, 100, 256, 0.2), (2, 70, 384, 0.0),
-                                        (2, 90, 320, 0.2), (2, 60, 768, 0.2)])
+                                        (2, 90, 320, 0.2), (2, 60, 768, 0.2),
+                                        (2, 50, 3000, 0.2), (2, 40, 4096, 0.2)])
 def test_attention_train_f32(dev, packed, B, T, D, rate):
     """The f32 instantiation (plain multiply-adds, no TF32) against the plain
     version's autograd in full f32: 2e-5 of each result's peak (other
@@ -864,9 +869,9 @@ def test_attention_train_rejects_what_it_does_not_cover(dev):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         KT.fused_attention_train_packed(q.half(), q.half(), q.half(), lens, 1, 2, 0.0)
     qb = q.bfloat16()
-    q1032 = torch.randn(2, 8, 2064, device=dev).bfloat16()
-    with pytest.raises(ValueError, match="head dim"):  # d_k 1032: past 1024
-        KT.fused_attention_train_packed(q1032, q1032, q1032, lens, 1, 2, 0.0)
+    q2056 = torch.randn(2, 8, 4112, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):  # d_k 2056: past 2048
+        KT.fused_attention_train_packed(q2056, q2056, q2056, lens, 1, 2, 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         KT.fused_attention_train_packed(qb, qb.transpose(0, 1).contiguous().transpose(0, 1),
                                         qb, lens, 1, 2, 0.0)
@@ -927,18 +932,21 @@ def _train_attention_pair(KT, packed, B, H, T, dk, rate, seed, g, dev):
     (False, 2, 2, 100, 130, 0.2),
     (True, 3, 2, 70, 20, 0.2),
     (False, 3, 2, 70, 20, 0.0),
+    (True, 2, 1, 100, 2048, 0.2),    # d_k 2048: eight parts of 256, 32 chunks a score
+    (False, 2, 1, 90, 1500, 0.2),    # d_k 1500: zero-padded to 1504, six parts of 256
+    (True, 2, 2, 70, 1536, 0.0),     # two heads of 1536: a box past d_k is the next head's
 ], ids=["k12_T1024", "k11_T896", "k11_small_grid", "k12_small_grid_rate0", "k11_dk256_h1",
         "k12_dk256_h1_rate0", "k11_dk256_h2", "k12_dk256_h2", "k11_row_split",
         "k12_dk256_row_split", "k11_dk160_h2", "k12_dk160_h2", "k11_dk384_h1",
         "k12_dk384_h2_rate0", "k11_dk64_h2", "k11_dk40_h2", "k12_dk40_h2", "k11_dk1024_h1",
         "k11_dk136_h2", "k12_dk328_h2", "k11_dk130_h2", "k12_dk130_h2", "k11_dk20_h2",
-        "k12_dk20_h2_rate0"])
+        "k12_dk20_h2_rate0", "k11_dk2048_h1", "k12_dk1500_h1", "k11_dk1536_h2_rate0"])
 def test_attention_train_ring_split_and_dk256(dev, packed, B, H, T, dk, rate):
     """Kernels 11 and 12 where the ring turns over many times, in both grid
     splits (128 query rows a block, or 64 rows whose keys the two warpgroups
     share where the grid would leave SMs idle), at d_k 256, and at the head
     dims padded with zero columns (40, 64, 136, 160) or cut into column
-    parts (328, 384, 1024), against the
+    parts (328, 384, 1024, 1500, 1536, 2048), against the
     plain version's autograd within the bands of
     test_attention_train_forward_and_backward (max < 2^-6, mean < 1e-4 of the
     peak); padded rows exactly zero; a second call gives the same bits (no
@@ -1163,18 +1171,18 @@ def test_one_head_bf16_step_is_reproducible_at_dk384(dev):
 def test_attention_plan_of_the_c_side_is_the_python_one(dev):
     """``fs2_attention_plan`` (csrc/attention_fwd.cuh:attn_plan and the
     kernels' shared-memory sizes) gives ``attention_train.plan`` for every
-    d_k in 1..1024 (132 too: not a multiple of 8, it runs zero-padded to
-    136), and both refuse d_k 0 and 1032."""
+    d_k in 1..2048 (132 too: not a multiple of 8, it runs zero-padded to
+    136), and both refuse d_k 0 and 2056."""
     from fastspeech2_tpu_torch.ops.kernels import attention_train as KT
 
-    for dk in range(1, 1025):
+    for dk in range(1, 2049):
         serve, train, f32 = (KT.plan(dk, m) for m in ("serve", "train", "f32"))
         want = (serve.dkp, int(serve.wide), serve.part_width, serve.parts,
                 serve.smem["serve_rows"], serve.smem["serve_keys"], train.smem["train_rows"],
                 train.smem["train_keys"], train.smem["dq_rows"], train.smem["dq_keys"],
                 train.smem["dkv"], f32.smem["f32_fwd"], f32.smem["f32_bwd"])
         assert KT.c_plan(dk) == want, (dk, KT.c_plan(dk), want)
-    for dk in (0, 1032):
+    for dk in (0, 2056):
         with pytest.raises(ValueError):
             KT.plan(dk)
         with pytest.raises(ValueError):
@@ -1183,7 +1191,7 @@ def test_attention_plan_of_the_c_side_is_the_python_one(dev):
 
 def test_attention_kernels_refuse_head_dims_they_do_not_take(dev):
     """On CUDA tensors every attention wrapper raises ValueError for d_k
-    1032 and 2048 (past 1024; d_k 132, not a multiple of 8, runs
+    2056 and 4096 (past 2048; d_k 132, not a multiple of 8, runs
     zero-padded: ``test_attention_halves_at_every_head_dim``), and none
     falls back to its plain version: no launch counter moves."""
     from fastspeech2_tpu_torch.ops.kernels import attention as KA
@@ -1193,7 +1201,7 @@ def test_attention_kernels_refuse_head_dims_they_do_not_take(dev):
     before = launch_counts()
     bf, f32 = torch.bfloat16, torch.float32
     lens = torch.tensor([8], dtype=torch.int32, device=dev)
-    for dk in (1032, 2048):
+    for dk in (2056, 4096):
         z = lambda *s, dt=bf: torch.zeros(*s, dtype=dt, device=dev)  # noqa: E731
         D = dk
         with torch.no_grad():
@@ -1655,13 +1663,15 @@ BARE_SHAPES = [(4, 2, 96, 128), (70, 2, 96, 128), (3, 2, 160, 192), (34, 2, 160,
                (9, 2, 1024, 256), (3, 1, 2304, 128), (4, 2, 2304, 192), (3, 2, 2304, 256),
                (4, 2, 96, 64), (4, 2, 96, 40), (3, 2, 150, 136), (3, 2, 160, 160), (70, 2, 96, 160),
                (2, 1, 200, 384), (3, 2, 130, 384), (2, 2, 1024, 320), (2, 1, 100, 1024),
-               (3, 2, 150, 130), (3, 2, 96, 20), (2, 3, 70, 3)]
+               (3, 2, 150, 130), (3, 2, 96, 20), (2, 3, 70, 3),
+               (2, 1, 100, 1504), (2, 1, 130, 2048), (3, 2, 70, 1536), (2, 1, 90, 1500)]
 BARE_IDS = ["dk128_T96_ksplit", "dk128_T96_rows", "dk192_T160_ksplit", "dk192_T160_rows",
             "dk256_T160_ksplit", "dk256_T96_rows", "dk128_T1024_rows", "dk192_T1024_ksplit",
             "dk256_T1024_rows", "dk128_T2304_ksplit", "dk192_T2304_rows",
             "dk256_T2304_ksplit", "dk64_T96", "dk40_T96", "dk136_T150", "dk160_T160_ksplit",
             "dk160_T96_rows", "dk384_h1_T200", "dk384_h2_T130", "dk320_T1024",
-            "dk1024_T100", "dk130_T150", "dk20_T96", "dk3_h3_T70"]
+            "dk1024_T100", "dk130_T150", "dk20_T96", "dk3_h3_T70", "dk1504_T100",
+            "dk2048_T130", "dk1536_h2_T70", "dk1500_T90"]
 
 
 @pytest.mark.parametrize("B,H,T,dk", BARE_SHAPES, ids=BARE_IDS)
@@ -1865,7 +1875,14 @@ FFN_EDGES = [(3, 40, 256, 1024, 9), (2, 200, 384, 1024, 9), (2, 160, 512, 1024, 
              # any width: D and H padded to 32 (D = 260: 16-byte f32 rows, not
              # bf16; D = 36: the same; D = 30: neither, a value at a time)
              (2, 100, 260, 1000, 9), (3, 70, 200, 1000, 9), (3, 40, 36, 100, 3),
-             (2, 64, 40, 72, 1), (2, 50, 30, 72, 3)]
+             (2, 64, 40, 72, 1), (2, 50, 30, 72, 3),
+             # the x tile in 512-column chunks (past 1,344 at k = 9): the first
+             # chunked width, the model's 1536 and 2048 at H = 4096, a chunk of
+             # 480 columns (its last ring tile 32 wide) at k = 31, rows of 4-
+             # and 1-float alignment, k = 1 and 3 past 1,472
+             (2, 200, 1376, 1024, 9), (2, 150, 1536, 4096, 9), (2, 100, 2048, 4096, 9),
+             (3, 70, 1500, 1000, 31), (2, 90, 2048, 256, 31), (2, 80, 2044, 200, 9),
+             (2, 90, 2047, 100, 3), (2, 64, 1990, 72, 1)]
 
 
 @pytest.mark.parametrize("B,T,D,H,k", FFN_EDGES,
@@ -1915,6 +1932,126 @@ def test_ffn_plan_of_the_c_side_is_the_python_one(dev):
                             KF.c_plan(D, H, k, O)
                         continue
                     assert KF.c_plan(D, H, k, O) == want, (D, H, k, O)
+
+
+def test_ffn_plan_of_the_c_side_covers_every_width(dev):
+    """csrc/ffn_body.cuh:make_plan gives ops/kernels/ffn.py:plan at every D
+    from 1 to 2048 (the x tile whole, or in chunks past what fits) at k 1,
+    3, 9 and 31 (H 4096, O = D) and k 101 (narrower chunks), and both refuse
+    D 0, 2049 and 2056."""
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    for D in range(1, 2049):
+        for k in (1, 3, 9, 31) + ((101,) if D % 64 == 0 else ()):
+            assert KF.c_plan(D, 4096, k, D) == KF.plan(D, 4096, k, D), (D, k)
+    for D in (0, 2049, 2056):
+        with pytest.raises(ValueError):
+            KF.plan(D, 4096, 9, max(D, 1))
+        with pytest.raises(ValueError):
+            KF.c_plan(D, 4096, 9, max(D, 1))
+
+
+def test_wide_kernels_read_nothing_past_the_length(dev):
+    """At the chunked widths (D 1536 and 2048) x rows at or past each
+    length are masked before the products: NaN there leaves every live row
+    of kernels 1 (post-LN attention half; its q|k|v rows past the length
+    are round(bqkv), finite keys and values), 2, 9 and 10 bit for bit what
+    zeros there give."""
+    from fastspeech2_tpu_torch.ops.kernels import attention as KA
+    from fastspeech2_tpu_torch.ops.kernels import ffn as KF
+
+    bf = torch.bfloat16
+    for D, k in ((1536, 9), (2048, 31)):
+        g = torch.Generator().manual_seed(D + k)
+        B, T = 3, 150
+        lens = torch.tensor([150, 61, 7], dtype=torch.int32, device=dev)
+        x = torch.randn(B, T, D, generator=g).to(dev)
+        live = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        xn = torch.where(live[..., None], x, torch.full_like(x, float("nan")))
+        x0 = torch.where(live[..., None], x, torch.zeros_like(x))
+        w = _ffn_weights(D, 512, D, k, g, dev)
+        ln_g, ln_b = (1.0 + 0.2 * torch.randn(D, generator=g)).to(dev), \
+            (0.1 * torch.randn(D, generator=g)).to(dev)
+        wqkv = (torch.randn(3 * D, D, generator=g) / D ** 0.5).to(bf).to(dev)
+        wo = (torch.randn(D, D, generator=g) / D ** 0.5).to(bf).to(dev)
+        bqkv, bo = (0.1 * torch.randn(3 * D, generator=g)).to(dev), \
+            (0.1 * torch.randn(D, generator=g)).to(dev)
+        with torch.inference_mode():
+            calls = (
+                lambda xx: KA.attention_block(xx, wqkv, bqkv, wo, bo, ln_g, ln_b, lens, 1),
+                lambda xx: KF.ffn_block(xx, *w, ln_g, ln_b, lens, k),
+                lambda xx: KF.ffn_block_pre(xx, *w, ln_g, ln_b, lens, k),
+                lambda xx: KF.fused_ffn(xx.to(bf), *w, lens, k, torch.float32))
+            for i, call in enumerate(calls):
+                a, b = call(xn), call(x0)
+                torch.cuda.synchronize()
+                assert bool(torch.isfinite(a[live]).all()), (D, i)
+                assert torch.equal(a[live], b[live]), (D, i)
+
+
+#: the digests of today's shapes from the kernels before the x tile in
+#: column chunks and d_k past 1024, from ``scripts/time_ffn.py``,
+#: ``time_attention.py`` and ``time_attention_train.py`` with ``--tree`` at
+#: the parent on an H100 80GB HBM3 at 700 W: seeded inputs, the same every run
+PARENT_DIGESTS = {
+    "ffn_block B=16,T=768,D=384": "5ecdf158fae9bf31",
+    "ffn_block B=32,T=128,D=256": "bc56ab928f5a8c41",
+    "ffn_block_pre B=16,T=768,D=384": "5beab96f5ae67e8b",
+    "ffn_block_pre B=32,T=128,D=256": "0c64104f05be8e6e",
+    "fused_ffn B=16,T=768,D=384": "92437607e5d859bd",
+    "fused_ffn_f32 B=16,T=768,D=384": "18eb0dda164c5262",
+    "ffn_block B=16,T=768,D=260,H=1000": "c6803c9e7194c480",
+    "ffn_block_pre B=16,T=768,D=260,H=1000": "09a834f0810a3d86",
+    "fused_ffn B=16,T=768,D=260,H=1000": "ad96ef00dcb2531b",
+    "attention_block B=16,T=768,D=384,H=2": "d7bad4f21a0174d4",
+    "attention_res_ln B=16,T=768,D=384,H=2": "d7bad4f21a0174d4",
+    "attention_res B=16,T=768,D=384,H=2": "cff2be272e5ccf6a",
+    "attention_block B=32,T=128,D=256,H=2": "bf089d47c4ffaeb0",
+    "attention_res_ln B=32,T=128,D=256,H=2": "bf089d47c4ffaeb0",
+    "attention_res B=32,T=128,D=256,H=2": "14c3206714b1113a",
+    "attention_block B=16,T=768,D=256,H=1": "32e9c3d52e37d8dd",
+    "attention_res_ln B=16,T=768,D=256,H=1": "32e9c3d52e37d8dd",
+    "attention_res B=16,T=768,D=256,H=1": "3b873cacba41aaf1",
+    "k11 B=16,T=896,D=384": "4c02b99a412e131d",
+    "k12 B=16,T=896,D=384": "49a4ca8652187bdd",
+    "k11 bfloat16 B=16,T=896,D=256,H=1": "5be8369d8f36e7d0",
+    "k12 bfloat16 B=16,T=896,D=256,H=1": "b9c24bc91b26fa7a",
+    "k7 B=16,T=896,D=256,H=1": "17bc94c045cfa96f",
+    "k8 B=16,T=896,D=256,H=1": "17bc94c045cfa96f",
+    "k11 float32 B=4,T=320,D=384,H=2": "b6a4846e8a6f61e6",
+    "k12 float32 B=4,T=320,D=384,H=2": "b3ad14c93841ce89",
+    "k11 float32 B=3,T=200,D=256,H=1": "1c559dfad0e34802",
+    "k12 float32 B=3,T=200,D=256,H=1": "2193ed8dccce8e8f",
+    "k11 float32 B=3,T=200,D=256,H=2": "c93488f24ad4906d",
+    "k12 float32 B=3,T=200,D=256,H=2": "8fa0509d92f4da4c",
+    "k11 float32 B=4,T=320,D=384,H=1": "d472026a7e2f532b",
+    "k12 float32 B=4,T=320,D=384,H=1": "d9be034187d9e16b",
+    "k7 B=16,T=768,D=384": "c3ae89d182446b5c",
+    "k8 B=16,T=768,D=384": "ccd308026129c791",
+    "k7 B=32,T=128,D=256": "729ee5ad8d111bdc",
+    "k8 B=32,T=128,D=256": "ad96987ed5fe2e11",
+}
+
+
+def test_todays_shapes_keep_their_parent_digests(dev):
+    """Kernels 1, 2 and 5-12 at today's shapes (D 256 and 384, and 260 with
+    H 1000, k 9, H 1024; d_k 128, 192 and 256; the training kernels in bf16
+    and f32) give the parent tree's bits: the whole-tile instantiations and
+    the attention bodies are unchanged by the chunked x tile and the wider
+    head-dim bound. The digests come from the timing scripts' own seeded
+    inputs (``--digest-only``)."""
+    import json
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    got = {}
+    for script in ("time_ffn.py", "time_attention.py", "time_attention_train.py"):
+        r = subprocess.run([sys.executable, str(root / "scripts" / script), "--digest-only"],
+                           capture_output=True, text=True, timeout=900, check=True)
+        got.update(json.loads(r.stdout.strip().splitlines()[-1])["digest"])
+    differ = {k: (got.get(k), v) for k, v in PARENT_DIGESTS.items() if got.get(k) != v}
+    assert not differ, differ
 
 
 def test_two_threads_launch_the_ffn_at_two_widths(dev):
@@ -1980,8 +2117,8 @@ def test_new_kernels_refuse_the_wrong_dtype(dev):
     q4 = qh.reshape(B, 2, T, D // 2)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         KA.fused_attention(q4, q4, q4, lens)
-    with pytest.raises(ValueError, match="d_k"):  # d_k 1032: past 1024
-        qb = torch.zeros(B, 1, T, 1032, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="d_k"):  # d_k 2056: past 2048
+        qb = torch.zeros(B, 1, T, 2056, dtype=torch.bfloat16, device=dev)
         KA.fused_attention(qb, qb, qb, lens)
     w1 = torch.zeros(1024, 9 * D, dtype=torch.bfloat16, device=dev)
     w2 = torch.zeros(D, 1024, dtype=torch.bfloat16, device=dev)

@@ -1,8 +1,8 @@
 """Every head dim of the seven attention kernels (1, 5, 6, 7, 8, 11, 12)
 against the JAX package on the CPU.
 
-The port's attention kernels take any d_k that is a multiple of 8 from 8 to
-1024 (``ops/kernels/attention_train.py:plan``): up to 256 padded to a
+The port's attention kernels take any d_k from 1 to 2048
+(``ops/kernels/attention_train.py:plan``): up to 256 padded to a
 multiple of 64 (at least 128), above that in column parts. The JAX encoder
 routes every bf16 block with d_k >= 128 to its Pallas kernels, which assert
 only ``D % n_heads == 0``.
@@ -17,11 +17,11 @@ f32: 1e-5. bf16: both sides round at the same points, so the band of
 and 8, and for 11 and 12 the JAX package's own bf16-vs-f32 gap on the same
 inputs (``tests/test_torch_port_train_ops.py``).
 
-Plan level: ``plan`` covers every multiple of 8 in 8..1024 for every mode
+Plan level: ``plan`` covers every multiple of 8 in 8..2048 for every mode
 (both layouts share it) within the H100's 232,448 bytes of shared memory a
 block and 256 accumulator columns a warpgroup, and the wrappers' checks
-take d_k 132 (not a multiple of 8: zero-padded to 136) and refuse
-1032.
+take d_k 132 (not a multiple of 8: zero-padded to 136) and 1032 and refuse
+2056.
 
 Slice level: a one-head bf16 model (``small_cfg``'s depth, adim 136, ddim
 384: encoder d_k 136, decoder d_k 384) loaded from the JAX parameters with
@@ -252,7 +252,7 @@ def test_attention_train_matches_pallas(packed, tier, dk, nh):
 @pytest.mark.parametrize("body", ["tile", "wide"])
 @pytest.mark.parametrize("mode", ["serve", "train", "f32"])
 def test_plan_covers_every_head_dim(mode, body):
-    """Every multiple of 8 from 8 to 1024 has a tiling within the H100's
+    """Every multiple of 8 from 8 to 2048 has a tiling within the H100's
     232,448 bytes of shared memory a block and 256 accumulator columns a
     warpgroup: the tile bodies at d_k padded to a multiple of 64, at least
     128, up to 256, the wide bodies above; the parts cover d_k and none lies
@@ -275,16 +275,17 @@ def test_plan_covers_every_head_dim(mode, body):
         assert KT.plan(384, "serve").parts == 2 and KT.plan(384, "serve").part_width == 192
 
 
-@pytest.mark.parametrize("dk", [132, 1032])
+@pytest.mark.parametrize("dk", [132, 1032, 2056])
 def test_wrappers_refuse_head_dims_they_do_not_take(dk):
-    """d_k 1032 (past 1024) is refused by the plan and by every wrapper's
-    check, before anything is built; d_k 132 (not a multiple of 8) is taken
-    by all of them: the kernels run it zero-padded to 136. The checks need
-    no card."""
-    if dk == 132:
-        assert KT.plan(dk).dkp == 192
+    """d_k 2056 (past 2048) is refused by the plan and by every wrapper's
+    check, before anything is built; d_k 132 (not a multiple of 8: the
+    kernels run it zero-padded to 136) and 1032 (past the old bound of 1024,
+    in column parts) are taken by all of them, at one head and, where D stays
+    within the projections' 2048, at two. The checks need no card."""
+    if dk in (132, 1032):
+        assert KT.plan(dk).dkp == (192 if dk == 132 else 1088)
         KA.check_head_dim("t", dk)
-        for heads in (1, 2):
+        for heads in (1, 2) if 2 * dk <= 2048 else (1,):
             KA._check_heads("t", heads * dk, heads)
         for dt in (torch.bfloat16, torch.float32):
             q = torch.zeros(1, 8, dk, dtype=dt)

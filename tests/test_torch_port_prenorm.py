@@ -143,10 +143,10 @@ def test_fused_attention_matches_pallas(tier, dm, nh, rng):
 
 @pytest.mark.parametrize("dk,ok", [(64, True), (128, True), (192, True), (256, True),
                                    (320, True), (136, True), (1024, True), (132, True),
-                                   (1032, False)])
+                                   (1032, True), (2048, True), (2056, False)])
 def test_bare_attention_head_dims(dk, ok):
     """The CUDA entry of kernels 7 and 8 takes every head dim its tiling
-    plans (``attention_train.plan``: 1 to 1024; 132 runs zero-padded to 136)
+    plans (``attention_train.plan``: 1 to 2048; 132 runs zero-padded to 136)
     and refuses the others before it builds anything; the check needs no
     card."""
     if ok:
@@ -157,11 +157,13 @@ def test_bare_attention_head_dims(dk, ok):
 
 
 @pytest.mark.parametrize("dk,ok", [(128, True), (160, True), (192, True), (256, True),
-                                   (384, True), (132, True), (1032, False)])
+                                   (384, True), (132, True), (1024, True),
+                                   (2056, False)])
 def test_attention_half_head_dims(dk, ok):
     """The CUDA entries of kernels 1, 5 and 6 take the bare kernels' head
-    dims (1 to 1024) at one and two heads, and refuse the others before they
-    build anything; the check needs no card."""
+    dims (1 to 2048) at one and two heads where D = heads * d_k is within
+    the projections' 2048, and refuse the others before they build
+    anything; the check needs no card."""
     for heads in (1, 2):
         if ok:
             KA._check_heads("t", heads * dk, heads)

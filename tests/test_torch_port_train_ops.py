@@ -176,14 +176,15 @@ def test_attention_train_needs_all_three_grads_and_bf16_on_cuda():
         tat._check("t", q.half(), q.half(), q.half(), torch.zeros(1, dtype=torch.int32),
                    1, 128)
     qb = q.bfloat16()
-    with pytest.raises(ValueError, match="head dim"):  # d_k 1032: past 1024
-        tat._check("t", qb, qb, qb, torch.zeros(1, dtype=torch.int32), 1, 1032)
+    with pytest.raises(ValueError, match="head dim"):  # d_k 2056: past 2048
+        tat._check("t", qb, qb, qb, torch.zeros(1, dtype=torch.int32), 1, 2056)
 
 
 @pytest.mark.parametrize("dk,ok", [(64, True), (128, True), (192, True), (256, True),
-                                   (320, True), (384, True), (132, True), (1032, False)])
+                                   (320, True), (384, True), (132, True), (1032, True),
+                                   (2048, True), (2056, False)])
 def test_attention_train_head_dims(dk, ok):
-    """The CUDA entry takes every head dim its tiling plans (1 to 1024: 132
+    """The CUDA entry takes every head dim its tiling plans (1 to 2048: 132
     runs zero-padded to 136; the JAX encoder routes every d_k >= 128 to
     these kernels) and refuses the others before it builds anything."""
     q = torch.zeros(1, 8, dk, dtype=torch.bfloat16)

@@ -21,7 +21,7 @@ package's own bf16-vs-f32 gap (``tests/test_torch_port_train_ops.py``).
 Padding: the kernels' padded layouts run through the plain versions give
 the real-width results to 1e-6. Plan level: ``ffn.plan`` and
 ``attention_train.plan`` cover the new ranges within 232,448 bytes of shared
-memory a block, and the checks still refuse even k and d_k 1032.
+memory a block, and the checks still refuse even k and d_k 2056.
 
 Slice level: a bf16 model (``small_cfg``'s depth, adim 72, ddim 260, two
 heads, eunits 100, dunits 72: the encoder's FFN at D = 72, H = 100, the
@@ -340,7 +340,7 @@ def test_plans_cover_the_new_widths_and_refuse_the_rest():
     """``ffn.plan`` has a tiling for every (D, H, k, O) of the new widths
     within the H100's 232,448 bytes of shared memory a block (computed at
     D rounded up to 32); ``attention_train.plan`` covers every d_k from 1 to
-    1024; the checks refuse even k and d_k 1032 before anything is built."""
+    2048; the checks refuse even k and d_k 2056 before anything is built."""
     for D in (1, 20, 36, 40, 72, 100, 130, 200, 260, 1000):
         for H in (72, 100, 1000, 1023):
             for k in (1, 3, 9):
@@ -364,7 +364,7 @@ def test_plans_cover_the_new_widths_and_refuse_the_rest():
         KA.check_head_dim("t", dk)
         heads = 2 if dk <= 512 else 1  # D = heads * dk within the projections' plan
         KA._check_heads("t", heads * dk, heads)
-    for dk in (0, 1032):
+    for dk in (0, 2056):
         with pytest.raises(ValueError, match="head dim"):
             KT.plan(dk)
         with pytest.raises(ValueError, match="d_k"):
