@@ -1325,8 +1325,10 @@ def cli_main(torch, args):
 
 
 def cli_train_phase(torch, results, store, smi):
-    """The training and checkpoint commands on the card, at full width in
-    bf16 on the train path's store: ``train`` (subprocess; 4 steps of 16 x 4,
+    """The training and checkpoint commands on the card, at full width
+    (CLI_TRAIN_DEPTH: two encoder and two decoder blocks, the depth cut to
+    keep the run inside its time limit) in bf16 on the train path's store:
+    ``train`` (subprocess; 4 steps of 16 x 4,
     validation sample and saves every 2 steps, --profile_dir), ``train -p``
     one step with FS2_FUSED_ATT_TRAIN_PACKED=off (subprocess, kernel 12),
     ``evaluate`` (against the CPU port), ``average``, ``convert`` .npz ->
@@ -1353,8 +1355,10 @@ def cli_train_phase(torch, results, store, smi):
         valid = work / "valid16.txt"
         valid.write_text("".join(open(fl).readlines()[:16]))
         cfg = Config()
+        blocks = CLI_TRAIN_DEPTH["elayers"] + CLI_TRAIN_DEPTH["dlayers"]
         cfg = dataclasses.replace(
             cfg, data=DataConfig(data_dir=root, train_filelist=fl, valid_filelist=str(valid)),
+            model=dataclasses.replace(cfg.model, **CLI_TRAIN_DEPTH),
             train=dataclasses.replace(cfg.train, bf16=True, summary_interval=1,
                                       validation_step=2, save_interval=2, keep_ckpts=5))
         (work / "train.yaml").write_text(cfg.to_yaml())
@@ -1372,7 +1376,7 @@ def cli_train_phase(torch, results, store, smi):
             f"clock between step summaries {', '.join(f'{w:.0f}' for w in walls)} ms (step 2 "
             f"alone; steps 1, 3 and 4 also hold the first step's set-up, step 2's "
             f"validation and save, the profiler) on {smi}")
-        want = 8 * 4 * 4
+        want = blocks * 4 * 4
         got = (counts["attention_train_packed"], counts["attention_train_packed.bwd"])
         log(f"CLI train launches: { {k: v for k, v in counts.items() if v} }")
         assert got == (want, want) and counts["attention_train"] == 0, counts
@@ -1397,7 +1401,7 @@ def cli_train_phase(torch, results, store, smi):
         log(f"CLI train -p (FS2_FUSED_ATT_TRAIN_PACKED=off): 1 step from step 4 in "
             f"{secs:.1f} s of process on {smi}; launches "
             f"{ {k: v for k, v in counts.items() if v} }")
-        assert got == (8 * 4,) * 2 and counts["attention_train_packed"] == 0, counts
+        assert got == (blocks * 4,) * 2 and counts["attention_train_packed"] == 0, counts
         assert (out / "checkpoints/smoke/ckpt_00000005.npz").exists()
         results["attention_train"]["launches_cli_train_step"] = got[0]
 
@@ -2137,6 +2141,12 @@ STFT_SHAPES = ((8, 229_376, 256, 80), (8, 16_384, 256, 80), (8, 163_840, 200, 80
 STFT_NEW_SHAPES = ((8, 220_500, 7, 8), (8, 220_500, 28, 40), (8, 220_500, 220, 80),
                 (8, 220_500, 257, 80), (8, 220_500, 275, 80), (8, 441_000, 441, 80),
                 (8, 480_000, 600, 80), (8, 480_000, 1024, 80))
+# hops past 1024 in 10 s rows at 96 kHz: 1025 (a direct DFT pass of 41)
+# and 1200 (12.5 ms) at four frames a block, 1536 and 2048 at two, and the
+# bound 2616 (a direct pass of 109) at one
+STFT_PAST_1024_SHAPES = ((4, 960_000, 1025, 80), (4, 960_000, 1200, 80),
+                         (4, 960_000, 1536, 80), (4, 960_000, 2048, 80),
+                         (4, 960_000, 2616, 80))
 
 
 def stft_kernel_phase(torch, results):
@@ -2166,11 +2176,12 @@ def stft_kernel_phase(torch, results):
         "replaces": "fastspeech2_tpu/ops/pallas/stft.py:68", "max_abs_err": 0.0,
         "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}, "library_ms": {},
         "main_shape": "B=8,N=229376,hop=256"})  # the longest bucket of the corpus
-    for B, N, hop, n_mels in STFT_SHAPES + STFT_NEW_SHAPES:
+    for B, N, hop, n_mels in STFT_SHAPES + STFT_NEW_SHAPES + STFT_PAST_1024_SHAPES:
         n_fft, F = 4 * hop, N // hop + 1
         key = f"B={B},N={N},hop={hop}"
         kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
-        fb = torch.from_numpy(mel_filterbank(22050, n_fft, n_mels)).to(dev)
+        sr = 96000 if (B, N, hop, n_mels) in STFT_PAST_1024_SHAPES else 22050
+        fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(dev)
         ys = np.stack([synthetic_utterance(N, g) for _ in range(B)])
         ys[0, N // 10:] = 0.0
         y = torch.from_numpy(ys).to(dev)
@@ -2179,7 +2190,8 @@ def stft_kernel_phase(torch, results):
         lmel, len_ = cufft_mel_energy(torch, y, fb, n_fft, hop, n_fft)
         torch.cuda.synchronize()
         assert mel.shape == (B, n_mels, F) and en.shape == (B, F)
-        log(f"kernel stft_mel_energy {key} (F={F}, n_fft={n_fft}, {n_mels} mels)")
+        log(f"kernel stft_mel_energy {key} (F={F}, n_fft={n_fft}, {n_mels} mels, "
+            f"{KS.frames_per_block(hop, n_mels)[0]} frames a block)")
         # the TPU kernel's tolerance (tests/test_pallas.py): rtol 1e-4, atol
         # 1e-4 (of the peak for energy); the mean abs error under atol
         tol = 1e-4 * float(pen.abs().max())
@@ -2221,6 +2233,10 @@ def stft_kernel_phase(torch, results):
             # log-mel within twice its max error
             (k_mel, k_en), (p_mel, p_en) = e64["kernel"], e64["plain"]
             assert k_en <= p_en and k_mel <= 2 * p_mel, (hop, e64)
+        if (B, N, hop, n_mels) in STFT_PAST_1024_SHAPES:
+            # the kernel's errors within twice the plain version's
+            (k_mel, k_en), (p_mel, p_en) = e64["kernel"], e64["plain"]
+            assert k_en <= 2 * p_en and k_mel <= 2 * p_mel, (hop, e64)
 
 
 def preprocess_phase(torch, results):
@@ -2359,8 +2375,8 @@ def preprocess_phase(torch, results):
 
 
 # kernel 14's corpora: (sample rate, hop) with n_fft = 4 hop, win_length =
-# n_fft, 80 mels: 10 ms at 22.05 and 44.1 kHz, 12.5 ms at 48 kHz
-PREPROCESS_CORPORA = ((22050, 220), (44100, 441), (48000, 600))
+# n_fft, 80 mels: 10 ms at 22.05 and 44.1 kHz, 12.5 ms at 48 and 96 kHz
+PREPROCESS_CORPORA = ((22050, 220), (44100, 441), (48000, 600), (96000, 1200))
 
 
 def preprocess_corpora_phase(torch, results):
@@ -3340,6 +3356,11 @@ def widths_path_phase(torch, results):
 #: 1536, decoder d_k 2048 (kernel 1's projections and kernel 2's conv over x
 #: tiles in 512-column chunks), 4,096-unit FFNs
 WIDE_MODEL = dict(adim=1536, ddim=2048, aheads=1, eunits=4096, dunits=4096)
+# cli_train_phase's depth: its commands and the CPU port's checks, not the blocks
+CLI_TRAIN_DEPTH = dict(elayers=2, dlayers=2)
+# wide_model_train_phase's depth: the widest train step is the run's longest;
+# one block each still takes kernel 11 at d_k 1536 (encoder) and 2048 (decoder)
+WIDE_TRAIN_DEPTH = dict(elayers=1, dlayers=1)
 
 
 def wide_config(**model_keys):
@@ -3455,11 +3476,13 @@ def wide_model_path_phase(torch, results, default_ms, default_wav_ms):
 
 
 def wide_model_train_phase(torch, results, store):
-    """``train()`` on the seeded store with the WIDE_MODEL model in bf16,
-    batch 16 x accum 4: 2 steps through kernel 11 at d_k 1536 and 2048 (32 /
-    32 launches a step), finite losses; the single-process step on one
-    window run twice from the same start, its gradients bit for bit; one
-    step with FUSED_ATT_TRAIN_PACKED off (kernel 12, 32 / 32)."""
+    """``train()`` on the seeded store with the WIDE_MODEL model cut to
+    one encoder and one decoder block (WIDE_TRAIN_DEPTH: the widths kept,
+    the depth cut to keep the run inside its time limit) in bf16, batch 16
+    x accum 4: 2 steps through kernel 11 at d_k 1536 and 2048 (8 / 8
+    launches a step), finite losses; the single-process step on one window
+    run twice from the same start, its gradients bit for bit; one step with
+    FUSED_ATT_TRAIN_PACKED off (kernel 12, 8 / 8)."""
     import dataclasses
     import shutil
     import tempfile
@@ -3480,7 +3503,8 @@ def wide_model_train_phase(torch, results, store):
     work = tempfile.mkdtemp(prefix="fs2_trainwide_", dir=str(ROOT / "build"))
     try:
         root, fl = store
-        cfg = wide_config()
+        cfg = wide_config(**WIDE_TRAIN_DEPTH)
+        blocks = WIDE_TRAIN_DEPTH["elayers"] + WIDE_TRAIN_DEPTH["dlayers"]
         accum = cfg.train.accum_grad
         cfg = dataclasses.replace(
             cfg, data=DataConfig(data_dir=root, train_filelist=fl, valid_filelist=fl),
@@ -3499,7 +3523,7 @@ def wide_model_train_phase(torch, results, store):
         log(f"wide model train(): 2 steps in {time.perf_counter() - t0:.1f} s, loss "
             f"{main[0]['main/loss']:.1f} -> {main[1]['main/loss']:.1f}, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; kernel 11 launches {got}")
-        assert got == (2 * 8 * accum,) * 2 and counts["attention_train"] == 0, counts
+        assert got == (2 * blocks * accum,) * 2 and counts["attention_train"] == 0, counts
         results["attention_train_packed"].setdefault("wide", {})["model step launches"] = \
             got[0] // 2
 
@@ -3542,7 +3566,7 @@ def wide_model_train_phase(torch, results, store):
         counts = read_counts()
         got = (counts["attention_train"], counts["attention_train.bwd"])
         log(f"wide model FUSED_ATT_TRAIN_PACKED=off, 1 step: kernel 12 launches {got}")
-        assert got == (8 * accum,) * 2 and counts["attention_train_packed"] == 0, counts
+        assert got == (blocks * accum,) * 2 and counts["attention_train_packed"] == 0, counts
         results["attention_train"].setdefault("wide", {})["model step launches"] = got[0]
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4502,6 +4526,142 @@ def int8_path_phase(torch, smi):
     return bf, work, ckpt
 
 
+def group_scales_off(scales):
+    """Of two shards' recorded (own amax, returned scale) per quantization:
+    (quantizations per shard, how many scales are not the int8 scale of the
+    max of both shards' own amax, exactly, in f32; whether the shards' own
+    amax differ anywhere)."""
+    import numpy as np
+
+    r0, r1 = (np.asarray(scales[s], np.float64).reshape(-1, 2) for s in (0, 1))
+    assert len(r0) == len(r1) > 0, (len(r0), len(r1))
+    amax = np.maximum(np.maximum(r0[:, 0], r1[:, 0]).astype(np.float32),
+                      np.finfo(np.float32).tiny)
+    want = (amax / np.float32(127.0)).astype(np.float64)
+    off = int((r0[:, 1] != want).sum() + (r1[:, 1] != want).sum())
+    return len(r0), off, bool((r0[:, 0] != r1[:, 0]).any())
+
+
+def local_int8_mesh_phase(torch, results, smi, device="cuda", cfg=None):
+    """The int8 tier over a local mesh of two entries of the card
+    (``Synthesizer(bf16=True, int8=True, mesh=make_mesh(devices=["cuda:0",
+    "cuda:0"]))``: one thread a shard, the collectives over a group of
+    threads) at the default config, full width and depth, seed 0, duration
+    bias 1.87: a B=32 mel call against the unsharded int8 call (lengths
+    exact, live frames in the bf16 band), every activation scale the max of
+    both shards' own amax, launches of kernels 1, 3, 4 per call; a B=8 wav
+    call with MelGAN attached (kernel 13); 20 calls in a row with the same
+    bits; the B=32 call timed beside the unsharded one; one concurrent
+    server round of 16 wav requests. ``device="cpu"`` with a narrow
+    ``cfg`` rehearses it on the CPU (plain versions, nothing counted or
+    timed)."""
+    import numpy as np
+
+    from fastspeech2_tpu_torch.config import Config
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.ops import quant8
+    from fastspeech2_tpu_torch.parallel.mesh import current_shard, make_mesh
+    from fastspeech2_tpu_torch.vocoder.melgan import MelGANConfig, MelGANGenerator
+
+    t_phase = time.perf_counter()
+    on_card = torch_device_type(device) == "cuda"
+    model = FastSpeech2(cfg or Config(), device=device,
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.duration_predictor.out.bias.fill_(1.87)
+    entry = "cuda:0" if on_card else "cpu"
+    one = Synthesizer(model, bf16=True, int8=True, device=device)
+    sharded = Synthesizer(model, bf16=True, int8=True, device=device,
+                          mesh=make_mesh(devices=[entry, entry]))
+    b32 = batch(32)
+    mel1, lens1 = one.mel_from_token_batch(b32)
+    sharded.mel_from_token_batch(b32)  # warm
+    scales = {0: [], 1: []}
+    quantize = quant8.dynamic_quantize
+
+    def recording(x):
+        q, sc = quantize(x)
+        scales[current_shard().data_index].append((float(x.float().abs().amax()), float(sc)))
+        return q, sc
+
+    quant8.dynamic_quantize = recording
+    try:
+        reset_counts()
+        mel2, lens2 = sharded.mel_from_token_batch(b32)
+        counts = read_counts()
+    finally:
+        quant8.dynamic_quantize = quantize
+    n_q, off, differ = group_scales_off(scales)
+    log(f"local int8 mesh (2 entries of {entry}) B=32: mel {mel2.shape} (unsharded "
+        f"{mel1.shape}), launches { {k: v for k, v in counts.items() if v} }; {n_q} "
+        f"quantizations a shard, {off} scales off the group's max, the shards' own amax "
+        f"{'differ' if differ else 'agree'}")
+    assert off == 0 and differ, (n_q, off, differ)
+    assert np.array_equal(lens1, lens2), "local int8 mesh out_lens differ"
+    L = min(mel1.shape[1], mel2.shape[1])
+    live = torch.from_numpy(np.arange(L)[None] < lens1[:, None])
+    compare("local int8 mesh B=32 vs unsharded int8, live frames",
+            torch.from_numpy(mel2[:, :L])[live], torch.from_numpy(mel1[:, :L])[live],
+            0.02, 0.2)
+    log(f"local int8 mesh B=32 mel bits equal to the unsharded int8 call's: "
+        f"{mel1.shape == mel2.shape and np.array_equal(mel1, mel2)}")
+    if on_card:
+        # 4 encoder blocks a shard, 4 decoder blocks a shard and decode group
+        assert counts["attention_block"] == 24 and counts["variance_adaptor"] == 4, counts
+        assert counts["postnet"] == 4 and counts["ffn_block"] == 0, counts
+        for k in ("attention_block", "variance_adaptor", "postnet"):
+            results[k]["launches_local_int8_b32"] = counts[k]
+    for i in range(20):
+        m, ln = sharded.mel_from_token_batch(b32)
+        assert np.array_equal(m, mel2) and np.array_equal(ln, lens2), f"call {i} differs"
+    log("local int8 mesh: 20 B=32 calls in a row, the same bits")
+    if on_card:
+        ms1, _ = timed_calls(torch, lambda: one.mel_from_token_batch(b32))
+        ms2, _ = timed_calls(torch, lambda: sharded.mel_from_token_batch(b32))
+        frames = int(lens2.sum())
+        log(f"B=32 int8 mel call ({smi}), CUDA events, median of 5: unsharded {ms1:.3f} "
+            f"ms, local mesh of 2 entries of the card {ms2:.3f} ms ({ms2 / ms1:.2f}x; "
+            f"{frames / ms2 * 1e3:.0f} mel-frames/s)")
+        results["attention_block"]["local_int8_ms"] = {"unsharded": ms1, "local_mesh": ms2}
+        profile_phase(torch, lambda: sharded.mel_from_token_batch(b32),
+                      "local int8 mesh B=32 mel call")
+
+    gen = (MelGANGenerator(bf16=True, seed=0, device=device) if on_card else
+           MelGANGenerator(MelGANConfig(base_channels=16), bf16=True, seed=0, device=device))
+    one.attach_vocoder(gen)
+    sharded.attach_vocoder(gen)
+    b8 = batch(8, offset=5)
+    wm1, w1, wl1 = one.wav_from_token_batch(b8)
+    reset_counts()
+    wm2, w2, wl2 = sharded.wav_from_token_batch(b8)
+    counts = read_counts()
+    assert np.array_equal(wl1, wl2), (wl1, wl2)
+    if on_card:
+        assert counts["resstack"] > 0 and counts["attention_block"] > 0, counts
+        results["resstack"]["launches_local_int8_wav_b8"] = counts["resstack"]
+    n = min(w1.shape[1], w2.shape[1])
+    live = torch.from_numpy(np.arange(n)[None] < wl1[:, None])
+    compare("local int8 mesh B=8 wav vs unsharded (int16 PCM / 32768, live samples)",
+            torch.from_numpy(w2[:, :n].astype(np.float32) / 32768)[live],
+            torch.from_numpy(w1[:, :n].astype(np.float32) / 32768)[live], 0.02, 0.5)
+    np.testing.assert_array_equal(wm2, sharded.mel_from_token_batch(b8)[0])
+    log(f"local int8 mesh B=8 wav: launches { {k: v for k, v in counts.items() if v} }; "
+        f"its mel the mel call's bits")
+
+    with serving(sharded) as url:
+        for text in TEXTS[:2]:  # the batcher threads' first calls
+            riff_samples(http_post(url, "/synthesize", {"text": text, "format": "wav"})[1])
+        wall, lat, nb, total, _ = concurrent_round(url, 16, "wav")
+    log(f"local int8 mesh server: 16 concurrent wav requests in {nb} batches, "
+        f"{total / 22050.0:.1f} s of audio, {16 / wall:.1f} requests/s, median latency "
+        f"{statistics.median(lat) * 1e3:.1f} ms ({smi})")
+    del one, sharded, model, gen
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"local int8 mesh phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def waveglow_phase(torch, bf, work, ckpt, smi):
     """WaveGlow at the widths of NVIDIA's waveglow_256channels checkpoint,
     seeded random weights written in NVIDIA's weight-normed key format: a
@@ -5354,6 +5514,7 @@ def main(parallel_only: bool = False) -> int:
         shutil.rmtree(work, ignore_errors=True)
     del bf
     torch.cuda.empty_cache()
+    local_int8_mesh_phase(torch, results, smi)
     export_work, voc, export_model = export_phase(torch, results, smi)
     try:
         golden_phase(torch, results, export_work, voc, export_model)
@@ -5410,7 +5571,9 @@ def main(parallel_only: bool = False) -> int:
             **{k: r[k] for k in ("launches_cli_train_step", "launches_bucketed_b32",
                                  "launches_dp2_rank_step", "launches_tp2_rank_step",
                                  "launches_tp2_infer", "launches_mesh2_b32",
-                                 "launches_mesh2_wav_b8", "launches_export_b8",
+                                 "launches_mesh2_wav_b8", "launches_local_int8_b32",
+                                 "launches_local_int8_wav_b8", "local_int8_ms",
+                                 "launches_export_b8",
                                  "launches_golden_f32", "launches_golden",
                                  "op_dispatch", "launches_one_head", "launches_one_head_b32",
                                  "launches_one_head_b8", "launches_dk160_b8",

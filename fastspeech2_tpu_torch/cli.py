@@ -464,7 +464,8 @@ def cmd_serve(args):
                      dist.get_rank())
     elif on_card and torch.cuda.device_count() > 1:
         mesh = make_mesh(torch.cuda.device_count())
-        logging.info("serving data-parallel over %d cards", mesh.size)
+        logging.info("serving data-parallel over %d cards, one thread a card%s", mesh.size,
+                     " (int8: one activation scale over all of them)" if args.int8 else "")
     synth = Synthesizer(model, bf16=on_card, device=device, int8=args.int8, mesh=mesh)
     vocoder_path = args.vocoder or cfg.train.vocoder_checkpoint
     if vocoder_path:

@@ -55,24 +55,30 @@
 //    weight a warp reads is one of 4 addresses, and frames sit at an odd
 //    stride (n_freq) in the magnitude tile.
 // 4. The (n_mels x FT) log-mel tile is staged in shared memory over the dead
-//    signal span and written band by band as contiguous runs of FT frames.
+//    signal span (with 2 frames a block or 1, over the dead FFT buffers) and
+//    written band by band as contiguous runs of FT frames.
 //    Frames past F are neither computed nor written.
-// Every hop from 1 to 1024. A prime factor above 13 (hop 257: n_fft / 2 =
+// Every hop from 1 to 2616. A prime factor above 13 (hop 257: n_fft / 2 =
 // 2 * 257) takes a direct DFT pass: each butterfly's R outputs, a lane at a
 // time, as sums of R products with the R-th roots of unity (a float64 table
 // cast once, beside the twiddles), written to the warp's magnitude row (free
 // until the untangle) and copied back after a __syncwarp; N * R operations a
 // frame where a register butterfly costs N * log R. Frames a block: 8 where
 // the layout fits in shared memory, else 4 (hop above ~770; 4 warps a
-// block). Plans of radices 8, 4, 2, 5 and 3 with 8 frames a block run the
-// kernel of the hops 32-512 with 2^a 3^b 5^c points, as it was
+// block), else 2 (hop above ~1,276), else 1 (hop above ~2,112); hop 2617
+// fits in no layout. With 2 frames or 1
+// the block's magnitude tile lies over the signal span, which is dead once
+// every warp has run its first pass (a __syncthreads after it), and the
+// log-mel tile over the dead FFT buffers, so the layout grows by the tables
+// and the buffers only. Plans of radices 8, 4, 2, 5 and 3 with 8 frames a
+// block run the kernel of the hops 32-512 with 2^a 3^b 5^c points, as it was
 // (`stft_fft_kernel<8, false>`: the plan's radices in 4-bit fields).
 #include "common.cuh"
 
 namespace {
 
-constexpr int MAX_N2 = 2048;      // n_fft / 2 for hop 1024
-constexpr int MAX_PASSES = 12;    // 2 * 3^6 = 1,458 points take 7
+constexpr int MAX_N2 = 5232;      // n_fft / 2 for hop 2616
+constexpr int MAX_PASSES = 12;    // 2 * 3^7 = 4,374 points take 8
 constexpr int SMEM_MAX = 232448;  // a block's shared memory on the H100
 
 __device__ __forceinline__ int bpad(int i) { return i + (i >> 4); }
@@ -305,19 +311,32 @@ __device__ __noinline__ void direct_pass(float2* z, const float2* __restrict__ r
 
 // The block's shared-memory layout, in floats, for FT frames a block (one
 // warp each) and `roots` floats of direct-pass roots; every part starts on
-// 16 bytes.
+// 16 bytes. 8 and 4 frames: the log-mel tile over the dead span, the
+// magnitudes apart. 2 and 1 (OVERLAY): the magnitudes over the dead span,
+// the log-mel tile over the dead FFT buffers.
 struct Layout {
-  int span, tables, fft, buf, mag, en, total;
+  int span, tile, tables, fft, buf, mag, en, total;
+  __host__ __device__ static bool overlay(int FT) { return FT < 4; }
   __host__ __device__ Layout(int hop, int n_mels, int FT, int roots) {
     const int n2 = 2 * hop, n_freq = n2 + 1;
     const int span4 = ((FT + 3) * hop + 3) & ~3;
-    const int tile = n_mels * FT;
+    const int mag4 = (FT * n_freq + 3) & ~3;
+    const int tile_ = n_mels * FT;
     span = 0;
-    tables = ((span4 > tile ? span4 : tile) + 3) & ~3;
     buf = (2 * (n2 + (n2 - 1) / 16 + 1) + 3) & ~3;  // one warp's buffer
-    fft = tables + table_floats(hop) + roots;
-    mag = fft + FT * buf;
-    en = mag + ((FT * n_freq + 3) & ~3);
+    if (!overlay(FT)) {
+      tile = span;
+      tables = ((span4 > tile_ ? span4 : tile_) + 3) & ~3;
+      fft = tables + table_floats(hop) + roots;
+      mag = fft + FT * buf;
+      en = mag + mag4;
+    } else {
+      mag = span;
+      tables = span4 > mag4 ? span4 : mag4;
+      fft = tables + table_floats(hop) + roots;
+      tile = fft;  // n_mels * FT <= FT * n_freq < FT * buf
+      en = fft + FT * buf;
+    }
     total = en + FT;
   }
   // window (n_fft) | pass twiddles (n2 - 1 complex) | untangle twiddles
@@ -371,7 +390,7 @@ bool st_make_plan(int hop, int n_mels, StPlan* pl) {
     }
   }
   pl->roots = (2 * roots + 3) & ~3;
-  const int fts[2] = {8, 4};
+  const int fts[4] = {8, 4, 2, 1};
   for (int ft : fts) {
     pl->ft = ft;
     pl->smem = (int)sizeof(float) * Layout(hop, n_mels, ft, pl->roots).total;
@@ -380,9 +399,39 @@ bool st_make_plan(int hop, int n_mels, StPlan* pl) {
   return false;
 }
 
+// Pass `first` or a later one of a GEN plan: radix R at stride s (a first
+// pass is an 8, a 4 or a 2: n2 is even); a direct pass takes its R roots at
+// `rt` and moves it past them, with the warp's magnitude row `m` as scratch.
+__device__ __forceinline__ void gen_pass(int R, bool first, const float* __restrict__ x,
+                                         const float* __restrict__ win, float2* z,
+                                         const float2* tw, const float2*& rt, float* m,
+                                         int n2, int s, int lane) {
+  if (R == 8)
+    dif_pass<8>(first, x, win, z, tw, n2, s, lane);
+  else if (R == 4)
+    dif_pass<4>(first, x, win, z, tw, n2, s, lane);
+  else if (R == 2)
+    dif_pass<2>(first, x, win, z, tw, n2, s, lane);
+  else if (R == 5)
+    dif_pass<5>(false, x, win, z, tw, n2, s, lane);
+  else if (R == 3)
+    dif_pass<3>(false, x, win, z, tw, n2, s, lane);
+  else if (R == 7)
+    dif_pass<7>(false, x, win, z, tw, n2, s, lane);
+  else if (R == 11)
+    dif_pass<11>(false, x, win, z, tw, n2, s, lane);
+  else if (R == 13)
+    dif_pass<13>(false, x, win, z, tw, n2, s, lane);
+  else {
+    direct_pass(z, rt, m, tw, n2, R, s, lane);
+    rt += R;
+  }
+}
+
 // FT frames a block (a warp each). GEN: any plan (`ps`, radices by index,
 // `roots` floats of direct-pass roots after the tables); else radices 8, 4,
-// 2, 5 and 3 in 4-bit fields of `plan`, first pass lowest.
+// 2, 5 and 3 in 4-bit fields of `plan`, first pass lowest. FT 2 and 1 take
+// the OVERLAY layout (`Layout`).
 template <int FT, bool GEN>
 __global__ void __launch_bounds__(32 * FT, GEN && FT == 8 ? 2 : 3)
 stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
@@ -391,6 +440,8 @@ stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
                 const float* __restrict__ fb, int n_mels, float clip,
                 float* __restrict__ mel_out, float* __restrict__ en_out) {
   constexpr int THREADS = 32 * FT;
+  constexpr bool OVERLAY = FT < 4;  // Layout::overlay(FT)
+  static_assert(GEN || !OVERLAY, "2 and 1 frames a block run the general kernel");
   extern __shared__ __align__(16) float smem[];
   const int rf = GEN ? roots : 0;
   const Layout L(hop, n_mels, FT, rf);
@@ -433,11 +484,12 @@ stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
 
   // 2. one warp per frame: FFT, untangle, |X| and the energy
   float2* z = reinterpret_cast<float2*>(smem + L.fft + warp * L.buf);
-  if (f0 + warp < F) {
-    const float* x = sig + warp * hop;
-    float* m = mag + warp * n_freq;
-    int s = n2;
-    if constexpr (!GEN) {
+  const bool live = f0 + warp < F;
+  const float* x = sig + warp * hop;
+  float* m = mag + warp * n_freq;
+  int s = n2;
+  if constexpr (!GEN) {
+    if (live) {
       for (int p = 0, code = plan; code != 0; ++p, code >>= 4) {
         const int R = code & 15;
         s /= R;
@@ -452,34 +504,26 @@ stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
         else
           dif_pass<3>(p == 0, x, win, z, tw, n2, s, lane);
       }
-    } else {
-      // the first pass is an 8, a 4 or a 2 (n2 is even)
-      const float2* rt = reinterpret_cast<const float2*>(tab + Layout::table_floats(hop));
-      for (int p = 0; p < ps.n; ++p) {
-        const int R = ps.r[p];
-        s /= R;
-        if (R == 8)
-          dif_pass<8>(p == 0, x, win, z, tw, n2, s, lane);
-        else if (R == 4)
-          dif_pass<4>(p == 0, x, win, z, tw, n2, s, lane);
-        else if (R == 2)
-          dif_pass<2>(p == 0, x, win, z, tw, n2, s, lane);
-        else if (R == 5)
-          dif_pass<5>(false, x, win, z, tw, n2, s, lane);
-        else if (R == 3)
-          dif_pass<3>(false, x, win, z, tw, n2, s, lane);
-        else if (R == 7)
-          dif_pass<7>(false, x, win, z, tw, n2, s, lane);
-        else if (R == 11)
-          dif_pass<11>(false, x, win, z, tw, n2, s, lane);
-        else if (R == 13)
-          dif_pass<13>(false, x, win, z, tw, n2, s, lane);
-        else {
-          direct_pass(z, rt, m, tw, n2, R, s, lane);
-          rt += R;
-        }
+    }
+  } else {
+    const float2* rt = reinterpret_cast<const float2*>(tab + Layout::table_floats(hop));
+    int p = 0;
+    if constexpr (OVERLAY) {
+      // the magnitudes overwrite the span that every warp's first pass
+      // reads: all first passes end before any warp goes on
+      s /= ps.r[0];
+      if (live) gen_pass(ps.r[0], true, x, win, z, tw, rt, m, n2, s, lane);
+      p = 1;
+      __syncthreads();
+    }
+    if (live) {
+      for (; p < ps.n; ++p) {
+        s /= ps.r[p];
+        gen_pass(ps.r[p], p == 0, x, win, z, tw, rt, m, n2, s, lane);
       }
     }
+  }
+  if (live) {
     // Z[k] sits at pos[k] (the passes leave the bins digit-reversed)
     float e = 0.f;
     for (int k = lane; k <= hop; k += 32) {  // bins k and n2 - k
@@ -502,7 +546,7 @@ stft_fft_kernel(const float* __restrict__ y, int N, int F, int hop, int plan,
   __syncthreads();
 
   // 3. the mel projection over each band's nonzero bins, in bin order
-  float* tile = sig;  // the span is dead
+  float* tile = smem + L.tile;  // over the dead span, or the dead FFT buffers
   {
     const int f = t % FT, G = THREADS / FT;
     if (f0 + f < F) {
@@ -549,7 +593,7 @@ cudaError_t launch_frames(const StPlan& pl, int code, const float* y, int B, int
 // of `hop` (ops/kernels/stft.py:_device_tables); bands (n_mels) int2: each
 // band's first nonzero bin and bin count in fb (n_mels, n_freq) f32. Writes
 // mel_out (B, n_mels, F) = log(max(mel, clip)) and en_out (B, F), F = N /
-// hop + 1. hop 1-1024, n_mels 1 to n_freq.
+// hop + 1. hop 1-2616, n_mels 1 to n_freq.
 FS2_EXPORT int fs2_stft_mel_energy(const float* y, int B, int N, int hop, const float* tables,
                                    const int* bands, const float* fb, int n_mels, float clip,
                                    float* mel_out, float* en_out, void* stream_ptr) {
@@ -567,8 +611,14 @@ FS2_EXPORT int fs2_stft_mel_energy(const float* y, int B, int N, int hop, const 
   } else if (pl.ft == 8) {
     e = launch_frames<8, true>(pl, 0, y, B, N, F, hop, tables, bands, fb, n_mels, clip,
                                mel_out, en_out, stream);
-  } else {
+  } else if (pl.ft == 4) {
     e = launch_frames<4, true>(pl, 0, y, B, N, F, hop, tables, bands, fb, n_mels, clip,
+                               mel_out, en_out, stream);
+  } else if (pl.ft == 2) {
+    e = launch_frames<2, true>(pl, 0, y, B, N, F, hop, tables, bands, fb, n_mels, clip,
+                               mel_out, en_out, stream);
+  } else {
+    e = launch_frames<1, true>(pl, 0, y, B, N, F, hop, tables, bands, fb, n_mels, clip,
                                mel_out, en_out, stream);
   }
   return (int)e;

@@ -41,10 +41,11 @@ it (the counterpart of the JAX package's ``shard_inference_fn_tp``): the
 ranks of a model group compute their data shard together, the fused
 attention per head shard. Behind ``serve``, rank 0 leads (``lead``: it sends
 each call's batch to every other rank) and the others ``follow``. A local
-mesh keeps one replica per device of its list (entries may repeat) and runs
-the row shards one after another, each the demand-sized dispatch on its own
-replica, the outputs padded to the longest shard's frames. Its replicas
-cannot share an activation scale, so it refuses the int8 tier.
+mesh keeps one replica per device of its list (entries naming one device
+share it) and runs the same sharded call with one thread a shard, each on
+its entry's replica, the collectives over the call's group of threads
+(``parallel/mesh.py:ThreadGroup``): the same decode groups, the same int8
+scales over the whole batch, the same outputs as a process mesh.
 """
 
 from __future__ import annotations
@@ -66,8 +67,8 @@ from fastspeech2_tpu_torch.ops import flags, make_non_pad_mask
 from fastspeech2_tpu_torch.ops.length_regulator import frame_demand, scale_durations
 from fastspeech2_tpu_torch.ops.precision import compute_dtype
 from fastspeech2_tpu_torch.ops.quant8 import quantize_model
-from fastspeech2_tpu_torch.parallel.mesh import (DataShard, all_gather, current_shard,
-                                                 data_shard)
+from fastspeech2_tpu_torch.parallel.mesh import (DataShard, ThreadGroup, all_gather,
+                                                 current_shard, data_shard)
 from fastspeech2_tpu_torch.text import phonemes_to_sequence
 from fastspeech2_tpu_torch.text.g2p import preprocess_text, process_paragraph
 from fastspeech2_tpu_torch.vocoder.melgan import MEL_FLOOR
@@ -128,10 +129,6 @@ class Synthesizer:
         self._voc_fn = None        # host-level text->wav: attach_vocoder_fn
         self._voc_fn_hop = 256
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
-        if self.mesh is not None and not self.mesh.distributed and int8:
-            raise ValueError("the int8 tier is not served over a local mesh: its "
-                             "replicas run apart and cannot share an activation "
-                             "scale (serve it over a process mesh)")
         if self.mesh is not None and self.mesh.tp > 1:
             if int8:
                 raise ValueError("the int8 tier serves no tensor-parallel model")
@@ -214,11 +211,12 @@ class Synthesizer:
 
     def _decode_groups(self, dem_all: np.ndarray) -> List[Tuple[np.ndarray, int]]:
         """[(rows, rung)]: split at the demand median when that shrinks the
-        short half's rung; one group for tiny batches, or where a process
-        mesh's data shards would not divide the halves."""
+        short half's rung; one group for tiny batches, or where the data
+        shards of the call (``current_shard``) would not divide the halves."""
         B_pad = len(dem_all)
         rung_all = self._l_rung(int(dem_all.max()))
-        shards = self.mesh.dp if self.mesh is not None and self.mesh.distributed else 1
+        shard = current_shard()
+        shards = 1 if shard is None else shard.mesh.dp
         if B_pad < 4 or (B_pad // 2) % shards:
             return [(np.arange(B_pad), rung_all)]
         order = np.argsort(dem_all, kind="stable")
@@ -271,20 +269,14 @@ class Synthesizer:
         return self._run(*self._pad_batch(token_seqs, alpha), wav)
 
     def _dispatch_sharded(self, token_seqs, alpha, wav: bool):
-        """A local mesh: the row shards, each through its replica's ``_run``.
-        A process mesh: ``_run`` of the whole batch as this rank's part of
-        one sharded call (a model group's ranks run the same part)."""
+        """``_run`` of the whole batch as this rank's (a local mesh: this
+        thread's) part of one sharded call (a model group's ranks run the
+        same part)."""
         n = self.mesh.dp
         B, t_pad, a_max, *arrays = self._pad_host(token_seqs, alpha, n)
         b = len(arrays[0]) // n
         if not self.mesh.distributed:
-            fins = []
-            for s, dev in enumerate(self.mesh.devices):
-                rep = self._replicas[_indexed(torch.device(dev))]
-                rows = (torch.from_numpy(a[s * b:(s + 1) * b]).to(rep.device)
-                        for a in arrays)
-                fins.append(rep._run(b, t_pad, a_max, *rows, wav))
-            return lambda: _merge([f() for f in fins], B)
+            return self._dispatch_local(B, t_pad, a_max, arrays, b, wav)
         import torch.distributed as dist
 
         # one call at a time on this process: the collectives of two calls
@@ -297,6 +289,50 @@ class Synthesizer:
                 out = self._run(B, t_pad, a_max, *(torch.from_numpy(a).to(self.device)
                                                    for a in arrays), wav)()
         return lambda: out
+
+    def _dispatch_local(self, B, t_pad, a_max, arrays, b: int, wav: bool):
+        """A local mesh runs its shards as a process mesh runs its ranks:
+        one thread a shard, started here, each inside its data shard on its
+        entry's replica, the collectives over this call's own group of
+        threads (a fixed pool could leave a shard of one call waiting for a
+        worker while the others wait for it). The finisher joins them and
+        returns shard 0's outputs: shard 0 alone reads them back to the
+        host, the others end after their last collective. A shard that
+        raises breaks the group, so the others raise at once, and
+        the finisher raises the first shard's own error."""
+        n = self.mesh.dp
+        group = ThreadGroup(n)
+        outs, errors = [None] * n, [None] * n
+        intra_op = torch.get_num_threads()
+
+        def run_shard(s: int, rep: "Synthesizer"):
+            # a new thread's OpenMP and MKL teams start at one thread a core:
+            # the CPU products take the caller's intra-op thread count
+            torch.set_num_threads(intra_op)
+            try:
+                with data_shard(DataShard(self.mesh, s * b, n * b, threads=group.rank(s))):
+                    rows = (torch.from_numpy(a).to(rep.device) for a in arrays)
+                    outs[s] = rep._run(B, t_pad, a_max, *rows, wav)()
+            except BaseException as e:  # noqa: BLE001 -- the finisher raises it
+                errors[s] = e
+                group.abort()
+
+        threads = [threading.Thread(target=run_shard, name=f"fs2-shard-{s}", daemon=True,
+                                    args=(s, self._replicas[_indexed(torch.device(dev))]))
+                   for s, dev in enumerate(self.mesh.devices)]
+        for t in threads:
+            t.start()
+
+        def finish_local():
+            for t in threads:
+                t.join()
+            failed = [e for e in errors if e is not None]
+            if failed:
+                raise next((e for e in failed
+                            if not isinstance(e, threading.BrokenBarrierError)), failed[0])
+            return outs[0]
+
+        return finish_local
 
     def lead(self) -> None:
         """This rank, rank 0, takes the requests (behind ``serve``): each
@@ -332,7 +368,7 @@ class Synthesizer:
     def _run(self, B, t_pad, a_max, xs, ilens, alphas, wav: bool):
         """The demand-sized (or heuristic) call on padded device rows. Inside
         a data shard (``_dispatch_sharded``) the rows are the whole batch and
-        this rank computes its part of each step (``_Part``)."""
+        this rank or thread computes its part of each step (``_Part``)."""
         if not self.demand_sized:
             return self._heuristic(B, t_pad, a_max, xs, ilens, alphas, wav)
         part = _Part(current_shard())
@@ -372,6 +408,8 @@ class Synthesizer:
                     out_lens[gi] = part.whole(lens_g)
                     if wav:
                         pcm[gi, :rung * hop] = part.whole(self._vocode_pcm(mel_g, lens_g))
+            if not part.reads_back:
+                return None
             lens = out_lens[:B].cpu().numpy().astype(np.int64)
             if wav:
                 return (mel[:B].cpu().numpy(), pcm[:B].cpu().numpy(),
@@ -423,6 +461,8 @@ class Synthesizer:
                 log.info("frame demand %d > buffer; re-running at l_pad=%d",
                          int(dem.max()), l_pad)
                 mel, out_lens, _, pcm = run(l_pad)
+            if not part.reads_back:
+                return None
             trunc = self._truncated(dem, B, l_pad)
             lens = out_lens[:B].cpu().numpy().astype(np.int64)
             if wav:
@@ -650,13 +690,16 @@ class _Part:
     def __init__(self, shard: Optional[DataShard]):
         self.shard = shard
         self.shards = 1 if shard is None else shard.mesh.dp
+        # whether the call's outputs cross to the host here: a local mesh's
+        # finisher returns shard 0's and drops the other threads'
+        self.reads_back = shard is None or shard.threads is None or shard.threads.rank == 0
 
     def mine(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous share of the rows of ``t``."""
         if self.shard is None:
             return t
         n = t.shape[0] // self.shards
-        return t[self.shard.mesh.data_index * n:(self.shard.mesh.data_index + 1) * n]
+        return t[self.shard.data_index * n:(self.shard.data_index + 1) * n]
 
     def whole(self, t: torch.Tensor) -> torch.Tensor:
         """The data group's shares of ``t``, in row order (int16 PCM crosses
@@ -666,20 +709,6 @@ class _Part:
         if t.dtype == torch.int16:
             return all_gather(t.int(), self.shard.group).to(torch.int16)
         return all_gather(t, self.shard.group)
-
-
-def _merge(parts, B: int):
-    """Row shards' results, (mel, [pcm,] lens, trunc) each, in order: the
-    frame axis zero-padded to the longest shard's, then the first B rows."""
-    out = []
-    for j in range(len(parts[0])):
-        arrs = [p[j] for p in parts]
-        if arrs[0].ndim >= 2:
-            w = max(a.shape[1] for a in arrs)
-            arrs = [np.pad(a, [(0, 0), (0, w - a.shape[1])] + [(0, 0)] * (a.ndim - 2))
-                    for a in arrs]
-        out.append(np.concatenate(arrs)[:B])
-    return tuple(out)
 
 
 @functools.lru_cache(maxsize=4)

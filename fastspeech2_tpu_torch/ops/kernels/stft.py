@@ -8,8 +8,10 @@ full f32: a real FFT of each frame in shared memory (in-place
 decimation-in-frequency passes over ``n_fft / 2`` complex points: register
 butterflies of radix 8, 4, 2, 5, 3, 7, 11 and 13, a direct DFT pass for any
 larger prime), then ``|X|``, the energy and the mel projection over each
-band's nonzero bins. It takes every ``hop`` from 1 to 1024 (:func:`plan`),
-``win_length <= n_fft`` and 1 to ``n_fft / 2 + 1`` mels.
+band's nonzero bins. It takes every ``hop`` from 1 to 2616 (:func:`plan`),
+``win_length <= n_fft`` and 1 to ``n_fft / 2 + 1`` mels: 8 frames a block
+where the layout fits in shared memory, else 4, 2 or 1
+(:func:`frames_per_block`).
 
 The kernel reads the signal itself and pads it by reflection as it loads a
 block's span (the JAX wrapper pads outside its kernel: here that would be
@@ -38,7 +40,11 @@ launches = 0
 _fn = None
 
 _RATIO = 4  # n_fft // hop_length; the only case the reference uses
-MIN_HOP, MAX_HOP = 1, 1024
+MIN_HOP, MAX_HOP = 1, 2616  # hop 2617 fits in no layout (frames_per_block)
+#: a block's shared memory on the H100, and the frames a block in the
+#: order the kernel tries them
+SMEM_MAX = 232448
+FRAMES_PER_BLOCK = (8, 4, 2, 1)
 #: the radices with register butterflies, in plan order after the 8s, the 4
 #: and the 2; a larger prime factor takes a direct DFT pass
 REGISTER_RADICES = (5, 3, 7, 11, 13)
@@ -64,7 +70,7 @@ def plan(n_fft: int) -> Tuple[int, ...]:
     DFT pass). Pass p runs at stride ``n_fft / 2`` over the product of the
     radices up to and including its own (1 for the last). The C side's
     ``st_make_plan`` (``csrc/stft.cu``) follows the same rule. Raises
-    ``ValueError`` unless ``n_fft = 4 * hop`` with ``hop`` in 1..1024."""
+    ``ValueError`` unless ``n_fft = 4 * hop`` with ``hop`` in 1..2616."""
     hop, rest = divmod(n_fft, _RATIO)
     if rest or not MIN_HOP <= hop <= MAX_HOP:
         raise ValueError(f"stft_mel_energy: n_fft={n_fft} not supported (n_fft = 4 * hop "
@@ -84,6 +90,39 @@ def plan(n_fft: int) -> Tuple[int, ...]:
             n //= p
         p += 2
     return tuple(radices)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def frames_per_block(hop: int, n_mels: int) -> Tuple[int, int]:
+    """(frames a block, shared-memory bytes) of the kernel at ``hop`` and
+    ``n_mels``: the first of ``FRAMES_PER_BLOCK`` whose layout fits in
+    ``SMEM_MAX`` (``csrc/stft.cu:Layout``, ``st_make_plan``; ``c_plan``
+    gives the C side's). In floats, every part rounded up to 4: the span of
+    (FT + 3) hop signal samples; the tables (window and pass twiddles, 4 hop
+    each; untangle twiddles; bin positions) and the direct passes' roots;
+    FT FFT buffers of 2 (n2 + (n2 - 1) / 16 + 1); FT magnitude rows of n2 +
+    1; FT energies. With 8 or 4 frames the log-mel tile (n_mels FT) shares
+    the span; with 2 or 1 the magnitudes do and the tile lies over the FFT
+    buffers. Raises ``ValueError`` where no layout fits."""
+    plan(4 * hop)
+    n2 = 2 * hop
+    tables = 8 * hop + _round4(2 * (hop + 1)) + _round4(2 * hop)
+    roots = _round4(2 * sum(r for r in plan(4 * hop)
+                            if r not in (8, 4, 2) + REGISTER_RADICES))
+    buf = _round4(2 * (n2 + (n2 - 1) // 16 + 1))
+    for ft in FRAMES_PER_BLOCK:
+        span, mag = _round4((ft + 3) * hop), _round4(ft * (n2 + 1))
+        if ft >= 4:
+            en = _round4(max(span, n_mels * ft)) + tables + roots + ft * buf + mag
+        else:
+            en = max(span, mag) + tables + roots + ft * buf
+        smem = 4 * (en + ft)
+        if smem <= SMEM_MAX:
+            return ft, smem
+    raise ValueError(f"stft_mel_energy: hop={hop} fits in no layout")
 
 
 def direct_roots(n_fft: int) -> np.ndarray:
@@ -201,7 +240,7 @@ def stft_mel_energy(y, mel_basis, n_fft: int = 1024, hop_length: int = 256,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """y (B, N) f32 in [-1, 1]; mel_basis (n_mels, n_fft//2+1) f32. CPU
     tensors take the plain version; CUDA tensors launch the kernel (hop 1 to
-    1024, win_length <= n_fft, 1 to n_fft//2+1 mels) or raise."""
+    2616, win_length <= n_fft, 1 to n_fft//2+1 mels) or raise."""
     global launches
     if n_fft != _RATIO * hop_length:
         raise ValueError("fused STFT kernel assumes n_fft == 4*hop")

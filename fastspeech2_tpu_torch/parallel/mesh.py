@@ -11,7 +11,8 @@ axis minor (rank = data_index * tp + model_index), with one process group per
 axis (the ranks that share this rank's model index form its data group; those
 that share its data index, its model group). A mesh without a process group
 is a LOCAL mesh: a list of devices one process serves shards on
-(``infer/synthesize.py``).
+(``infer/synthesize.py``), one thread a shard; a ``ThreadGroup`` takes the
+place of the process group there, and the collectives below take either.
 
 The data-parallel numerics follow the JAX package's global-batch semantics:
 the training step enters ``data_shard`` around each micro-batch's forward,
@@ -193,10 +194,72 @@ def make_mesh(n_devices: Optional[int] = None,
     return Mesh(devs, len(devs))
 
 
+# -- a group of threads ---------------------------------------------------------
+
+# The longest a thread of a ThreadGroup waits for the others at one collective.
+_BARRIER_TIMEOUT_S = 600.0
+
+
+class ThreadGroup:
+    """``size`` threads of one process as a collective group: the shards of
+    one call over a local mesh (``infer/synthesize.py``), one thread each.
+
+    A collective is a rendezvous: each thread puts its tensor in its slot and
+    waits at the barrier; each then computes the result from every slot on
+    its own device (a tensor on another card is copied there, and PyTorch
+    orders a copy between cards after the work on both cards' current
+    streams) and waits again, so that no slot is overwritten while another
+    thread still reads it; an all-reduce writes its result in place after
+    that. Every thread computes the same ops on the same inputs in rank
+    order, so all of them hold the same bits. Every wait is bounded by
+    ``_BARRIER_TIMEOUT_S``; ``abort`` (a thread that failed) breaks the barrier
+    and every waiting or later wait raises ``threading.BrokenBarrierError``."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._barrier = threading.Barrier(size, timeout=_BARRIER_TIMEOUT_S)
+        self._slots: List[Optional[torch.Tensor]] = [None] * size
+
+    def rank(self, r: int) -> "ThreadRank":
+        return ThreadRank(self, r)
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+    def _combine(self, r: int, t: torch.Tensor, fn) -> torch.Tensor:
+        self._slots[r] = t
+        self._barrier.wait()
+        out = fn([s.to(t.device) for s in self._slots])
+        self._barrier.wait()
+        return out
+
+    def all_reduce(self, r: int, t: torch.Tensor, op) -> torch.Tensor:
+        if op not in (dist.ReduceOp.SUM, dist.ReduceOp.MAX):
+            raise ValueError(f"a thread group reduces by SUM or MAX, not {op}")
+        reduce = torch.sum if op == dist.ReduceOp.SUM else torch.amax
+        t.copy_(self._combine(r, t, lambda ts: reduce(torch.stack(ts), dim=0)))
+        return t
+
+    def all_gather(self, r: int, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return self._combine(r, t, lambda ts: torch.cat(ts, dim=dim))
+
+
+@dataclass(frozen=True)
+class ThreadRank:
+    """One thread's place in a ``ThreadGroup``: the group a local mesh's
+    data shard hands the collectives."""
+
+    group: ThreadGroup
+    rank: int
+
+
 # -- collectives ---------------------------------------------------------------
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce; returns ``t``."""
+    """In-place all-reduce over a process group or a ``ThreadRank``'s
+    group; returns ``t``."""
+    if isinstance(group, ThreadRank):
+        return group.group.all_reduce(group.rank, t, op)
     if group is not None:
         dist.all_reduce(t, op=op, group=group)
     return t
@@ -207,6 +270,8 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     rank order."""
     if group is None:
         return t
+    if isinstance(group, ThreadRank):
+        return group.group.all_gather(group.rank, t, dim)
     src = t.contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
@@ -255,21 +320,28 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 class DataShard:
     """This rank's part of a global micro-batch: rows ``[row0, row0 + n)``
     of ``rows``; ``sequence_parallel`` splits the FFT-block residual streams
-    on time over the model group (``models/encoder.py``)."""
+    on time over the model group (``models/encoder.py``). A shard of a
+    local mesh is a thread: ``threads`` gives its data index and its call's
+    group; a process mesh's shard takes both from the mesh."""
 
     mesh: Mesh
     row0: int
     rows: int
     sequence_parallel: bool = False
+    threads: Optional[ThreadRank] = None
 
     @property
     def group(self):
-        return self.mesh.data_group
+        return self.threads if self.threads is not None else self.mesh.data_group
+
+    @property
+    def data_index(self) -> int:
+        return self.threads.rank if self.threads is not None else self.mesh.data_index
 
     @property
     def shard_index(self) -> int:
         """The JAX package's per-shard kernel index: data * tp + model."""
-        return self.mesh.data_index * self.mesh.tp + self.mesh.model_index
+        return self.data_index * self.mesh.tp + self.mesh.model_index
 
 
 _SHARD = threading.local()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the bf16 serving mel call of one tree of this repository on the card.
 
-    python scripts/time_mel_call.py [--tree DIR] [--label NAME] [--reps N]
+    python scripts/time_mel_call.py [--tree DIR] [--label NAME] [--reps N] [--mesh]
     python scripts/time_mel_call.py --artifacts [--rounds N] [--reps N]
     python scripts/time_mel_call.py --summary LOG [LOG ...]
 
@@ -16,6 +16,13 @@ host copy; median of ``--reps`` after three warm calls), the host's ms to
 run it, and a digest of the mel's bits. To compare two trees, run them in
 alternating order (parent, change, change, parent, ...) in one command on
 the same card, writing the lines to a log.
+
+--mesh times ``chip_smoke.py:mesh_synth_phase``'s B=32 call instead (its
+model: seed 0, duration bias 1.87; its batch: ``batch(32)``): bf16 behind
+``Synthesizer(mesh=make_mesh(devices=["cuda:0", "cuda:0"]))``, a local mesh
+of two entries of the one card, and behind the unsharded ``Synthesizer`` of
+the same model, one JSON line each (labels ``<label> mesh2`` and ``<label>
+one``), in alternating order over ``--rounds`` rounds.
 
 --artifacts exports that model with ``infer/export.py`` (bf16, B=8, 128
 tokens, 1024 frames, as ``chip_smoke.py``'s export phase) twice: with the
@@ -136,12 +143,38 @@ def time_artifacts(torch, smoke, smi, rounds, reps) -> int:
     return 0
 
 
+def time_mesh(torch, smoke, smi, label, rounds, reps) -> int:
+    from fastspeech2_tpu_torch.config import Config
+    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
+    from fastspeech2_tpu_torch.models.fastspeech2 import FastSpeech2
+    from fastspeech2_tpu_torch.parallel.mesh import make_mesh
+
+    model = FastSpeech2(Config(), device=torch.device("cuda"),
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.duration_predictor.out.bias.fill_(1.87)
+    synths = {"one": Synthesizer(model, bf16=True),
+              "mesh2": Synthesizer(model, bf16=True,
+                                   mesh=make_mesh(devices=["cuda:0", "cuda:0"]))}
+    seqs = smoke.batch(32)
+    for r in range(rounds):
+        for name in (("one", "mesh2") if r % 2 == 0 else ("mesh2", "one")):
+            ms, host, (mel, lens) = _time(
+                torch, lambda: synths[name].mel_from_token_batch(seqs), reps)
+            print(json.dumps({"label": f"{label} {name}", "B": 32, "ms": ms,
+                              "host_ms": host, "frames": int(lens.sum()),
+                              "digest": hashlib.sha256(mel.tobytes()).hexdigest()[:16],
+                              "card": smi}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--artifacts", action="store_true")
+    ap.add_argument("--mesh", action="store_true")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--summary", nargs="+", default=None)
     args = ap.parse_args()
@@ -160,6 +193,8 @@ def main() -> int:
     print(smi, flush=True)
     if args.artifacts:
         return time_artifacts(torch, smoke, smi, args.rounds, args.reps)
+    if args.mesh:
+        return time_mesh(torch, smoke, smi, args.label, args.rounds, args.reps)
     from fastspeech2_tpu_torch.config import Config
     from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
 

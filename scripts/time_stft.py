@@ -2,8 +2,8 @@
 """Time the fused STFT -> log-mel + energy kernel (kernel 14) of one tree of
 this repository, or of a parent tree and this one in turns, on the card.
 
-    python scripts/time_stft.py [--tree DIR] [--label NAME] [--hops]
-    python scripts/time_stft.py --parent DIR [--hops]
+    python scripts/time_stft.py [--tree DIR] [--label NAME] [--hops | --past]
+    python scripts/time_stft.py --parent DIR [--hops | --past]
 
 --tree is a checkout whose ``fastspeech2_tpu_torch`` is timed (default: this
 one), for example a parent commit unpacked with ``git archive`` into an
@@ -25,7 +25,9 @@ of the kernel and of the plain version (``chip_smoke.f64_errors``: max abs
 log-mel error where mel > 10 clip, max energy error over the peak) and
 ``digest`` (a hash of the outputs' bits). --hops times ``STFT_NEW_SHAPES``
 instead: the hops past the first range (7 to 1024: factors 7, 11,
-13, a direct pass of 257 points, four frames a block past ~770).
+13, a direct pass of 257 points, four frames a block past ~770); --past
+times ``STFT_PAST_1024_SHAPES``: hops 1025, 1200, 1536, 2048 and 2616 in 10 s
+rows at 96 kHz (a tree whose bound is 1024 prints the error).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def time_tree(tree: str, label: str, hops: bool = False) -> int:
+def time_tree(tree: str, label: str, which: str = "main") -> int:
     import numpy as np
     import torch
 
@@ -66,10 +68,13 @@ def time_tree(tree: str, label: str, hops: bool = False) -> int:
     common.build_all(["stft"])
     dev = torch.device("cuda")
     g = np.random.default_rng(14)
-    for B, N, hop, n_mels in smoke.STFT_NEW_SHAPES if hops else smoke.STFT_SHAPES:
+    shapes = {"main": smoke.STFT_SHAPES, "hops": smoke.STFT_NEW_SHAPES,
+              "past": smoke.STFT_PAST_1024_SHAPES}[which]
+    for B, N, hop, n_mels in shapes:
         n_fft, F = 4 * hop, N // hop + 1
         kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
-        fb = torch.from_numpy(mel_filterbank(22050, n_fft, n_mels)).to(dev)
+        sr = 96000 if which == "past" else 22050
+        fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels)).to(dev)
         ys = np.stack([smoke.synthetic_utterance(N, g) for _ in range(B)])
         ys[0, N // 10:] = 0.0
         y = torch.from_numpy(ys).to(dev)
@@ -109,15 +114,20 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--parent", help="run parent, change, change, parent in turns")
-    ap.add_argument("--hops", action="store_true", help="the new hops (STFT_NEW_SHAPES)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--hops", action="store_true", help="hops 7-1024 (STFT_NEW_SHAPES)")
+    which.add_argument("--past", action="store_true",
+                       help="hops past 1024 (STFT_PAST_1024_SHAPES)")
     args = ap.parse_args()
+    flag = ["--hops"] if args.hops else ["--past"] if args.past else []
     if args.parent is None:
-        return time_tree(args.tree, args.label, args.hops)
+        return time_tree(args.tree, args.label,
+                         "hops" if args.hops else "past" if args.past else "main")
     rc = 0
     for tree, label in ((args.parent, "parent"), (str(ROOT), "change"),
                         (str(ROOT), "change"), (args.parent, "parent")):
         rc |= subprocess.run([sys.executable, __file__, "--tree", tree, "--label", label]
-                             + (["--hops"] if args.hops else [])).returncode
+                             + flag).returncode
     return rc
 
 

@@ -199,7 +199,7 @@ def test_kernel14_fft_plan_and_tables_give_the_rfft(hop):
     assert np.abs(X - want).max() <= 1e-12 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("hop", [1025, 1031, 1100, 2048, 4096])
+@pytest.mark.parametrize("hop", [2617, 2623, 3000, 4096, 8192])
 def test_kernel14_plan_refuses_other_hops(hop):
     with pytest.raises(ValueError, match="not supported"):
         kstft.plan(4 * hop)

@@ -1513,7 +1513,7 @@ def test_stft_mel_energy_rejects_what_it_does_not_cover(dev):
         KS.stft_mel_energy(y.double(), fb)
     # hops the kernel's FFT does not take raise; nothing falls back
     n0 = KS.launches
-    for hop in (1025, 1100, 2048):
+    for hop in (2617, 3000, 4096):
         fbh = torch.from_numpy(mel_filterbank(22050, 4 * hop, 80)).to(dev)
         with pytest.raises(ValueError, match="not supported"):
             KS.stft_mel_energy(y, fbh, n_fft=4 * hop, hop_length=hop, win_length=4 * hop)
@@ -1562,21 +1562,68 @@ def test_stft_mel_energy_every_hop(dev, B, N, hop, n_mels):
 
 
 def test_stft_c_plan_is_the_python_plan(dev):
-    """One rule in two places: ``fs2_stft_plan`` gives ``plan``'s radices at
-    every hop from 1 to 1024, eight frames a block where they fit and four
-    above, within the card's shared memory; it refuses hop 0 and 1025."""
+    """One rule in two places: ``fs2_stft_plan`` gives ``plan``'s radices
+    and ``frames_per_block``'s frames a block and shared-memory bytes at
+    every hop from 1 to 2616 (80 bands, and every band at every 16th hop):
+    8 frames a block where they fit, else 4 (past 512), 2 (past 1276) or 1
+    (past 2112), within the card's shared memory; it refuses hop 0 and
+    2617."""
     from fastspeech2_tpu_torch.ops.kernels import stft as KS
 
     fts = set()
-    for hop in range(1, 1025):
-        radices, ft, smem = KS.c_plan(hop, min(80, 2 * hop + 1))
-        assert radices == KS.plan(4 * hop), hop
-        assert ft in (4, 8) and smem <= 232448 and (ft == 8 or hop > 512), (hop, ft, smem)
-        fts.add(ft)
-    assert fts == {4, 8}
-    for hop in (0, 1025):
+    for hop in range(1, 2617):
+        for n_mels in {min(80, 2 * hop + 1)} | ({2 * hop + 1} if hop % 16 == 0 else set()):
+            radices, ft, smem = KS.c_plan(hop, n_mels)
+            assert radices == KS.plan(4 * hop), hop
+            assert (ft, smem) == KS.frames_per_block(hop, n_mels), (hop, n_mels, ft, smem)
+            assert smem <= 232448 and (ft == 8 or hop > 512), (hop, ft, smem)
+            fts.add(ft)
+    assert fts == {1, 2, 4, 8}
+    for hop in (0, 2617):
         with pytest.raises(ValueError):
             KS.c_plan(hop, 3)
+
+
+STFT_PAST_1024_CASES = [(2, 20_000, 1025, 80), (2, 96_000, 1200, 80), (1, 30_000, 1277, 80),
+                        (2, 47_000, 1536, 80), (1, 20_000, 1536, 3073),
+                        (2, 96_000, 2048, 80), (2, 3_000, 2048, 80), (1, 30_000, 2113, 80),
+                        (1, 20_000, 2609, 80), (2, 40_000, 2616, 80)]
+
+
+@pytest.mark.parametrize("B,N,hop,n_mels", STFT_PAST_1024_CASES)
+def test_stft_mel_energy_past_hop_1024(dev, B, N, hop, n_mels):
+    """Kernel 14 at hops 1025-2616: four frames a block (1025, 1200: 96
+    kHz at 12.5 ms), two (1277, the first; 1536, with an odd frame count
+    so the last block has a dead warp, and with every bin a band; 2048, and
+    a row shorter than the reflect pad), one (2113, the first; 2609, a direct
+    DFT pass of 2609 points; 2616, the last). Against the plain version at
+    1e-4 and against float64 as ``test_stft_mel_energy`` holds the hops it
+    took before, except that the energy may also be off by up to 2^-21 of
+    the peak (four f32 steps of the peak frame's energy): on rows of a few
+    frames the plain version's DFT product lands its energy within 1.3e-8
+    to 5.7e-8 of the peak (under one f32 step) and the kernel's FFT of
+    2,554-5,232 points a step or two off, so twice the plain version's
+    error there would compare rounding noise."""
+    from fastspeech2_tpu_torch.audio.stft import mel_filterbank
+    from fastspeech2_tpu_torch.ops.kernels import stft as KS
+
+    n_fft = 4 * hop
+    g = torch.Generator().manual_seed(N + hop)
+    y = _speechlike(B, N, g).to(dev)
+    fb = torch.from_numpy(mel_filterbank(96000, n_fft, n_mels)).to(dev)
+    kw = dict(n_fft=n_fft, hop_length=hop, win_length=n_fft)
+    n0 = KS.launches
+    mel, en = KS.stft_mel_energy(y, fb, **kw)
+    pm, pe = KS.stft_mel_energy_plain(y, fb, **kw)
+    torch.cuda.synchronize()
+    assert KS.launches == n0 + 1
+    F = N // hop + 1
+    assert mel.shape == pm.shape == (B, n_mels, F) and en.shape == pe.shape == (B, F)
+    torch.testing.assert_close(mel, pm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(en, pe, rtol=1e-4, atol=1e-4 * float(pe.abs().max()))
+    k_mel, k_en = _f64_errors(y, fb, hop, n_fft, mel, en)
+    p_mel, p_en = _f64_errors(y, fb, hop, n_fft, pm, pe)
+    assert k_en <= max(2 * p_en, 2.0 ** -21) and k_mel <= 2 * p_mel, (k_mel, p_mel, k_en, p_en)
 
 
 def test_stft_library_does_not_spill(dev):

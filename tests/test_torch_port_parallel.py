@@ -428,18 +428,6 @@ def test_two_rank_int8_scales_cover_the_whole_group(dp_run):
     assert not np.array_equal(r0[:, 0], r1[:, 0])  # the shards' own amax differ
 
 
-def test_local_mesh_refuses_int8():
-    """A local mesh runs its replicas one after another on one thread, so
-    they cannot share a scale per layer: ``int8=True`` is refused there."""
-    from fastspeech2_tpu_torch.infer.synthesize import Synthesizer
-
-    cfg = config_from_dict(small_cfg().to_dict())
-    m = TFS(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="int8"):
-        Synthesizer(m, device="cpu", mesh=pmesh.make_mesh(devices=["cpu", "cpu"]),
-                    int8=True)
-
-
 def test_local_mesh_serving_equals_one_device():
     """A local mesh of two entries on one device (as ``chip_smoke.py`` runs
     it on the card): the shards' merged rows equal the unsharded call."""
